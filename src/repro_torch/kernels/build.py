@@ -1,0 +1,98 @@
+"""Build the CUDA kernels from ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (pointers, ints, floats,
+the stream and a ``dtype`` code from :data:`DTYPE_CODES`; it returns the
+launch's ``cudaError_t``) and compiles on its own with ``nvcc`` into
+``build/kernels/<name>-<hash>.so`` at the repository root; the hash covers
+the source and the flags, so an edit rebuilds and an unchanged source is
+reused.  Nothing is built when a module is imported:
+the kernel wrappers call :func:`load` at their first launch, and
+``chip_smoke.py`` calls :func:`build` up front to build every kernel in
+parallel (one ``nvcc`` per source, all started together).  A failed build
+raises with the compiler's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["KERNELS", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES",
+           "build", "load", "library_path", "aligned"]
+
+KERNELS = ("flash_attention", "paged_attention")
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the ``dtype`` argument of every kernel's C interface
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{h}.so"
+
+
+def build(names=KERNELS) -> dict[str, float]:
+    """Build every kernel in ``names`` whose library is missing, all in
+    parallel.  Returns seconds per kernel (0.0 for one already built); the
+    compiler's report (registers, shared memory, spills) is kept beside
+    each library as ``<name>-<hash>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, lib in todo.items():
+        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, lib)
+    seconds = {n: 0.0 for n in names}
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        lib.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, lib)        # atomic: concurrent builders agree
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    if name not in _LOADED:
+        build((name,))
+        _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+    return _LOADED[name]
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned, as the kernels' vector loads
+    need (a copy only when it is not already)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()

@@ -1,0 +1,115 @@
+"""Where the serving path's time goes on the card.
+
+Serves full-width qwen3-0.6b (random weights from ``--seed``) through
+:class:`repro_torch.serve.ServeEngine` and traces, with ``torch.profiler``,
+one bucketed prefill and a steady window of batched decode steps.  For
+each it prints the host time per call (each ends in the engine's copy of
+the logits to the host, which waits for the card), the device time per
+call summed over kernels, the device's idle share, and the kernels that
+take the most device time.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--steps 8]
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .. import configs
+from ..device import resolve_device
+from ..models import model as M
+from ..serve import ServeEngine, pages_needed
+
+
+def _report(name: str, prof, wall_s: float, calls: int, top: int) -> None:
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in rows)
+    wall_ms = wall_s * 1e3 / calls
+    dev_ms = device_us / 1e3 / calls
+    print(f"{name}: host {wall_ms:.3f} ms/call, device {dev_ms:.3f} ms/call, "
+          f"device idle {100 * (1 - dev_ms / wall_ms):.1f}% "
+          f"({len(rows)} kernel names, {sum(e.count for e in rows) / calls:.0f}"
+          f" launches/call)")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3 / calls:9.4f} ms/call "
+              f"{e.count / calls:6.1f}x  {e.key[:90]}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=256)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type != "cuda":
+        raise SystemExit("profile_serve measures the card: run it on one")
+
+    cfg = configs.get_config("qwen3-0.6b")
+    params = M.init(cfg, args.seed, device=dev)
+    max_seq = 2 * args.prompt + 4 * args.steps
+    engine = ServeEngine(cfg, params, max_batch=args.batch, page_size=16,
+                         max_seq=max_seq, prefill_token_budget=args.prompt,
+                         n_pages=1 + (args.batch + 1)
+                         * pages_needed(max_seq, 16), device=dev)
+    rng = np.random.default_rng(args.seed)
+
+    def submit():
+        engine.submit(rng.integers(0, cfg.vocab_size, args.prompt),
+                      max_new=max_seq - args.prompt)
+
+    for _ in range(args.batch):           # warm up every bucket once
+        submit()
+    while engine.sched.waiting:
+        engine.step()
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()              # the same window, untraced
+    for _ in range(args.steps):
+        engine.step()
+    torch.cuda.synchronize()
+    print(f"decode step (batch {len(engine.sched.running)}), untraced: host "
+          f"{(time.perf_counter() - t0) * 1e3 / args.steps:.3f} ms/call")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(f"decode step (batch {len(engine.sched.running)})", prof, wall,
+            args.steps, args.top)
+
+    tokens = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (1, args.prompt)), device=dev)
+    with torch.no_grad():
+        M.forward_prefill(params, cfg, tokens)            # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        M.forward_prefill(params, cfg, tokens)
+        torch.cuda.synchronize()
+        print(f"forward_prefill (1 x {args.prompt} tokens), untraced: host "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms/call")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            M.forward_prefill(params, cfg, tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    _report(f"forward_prefill (1 x {args.prompt} tokens)", prof, wall, 1,
+            args.top)
+
+
+if __name__ == "__main__":
+    main()

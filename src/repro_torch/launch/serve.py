@@ -1,0 +1,139 @@
+"""Serving CLI: continuous-batching engine over a paged KV pool, driven
+by a Poisson arrival trace.
+
+Mirrors the JAX package's ``launch/serve.py`` (``poisson_trace``,
+``serve_trace``, ``latency_summary`` and ``main``).  ``main`` builds a
+:class:`repro_torch.serve.ServeEngine` on ``--device`` (the card by
+default) and feeds it requests as their (virtual) arrival times pass,
+printing latency percentiles, throughput, and page/compile-cache
+statistics.  It serves the REDUCED config, as the JAX CLI does; the
+full-width path is driven by ``chip_smoke.py``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from .. import configs
+from ..device import resolve_device
+from ..models import model as M
+from ..serve import ServeEngine
+
+
+def poisson_trace(n: int, rate: float, mean_prompt: int, max_new: int,
+                  vocab: int, seed: int, n_codebooks: int = 0):
+    """[(arrival_s, prompt, max_new)] with exponential inter-arrivals
+    (numpy only: the same trace as the JAX package's for the same seed)."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n))
+    trace = []
+    for a in arrivals:
+        plen = max(1, int(rng.poisson(mean_prompt)))
+        shape = (plen, n_codebooks) if n_codebooks else (plen,)
+        prompt = rng.integers(0, vocab, shape, dtype=np.int64)
+        trace.append((float(a), prompt, max_new))
+    return trace
+
+
+def serve_trace(engine: ServeEngine, trace, *, realtime: bool = False):
+    """Feed a trace through the engine.  ``realtime=False`` runs a virtual
+    clock: wall time plus the idle gaps skipped by jumping to the next
+    arrival whenever the engine goes idle.  Returns the clock at the end.
+
+    Unlike the JAX driver, whose clock falls back to wall time on the step
+    after a jump (so latencies after an idle gap can come out negative),
+    the skipped gaps are kept, so the clock never runs backwards."""
+    pending = sorted(trace, key=lambda r: r[0])
+    t0 = time.perf_counter()
+    skipped = 0.0
+    now = 0.0
+    i = 0
+    while i < len(pending) or engine.sched.waiting or engine.sched.running:
+        if realtime:
+            now = time.perf_counter() - t0
+        while i < len(pending) and pending[i][0] <= now:
+            a, prompt, max_new = pending[i]
+            engine.submit(prompt, max_new, arrival=a)
+            i += 1
+        worked = engine.step(now=now)
+        if not realtime:
+            now = time.perf_counter() - t0 + skipped
+        if not worked and not engine.sched.waiting and not engine.sched.running:
+            if i < len(pending):
+                if pending[i][0] > now:         # idle: jump to next arrival
+                    skipped += pending[i][0] - now
+                    now = pending[i][0]
+            else:
+                break
+    return now
+
+
+def latency_summary(finished):
+    first = np.array([r.t_first_token - r.arrival for r in finished])
+    total = np.array([r.t_finish - r.arrival for r in finished])
+
+    def pct(a, q):
+        return float(np.percentile(a, q)) if len(a) else float("nan")
+
+    return {
+        "first_token_p50_s": pct(first, 50), "first_token_p99_s": pct(first, 99),
+        "total_p50_s": pct(total, 50), "total_p99_s": pct(total, 99),
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--n-requests", type=int, default=16)
+    ap.add_argument("--rate", type=float, default=4.0,
+                    help="Poisson arrival rate (requests/s)")
+    ap.add_argument("--mean-prompt", type=int, default=12)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--pages", type=int, default=256)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = configs.reduced_config(configs.get_config(args.arch))
+    params = M.init(cfg, args.seed, device=device)
+    engine = ServeEngine(cfg, params, n_pages=args.pages,
+                         page_size=args.page_size, max_seq=args.max_seq,
+                         max_batch=args.max_batch,
+                         temperature=args.temperature, seed=args.seed,
+                         device=device)
+    trace = poisson_trace(args.n_requests, args.rate, args.mean_prompt,
+                          args.max_new, cfg.vocab_size, args.seed,
+                          n_codebooks=cfg.n_codebooks)
+    wall = serve_trace(engine, trace)
+    st = engine.stats()
+    lat = latency_summary(engine.finished)
+    new_tokens = sum(len(r.generated) for r in engine.finished)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"arch={cfg.name} on {where}: served {len(engine.finished)} "
+          f"requests, {new_tokens} new tokens in {wall:.2f}s "
+          f"({new_tokens / max(wall, 1e-9):.1f} tok/s)")
+    print(f"latency: first-token p50={lat['first_token_p50_s']:.3f}s "
+          f"p99={lat['first_token_p99_s']:.3f}s | total "
+          f"p50={lat['total_p50_s']:.3f}s p99={lat['total_p99_s']:.3f}s")
+    print(f"pages: peak={st['peak_pages']}/{args.pages} "
+          f"(peak KV {st['peak_kv_bytes'] / 1e6:.2f} MB), "
+          f"preemptions={st['preemptions']}")
+    cc = st["compile_cache"]
+    print(f"compile cache: {cc['entries']} executables, {cc['hits']} hits / "
+          f"{cc['misses']} misses / {cc['evictions']} evictions")
+
+
+if __name__ == "__main__":
+    main()

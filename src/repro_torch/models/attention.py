@@ -1,0 +1,134 @@
+"""Self-attention: GQA, qk-norm, soft-capping, sliding windows, and the
+one-token decode over a paged KV pool.
+
+Mirrors the JAX package's ``models/attention.py``.  The full-sequence path
+(:func:`attn_apply`) runs the flash-attention kernel and the decode path
+(:func:`attn_decode_paged`) the paged-attention kernel; each kernel's
+``ops`` wrapper dispatches on the tensors' device, so a CPU run takes the
+plain versions with no switch here.  Weights are cast to the activation
+dtype on use, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..kernels.flash_attention import ops as flash_ops
+from ..kernels.paged_attention import ops as paged_ops
+from .layers import RMSNorm, rms_norm, rope
+
+__all__ = ["Attention", "attn_apply", "attn_decode_paged", "NEG_INF"]
+
+# finite fill for masked scores (never -inf): fully-masked and padded rows
+# then give the same finite numbers as the reference
+NEG_INF = -2.0 ** 30
+
+
+class Attention(nn.Module):
+    """wq (d, H*hd), wk/wv (d, Kv*hd), wo (H*hd, d); q_norm/k_norm scales
+    (hd,) when qk_norm."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                 qk_norm: bool = False, dtype=torch.float32, device=None):
+        super().__init__()
+
+        def p(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+        self.wq = p(d_model, n_heads * head_dim)
+        self.wk = p(d_model, n_kv * head_dim)
+        self.wv = p(d_model, n_kv * head_dim)
+        self.wo = p(n_heads * head_dim, d_model)
+        if qk_norm:
+            self.q_norm = RMSNorm(head_dim, dtype, device)
+            self.k_norm = RMSNorm(head_dim, dtype, device)
+
+
+def _project_qkv(p: Attention, x, n_heads, n_kv, head_dim, qk_norm,
+                 positions, rope_theta):
+    dt = x.dtype
+    B, S, _ = x.shape
+    q = (x @ p.wq.to(dt)).reshape(B, S, n_heads, head_dim)
+    k = (x @ p.wk.to(dt)).reshape(B, S, n_kv, head_dim)
+    v = (x @ p.wv.to(dt)).reshape(B, S, n_kv, head_dim)
+    if qk_norm:                          # per head, before rope
+        q = rms_norm(p.q_norm.scale, q)
+        k = rms_norm(p.k_norm.scale, k)
+    if rope_theta:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, attn_cap=None):
+    """Grouped-layout masked attention, the positions-masked oracle the
+    kernel path is held to.  q: (B,S,H,hd); k,v: (B,T,Kv,hd); mask:
+    (B,1,S,T) or (1,1,S,T) bool."""
+    B, S, H, hd = q.shape
+    Kv = k.shape[2]
+    G = H // Kv
+    qg = q.reshape(B, S, Kv, G, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
+    logits = logits * hd ** -0.5
+    if attn_cap is not None:
+        logits = attn_cap * torch.tanh(logits / attn_cap)
+    logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, H, hd)
+
+
+def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
+               rope_theta=10000.0, qk_norm=False, window=None,
+               attn_cap=None, return_kv=False):
+    """Causal self-attention on a full sequence (prefill), through the
+    flash-attention kernel.  The kernel's causal mask assumes positions =
+    arange(S) per row, as the reference's kernel path does.
+
+    window: if set, token i attends to (i-window, i] (sliding window).
+    return_kv: also return the (rotated, normed) k, v as (B, S, Kv, hd) --
+      exactly what a decode cache stores.
+    """
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm,
+                           positions, rope_theta)
+    out = flash_ops.flash_attention(q, k, v, causal=True, window=window,
+                                    attn_cap=attn_cap)
+    y = out.reshape(B, S, n_heads * head_dim) @ p.wo.to(x.dtype)
+    if return_kv:
+        return y, k, v
+    return y
+
+
+def attn_decode_paged(p: Attention, x, k_pages, v_pages, page_table,
+                      positions, *, page_size, n_heads, n_kv, head_dim,
+                      rope_theta=10000.0, qk_norm=False, window=None,
+                      attn_cap=None):
+    """One-token decode over a PAGED KV cache (continuous batching).
+
+    x: (B, 1, d); positions: (B,) int32, each sequence's own absolute
+    position.  k_pages, v_pages: (Kv, n_pages, page_size, hd) pools of one
+    layer; page_table: (B, Pmax) int32.
+
+    Writes (k, v) for positions[b] into page ``page_table[b, pos //
+    page_size]`` slot ``pos % page_size`` and then attends over the first
+    ``positions + 1`` tokens, so the new token is covered.  Unlike the JAX
+    reference, which returns new arrays, the write is IN PLACE
+    (``index_put_``) into the pools passed in, which are returned.
+    Returns (y, k_pages, v_pages).
+    """
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm,
+                                   positions[:, None], rope_theta)
+    pages = page_table.gather(1, (positions // page_size)[:, None].long())[:, 0]
+    slots = positions % page_size
+    pages, slots = pages.long(), slots.long()
+    # in-place write into the caller's pools (an index_put_ with the index
+    # tensors at dims 1 and 2), where the reference builds new arrays
+    k_pages[:, pages, slots] = k_new[:, 0].transpose(0, 1).to(k_pages.dtype)
+    v_pages[:, pages, slots] = v_new[:, 0].transpose(0, 1).to(v_pages.dtype)
+    lengths = (positions + 1).to(torch.int32)
+    out = paged_ops.paged_attention(q[:, 0], k_pages, v_pages, page_table,
+                                    lengths, window=window, attn_cap=attn_cap)
+    y = (out.reshape(B, n_heads * head_dim) @ p.wo.to(x.dtype))[:, None]
+    return y, k_pages, v_pages

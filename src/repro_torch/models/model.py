@@ -1,0 +1,276 @@
+"""Decoder-only model composer (dense family).
+
+Mirrors the JAX package's ``models/model.py``.  ``ModelConfig`` is the
+same dataclass with torch dtypes, so every arch config copies across; the
+model itself runs the ``dense`` family ([attn + mlp] x L: llama / qwen /
+gemma / deepseek) and raises ``NotImplementedError`` for the others.
+
+Parameters live in an ``nn.Module`` whose names follow the JAX dict keys
+(``embed``, ``layers.{i}.attn.wq``, ``layers.{i}.ln1.scale``,
+``final_norm.scale``, ...) in the JAX layout; the layer ``scan`` of the
+reference becomes a Python loop over a ``ModuleList``, so each layer's
+window is a plain ``int | None``.
+
+Entry points (the JAX signatures, with the module in place of the
+params pytree):
+  init(cfg, seed, device)                             -> Model
+  forward(params, cfg, tokens)                        -> logits, aux
+  forward_prefill(params, cfg, tokens)                -> logits, (k, v)
+  decode_step_paged(params, cfg, token, pool, ...)    -> logits, pool
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from . import attention as attn
+from .layers import MLP, RMSNorm, dense_init, mlp_apply, rms_norm, softcap
+
+__all__ = ["ModelConfig", "Model", "init", "forward", "forward_prefill",
+           "decode_step_paged", "param_count", "SUPPORTED_FAMILIES"]
+
+# families this package runs so far; moe, audio, ssm, hybrid and vlm are
+# later slices of the port
+SUPPORTED_FAMILIES = ("dense",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    # attention behaviour
+    qk_norm: bool = False
+    attn_softcap: float | None = None
+    final_softcap: float | None = None
+    sliding_window: int | None = None      # static window for ALL attn layers
+    local_global: bool = False             # gemma2: even layers use window
+    rope_theta: float = 10000.0
+    mlp_kind: str = "swiglu"
+    tie_embeddings: bool = False
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_dropless: bool = True
+    # ssm / hybrid
+    d_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    d_conv: int = 4
+    ssm_n_groups: int = 1
+    shared_attn_every: int = 0             # zamba2
+    # vlm
+    cross_attn_every: int = 0              # llama-3.2-vision
+    n_image_tokens: int = 1024
+    # audio
+    n_codebooks: int = 0                   # musicgen
+    # numerics
+    norm_eps: float = 1e-6
+    param_dtype: Any = torch.float32
+    activation_dtype: Any = torch.bfloat16
+    ssd_chunk: int = 128
+    # kept so configs copy across; nothing in this package reads it (each
+    # kernel wrapper dispatches on the tensors' device instead)
+    attention_impl: str = "jnp"
+    remat: bool = True
+    attention_override_window: int | None = None
+    broadcast_positions: bool = False
+    gqa_layout: str = "grouped"
+
+    def window_for(self, layer_flag_local: bool) -> int | None:
+        if self.attention_override_window is not None:
+            return self.attention_override_window
+        if self.local_global:
+            return self.sliding_window if layer_flag_local else None
+        return self.sliding_window
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in SUPPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"the PyTorch port runs {SUPPORTED_FAMILIES} so far, not "
+            f"{cfg.family}")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+class DenseLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dt = cfg.param_dtype
+        self.ln1 = RMSNorm(cfg.d_model, dt, device)
+        self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim, cfg.qk_norm, dt, device)
+        self.ln2 = RMSNorm(cfg.d_model, dt, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+
+class Model(nn.Module):
+    """The parameters of a dense decoder, allocated but not initialised
+    (see :func:`init`, or ``load_state_dict`` of
+    :func:`repro_torch.convert.params_from_jax`)."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+        super().__init__()
+        _check_family(cfg)
+        device = resolve_device(device)
+        dt = cfg.param_dtype
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
+                                              dtype=dt, device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty(
+                cfg.d_model, cfg.vocab_size, dtype=dt, device=device))
+        self.layers = nn.ModuleList(DenseLayer(cfg, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, dt, device)
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
+    """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
+    on ``device``: truncated normals at fan_in^-0.5 (embed: d_model^-0.5),
+    norm scales zero, as the reference's init (not its random stream)."""
+    model = Model(cfg, device=device)
+    dev = model.embed.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.param_dtype
+    for name, w in model.named_parameters():
+        if name.endswith(".scale"):
+            w.zero_()
+            continue
+        scale = cfg.d_model ** -0.5 if name == "embed" else None
+        w.copy_(dense_init(gen, tuple(w.shape), scale=scale, dtype=dt,
+                           device=dev))
+    return model
+
+
+def param_count(params: Model) -> int:
+    return sum(p.numel() for p in params.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _effective_window(cfg: ModelConfig, layer: int) -> int | None:
+    """The static window of layer ``layer`` (gemma-2: even layers local)."""
+    return cfg.window_for(layer % 2 == 0)
+
+
+def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
+                 collect_kv=False):
+    h = rms_norm(p.ln1.scale, x, cfg.norm_eps)
+    out = attn.attn_apply(
+        p.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, positions=positions,
+        rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+        window=_effective_window(cfg, layer), attn_cap=cfg.attn_softcap,
+        return_kv=collect_kv)
+    h, kv = (out[0], out[1:]) if collect_kv else (out, None)
+    x = x + h
+    h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
+    x = x + mlp_apply(p.mlp, h, cfg.mlp_kind)
+    return (x, kv) if collect_kv else x
+
+
+def _embed_tokens(params: Model, cfg: ModelConfig, tokens):
+    """tokens: (B, S) int -> activations (B, S, d).  Gathers, then casts to
+    the activation dtype (the same bits as the reference's cast-then-
+    gather), then applies the gemma-style sqrt(d_model) scale, rounded to
+    the activation dtype as the reference does for qwen3 too."""
+    adt = cfg.activation_dtype
+    x = params.embed[tokens.long()].to(adt)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=adt, device=x.device)
+
+
+def _default_positions(tokens):
+    B, S = tokens.shape[0], tokens.shape[1]
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device).expand(B, S)
+
+
+def forward(params: Model, cfg: ModelConfig, tokens, *, positions=None):
+    """tokens: (B, S) int.  Returns logits (B, S, V) and a scalar aux loss
+    (zero for the dense family)."""
+    logits, _ = _forward(params, cfg, tokens, positions, collect_kv=False)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
+                    positions=None):
+    """Full-sequence serving prefill: one forward pass that ALSO returns
+    the per-layer decode KV.  Returns ``(logits, (k, v))`` with k, v shaped
+    (L, B, S, Kv, hd) -- the rotated/normed tensors the page pool stores."""
+    return _forward(params, cfg, tokens, positions, collect_kv=True)
+
+
+def _forward(params, cfg, tokens, positions, collect_kv):
+    _check_family(cfg)
+    x = _embed_tokens(params, cfg, tokens)
+    if positions is None:
+        positions = _default_positions(tokens)
+    ks, vs = [], []
+    for i, layer in enumerate(params.layers):
+        if collect_kv:
+            x, (k, v) = _dense_block(cfg, layer, x, positions, i,
+                                     collect_kv=True)
+            ks.append(k)
+            vs.append(v)
+        else:
+            x = _dense_block(cfg, layer, x, positions, i)
+    x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
+    logits = _lm_head(params, cfg, x)
+    if collect_kv:
+        return logits, (torch.stack(ks), torch.stack(vs))
+    return logits, None
+
+
+def _lm_head(params: Model, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        logits = x @ params.embed.to(x.dtype).T
+    else:
+        logits = x @ params.lm_head.to(x.dtype)
+    return softcap(logits, cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def decode_step_paged(params: Model, cfg: ModelConfig, token, pool,
+                      page_table, positions, *, page_size: int):
+    """One-token decode over a PAGED KV pool (continuous batching).
+
+    token: (B, 1) int; positions: (B,) int32 -- each sequence decodes at its
+    OWN absolute position.  pool: ``{"k", "v"}`` shaped (L, Kv, n_pages,
+    page_size, hd); page_table: (B, Pmax) int32.  The new k/v are written
+    into ``pool`` in place; returns (logits, pool).
+    """
+    _check_family(cfg)
+    x = _embed_tokens(params, cfg, token)
+    for i, p in enumerate(params.layers):
+        h = rms_norm(p.ln1.scale, x, cfg.norm_eps)
+        h, _, _ = attn.attn_decode_paged(
+            p.attn, h, pool["k"][i], pool["v"][i], page_table, positions,
+            page_size=page_size, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            qk_norm=cfg.qk_norm, window=_effective_window(cfg, i),
+            attn_cap=cfg.attn_softcap)
+        x = x + h
+        h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
+        x = x + mlp_apply(p.mlp, h, cfg.mlp_kind)
+    x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
+    return _lm_head(params, cfg, x), pool

@@ -1,0 +1,106 @@
+"""PyTorch port parity: flash attention.  The port's entry point on CPU
+tensors (its plain version) against the JAX Pallas kernel in interpret
+mode and the JAX oracle, over the sweep of tests/test_kernels.py.  The
+CUDA kernel is held to the plain version in test_torch_cuda_kernels.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jfa_ops, ref as jfa_ref
+from repro.models import attention as JA
+from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+from repro_torch.models import attention as TA
+
+TOL = dict(rtol=2e-2, atol=2e-2)
+TOL32 = dict(rtol=2e-4, atol=2e-4)
+DTYPES = {"f32": (jnp.float32, torch.float32, TOL32),
+          "bf16": (jnp.bfloat16, torch.bfloat16, TOL)}
+
+
+def _qkv(B, S, T, H, Kv, D, seed, dtype):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((B, S, H, D), (B, T, Kv, D), (B, T, Kv, D))]
+    jdt, tdt, _ = DTYPES[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().cpu().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,T,H,Kv,D", [
+    (1, 128, 128, 4, 4, 64),     # MHA
+    (2, 256, 256, 4, 2, 64),     # GQA
+    (1, 128, 128, 8, 1, 128),    # MQA, fat head_dim
+    (1, 192, 192, 2, 2, 64),     # non-pow2 seq (padding path)
+    (1, 64, 64, 2, 1, 32),       # tiny blocks
+])
+def test_flash_attention_shapes(B, S, T, H, Kv, D, dtype):
+    (qj, kj, vj), (qt, kt, vt) = _qkv(B, S, T, H, Kv, D, S + H, dtype)
+    got = fa_ops.flash_attention(qt, kt, vt, causal=True)
+    assert got.dtype == qt.dtype and got.shape == (B, S, H, D)
+    tol = DTYPES[dtype][2]
+    want_kernel = jfa_ops.flash_attention(qj, kj, vj, causal=True,
+                                          interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want_kernel), **tol)
+    want_ref = jfa_ref.attention_ref(qj, kj, vj, causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(want_ref), **tol)
+
+
+@pytest.mark.parametrize("window", [32, 128, None])
+@pytest.mark.parametrize("attn_cap", [None, 50.0])
+def test_flash_attention_window_softcap(window, attn_cap):
+    (qj, kj, vj), (qt, kt, vt) = _qkv(1, 256, 256, 4, 2, 64, 0, "f32")
+    got = fa_ops.flash_attention(qt, kt, vt, causal=True, window=window,
+                                 attn_cap=attn_cap)
+    want = jfa_ops.flash_attention(qj, kj, vj, causal=True, window=window,
+                                   attn_cap=attn_cap, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ref_noncausal(causal):
+    (qj, kj, vj), (qt, kt, vt) = _qkv(2, 64, 64, 4, 4, 32, 5, "f32")
+    got = fa_ref.attention_ref(qt, kt, vt, causal=causal)
+    want = jfa_ref.attention_ref(qj, kj, vj, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL32)
+
+
+def test_attn_apply_matches_jax_pallas_and_sdpa():
+    """attn_apply (kernel path) == JAX attn_apply(impl='pallas') on the
+    same weights, and == the port's positions-masked _sdpa."""
+    B, S, H, Kv, D, d_model = 2, 128, 4, 2, 64, 96
+    rng = np.random.default_rng(7)
+    w = {n: (rng.standard_normal(s) * s[0] ** -0.5).astype(np.float32)
+         for n, s in (("wq", (d_model, H * D)), ("wk", (d_model, Kv * D)),
+                      ("wv", (d_model, Kv * D)), ("wo", (H * D, d_model)))}
+    x = rng.standard_normal((B, S, d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    p = TA.Attention(d_model, H, Kv, D)
+    with torch.no_grad():
+        for n, a in w.items():
+            getattr(p, n).copy_(torch.from_numpy(a))
+        kw = dict(n_heads=H, n_kv=Kv, head_dim=D,
+                  positions=torch.from_numpy(pos))
+        got = TA.attn_apply(p, torch.from_numpy(x), **kw)
+        q, k, v = TA._project_qkv(p, torch.from_numpy(x), H, Kv, D, False,
+                                  torch.from_numpy(pos), 10000.0)
+        mask = torch.ones(S, S, dtype=torch.bool).tril()[None, None]
+        oracle = TA._sdpa(q, k, v, mask).reshape(B, S, H * D) @ p.wo
+    want = JA.attn_apply({n: jnp.asarray(a) for n, a in w.items()},
+                         jnp.asarray(x), n_heads=H, n_kv=Kv, head_dim=D,
+                         positions=jnp.asarray(pos), impl="pallas")
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(_f32(got), _f32(oracle), rtol=1e-3, atol=1e-3)
+
+
+def test_flash_attention_raises_off_cpu_and_cuda():
+    q = torch.zeros(1, 4, 2, 64, device="meta")
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, q, q)

@@ -1,0 +1,57 @@
+"""The PyTorch port stands alone: importing every module of ``repro_torch``
+pulls in neither JAX nor the JAX package, and its entry points refuse to
+run on the CPU unless asked."""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+
+SRC = Path(repro_torch.__file__).resolve().parents[1]
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.serve.engine" in mods
+    assert "repro_torch.kernels.flash_attention.kernel" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(SRC)
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine, init_page_pool
+    cfg = configs.reduced_config(configs.get_config("qwen3-0.6b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init(cfg, 0)
+    params = M.init(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params, n_pages=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_page_pool(cfg, n_pages=4, page_size=4)
+    assert ServeEngine(cfg, params, n_pages=8, device="cpu").device.type \
+        == "cpu"
