@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch port (``src/repro_torch``) on one NVIDIA
 H100: builds the CUDA kernels from the checkout, holds each against its
-plain PyTorch version, runs full-width qwen3-0.6b against the CPU, and
-serves a Poisson trace through the continuous-batching engine.
+plain PyTorch version, runs full-width qwen3-0.6b against the CPU, serves
+a Poisson trace through the continuous-batching engine, and trains
+full-width qwen3-0.6b (cut to 8 layers) with DmSGD on 4 nodes over the
+one-peer exponential graph.
 
   python3 chip_smoke.py [--seed N]
 
@@ -10,17 +12,25 @@ Phases, in order; any failure exits non-zero before the result lines:
   1. device   -- a CUDA device is required; prints nvidia-smi's name and
                  power limit
   2. build    -- nvcc builds every kernel of csrc/ in parallel
-  3. kernels  -- each kernel vs its plain version at the serving path's
-                 shapes (bf16, tolerance 2e-2 as tests/test_kernels.py),
-                 timed with CUDA events beside its plain version, the one
-                 PyTorch call computing the same function (where there is
-                 one), and its bound on the card
+  3. kernels  -- each kernel vs its plain version at its path's shapes
+                 (attention: bf16, tolerance 2e-2 as tests/test_kernels.py;
+                 gossip_mix: f32 1e-5 and bf16 2e-2, degrees 1 and 3, on
+                 (4, 2^27) and an odd tail), timed with CUDA events beside
+                 its plain version, the one PyTorch call computing the same
+                 function (where there is one), and its bound on the card
   4. model    -- full-width qwen3-0.6b (random weights from --seed):
                  prefill of 2 x 64 tokens and 4 paged decode steps on the
                  card against the same weights on the CPU
   5. serve    -- ServeEngine over 16 Poisson requests (mean prompt 256,
-                 32 new tokens, greedy); the kernels' launch counters are
-                 zeroed before and read after this, the main path
+                 32 new tokens, greedy): the serving main path; the launch
+                 counters are zeroed before and read after it
+  6. train    -- launch.train.run: qwen3-0.6b at full width cut to 8
+                 layers (the 28-layer 4-node state does not fit in 80 GB),
+                 4 nodes, one_peer_exp, dmsgd beta 0.9, per-node batch
+                 2 x 128 tokens, 6 steps, hetero 0.5: the training main
+                 path, counters zeroed before and read after; then K1 at the
+                 training payload, the Lemma-1 check, and the same 6 steps
+                 with the plain combine, which must agree
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -39,8 +49,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # published peaks of one H100 SXM (dense, no sparsity) at its 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12       # outside the tensor cores
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 2e-2            # tests/test_kernels.py:15, bf16
+GOSSIP_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:189
+# the training phase run twice, kernel and plain combine: six steps of
+# bf16 activations apart only by the combine's rounding (and any
+# run-to-run order of the backward's atomics), relative to max-abs
+TRAIN_TOL = 2e-4
+LEMMA_TOL = 1e-5             # tests/test_gossip.py:67-76
+GOSSIP_BIG = (4, 1 << 27)    # 2^29 elements: 2.1 GB in f32
+GOSSIP_TAIL = (3, 1_000_003)  # not a multiple of the 16-byte vector
 # bf16 through 28 layers on two devices (different sum orders and bf16
 # roundings in every matmul): start from 2e-2 of the logits' max-abs
 MODEL_TOL = 2e-2
@@ -77,8 +96,9 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float,
+          peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -192,6 +212,53 @@ def paged_phase(torch, dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": f"B={B} H={H} Kv={Kv} D={D} page={ps} Pmax={pmax} "
                      f"{visible} visible tokens bf16"}
+
+
+def gossip_phase(torch, dev):
+    from repro_torch.kernels.gossip_mix import ops, ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    big = GOSSIP_BIG
+    cases = [(big, dt, deg) for dt in (torch.float32, torch.bfloat16)
+             for deg in (1, 3)]
+    cases += [(GOSSIP_TAIL, torch.float32, 3),
+              (GOSSIP_TAIL, torch.bfloat16, 1)]
+    errs = []
+    for shape, dtype, degree in cases:
+        x, *recvs = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for _ in range(degree + 1))
+        w_self = 1.0 / (degree + 1)
+        ws = (w_self,) * degree
+        got = ops.gossip_mix(x, recvs, w_self=w_self, ws=ws)
+        torch.cuda.synchronize()
+        want = ref.gossip_mix_ref(x, recvs, w_self, ws)
+        tol = GOSSIP_TOL[str(dtype).removeprefix("torch.")]
+        errs.append(max_err(got, want))
+        check(got.dtype == dtype and got.shape == x.shape,
+              f"gossip_mix {shape} {dtype}: got {got.dtype} {tuple(got.shape)}")
+        check(within(got, want, tol),
+              f"gossip_mix {shape} {dtype} degree {degree}: max abs err "
+              f"{errs[-1]} beyond {tol}")
+        log(f"  gossip_mix {shape} {str(dtype)[6:]} degree {degree}: max abs "
+            f"err {errs[-1]:.3g} (tolerance {tol})")
+        del x, recvs, got, want
+    # the train path's case: f32, degree 1, weights 1/2
+    x, r = (torch.randn(big, generator=g, device=dev) for _ in range(2))
+    ms = time_ms(lambda: ops.gossip_mix(x, [r], w_self=0.5, ws=(0.5,)))
+    plain_ms = time_ms(lambda: ref.gossip_mix_ref(x, [r], 0.5, (0.5,)),
+                       iters=10)
+    library_ms = time_ms(lambda: torch.lerp(x, r, 0.5))
+    n = x.numel()
+    bound_ms, bound_by = bound(3 * n, 3 * 4 * n, PEAK_F32_FLOPS)
+    log(f"  gossip_mix {big} f32 degree 1: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, lerp {library_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by})")
+    return {"name": "gossip_mix", "route": "cuda",
+            "source": "src/repro_torch/csrc/gossip_mix.cu",
+            "replaces": "src/repro/kernels/gossip_mix/kernel.py:34",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": f"{big} f32 degree 1 (library: torch.lerp(x, r, 0.5))"}
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +397,126 @@ def serve_phase(torch, dev, cfg, params, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: train, the training main path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--full", "--layers", "8", "--nodes", "4",
+              "--topology", "one_peer_exp", "--optimizer", "dmsgd",
+              "--beta", "0.9", "--batch", "2", "--seq", "128", "--steps", "6",
+              "--hetero", "0.5", "--log-every", "1", "--device", "cuda"]
+
+
+def _max_abs(tree) -> float:
+    return max(float(v.abs().max()) for v in tree.values())
+
+
+def _max_diff(a, b) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def train_phase(torch, dev, seed):
+    from repro_torch.core import flatbuf, gossip
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.gossip_mix import ops as gm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch import train as T
+    args = T.parse_args(TRAIN_ARGV + ["--seed", str(seed)])
+    log(f"  {args.arch} at full width, depth cut to {args.layers} layers "
+        f"(28 layers x 4 nodes of x, m, g and the gossip payload do not "
+        f"fit in 80 GB); {args.nodes} nodes, {args.topology}, "
+        f"{args.optimizer} beta {args.beta}, batch {args.batch} x "
+        f"{args.seq} tokens per node, {args.steps} steps, hetero "
+        f"{args.hetero}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.flash_attention.launches = 0
+    pa_ops.paged_attention.launches = 0
+    gm_ops.gossip_mix.launches = 0
+    res = T.run(args)
+    torch.cuda.synchronize()
+    launches = {"gossip_mix": gm_ops.gossip_mix.launches,
+                "flash_attention": fa_ops.flash_attention.launches,
+                "paged_attention": pa_ops.paged_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plan, hist = res["plan"], res["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == args.steps and all(
+        l == l and abs(l) < float("inf") for l in losses),
+        f"train: losses {losses}")
+    check(launches["gossip_mix"] == args.steps,
+          f"train: gossip_mix launched {launches['gossip_mix']} times, "
+          f"expected {args.steps} (one f32 group, one shift per step)")
+    check(launches["flash_attention"] == 0 and
+          launches["paged_attention"] == 0,
+          f"train: attention kernels launched {launches}")
+    check(plan.num_compiled == 2,
+          f"train: {plan.num_compiled} executables, expected 2")
+    step_ms = 1e3 * sorted(res["step_s"][1:])[len(res["step_s"][1:]) // 2]
+    tokens = args.nodes * args.batch * args.seq
+    cfg = res["config"]
+    log(f"  losses {[round(l, 5) for l in losses]}")
+    cons = [f"{h['consensus']:.4g}" for h in hist]
+    log(f"  consensus per step {cons}")
+    log(f"  step ms {[round(1e3 * t, 3) for t in res['step_s']]}; median "
+        f"of steps 2-{args.steps} {step_ms:.3f} ms = "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s; peak allocated "
+        f"{peak_gb:.3f} GB; launches {launches}; "
+        f"{plan.num_compiled} executables, cache {plan.cache_stats()}")
+
+    # K1 at the training payload: (m_next, x_next) packed, one f32 group
+    layout, bufs = flatbuf.pack((res["state"].momentum, res["params"]))
+    check(len(bufs) == 1, f"train: {len(bufs)} payload groups")
+    buf = bufs[0]
+    recv = torch.roll(buf, plan.realization(args.steps).shifts[0][0], 0)
+    pay_ms = time_ms(lambda: gm_ops.gossip_mix(buf, [recv], w_self=0.5,
+                                               ws=(0.5,)), iters=5, warmup=1)
+    pay_bound, _ = bound(3 * buf.numel(), 3 * 4 * buf.numel(),
+                         PEAK_F32_FLOPS)
+    log(f"  K1 at the training payload {tuple(buf.shape)} f32 "
+        f"({buf.numel() / 2**31:.3f} x 2^31 elements): {pay_ms:.3f} ms, "
+        f"bound {pay_bound:.3f} ms (bytes)")
+    del layout, bufs, buf, recv
+
+    # Lemma 1: tau = 2 one-peer rounds average the 4 nodes exactly
+    mixed = res["params"]
+    for k in range(2):
+        mixed = plan.mix(k)(mixed)
+    dev_max = 0.0
+    for v in mixed.values():
+        mean = v.mean(0, keepdim=True)
+        dev_max = max(dev_max, float((v - mean).abs().max()))
+        check(bool(((v - mean).abs() <= LEMMA_TOL + LEMMA_TOL * mean.abs())
+                   .all()), "train: Lemma 1 check failed")
+    log(f"  Lemma 1: after tau=2 rounds max deviation from the node mean "
+        f"{dev_max:.3g} (tolerance rtol=atol={LEMMA_TOL})")
+    del mixed
+
+    # the same 6 steps with the plain combine
+    x1, m1 = res["params"], res["state"].momentum
+    del res
+    gm_ops.gossip_mix.launches = 0
+    gossip.set_kernel_mode("off")
+    try:
+        off = T.run(args)
+    finally:
+        gossip.set_kernel_mode("auto")
+    check(gm_ops.gossip_mix.launches == 0, "train: the plain run launched K1")
+    dx = _max_diff(x1, off["params"])
+    dm = _max_diff(m1, off["state"].momentum)
+    sx, sm = _max_abs(off["params"]), _max_abs(off["state"].momentum)
+    log(f"  kernel vs plain combine after {args.steps} steps: params max "
+        f"abs diff {dx:.3g} (max-abs {sx:.4g}), momentum {dm:.3g} (max-abs "
+        f"{sm:.4g}); tolerance {TRAIN_TOL} x max-abs; plain-run losses "
+        f"{[round(h['loss'], 5) for h in off['history']]}")
+    check(dx <= TRAIN_TOL * sx and dm <= TRAIN_TOL * sm,
+          f"train: kernel and plain runs differ (params {dx}, momentum {dm})")
+    return {"launches": launches["gossip_mix"], "step_ms": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak_gb,
+            "train_payload_ms": pay_ms, "train_payload_bound_ms": pay_bound,
+            "layers": cfg.n_layers}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -367,7 +554,9 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     log("phase 3: kernels against their plain versions")
-    kernels = [flash_phase(torch, dev), paged_phase(torch, dev)]
+    kernels = [flash_phase(torch, dev), paged_phase(torch, dev),
+               gossip_phase(torch, dev)]
+    torch.cuda.empty_cache()
 
     log("phase 4: full-width model, card against CPU")
     torch.set_num_threads(os.cpu_count() or 1)
@@ -380,11 +569,23 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     model_phase(torch, dev, cfg, params, args.seed)
 
-    log("phase 5: serve (the main path)")
+    log("phase 5: serve (the serving main path)")
     launches, per_call = serve_phase(torch, dev, cfg, params, args.seed)
+    del params
+    torch.cuda.empty_cache()
+
+    log("phase 6: train (the training main path)")
+    train = train_phase(torch, dev, args.seed)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_per_call"] = k["launches"] // max(per_call[k["name"]], 1)
+        if k["name"] == "gossip_mix":
+            k["launches"] = train["launches"]
+            k["launches_per_call"] = 1              # per train step
+            k["train_payload_ms"] = train["train_payload_ms"]
+            k["train_payload_bound_ms"] = train["train_payload_bound_ms"]
+        else:
+            k["launches"] = launches[k["name"]]
+            k["launches_per_call"] = (k["launches"]
+                                      // max(per_call[k["name"]], 1))
 
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

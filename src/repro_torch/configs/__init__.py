@@ -44,6 +44,14 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def get_layout(arch: str) -> dict:
+    """Mesh factorization + per-arch runtime knobs (the train driver reads
+    ``momentum_dtype``)."""
+    mod_name = _ALIAS.get(arch, arch)
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return dict(mod.LAYOUT)
+
+
 def reduced_config(cfg: ModelConfig, n_layers: int = 2,
                    d_model: int | None = None) -> ModelConfig:
     """Smoke-test variant: same family/blocks, tiny dims (<=512 d_model,

@@ -1,0 +1,648 @@
+"""Network topologies as sequences of gossip *realizations*.
+
+A copy of the JAX package's ``core/topology.py`` (numpy only), for the
+static-weight realization IR:
+
+* :class:`Shifts`   -- circulant round: ``x_i += sum_d w_d x_{(i-s_d) mod n}``
+  (ring, static/one-peer exponential, CECA-style circulant schedules).
+* :class:`Matching` -- pairwise round: node ``i`` averages with
+  ``partner[i]`` (one-peer hypercube, the 2-factor rounds of Base-(k+1)).
+* :class:`Dense`    -- explicit ``(n, n)`` matrix round (star, grid, the
+  >=3-clique rounds of Base-(k+1)).
+* :class:`Identity` -- skipped round (``W = I``).
+
+*When* each realization applies is a :class:`Schedule`: :class:`Static`,
+:class:`Cyclic` or :class:`RandomPerm`.  Traced weights, the ``Gated``
+node and the ``Aperiodic`` schedule (random matchings, the uniform
+one-peer order) are ROADMAP slice C; the code paths that need them raise
+``NotImplementedError``.
+
+Conventions follow the paper: ``w_ij`` scales information flowing from node
+``j`` to node ``i``; every realized ``W`` is doubly stochastic.  Static
+undirected graphs use the Metropolis(-Hastings) rule.  Dense matrices are
+numpy float64 ``(n, n)`` arrays.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Iterator
+
+import numpy as np
+
+__all__ = [
+    "Shifts",
+    "Matching",
+    "Dense",
+    "Identity",
+    "IDENTITY",
+    "Realization",
+    "Schedule",
+    "Static",
+    "Cyclic",
+    "RandomPerm",
+    "Topology",
+    "one_peer_hypercube",
+    "ring",
+    "star",
+    "grid_2d",
+    "torus_2d",
+    "half_random",
+    "bipartite_random_match",
+    "hypercube",
+    "static_exponential",
+    "one_peer_exponential",
+    "base_k",
+    "ceca",
+    "full_averaging",
+    "get_topology",
+    "TOPOLOGIES",
+]
+
+SLICE_C = ("{} waits for ROADMAP slice C of the PyTorch port (runtime-valued "
+           "realizations and aperiodic schedules)")
+
+
+def _static_weight(w, what: str) -> float:
+    """A realization weight as a Python float; anything else (a tensor, a
+    per-node array) is a runtime-valued weight, which is slice C."""
+    if isinstance(w, (int, float, np.integer, np.floating)):
+        return float(w)
+    raise NotImplementedError(SLICE_C.format(f"a traced {what}"))
+
+
+# ---------------------------------------------------------------------------
+# Realization IR
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Shifts:
+    """Circulant realization: ``x_i^+ = self_w x_i + sum_d w_d x_{(i-s_d)%n}``.
+
+    Each ``(s, w)`` descriptor means node ``i`` *sends* its buffer by
+    ``+s`` (``torch.roll(x, s, 0)`` on the node axis) and receives from
+    ``(i - s) mod n`` with weight ``w``.
+    """
+
+    self_w: float
+    shifts: tuple  # tuple[(int shift, float weight), ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "shifts", tuple(
+            (int(s), _static_weight(w, "Shifts weight"))
+            for s, w in self.shifts))
+        object.__setattr__(self, "self_w",
+                           _static_weight(self.self_w, "Shifts self weight"))
+
+    traced = False
+
+    def structure_key(self) -> tuple:
+        return ("shifts", self.self_w, self.shifts)
+
+    @property
+    def max_degree(self) -> int:
+        return len(self.shifts)
+
+    def wire_multiplier(self, n: int) -> int:
+        """Payload multiples one node sends per step (one per shift)."""
+        return len(self.shifts)
+
+    def dense(self, n: int) -> np.ndarray:
+        W = np.zeros((n, n), dtype=np.float64)
+        np.fill_diagonal(W, self.self_w)
+        for s, w in self.shifts:
+            for i in range(n):
+                W[i, (i - s) % n] += w
+        return W
+
+
+@dataclasses.dataclass(frozen=True)
+class Matching:
+    """Pairwise realization: node ``i`` averages with ``partner[i]``.
+
+    ``partner`` must be an involution (``partner[partner[i]] == i``); a
+    fixed point ``partner[i] == i`` leaves node ``i`` silent that round.
+    Paired nodes take ``w_self`` on their own value and ``1 - w_self`` on
+    the partner's.
+    """
+
+    partner: tuple  # tuple[int, ...], involution over range(n)
+    w_self: float = 0.5
+
+    def __post_init__(self):
+        p = tuple(int(j) for j in self.partner)
+        object.__setattr__(self, "partner", p)
+        object.__setattr__(self, "w_self",
+                           _static_weight(self.w_self, "Matching weight"))
+        for i, j in enumerate(p):
+            if not 0 <= j < len(p) or p[j] != i:
+                raise ValueError(
+                    f"Matching.partner must be an involution; "
+                    f"partner[{i}]={j} but partner[{j}]={p[j] if 0 <= j < len(p) else '?'}")
+
+    traced = False
+
+    def structure_key(self) -> tuple:
+        return ("matching", self.partner, self.w_self)
+
+    @property
+    def max_degree(self) -> int:
+        return 1
+
+    def wire_multiplier(self, n: int) -> int:
+        return 1
+
+    def dense(self, n: int) -> np.ndarray:
+        W = np.eye(n, dtype=np.float64)
+        for i, j in enumerate(self.partner):
+            if j != i:
+                W[i, i] = self.w_self
+                W[i, j] = 1.0 - self.w_self
+        return W
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Dense:
+    """Explicit doubly-stochastic ``(n, n)`` W: mixing is
+    ``einsum('ij,jb->ib')`` on the packed buffer (an all-gather of O(n)
+    bytes per node on a multi-node wire)."""
+
+    W: np.ndarray
+
+    def __post_init__(self):
+        if not isinstance(self.W, (np.ndarray, list, tuple)):
+            raise NotImplementedError(SLICE_C.format("a traced Dense W"))
+        object.__setattr__(self, "W", np.asarray(self.W, dtype=np.float64))
+
+    traced = False
+
+    def structure_key(self) -> tuple:
+        return ("dense", self.W.shape[0])
+
+    @property
+    def max_degree(self) -> int:
+        off = np.asarray(self.W).copy()
+        np.fill_diagonal(off, 0.0)
+        return int((off > 0).sum(axis=1).max(initial=0))
+
+    def wire_multiplier(self, n: int) -> int:
+        # the packed buffer is all-gathered: (n-1) payloads cross each
+        # node's links, NOT the realization's fan-in
+        return max(n - 1, 0)
+
+    def dense(self, n: int) -> np.ndarray:
+        return self.W
+
+
+@dataclasses.dataclass(frozen=True)
+class Identity:
+    """Skipped round: ``W = I``, zero bytes on the wire."""
+
+    traced = False
+
+    def structure_key(self) -> tuple:
+        return ("identity",)
+
+    @property
+    def max_degree(self) -> int:
+        return 0
+
+    def wire_multiplier(self, n: int) -> int:
+        return 0
+
+    def dense(self, n: int) -> np.ndarray:
+        return np.eye(n, dtype=np.float64)
+
+
+Realization = Shifts | Matching | Dense | Identity
+IDENTITY = Identity()
+
+
+# ---------------------------------------------------------------------------
+# Schedules
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Static:
+    """One realization forever."""
+
+    is_periodic = True
+    period = 1
+
+    def index(self, step: int) -> int:
+        return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Cyclic:
+    """Visit the ``period`` realizations in order, repeating."""
+
+    period: int
+    is_periodic = True
+
+    def index(self, step: int) -> int:
+        return step % self.period
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RandomPerm:
+    """Without-replacement shuffle of the realization set per period block
+    (Remark 5: exact averaging per period is preserved).  The step ->
+    realization map is NOT periodic, but the realization SET stays finite,
+    so compile caches stay bounded."""
+
+    num: int
+    seed: int = 0
+    is_periodic = False
+
+    def __post_init__(self):
+        object.__setattr__(self, "_rng", np.random.default_rng(self.seed))
+        object.__setattr__(self, "_perms", [])
+
+    @property
+    def period(self):
+        return None
+
+    def index(self, step: int) -> int:
+        block, off = divmod(step, self.num)
+        while len(self._perms) <= block:
+            self._perms.append(self._rng.permutation(self.num))
+        return int(self._perms[block][off])
+
+
+Schedule = Static | Cyclic | RandomPerm
+
+
+def _metropolis(adj: np.ndarray) -> np.ndarray:
+    """Metropolis-Hastings weights for an undirected adjacency (no self loops).
+
+    w_ij = 1 / (1 + max(deg_i, deg_j)) for edges, w_ii = 1 - sum_j w_ij.
+    Produces a symmetric doubly-stochastic matrix.
+    """
+    n = adj.shape[0]
+    deg = adj.sum(axis=1)
+    W = np.zeros((n, n), dtype=np.float64)
+    for i in range(n):
+        for j in range(n):
+            if i != j and adj[i, j]:
+                W[i, j] = 1.0 / (1.0 + max(deg[i], deg[j]))
+        W[i, i] = 1.0 - W[i].sum()
+    return W
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """A (possibly time-varying) gossip topology over ``n`` nodes.
+
+    Attributes:
+      name: identifier.
+      n: number of nodes.
+      max_degree: maximum number of out-neighbors excluding self of any node
+        in one realization -- the paper's per-iteration communication
+        measure.
+      realizations: the finite tuple of :data:`Realization` values the
+        schedule selects from.
+      schedule: WHICH realization applies at each step; defaults to
+        :class:`Static`/:class:`Cyclic` over ``realizations``.
+
+    ``realization(step)`` is the one accessor the gossip stack consumes;
+    ``weights(step)`` densifies for analysis code.
+    """
+
+    name: str
+    n: int
+    max_degree: int = 0
+    realizations: tuple | None = None
+    schedule: Schedule | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "n", int(self.n))
+        object.__setattr__(self, "max_degree", int(self.max_degree))
+        if not self.realizations:
+            raise ValueError("Topology needs realizations=...")
+        object.__setattr__(self, "realizations", tuple(self.realizations))
+        if self.schedule is None:
+            object.__setattr__(
+                self, "schedule",
+                Static() if len(self.realizations) == 1
+                else Cyclic(len(self.realizations)))
+
+    def realization(self, step: int = 0) -> Realization:
+        """The IR node describing step ``step``'s gossip round."""
+        return self.realizations[self.schedule.index(step)]
+
+    def realization_types(self) -> frozenset:
+        """IR node types this topology realizes."""
+        return frozenset(type(r) for r in self.realizations)
+
+    @property
+    def period(self) -> int | None:
+        """Steps before the schedule repeats (None when aperiodic)."""
+        return self.schedule.period
+
+    @property
+    def time_varying(self) -> bool:
+        return not isinstance(self.schedule, Static)
+
+    def weights(self, step: int = 0) -> np.ndarray:
+        """Densified ``W^{(step)}`` (analysis/reference path)."""
+        return self.realization(step).dense(self.n)
+
+    def all_weights(self) -> list[np.ndarray]:
+        if self.period is None:
+            raise ValueError(f"{self.name!r} has no finite period "
+                             f"({self.schedule!r})")
+        return [self.weights(k) for k in range(self.period)]
+
+    def iter_weights(self) -> Iterator[np.ndarray]:
+        k = 0
+        while True:
+            yield self.weights(k)
+            k += 1
+
+
+def _static(name: str, n: int, realization: Realization,
+            max_degree: int) -> Topology:
+    return Topology(name, n, max_degree=max_degree,
+                    realizations=(realization,), schedule=Static())
+
+
+# ---------------------------------------------------------------------------
+# Static topologies
+# ---------------------------------------------------------------------------
+
+def ring(n: int) -> Topology:
+    """Undirected ring; Metropolis weights. 1-rho = O(1/n^2)."""
+    adj = np.zeros((n, n), dtype=bool)
+    for i in range(n):
+        adj[i, (i + 1) % n] = adj[i, (i - 1) % n] = True
+    if n <= 2:  # degenerate: fully connected
+        adj = ~np.eye(n, dtype=bool)
+    W = _metropolis(adj)
+    if n >= 3:
+        # ring is a circulant: shifts +-1 with equal weights
+        w_off = W[0, 1]
+        real = Shifts(1.0 - 2 * w_off, ((1, w_off), (-1, w_off)))
+        return _static("ring", n, real, 2)
+    return _static("ring", n, Dense(W), max(n - 1, 0))
+
+
+def star(n: int) -> Topology:
+    """Undirected star (node 0 is the hub); Metropolis weights."""
+    adj = np.zeros((n, n), dtype=bool)
+    adj[0, 1:] = adj[1:, 0] = True
+    return _static("star", n, Dense(_metropolis(adj)), n - 1)
+
+
+def _grid_dims(n: int) -> tuple[int, int]:
+    r = int(math.floor(math.sqrt(n)))
+    while n % r:
+        r -= 1
+    return r, n // r
+
+
+def grid_2d(n: int) -> Topology:
+    """Undirected 2D grid (no wraparound); Metropolis weights."""
+    r, c = _grid_dims(n)
+    adj = np.zeros((n, n), dtype=bool)
+    for i in range(r):
+        for j in range(c):
+            u = i * c + j
+            if i + 1 < r:
+                adj[u, (i + 1) * c + j] = adj[(i + 1) * c + j, u] = True
+            if j + 1 < c:
+                adj[u, i * c + j + 1] = adj[i * c + j + 1, u] = True
+    return _static("grid", n, Dense(_metropolis(adj)), 4)
+
+
+def torus_2d(n: int) -> Topology:
+    """Undirected 2D torus (wraparound grid); Metropolis weights."""
+    r, c = _grid_dims(n)
+    adj = np.zeros((n, n), dtype=bool)
+    for i in range(r):
+        for j in range(c):
+            u = i * c + j
+            for v in (((i + 1) % r) * c + j, i * c + (j + 1) % c):
+                if v != u:
+                    adj[u, v] = adj[v, u] = True
+    return _static("torus", n, Dense(_metropolis(adj)), 4)
+
+
+def half_random(n: int, seed: int = 0) -> Topology:
+    """1/2-random graph (App. A.3.1): each edge iid with p=1/2, W = A'/d_max,
+    the leftover mass on the diagonal (a lazy walk, doubly stochastic)."""
+    rng = np.random.default_rng(seed)
+    adj = np.triu(rng.random((n, n)) < 0.5, k=1)
+    adj = adj | adj.T
+    d_max = max(int(adj.sum(axis=1).max()), 1)
+    W = adj.astype(np.float64) / d_max
+    np.fill_diagonal(W, 1.0 - W.sum(axis=1))
+    deg = int(adj.sum(axis=1).max())
+    return _static("half_random", n, Dense(W), deg)
+
+
+def hypercube(n: int) -> Topology:
+    """Hypercube graph (Remark 2): requires n = 2^tau; symmetric, weights
+    1/(1+log2 n) on each of the log2(n) bit-flip neighbors."""
+    tau = int(round(math.log2(n)))
+    if 2 ** tau != n:
+        raise ValueError(f"hypercube requires n to be a power of 2, got {n}")
+    W = np.zeros((n, n), dtype=np.float64)
+    w = 1.0 / (tau + 1)
+    for i in range(n):
+        W[i, i] = w
+        for t in range(tau):
+            W[i, i ^ (1 << t)] = w
+    return _static("hypercube", n, Dense(W), tau)
+
+
+def static_exponential(n: int) -> Topology:
+    """Static exponential graph, eq. (5): node i receives from i + 2^t
+    (mod n), t = 0..ceil(log2 n)-1, each with weight 1/(tau+1).  Directed,
+    circulant, doubly stochastic. 1-rho = 2/(1+ceil(log2 n)) for even n
+    (Proposition 1)."""
+    if n == 1:
+        return _static("static_exp", 1, Dense(np.ones((1, 1))), 0)
+    tau = int(math.ceil(math.log2(n)))
+    offsets = sorted({(2 ** t) % n for t in range(tau)} - {0})
+    w = 1.0 / (len(offsets) + 1)
+    # node i receives from i + off  =>  send shift s = -off
+    real = Shifts(w, tuple((-off, w) for off in offsets))
+    return _static("static_exp", n, real, len(offsets))
+
+
+# ---------------------------------------------------------------------------
+# Time-varying topologies
+# ---------------------------------------------------------------------------
+
+def one_peer_exponential(
+    n: int, schedule: str = "cyclic", seed: int = 0
+) -> Topology:
+    """One-peer exponential graph, eq. (7).
+
+    W^{(k)}_{ij} = 1/2 if log2(mod(j - i, n)) == mod(k, tau), 1/2 if i == j.
+    ``schedule`` selects the order the tau realizations are visited:
+      - "cyclic": k -> mod(k, tau)              (paper main body; Lemma 1)
+      - "random_perm": without-replacement shuffles per period (Remark 5).
+      - "uniform": with replacement -- an aperiodic draw, slice C.
+    """
+    if n == 1:
+        return _static("one_peer_exp", 1, Dense(np.ones((1, 1))), 0)
+    tau = int(math.ceil(math.log2(n)))
+    reals = tuple(Shifts(0.5, ((-((2 ** t) % n), 0.5),)) for t in range(tau))
+
+    if schedule == "cyclic":
+        sched: Schedule = Cyclic(tau)
+    elif schedule == "random_perm":
+        sched = RandomPerm(tau, seed)
+    elif schedule == "uniform":
+        raise NotImplementedError(
+            SLICE_C.format("the uniform (aperiodic) one-peer schedule"))
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
+
+    name = "one_peer_exp" if schedule == "cyclic" else f"one_peer_exp_{schedule}"
+    return Topology(name, n, max_degree=1, realizations=reals,
+                    schedule=sched)
+
+
+def _hypercube_matchings(n: int) -> tuple:
+    tau = int(round(math.log2(n)))
+    if 2 ** tau != n:
+        raise ValueError(f"one_peer_hypercube requires n=2^tau, got {n}")
+    return tuple(
+        Matching(tuple(i ^ (1 << t) for i in range(n)), 0.5)
+        for t in range(tau))
+
+
+def one_peer_hypercube(n: int) -> Topology:
+    """One-peer hypercube (Remark 6): at step k each node pairs with its
+    bit-flip neighbor i ^ 2^{mod(k, tau)} and they average.  Undirected
+    and symmetric, requires n = 2^tau; exact averaging after tau steps."""
+    reals = _hypercube_matchings(n)
+    return Topology("one_peer_hypercube", n, max_degree=1,
+                    realizations=reals, schedule=Cyclic(len(reals)))
+
+
+def bipartite_random_match(n: int, seed: int = 0,
+                           pool: int | None = None) -> Topology:
+    """Bipartite random match graph (App. A.3.1): a fresh random perfect
+    matching per step -- an aperiodic schedule, which is slice C."""
+    raise NotImplementedError(SLICE_C.format("random_match"))
+
+
+def _factorize(n: int, kmax: int) -> list[int]:
+    """Greedy largest-first factorization of ``n`` into factors <= kmax."""
+    if n < 2:
+        return []
+    fs, m = [], n
+    while m > 1:
+        for f in range(min(kmax, m), 1, -1):
+            if m % f == 0:
+                fs.append(f)
+                m //= f
+                break
+        else:
+            raise ValueError(
+                f"n={n} has a prime factor > {kmax}; pick a larger k")
+    return fs
+
+
+def base_k(n: int, k: int | None = None) -> Topology:
+    """Finite-time Base-(k+1) graph (Takezawa et al., 2023): factor
+    ``n = f_1 * ... * f_L`` with every ``f_i <= k + 1`` and at round ``t``
+    average each clique of nodes differing only in mixed-radix digit ``t``
+    (uniform weight ``1/f_t``).  One period's product is EXACTLY
+    ``(1/n) 1 1^T``.  Rounds with ``f_t = 2`` are :class:`Matching`
+    realizations; ``f_t >= 3`` cliques are :class:`Dense`.  ``k=None``
+    picks the smallest degree that factors ``n``."""
+    if n == 1:
+        return _static("base_k", 1, Dense(np.ones((1, 1))), 0)
+    if k is None:
+        p, m, f = 2, n, 2
+        while m > 1:
+            while m % f == 0:
+                p, m = f, m // f
+            f += 1 if f == 2 else 2
+            if f * f > m and m > 1:
+                p, m = m, 1
+        k = p - 1
+    if k < 1:
+        raise ValueError(f"base_k needs k >= 1, got {k}")
+    factors = _factorize(n, k + 1)
+    reals = []
+    stride = 1
+    for f in factors:
+        # digit value of node i at this radix position: (i // stride) % f
+        if f == 2:
+            partner = tuple(
+                i + stride if (i // stride) % 2 == 0 else i - stride
+                for i in range(n))
+            reals.append(Matching(partner, 0.5))
+        else:
+            W = np.zeros((n, n), dtype=np.float64)
+            for i in range(n):
+                d = (i // stride) % f
+                base = i - d * stride
+                for dd in range(f):
+                    W[i, base + dd * stride] = 1.0 / f
+            reals.append(Dense(W))
+        stride *= f
+    return Topology(f"base_{k + 1}", n, max_degree=max(factors) - 1,
+                    realizations=tuple(reals), schedule=Cyclic(len(reals)))
+
+
+def ceca(n: int) -> Topology:
+    """CECA-style finite-time circulant schedule: exact average in ``L``
+    rounds for ANY ``n`` using only circulant shift rounds.  Factor ``n``
+    into primes ``f_1 * ... * f_L``; round ``t`` mixes ``W_t = (1/f_t)
+    sum_{j<f_t} P^{j m_t}`` with ``m_t`` the prefix product of earlier
+    factors, so ``prod_t W_t = (1/n) 1 1^T``.  A prime ``n`` gives one
+    round of degree ``n - 1``."""
+    if n == 1:
+        return _static("ceca", 1, Dense(np.ones((1, 1))), 0)
+    factors, m, f = [], n, 2                     # prime factors, ascending
+    while m > 1:
+        while m % f == 0:
+            factors.append(f)
+            m //= f
+        f += 1 if f == 2 else 2
+        if f * f > m and m > 1:
+            factors.append(m)
+            break
+    reals = []
+    stride = 1
+    for f in factors:
+        reals.append(Shifts(
+            1.0 / f, tuple((-(j * stride), 1.0 / f) for j in range(1, f))))
+        stride *= f
+    return Topology("ceca", n, max_degree=max(factors) - 1,
+                    realizations=tuple(reals), schedule=Cyclic(len(reals)))
+
+
+def full_averaging(n: int) -> Topology:
+    """Complete graph with uniform weights: W = (1/n) 1 1^T (parallel SGD)."""
+    return _static("full", n, Dense(np.full((n, n), 1.0 / n)), n - 1)
+
+
+TOPOLOGIES: dict[str, Callable[..., Topology]] = {
+    "ring": ring,
+    "star": star,
+    "grid": grid_2d,
+    "torus": torus_2d,
+    "half_random": half_random,
+    "hypercube": hypercube,
+    "static_exp": static_exponential,
+    "one_peer_exp": one_peer_exponential,
+    "one_peer_hypercube": one_peer_hypercube,
+    "random_match": bipartite_random_match,
+    "base_k": base_k,
+    "ceca": ceca,
+    "full": full_averaging,
+}
+
+
+def get_topology(name: str, n: int, **kw) -> Topology:
+    if name not in TOPOLOGIES:
+        raise KeyError(f"unknown topology {name!r}; options: {sorted(TOPOLOGIES)}")
+    return TOPOLOGIES[name](n, **kw)

@@ -2,6 +2,7 @@
 
   flash_attention/  causal GQA online-softmax attention (serving prefill)
   paged_attention/  one-token decode attention over a paged KV pool
+  gossip_mix/       the weighted combine of a gossip round (training)
 
 Each has ref.py (the plain PyTorch version), kernel.py (checks, output
 allocation and the ctypes launch of ``csrc/<name>.cu``) and ops.py (the

@@ -25,7 +25,9 @@ from ..models import model as M
 from ..serve import ServeEngine, pages_needed
 
 
-def _report(name: str, prof, wall_s: float, calls: int, top: int) -> None:
+def report(name: str, prof, wall_s: float, calls: int, top: int) -> None:
+    """Print host and device ms per call, the device's idle share and the
+    ``top`` kernels by device time from a ``torch.profiler`` trace."""
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
@@ -88,7 +90,7 @@ def main(argv=None) -> None:
             engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report(f"decode step (batch {len(engine.sched.running)})", prof, wall,
+    report(f"decode step (batch {len(engine.sched.running)})", prof, wall,
             args.steps, args.top)
 
     tokens = torch.as_tensor(
@@ -107,7 +109,7 @@ def main(argv=None) -> None:
             M.forward_prefill(params, cfg, tokens)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    _report(f"forward_prefill (1 x {args.prompt} tokens)", prof, wall, 1,
+    report(f"forward_prefill (1 x {args.prompt} tokens)", prof, wall, 1,
             args.top)
 
 

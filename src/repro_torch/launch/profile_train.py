@@ -1,0 +1,124 @@
+"""Where the training path's time goes on the card.
+
+Trains qwen3-0.6b at full width with its depth cut (``--layers``, 8 by
+default: the 28-layer 4-node state does not fit in 80 GB) on ``--nodes``
+stacked nodes with DmSGD over the one-peer exponential graph, as
+``chip_smoke.py`` phase 6 does, and traces a steady window of steps with
+``torch.profiler``.  Prints the first steps' times (the warm-up), the
+untraced step time, then for the traced window the host and device time
+per step, the device's idle share, the kernels that take the most device
+time, and two ranges: the optimizer update (momentum, descent and the
+gossip) and, inside it, the gossip (pack, roll, K1, unpack); the per-node
+gradients are the rest of the step.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 3]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from .. import configs
+from ..core import optim as optim_mod
+from ..core import topology as topo_mod
+from ..core.plan import GossipPlan
+from ..data import SyntheticLM
+from ..device import resolve_device
+from ..models import model as M
+from . import steps as steps_mod
+from .profile_serve import report
+from .train import stack_nodes
+
+UPDATE = "optimizer update (incl. gossip)"
+GOSSIP = "gossip: pack, roll, gossip_mix, unpack"
+
+
+class _TracedOptimizer:
+    """The optimizer with its update inside one profiler range (the train
+    step calls nothing else of it)."""
+
+    def __init__(self, opt):
+        self.opt = opt
+
+    def update_with_mix(self, *args, **kw):
+        with record_function(UPDATE):
+            return self.opt.update_with_mix(*args, **kw)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=8)
+    ap.add_argument("--nodes", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type != "cuda":
+        raise SystemExit("profile_train measures the card: run it on one")
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                              n_layers=args.layers)
+    n = args.nodes
+    opt = optim_mod.dmsgd(topo_mod.one_peer_exponential(n), beta=0.9)
+    step_fn = steps_mod.make_train_step(cfg, _TracedOptimizer(opt))
+
+    def traced_step(mix, *a):
+        def traced_mix(tree):
+            with record_function(GOSSIP):
+                return mix(tree)
+        return step_fn(traced_mix, *a)
+
+    plan = GossipPlan.for_optimizer(opt, fn=traced_step)
+    params = M.init(cfg, args.seed, device=dev)
+    stacked = stack_nodes(params, n)
+    state = opt.init(stacked)
+    data = SyntheticLM(cfg.vocab_size, n, hetero=0.5, seed=args.seed)
+    total = 3 + 2 * args.steps
+    batches = [{"tokens": torch.from_numpy(data.sample(k, args.batch,
+                                                       args.seq))}
+               for k in range(total)]
+    k = 0
+
+    def step():
+        nonlocal stacked, state, k
+        stacked, state, _ = plan.step_fn(k)(stacked, state, batches[k], 0.01)
+        k += 1
+
+    for _ in range(3):                    # warm-up, timed one by one
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        print(f"warm-up step {k - 1}: {(time.perf_counter() - t0) * 1e3:.3f}"
+              f" ms")
+    t0 = time.perf_counter()              # the same window, untraced
+    for _ in range(args.steps):
+        step()
+    torch.cuda.synchronize()
+    print(f"train step ({n} nodes x {args.batch} x {args.seq} tokens, "
+          f"{args.layers} layers), untraced: host "
+          f"{(time.perf_counter() - t0) * 1e3 / args.steps:.3f} ms/step")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report("train step", prof, wall, args.steps, args.top)
+    for e in prof.key_averages():
+        if e.key in (UPDATE, GOSSIP):
+            print(f"{e.key}: host {e.cpu_time_total / 1e3 / args.steps:.3f} "
+                  f"ms/step, device {e.device_time_total / 1e3 / args.steps:.3f}"
+                  f" ms/step")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,95 @@
+"""Train step builder: per-node gradients, then the decentralized update.
+
+The port of the JAX package's ``launch/steps.py`` (``train_loss_fn`` and
+``make_train_step``; the dry-run's shape helpers are ROADMAP slice G).
+Parameters, momentum and gradients are ``dict[str, Tensor]`` trees named
+as :class:`repro_torch.models.model.Model`'s parameters, with a leading
+node axis of size ``n``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..core import optim as optim_mod
+from ..models import model as M
+
+Tree = Any
+
+__all__ = ["train_loss_fn", "make_train_step"]
+
+AUX_WEIGHT = 0.01     # the MoE aux loss's weight (zero aux for dense)
+
+
+def train_loss_fn(params, cfg: M.ModelConfig, tokens):
+    """Next-token CE in f32 against ``roll(tokens, -1)`` -- the last
+    position's label wraps to the first token, as in the reference -- plus
+    the (dense: zero) aux loss.  ``params`` is a ``Model`` or a
+    :func:`~repro_torch.models.model.params_view`."""
+    logits, aux = M.forward(params, cfg, tokens)
+    labels = torch.roll(tokens, -1, 1).long()
+    lo = logits.float()
+    mx = lo.amax(-1, keepdim=True).detach()
+    lse = mx.squeeze(-1) + torch.log(torch.exp(lo - mx).sum(-1))
+    label_logit = lo.gather(-1, labels[..., None]).squeeze(-1)
+    ce = (lse - label_logit).mean()
+    return ce + AUX_WEIGHT * aux
+
+
+def make_train_step(cfg: M.ModelConfig,
+                    opt: optim_mod.DecentralizedOptimizer,
+                    *, micro_batch: int | None = None):
+    """Returns ``train_step(mix, params, opt_state, batch, lr)``.
+
+    ``mix`` is the realization-bound gossip executor that
+    :class:`repro_torch.core.plan.GossipPlan` binds per realization.
+    Gradients are computed per node in a loop over the node axis -- one
+    node's activations alive at a time, where the reference vmaps -- each
+    node's slice of the stacked parameters bound by name with
+    :func:`~repro_torch.models.model.params_view`, with optional
+    micro-batch accumulation in f32; then ``opt.update_with_mix`` partially
+    averages.  ``batch["tokens"]`` (n, B, S) may lie on the CPU; it is
+    moved to the parameters' device.  Returns the new params, the new
+    state, and the node-mean loss (a device scalar).
+    """
+
+    def loss_and_grads(p: dict, tokens):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        loss = train_loss_fn(M.params_view(leaves), cfg, tokens)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def per_node_grads(p: dict, tokens):
+        if micro_batch is None or micro_batch >= tokens.shape[0]:
+            return loss_and_grads(p, tokens)
+        nm = tokens.shape[0] // micro_batch
+        toks = tokens.reshape((nm, micro_batch) + tokens.shape[1:])
+        acc_loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        acc_g = {k: torch.zeros(v.shape, dtype=torch.float32,
+                                device=v.device) for k, v in p.items()}
+        for tok in toks:
+            loss, g = loss_and_grads(p, tok)
+            acc_g = {k: acc_g[k] + g[k].float() / nm for k in acc_g}
+            acc_loss = acc_loss + loss / nm
+        return acc_loss, acc_g
+
+    def train_step(mix, params: Tree, opt_state, batch: dict, lr):
+        first = next(iter(params.values()))
+        tokens = batch["tokens"].to(first.device)
+        n = first.shape[0]
+        losses, grads = [], None
+        for i in range(n):
+            loss, g = per_node_grads({k: v[i] for k, v in params.items()},
+                                     tokens[i])
+            if grads is None:        # written node by node, never stacked
+                grads = {k: v.new_empty((n,) + tuple(v.shape))
+                         for k, v in g.items()}
+            for k, v in g.items():
+                grads[k][i].copy_(v)
+            losses.append(loss)
+        new_params, new_state = opt.update_with_mix(
+            params, opt_state, grads, lr, mix)
+        return new_params, new_state, torch.stack(losses).mean()
+
+    return train_step

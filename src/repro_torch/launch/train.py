@@ -1,0 +1,209 @@
+"""End-to-end decentralized training driver.
+
+The port of the JAX package's ``launch/train.py``: DmSGD (or a variant)
+over any static-schedule topology, with the n nodes stacked on the
+leading axis of every tensor on one device.  Runs on the card by default
+(``--device cuda`` raises without one); ``--device cpu`` runs the plain
+PyTorch path.  As in the reference, the CLI trains the REDUCED config
+unless ``--full``; ``--layers N`` cuts the depth (full width, N layers).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --nodes 8 --steps 12
+  PYTHONPATH=src python -m repro_torch.launch.train --full --layers 8 \\
+      --nodes 4 --batch 2 --seq 128 --steps 6 --hetero 0.5
+
+Every step's batch is sampled before the loop (``SyntheticLM.sample`` is
+host work that grows with the vocabulary), and each step is timed on the
+host clock up to a device synchronisation.  Overlap, loss-aware and
+deadline gossip and checkpoints are ROADMAP slice C and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from .. import configs
+from ..core import flatbuf
+from ..core import optim as optim_mod
+from ..core import schedule
+from ..core import topology as topo_mod
+from ..core.plan import GossipPlan
+from ..data import SyntheticLM
+from ..device import resolve_device
+from ..models import model as M
+from . import steps as steps_mod
+
+__all__ = ["build_trainer", "consensus_distance", "stack_nodes", "run",
+           "parse_args", "main"]
+
+def build_trainer(cfg, topology, optimizer_name: str, beta: float,
+                  micro_batch=None, momentum_dtype=None, overlap=False,
+                  loss_aware=False, deadline=False):
+    """Returns (opt, step_for) where ``step_for(step)`` is the train-step
+    executable for that step's gossip realization (the plan rides along as
+    ``step_for.plan``).  All schedule handling lives in
+    :class:`repro_torch.core.plan.GossipPlan`; this is optimizer + step
+    function + plan wiring.  ``overlap``, ``loss_aware`` and ``deadline``
+    are ROADMAP slice C: ``make_optimizer`` refuses them."""
+    opt = optim_mod.make_optimizer(optimizer_name, topology, beta=beta,
+                                   momentum_dtype=momentum_dtype,
+                                   overlap=overlap, loss_aware=loss_aware,
+                                   deadline=deadline)
+    step_fn = steps_mod.make_train_step(cfg, opt, micro_batch=micro_batch)
+    plan = GossipPlan.for_optimizer(opt, fn=step_fn)
+
+    def step_for(step):
+        return plan.step_fn(step)
+
+    step_for.plan = plan
+    return opt, step_for
+
+
+def consensus_distance(params) -> float:
+    """||x_i - x_bar|| aggregated over the tree (the paper's consensus
+    metric): one reduction over the packed flat buffers and a single host
+    sync (padding columns are zeros on every node, so they add 0)."""
+    _, bufs = flatbuf.pack(params)
+    total = torch.zeros((), dtype=torch.float32, device=bufs[0].device)
+    for buf in bufs:
+        b32 = buf.float()
+        total += torch.sum(torch.square(b32 - b32.mean(0, keepdim=True)))
+    return float(torch.sqrt(total))
+
+
+def stack_nodes(params: M.Model, n: int) -> dict:
+    """The node-stacked params tree: every parameter broadcast to a leading
+    node axis of size ``n``, as views (no copy; the optimizer never writes
+    in place, and its first step allocates the nodes' own tensors)."""
+    return {k: p.detach().expand((n,) + tuple(p.shape))
+            for k, p in params.named_parameters()}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(args) -> dict:
+    """Train per ``args`` (the CLI's namespace).  Returns the history (one
+    entry per logged step: step, loss, consensus, lr, step_s), every
+    step's seconds, the final params and state, the config and the plan."""
+    device = resolve_device(args.device)
+    if args.ckpt_dir:
+        raise NotImplementedError(
+            "checkpointing (--ckpt-dir) waits for ROADMAP slice C of the "
+            "PyTorch port")
+    cfg = configs.get_config(args.arch)
+    if args.reduced:
+        cfg = configs.reduced_config(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    n = args.nodes
+    top = topo_mod.get_topology(args.topology, n)
+    # momentum dtype comes from the arch's layout config (an explicit
+    # argument, not a process-global knob)
+    layout = configs.get_layout(args.arch)
+    mom_dtype = {"bfloat16": torch.bfloat16,
+                 "float32": torch.float32}.get(layout.get("momentum_dtype"))
+    opt, step_for = build_trainer(cfg, top, args.optimizer, args.beta,
+                                  args.micro_batch, momentum_dtype=mom_dtype,
+                                  overlap=args.overlap,
+                                  loss_aware=args.loss_aware,
+                                  deadline=args.deadline_skip)
+    plan = step_for.plan
+
+    params = M.init(cfg, args.seed, device=device)
+    stacked = stack_nodes(params, n)
+    if args.optimizer != "parallel_msgd" and args.desync:
+        # start nodes desynchronized to exercise consensus (a torch
+        # Generator: not the reference's jax.random noise)
+        gen = torch.Generator(device=device).manual_seed(1)
+        stacked = {k: p + (0.01 * torch.randn(p.shape, generator=gen,
+                                              device=device)).to(p.dtype)
+                   for k, p in stacked.items()}
+    state = opt.init(stacked)
+
+    data = SyntheticLM(cfg.vocab_size, n, hetero=args.hetero, seed=args.seed)
+    lr_fn = schedule.warmup_step_decay(
+        args.lr, args.warmup, [int(args.steps * 0.6), int(args.steps * 0.85)])
+    batches = [torch.from_numpy(data.sample(step, args.batch, args.seq))
+               for step in range(args.steps)]
+
+    history, step_s = [], []
+    t0 = time.perf_counter()
+    for step in range(args.steps):
+        lr = lr_fn(step)
+        t = time.perf_counter()
+        stacked, state, loss = step_for(step)(
+            stacked, state, {"tokens": batches[step]}, lr)
+        _sync(device)
+        step_s.append(time.perf_counter() - t)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            ev_params, _ = plan.flush_step_fn(step + 1)(stacked, state)
+            cd = consensus_distance(ev_params)
+            history.append(dict(step=step, loss=float(loss), consensus=cd,
+                                lr=lr, step_s=step_s[-1]))
+            print(f"step {step:5d}  loss {float(loss):.4f}  "
+                  f"consensus {cd:.3e}  lr {lr:.2e}  "
+                  f"step {1e3 * step_s[-1]:.1f} ms  "
+                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    return {"history": history, "step_s": step_s, "params": stacked,
+            "state": state, "config": cfg, "plan": plan}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's flags (the JAX driver's, plus ``--layers`` and
+    ``--device``) parsed into the namespace :func:`run` takes."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (widths unchanged)")
+    ap.add_argument("--nodes", type=int, default=8)
+    ap.add_argument("--topology", default="one_peer_exp",
+                    choices=sorted(topo_mod.TOPOLOGIES),
+                    help="gossip graph; base_k/ceca are the finite-time "
+                         "families (Takezawa 23 / cf. Ding 23)")
+    ap.add_argument("--optimizer", default="dmsgd")
+    ap.add_argument("--overlap", action="store_true",
+                    help="one-step-delayed gossip (ROADMAP slice C)")
+    ap.add_argument("--loss-aware", action="store_true",
+                    help="AL-DSGD adjacent-leader weights (ROADMAP slice C)")
+    ap.add_argument("--deadline-skip", action="store_true",
+                    help="per-node straggler tolerance (ROADMAP slice C)")
+    ap.add_argument("--beta", type=float, default=0.9)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=4, help="per-node batch")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--warmup", type=int, default=10)
+    ap.add_argument("--hetero", type=float, default=0.0)
+    ap.add_argument("--micro-batch", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--desync", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (ROADMAP slice C)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    out = run(args)
+    where = (torch.cuda.get_device_name(0) if torch.device(args.device).type
+             == "cuda" else "cpu")
+    print(f"arch={out['config'].name} ({out['config'].n_layers} layers) on "
+          f"{where}: {args.nodes} nodes, {args.topology}, {args.optimizer}; "
+          f"{out['plan'].num_compiled} executables for "
+          f"{out['plan'].topology.period} gossip realizations")
+
+
+if __name__ == "__main__":
+    main()

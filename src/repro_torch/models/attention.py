@@ -2,11 +2,15 @@
 one-token decode over a paged KV pool.
 
 Mirrors the JAX package's ``models/attention.py``.  The full-sequence path
-(:func:`attn_apply`) runs the flash-attention kernel and the decode path
-(:func:`attn_decode_paged`) the paged-attention kernel; each kernel's
-``ops`` wrapper dispatches on the tensors' device, so a CPU run takes the
-plain versions with no switch here.  Weights are cast to the activation
-dtype on use, as in the reference.
+(:func:`attn_apply`) runs the flash-attention kernel in serving prefill
+and the positions-masked plain attention (:func:`_sdpa`) in the train
+forward, which needs gradients the forward-only kernel does not have --
+the JAX train path takes the same plain attention (its default
+``attention_impl="jnp"``).  The decode path (:func:`attn_decode_paged`)
+runs the paged-attention kernel.  Each kernel's ``ops`` wrapper dispatches
+on the tensors' device, so a CPU run takes the plain versions with no
+switch here.  Weights are cast to the activation dtype on use, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -61,8 +65,8 @@ def _project_qkv(p: Attention, x, n_heads, n_kv, head_dim, qk_norm,
 
 
 def _sdpa(q, k, v, mask, attn_cap=None):
-    """Grouped-layout masked attention, the positions-masked oracle the
-    kernel path is held to.  q: (B,S,H,hd); k,v: (B,T,Kv,hd); mask:
+    """Grouped-layout masked attention: the train forward's attention, and
+    the positions-masked oracle the kernel path is held to.  q: (B,S,H,hd); k,v: (B,T,Kv,hd); mask:
     (B,1,S,T) or (1,1,S,T) bool."""
     B, S, H, hd = q.shape
     Kv = k.shape[2]
@@ -80,11 +84,15 @@ def _sdpa(q, k, v, mask, attn_cap=None):
 
 def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
                rope_theta=10000.0, qk_norm=False, window=None,
-               attn_cap=None, return_kv=False):
-    """Causal self-attention on a full sequence (prefill), through the
-    flash-attention kernel.  The kernel's causal mask assumes positions =
-    arange(S) per row, as the reference's kernel path does.
+               attn_cap=None, return_kv=False, kernel=True):
+    """Causal self-attention on a full sequence.
 
+    kernel: True (serving prefill) runs the flash-attention kernel, whose
+      causal mask assumes positions = arange(S) per row, as the
+      reference's kernel path does; False (the train forward) runs
+      :func:`_sdpa` under the mask ``positions_j <= positions_i`` (and
+      ``> positions_i - window``), as the JAX train path does -- the CUDA
+      kernel is forward-only and refuses to run under autograd.
     window: if set, token i attends to (i-window, i] (sliding window).
     return_kv: also return the (rotated, normed) k, v as (B, S, Kv, hd) --
       exactly what a decode cache stores.
@@ -92,8 +100,16 @@ def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm,
                            positions, rope_theta)
-    out = flash_ops.flash_attention(q, k, v, causal=True, window=window,
-                                    attn_cap=attn_cap)
+    if kernel:
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=window,
+                                        attn_cap=attn_cap)
+    else:
+        i = positions[:, :, None]   # (B,S,1)
+        j = positions[:, None, :]   # (B,1,T)
+        mask = j <= i
+        if window is not None:
+            mask &= j > i - window
+        out = _sdpa(q, k, v, mask[:, None], attn_cap)
     y = out.reshape(B, S, n_heads * head_dim) @ p.wo.to(x.dtype)
     if return_kv:
         return y, k, v

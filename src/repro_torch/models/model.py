@@ -17,21 +17,32 @@ params pytree):
   forward(params, cfg, tokens)                        -> logits, aux
   forward_prefill(params, cfg, tokens)                -> logits, (k, v)
   decode_step_paged(params, cfg, token, pool, ...)    -> logits, pool
+
+``params`` may also be :func:`params_view` of a flat ``{name: tensor}``
+dict -- how the train step runs one node's slice of the node-stacked
+parameters.  ``forward`` (train and eval) takes the plain attention with a
+gradient and, when ``cfg.remat``, recomputes each layer in backward
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``);
+``forward_prefill`` (serving) takes the forward-only flash-attention
+kernel.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as attn
 from .layers import MLP, RMSNorm, dense_init, mlp_apply, rms_norm, softcap
 
 __all__ = ["ModelConfig", "Model", "init", "forward", "forward_prefill",
-           "decode_step_paged", "param_count", "SUPPORTED_FAMILIES"]
+           "decode_step_paged", "param_count", "params_view",
+           "SUPPORTED_FAMILIES"]
 
 # families this package runs so far; moe, audio, ssm, hybrid and vlm are
 # later slices of the port
@@ -80,8 +91,10 @@ class ModelConfig:
     param_dtype: Any = torch.float32
     activation_dtype: Any = torch.bfloat16
     ssd_chunk: int = 128
-    # kept so configs copy across; nothing in this package reads it (each
-    # kernel wrapper dispatches on the tensors' device instead)
+    # kept so configs copy across; nothing in this package reads it: the
+    # train forward always takes the plain attention (the reference's
+    # default "jnp"), serving prefill the kernel, and each kernel wrapper
+    # dispatches on the tensors' device
     attention_impl: str = "jnp"
     remat: bool = True
     attention_override_window: int | None = None
@@ -161,8 +174,32 @@ def param_count(params: Model) -> int:
     return sum(p.numel() for p in params.parameters())
 
 
+def params_view(flat: dict[str, torch.Tensor]):
+    """An attribute tree over a flat ``{name: tensor}`` dict named as
+    :class:`Model`'s parameters (``layers.3.attn.wq`` -> ``.layers[3].attn
+    .wq``): what the model functions read, holding the given tensors
+    themselves.  The train step binds one node's leaves this way, so
+    remat's recomputation in backward reads the same tensors
+    (``torch.func.functional_call`` would have undone its swap by then)."""
+    root: dict = {}
+    for name, t in flat.items():
+        node = root
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+
+    def build(d):
+        if all(k.isdigit() for k in d):
+            return [build(d[str(i)]) for i in range(len(d))]
+        return types.SimpleNamespace(**{
+            k: build(v) if isinstance(v, dict) else v for k, v in d.items()})
+
+    return build(root)
+
+
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / eval, and serving prefill)
 # ---------------------------------------------------------------------------
 
 def _effective_window(cfg: ModelConfig, layer: int) -> int | None:
@@ -171,19 +208,22 @@ def _effective_window(cfg: ModelConfig, layer: int) -> int | None:
 
 
 def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
-                 collect_kv=False):
+                 prefill=False):
+    """One [attn + mlp] layer.  ``prefill`` (serving) runs the attention
+    kernel and also returns the layer's (k, v); otherwise (train/eval) the
+    plain attention, which autograd differentiates."""
     h = rms_norm(p.ln1.scale, x, cfg.norm_eps)
     out = attn.attn_apply(
         p.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, positions=positions,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
         window=_effective_window(cfg, layer), attn_cap=cfg.attn_softcap,
-        return_kv=collect_kv)
-    h, kv = (out[0], out[1:]) if collect_kv else (out, None)
+        return_kv=prefill, kernel=prefill)
+    h, kv = (out[0], out[1:]) if prefill else (out, None)
     x = x + h
     h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
     x = x + mlp_apply(p.mlp, h, cfg.mlp_kind)
-    return (x, kv) if collect_kv else x
+    return (x, kv) if prefill else x
 
 
 def _embed_tokens(params: Model, cfg: ModelConfig, tokens):
@@ -203,9 +243,9 @@ def _default_positions(tokens):
 
 
 def forward(params: Model, cfg: ModelConfig, tokens, *, positions=None):
-    """tokens: (B, S) int.  Returns logits (B, S, V) and a scalar aux loss
-    (zero for the dense family)."""
-    logits, _ = _forward(params, cfg, tokens, positions, collect_kv=False)
+    """Train / eval forward.  tokens: (B, S) int.  Returns logits (B, S, V)
+    and a scalar aux loss (zero for the dense family)."""
+    logits, _ = _forward(params, cfg, tokens, positions, prefill=False)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -214,26 +254,30 @@ def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
     """Full-sequence serving prefill: one forward pass that ALSO returns
     the per-layer decode KV.  Returns ``(logits, (k, v))`` with k, v shaped
     (L, B, S, Kv, hd) -- the rotated/normed tensors the page pool stores."""
-    return _forward(params, cfg, tokens, positions, collect_kv=True)
+    return _forward(params, cfg, tokens, positions, prefill=True)
 
 
-def _forward(params, cfg, tokens, positions, collect_kv):
+def _forward(params, cfg, tokens, positions, prefill):
     _check_family(cfg)
     x = _embed_tokens(params, cfg, tokens)
     if positions is None:
         positions = _default_positions(tokens)
+    remat = cfg.remat and not prefill and torch.is_grad_enabled()
     ks, vs = [], []
     for i, layer in enumerate(params.layers):
-        if collect_kv:
+        if prefill:
             x, (k, v) = _dense_block(cfg, layer, x, positions, i,
-                                     collect_kv=True)
+                                     prefill=True)
             ks.append(k)
             vs.append(v)
+        elif remat:
+            x = checkpoint(_dense_block, cfg, layer, x, positions, i,
+                           use_reentrant=False)
         else:
             x = _dense_block(cfg, layer, x, positions, i)
     x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
     logits = _lm_head(params, cfg, x)
-    if collect_kv:
+    if prefill:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits, None
 

@@ -9,12 +9,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+from repro_torch.kernels.gossip_mix import ops as gm_ops, ref as gm_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models import model as M
 
 TOL = dict(rtol=2e-2, atol=2e-2)
 TOL32 = dict(rtol=2e-4, atol=2e-4)
 TOLS = {torch.float32: TOL32, torch.bfloat16: TOL}
+# gossip_mix: tests/test_kernels.py:189 (f32), :15 (bf16)
+GM_TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: TOL}
 
 pytestmark = pytest.mark.gpu
 
@@ -103,3 +109,87 @@ def test_paged_attention_kernel(cuda, B, H, Kv, D, page_size, lengths,
     _close(got, pa_ref.paged_attention_ref(q, kp, vp, table, lens,
                                            window=window, attn_cap=cap),
            dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,degree", [
+    ((8, 1024), 1), ((3, 5, 7), 3), ((17,), 2), ((1,), 1),
+    ((4, 1 << 20), 1), ((3, 1_000_003), 3),    # odd tail past the vectors
+    ((4096,), 1020),                           # ceca over a prime n = 1021
+])
+def test_gossip_mix_kernel(cuda, shape, degree, dtype):
+    g = torch.Generator(device=cuda).manual_seed(degree + len(shape))
+    x, *recvs = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                 for _ in range(degree + 1))
+    ws = tuple(float(w) for w in np.random.default_rng(degree).dirichlet(
+        np.ones(degree + 1))[1:])
+    w_self = 1.0 - sum(ws)
+    n0 = gm_ops.gossip_mix.launches
+    got = gm_ops.gossip_mix(x, recvs, w_self=w_self, ws=ws)
+    torch.cuda.synchronize()
+    assert gm_ops.gossip_mix.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        gm_ref.gossip_mix_ref(x, recvs, w_self, ws).float().cpu().numpy(),
+        **GM_TOLS[dtype])
+
+
+def test_gossip_mix_kernel_unaligned_input(cuda):
+    base = torch.randn(4 * 1000 + 1, device=cuda)
+    x, r = base[1:], base[:-1]                  # 4-byte offset views
+    got = gm_ops.gossip_mix(x, [r], w_self=0.25, ws=(0.75,))
+    np.testing.assert_allclose(
+        got.cpu().numpy(), (0.25 * x + 0.75 * r).cpu().numpy(),
+        **GM_TOLS[torch.float32])
+
+
+def test_gossip_mix_kernel_past_2_31_elements(cuda):
+    """The training payload exceeds 2^31 elements: the kernel's counts and
+    indices are 64-bit.  Checked where the card has room for x, one
+    receive and the output (3 x 8.6 GB)."""
+    n = (1 << 31) + 4099                    # past 2^31, with an odd tail
+    if torch.cuda.mem_get_info(cuda)[0] < 3 * 4 * n + (4 << 30):
+        pytest.skip("needs ~30 GB of free device memory")
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn(n, generator=g, device=cuda)
+    r = torch.randn(n, generator=g, device=cuda)
+    got = gm_ops.gossip_mix(x, [r], w_self=0.5, ws=(0.5,))
+    torch.cuda.synchronize()
+    tail = slice((1 << 31) - 4096, n)        # the region past 2^31 and before
+    np.testing.assert_allclose(
+        got[tail].cpu().numpy(), (0.5 * x[tail] + 0.5 * r[tail]).cpu().numpy(),
+        **GM_TOLS[torch.float32])
+    idx = torch.randint(0, n, (1 << 20,), generator=g, device=cuda)
+    np.testing.assert_allclose(
+        got[idx].cpu().numpy(), (0.5 * x[idx] + 0.5 * r[idx]).cpu().numpy(),
+        **GM_TOLS[torch.float32])
+
+
+def test_flash_attention_kernel_refuses_autograd(cuda):
+    q = torch.randn(1, 64, 2, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fa_ops.flash_attention(q, k, k)
+    with torch.no_grad():                     # serving: no gradient needed
+        assert fa_ops.flash_attention(q, k, k).shape == q.shape
+
+
+def test_train_forward_backward_reaches_every_attention_weight(cuda):
+    """The train forward takes the plain attention on the card, so the
+    backward gives wq, wk, wv and the qk-norm scales a gradient (the
+    forward-only kernel would have cut them off)."""
+    cfg = configs.reduced_config(configs.get_config("qwen3-0.6b"))
+    model = M.init(cfg, 0, device=cuda)
+    leaves = {k: p.detach().clone().requires_grad_(True)
+              for k, p in model.named_parameters()}
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda)
+    n0 = fa_ops.flash_attention.launches
+    loss = steps_mod.train_loss_fn(M.params_view(leaves), cfg, tokens)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    assert fa_ops.flash_attention.launches == n0
+    for i in range(cfg.n_layers):
+        for w in ("wq", "wk", "wv", "wo"):
+            g = grads[f"layers.{i}.attn.{w}"]
+            assert torch.isfinite(g).all() and float(g.abs().max()) > 0, w
+    assert float(grads["layers.0.attn.q_norm.scale"].abs().max()) > 0

@@ -1,0 +1,157 @@
+"""PyTorch port parity: the single-process gossip engine.  Every static
+family at n = 8 mixes like the JAX package (its Pallas combine in
+interpret mode) over one period; every mix preserves the global mean;
+Lemma 1 holds at n in {8, 16}.  Tolerances: f32 leaves 1e-5 (the
+reference's own, tests/test_gossip.py); bf16 leaves 2e-2 (one bf16
+rounding of the f32 combine, tests/test_kernels.py:15)."""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import flatbuf as JF, gossip as JG, topology as JT
+from repro_torch.core import flatbuf as TF, gossip as TG, topology as TT
+
+TOL32 = dict(rtol=1e-5, atol=1e-5)
+TOLBF = dict(rtol=2e-2, atol=2e-2)
+STATIC = sorted(set(TT.TOPOLOGIES) - {"random_match"})
+
+
+@pytest.fixture
+def jax_interpret():
+    """Drive the JAX combine through its Pallas kernel (interpret mode);
+    restore "auto" afterwards."""
+    JG.set_pallas_mode("interpret")
+    yield
+    JG.set_pallas_mode("auto")
+
+
+def _np_tree(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"w": rng.standard_normal((n, 8, 16)).astype(np.float32),
+            "b": rng.standard_normal((n, 4)).astype(np.float32),
+            "h": rng.standard_normal((n, 3, 5)).astype(np.float32)}
+
+
+def _pair(n, seed=0, bf16=("h",)):
+    t = _np_tree(n, seed)
+    jt = {k: jnp.asarray(v).astype(jnp.bfloat16 if k in bf16 else jnp.float32)
+          for k, v in t.items()}
+    tt = {k: torch.from_numpy(v).to(torch.bfloat16 if k in bf16
+                                    else torch.float32)
+          for k, v in t.items()}
+    return jt, tt
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _close(tgot, jgot, bf16=("h",)):
+    for k in tgot:
+        np.testing.assert_allclose(_f32(tgot[k]), _f32(jgot[k]),
+                                   **(TOLBF if k in bf16 else TOL32))
+
+
+@pytest.mark.parametrize("name", STATIC)
+def test_static_family_mixes_like_jax(name, jax_interpret):
+    n = 8
+    jtop, ttop = JT.get_topology(name, n), TT.get_topology(name, n)
+    jt, tt = _pair(n, seed=len(name))
+    for k in range(jtop.period):
+        jt = JG.mix(jt, jtop, k)
+        tt = TG.mix(tt, ttop, k)
+        _close(tt, jt)
+
+
+@pytest.mark.parametrize("name", STATIC)
+def test_global_mean_is_preserved(name):
+    n = 8
+    top = TT.get_topology(name, n)
+    _, tree = _pair(n, seed=2, bf16=())
+    for step in range(2 * top.period):
+        out = TG.mix(tree, top, step)
+        for k in tree:
+            np.testing.assert_allclose(out[k].mean(0).numpy(),
+                                       tree[k].mean(0).numpy(), **TOL32)
+        tree = out
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_one_peer_period_reaches_consensus(n):
+    """Lemma 1 at the tree level: after tau mixes all nodes are equal (the
+    check of tests/test_gossip.py:67-76)."""
+    top = TT.one_peer_exponential(n)
+    _, tree = _pair(n, seed=3, bf16=())
+    for step in range(int(math.log2(n))):
+        tree = TG.mix(tree, top, step)
+    for leaf in tree.values():
+        avg = leaf.mean(0, keepdim=True).expand(leaf.shape)
+        np.testing.assert_allclose(leaf.numpy(), avg.numpy(), **TOL32)
+
+
+def test_matching_fixed_points_are_bit_exact():
+    partner = (1, 0, 2, 4, 3, 5)                   # nodes 2 and 5 stay put
+    _, tree = _pair(6, seed=4)
+    out = TG.mix_matching(tree, partner, 0.3)
+    for k in tree:
+        for i in (2, 5):
+            assert torch.equal(out[k][i], tree[k][i])
+    W = TT.Matching(partner, 0.3).dense(6)
+    dense = TG.mix_dense(tree, W)
+    for k in ("w", "b"):
+        np.testing.assert_allclose(out[k].numpy(), dense[k].numpy(), **TOL32)
+
+
+def test_kernel_mode_off_matches_auto_and_validates():
+    top = TT.static_exponential(8)
+    _, tree = _pair(8, seed=5)
+    auto = TG.mix(tree, top, 0)
+    TG.set_kernel_mode("off")
+    try:
+        off = TG.mix(tree, top, 0)
+    finally:
+        TG.set_kernel_mode("auto")
+    for k in tree:
+        assert torch.equal(auto[k], off[k])
+    with pytest.raises(ValueError):
+        TG.set_kernel_mode("interpret")
+
+
+@pytest.mark.parametrize("name", ["one_peer_exp", "static_exp", "base_k",
+                                  "full", "one_peer_hypercube"])
+def test_gossip_spec_matches_jax(name):
+    n = 8
+    jtop, ttop = JT.get_topology(name, n), TT.get_topology(name, n)
+    jt, tt = _pair(n)
+    for k in range(jtop.period):
+        js = JG.gossip_spec(jtop, k, JF.layout_of(jt))
+        ts = TG.gossip_spec(ttop, k, TF.layout_of(tt))
+        for key in ("kind", "rounds", "wire_multiplier", "dtype_groups",
+                    "collectives_per_step", "shifts", "paired_nodes",
+                    "fanin"):
+            assert ts.get(key) == js.get(key), key
+
+
+def test_later_slices_raise():
+    _, tree = _pair(4)
+    with pytest.raises(NotImplementedError, match="slice C"):
+        TG.mix_shifts(tree, 0.5, [(1, 0.5)], compression="int8")
+    with pytest.raises(NotImplementedError, match="slice F"):
+        TG.mix_matching(tree, (1, 0, 3, 2), mesh=object())
+
+
+def test_bf16_tree_mixes_in_f32():
+    """A bf16 group is combined in f32 and cast once, like the reference
+    (checked against jax on a degree-3 static exponential round)."""
+    jt, tt = _pair(8, seed=6, bf16=("w", "b", "h"))
+    jtop, ttop = JT.static_exponential(8), TT.static_exponential(8)
+    got = TG.mix(tt, ttop, 0)
+    want = jax.tree.map(np.asarray, JG.mix(jt, jtop, 0))
+    assert all(v.dtype == torch.bfloat16 for v in got.values())
+    _close(got, want, bf16=("w", "b", "h"))

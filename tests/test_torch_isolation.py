@@ -22,8 +22,13 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.serve.engine" in mods
-    assert "repro_torch.kernels.flash_attention.kernel" in mods
+    for m in ("serve.engine", "kernels.flash_attention.kernel",
+              "kernels.gossip_mix.kernel", "kernels.gossip_mix.ops",
+              "core.topology", "core.spectral", "core.schedule",
+              "core.flatbuf", "core.gossip", "core.transforms", "core.optim",
+              "core.plan", "data.pipeline", "launch.steps", "launch.train",
+              "launch.quickstart", "convert"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -55,3 +60,15 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked():
         init_page_pool(cfg, n_pages=4, page_size=4)
     assert ServeEngine(cfg, params, n_pages=8, device="cpu").device.type \
         == "cpu"
+
+
+def test_train_entry_points_raise_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.launch import quickstart, train
+    argv = ["--nodes", "2", "--steps", "1", "--batch", "1", "--seq", "8"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quickstart.main(steps=1)
+    train.main(argv + ["--device", "cpu"])

@@ -106,7 +106,12 @@ def test_prefill_and_paged_decode_match_jax(jax_setup, act):
         assert got.shape == want.shape
         assert got.dtype == tcfg.activation_dtype
         np.testing.assert_allclose(_f32(got), _f32(want), **tol)
-    np.testing.assert_array_equal(_f32(tl_fwd), _f32(tl))
+    # the train/eval forward takes the plain positions-masked attention, as
+    # the JAX forward does with its default attention_impl="jnp"
+    jl_fwd, _ = JM.forward(jparams, dataclasses.replace(
+        jcfg, attention_impl="jnp"), jnp.asarray(tokens))
+    np.testing.assert_allclose(_f32(tl_fwd), _f32(jl_fwd), **tol)
+    np.testing.assert_allclose(_f32(tl_fwd), _f32(tl), **tol)
 
     # paged decode: 2 live rows at ragged positions + 2 trash-padded rows
     pages = 1 + rng.permutation(2 * 6).reshape(2, 6).astype(np.int32)

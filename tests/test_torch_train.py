@@ -1,0 +1,142 @@
+"""PyTorch port parity: the DmSGD training path end to end on reduced
+qwen3 (2 layers, d_model 256), with the JAX weights carried across by
+``stacked_from_jax`` and the same ``SyntheticLM`` batches (bit-identical:
+the pipeline is a numpy copy).  Both sides start from the same
+desynchronized node params (numpy noise), train 3 steps over the one-peer
+exponential graph, and must agree on the per-step losses, the params and
+momentum, the consensus distance and the number of executables.
+Tolerances: 2e-4 with activation_dtype=float32 on both sides (the
+reference's f32 tolerance, tests/test_kernels.py:16; sums run in another
+order), 2e-2 with bf16 activations (tests/test_kernels.py:15; bf16 rounds
+at other places in the two frameworks)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.core import schedule as JSch, topology as JT
+from repro.data import SyntheticLM as JSyntheticLM
+from repro.launch import train as JTrain
+from repro.models import model as JM
+from repro_torch import configs as tconfigs
+from repro_torch.convert import stacked_from_jax, stacked_to_jax
+from repro_torch.core import schedule as TSch, topology as TT
+from repro_torch.data import SyntheticLM as TSyntheticLM
+from repro_torch.launch import quickstart, train as TTrain
+
+ACT = {"f32": (jnp.float32, torch.float32, dict(rtol=2e-4, atol=2e-4)),
+       "bf16": (jnp.bfloat16, torch.bfloat16, dict(rtol=2e-2, atol=2e-2))}
+B, S, STEPS = 2, 16, 3
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    """Random weights in the JAX param tree (shapes from ``eval_shape``,
+    values from numpy: no init executable to compile)."""
+    cfg = jconfigs.reduced_config(jconfigs.get_config("qwen3-0.6b"))
+    shapes = jax.eval_shape(lambda: JM.init(cfg, jax.random.key(0)))
+    rng = np.random.default_rng(0)
+
+    def draw(s):
+        scale = s.shape[-2] ** -0.5 if len(s.shape) >= 2 else 0.1
+        return (scale * rng.standard_normal(s.shape)).astype(np.float32)
+
+    return jax.tree.map(draw, shapes)
+
+
+def _cfgs(act):
+    jdt, tdt, tol = ACT[act]
+    jcfg = dataclasses.replace(
+        jconfigs.reduced_config(jconfigs.get_config("qwen3-0.6b")),
+        activation_dtype=jdt)
+    tcfg = dataclasses.replace(
+        tconfigs.reduced_config(tconfigs.get_config("qwen3-0.6b")),
+        activation_dtype=tdt)
+    return jcfg, tcfg, tol
+
+
+def _stacked_np(np_params, n, seed=1):
+    """Node-stacked params, each node nudged by its own numpy noise."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda p: (np.broadcast_to(p, (n,) + p.shape) + 0.01 *
+                   rng.standard_normal((n,) + p.shape)).astype(np.float32),
+        np_params)
+
+
+def _train_both(np_params, act, n, steps=STEPS, micro_batch=None):
+    jcfg, tcfg, tol = _cfgs(act)
+    stacked = _stacked_np(np_params, n)
+    jtop, ttop = JT.one_peer_exponential(n), TT.one_peer_exponential(n)
+    jopt, jstep_for = JTrain.build_trainer(jcfg, jtop, "dmsgd", 0.9,
+                                           micro_batch)
+    topt, tstep_for = TTrain.build_trainer(tcfg, ttop, "dmsgd", 0.9,
+                                           micro_batch)
+    jx = jax.tree.map(jnp.asarray, stacked)
+    tx = stacked_from_jax(stacked, tcfg)
+    js, ts = jopt.init(jx), topt.init(tx)
+    jdata = JSyntheticLM(jcfg.vocab_size, n, hetero=0.5, seed=0)
+    tdata = TSyntheticLM(tcfg.vocab_size, n, hetero=0.5, seed=0)
+    jlr = JSch.warmup_step_decay(0.05, 10, [100, 200])
+    tlr = TSch.warmup_step_decay(0.05, 10, [100, 200])
+    losses = []
+    for step in range(steps):
+        tokens = tdata.sample(step, B, S)
+        np.testing.assert_array_equal(tokens, jdata.sample(step, B, S))
+        assert tlr(step) == float(jlr(step))
+        jx, js, jl = jstep_for(step)(jx, js, {"tokens": jnp.asarray(tokens)},
+                                     jlr(step))
+        tx, ts, tl = tstep_for(step)(tx, ts,
+                                     {"tokens": torch.from_numpy(tokens)},
+                                     tlr(step))
+        losses.append((float(tl), float(jl)))
+    return (tcfg, tol, losses, (jx, js, jstep_for.plan),
+            (tx, ts, tstep_for.plan))
+
+
+@pytest.mark.parametrize("act,n", [("f32", 4), ("f32", 8), ("bf16", 4),
+                                   ("bf16", 8)])
+def test_train_steps_match_jax(jax_params, act, n):
+    tcfg, tol, losses, (jx, js, jplan), (tx, ts, tplan) = _train_both(
+        jax_params, act, n)
+    got, want = zip(*losses)
+    np.testing.assert_allclose(got, want, **tol)
+    assert len(set(got)) == STEPS                 # the loss moves
+    for mine, theirs in ((tx, jx), (ts.momentum, js.momentum)):
+        back = stacked_to_jax(mine, tcfg)
+        flat_t = jax.tree_util.tree_leaves_with_path(back)
+        flat_j = dict(jax.tree_util.tree_leaves_with_path(
+            jax.tree.map(lambda a: np.asarray(a, np.float32), theirs)))
+        assert len(flat_t) == len(flat_j)
+        for path, leaf in flat_t:
+            np.testing.assert_allclose(leaf, flat_j[path], **tol)
+    np.testing.assert_allclose(TTrain.consensus_distance(tx),
+                               JTrain.consensus_distance(jx), **tol)
+    assert tplan.num_compiled == jplan.num_compiled == min(
+        STEPS, int(np.log2(n)))
+
+
+def test_quickstart_runs_short():
+    out = quickstart.main(steps=3, device="cpu")
+    assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+    assert out["lemma1_err"] < 1e-5
+    assert out["num_compiled"] == 3
+
+
+def test_cli_on_cpu(capsys):
+    TTrain.main(["--device", "cpu", "--nodes", "4", "--steps", "3",
+                 "--batch", "1", "--seq", "16", "--log-every", "1",
+                 "--hetero", "0.5"])
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
+    assert len(lines) == 3
+    assert "on cpu: 4 nodes, one_peer_exp, dmsgd; 2 executables" in out
+    for flag in ("--overlap", "--loss-aware", "--deadline-skip"):
+        with pytest.raises(NotImplementedError, match="slice C"):
+            TTrain.main(["--device", "cpu", "--steps", "1", flag])
+    with pytest.raises(NotImplementedError, match="slice C"):
+        TTrain.main(["--device", "cpu", "--steps", "1", "--ckpt-dir", "x"])
