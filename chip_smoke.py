@@ -2,9 +2,10 @@
 """Bring-up check of the PyTorch port (``src/repro_torch``) on one NVIDIA
 H100: builds the CUDA kernels from the checkout, holds each against its
 plain PyTorch version, runs full-width qwen3-0.6b against the CPU, serves
-a Poisson trace through the continuous-batching engine, and trains
+a Poisson trace through the continuous-batching engine, trains
 full-width qwen3-0.6b (cut to 8 layers) with DmSGD on 4 nodes over the
-one-peer exponential graph.
+one-peer exponential graph, and runs full-width mamba2-1.3b (the ssm
+family): its forward through the SSD-scan kernel, and generate.
 
   python3 chip_smoke.py [--seed N]
 
@@ -15,7 +16,10 @@ Phases, in order; any failure exits non-zero before the result lines:
   3. kernels  -- each kernel vs its plain version at its path's shapes
                  (attention: bf16, tolerance 2e-2 as tests/test_kernels.py;
                  gossip_mix: f32 1e-5 and bf16 2e-2, degrees 1 and 3, on
-                 (4, 2^27) and an odd tail), timed with CUDA events beside
+                 (4, 2^27) and an odd tail; ssd_scan: f32, 1e-3 x max(1,
+                 max-abs), at mamba2-1.3b's (1, 2048, 64, 64, 1, 128) with
+                 the test draw of A and the model's A range, and a ragged
+                 s = 1000, g = 2), timed with CUDA events beside
                  its plain version, the one PyTorch call computing the same
                  function (where there is one), and its bound on the card
   4. model    -- full-width qwen3-0.6b (random weights from --seed):
@@ -31,6 +35,15 @@ Phases, in order; any failure exits non-zero before the result lines:
                  path, counters zeroed before and read after; then K1 at the
                  training payload, the Lemma-1 check, and the same 6 steps
                  with the plain combine, which must agree
+  7. ssm      -- full-width mamba2-1.3b (48 layers, random weights from
+                 --seed), counters zeroed before and read after: forward
+                 of 2 x 2048 tokens with attention_impl="pallas" (48 K4
+                 launches per call), timed in the config's bf16; the same
+                 forward in f32 activations against the plain chunked
+                 scan on the card; token-by-token decode against the K4
+                 forward on 2 x 64 tokens (f32); generate of 4 prompts x
+                 64 tokens, 32 new, greedy, bf16 (tokens/s, ms per decode
+                 step, peak memory)
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -50,6 +63,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # published peaks of one H100 SXM (dense, no sparsity) at its 700 W limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 2e-2            # tests/test_kernels.py:15, bf16
 GOSSIP_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:189
@@ -63,6 +77,20 @@ GOSSIP_TAIL = (3, 1_000_003)  # not a multiple of the 16-byte vector
 # bf16 through 28 layers on two devices (different sum orders and bf16
 # roundings in every matmul): start from 2e-2 of the logits' max-abs
 MODEL_TOL = 2e-2
+SSD_TOL = 1e-3               # tests/test_kernels.py:117-118, x max(1, max-abs)
+SSD_MAIN = (1, 2048, 64, 64, 1, 128)    # (b, s, h, p, g, n) of mamba2-1.3b
+SSD_RAGGED = (1, 1000, 64, 64, 2, 128)  # chunk 128 halves to 8
+# mamba2-1.3b at full width: the K4 forward against the plain chunked one,
+# and decode against forward, relative to the logits' max-abs.  Both are
+# held in f32 activations: with random weights the 48-layer bf16 forward
+# amplifies single bf16 rounding flips to O(1) logit changes (the JAX
+# reference's own "pallas" and "jnp" bf16 forwards part the same way
+# while its f32 ones agree), so a bf16 comparison says nothing about the
+# kernel
+SSM_TOL = 2e-2
+SSM_B, SSM_S = 2, 2048       # the forward
+SSM_DECODE = (2, 64)         # decode against forward
+SSM_GEN = (4, 64, 32)        # generate: prompts, prompt length, new tokens
 
 
 def log(msg: str) -> None:
@@ -259,6 +287,76 @@ def gossip_phase(torch, dev):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "shape": f"{big} f32 degree 1 (library: torch.lerp(x, r, 0.5))"}
+
+
+def _ssd_inputs(torch, dev, shape, seed, model_a):
+    """As tests/test_kernels.py:108-113 draws them (A = -exp(0.3 N)), or
+    with mamba2's own A = -exp(log(linspace(1, 16, h)))."""
+    b, s, h, p, g, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*sh):
+        return torch.randn(sh, generator=gen, device=dev)
+
+    x, dt = rn(b, s, h, p), torch.nn.functional.softplus(rn(b, s, h))
+    A = (-torch.exp(torch.log(torch.linspace(1.0, 16.0, h, device=dev)))
+         if model_a else -torch.exp(0.3 * rn(h)))
+    return x, dt, A, rn(b, s, g, n), rn(b, s, g, n)
+
+
+def ssd_phase(torch, dev):
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.models import mamba2 as m2
+    errs = []
+    for shape, model_a, seed in ((SSD_MAIN, False, 5), (SSD_MAIN, True, 6),
+                                 (SSD_RAGGED, False, 7)):
+        x, dt, A, B, C = _ssd_inputs(torch, dev, shape, seed, model_a)
+        ck = ops.chunk_len(shape[1], 128)
+        y, hT = ops.ssd_scan(x, dt, A, B, C, chunk=128)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ref.ssd_ref(x, dt, A, B, C)
+        for name, got, want in (("y", y, y_ref), ("h_final", hT, h_ref)):
+            err, scale = max_err(got, want), float(want.abs().max())
+            errs.append(err)
+            check(bool(torch.isfinite(got).all()),
+                  f"ssd_scan {shape}: non-finite {name}")
+            check(err <= SSD_TOL * max(1.0, scale),
+                  f"ssd_scan {shape} model_a={model_a} {name}: max abs err "
+                  f"{err} beyond {SSD_TOL} x max(1, {scale})")
+            log(f"  ssd_scan (b,s,h,p,g,n)={shape} chunk {ck} f32 "
+                f"A={'model' if model_a else 'test'} {name}: max abs err "
+                f"{err:.3g} (max-abs {scale:.4g}, tolerance {SSD_TOL} x "
+                f"max(1, max-abs))")
+    x, dt, A, B, C = _ssd_inputs(torch, dev, SSD_MAIN, 6, True)
+    b, s, h, p, g, n = SSD_MAIN
+    L = ops.chunk_len(s, 128)
+    ms = time_ms(lambda: ops.ssd_scan(x, dt, A, B, C))
+    plain_ms = time_ms(lambda: ref.ssd_ref(x, dt, A, B, C), iters=2,
+                       warmup=1)
+    chunked_ms = time_ms(lambda: m2.ssd_chunked(x, dt, A, B, C, chunk=L),
+                         iters=5, warmup=1)
+    nc, pairs = s // L, L * (L + 1) // 2
+    # per (b, h, chunk): the causal half of C B^T and of M (dt x), C H_in
+    # and the chunk state B^T (w x); then the state pass over the chunks
+    flops = b * h * nc * (2 * pairs * (n + p) + 4 * L * n * p + 2 * p * n)
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                  + b * h * p * n)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    tf32_ms = flops / PEAK_TF32_FLOPS * 1e3
+    log(f"  ssd_scan {SSD_MAIN} chunk {L} f32: kernel {ms:.4f} ms, plain "
+        f"ssd_ref {plain_ms:.4f} ms, plain ssd_chunked {chunked_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP at "
+        f"67 TFLOP/s f32, {nbytes / 1e6:.1f} MB at 3.35 TB/s; at TF32's "
+        f"495 TFLOP/s {tf32_ms:.4f} ms); library: none exists (no single "
+        f"PyTorch call computes SSD)")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:75",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "chunked_ms": chunked_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_tf32_ms": tf32_ms,
+            "library_ms": None,
+            "shape": f"(b,s,h,p,g,n)={SSD_MAIN} chunk {L} f32"}
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +615,155 @@ def train_phase(torch, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: ssm, the mamba2-1.3b main path
+# ---------------------------------------------------------------------------
+
+def _rel_err(got, want) -> tuple[float, float]:
+    return max_err(got, want), float(want.float().abs().max())
+
+
+def ssm_phase(torch, dev, seed):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.gossip_mix import ops as gm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(configs.get_config("mamba2-1.3b"),
+                              attention_impl="pallas")
+    f32_cfg = dataclasses.replace(cfg, activation_dtype=torch.float32)
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"  init {cfg.name} ({M.param_count(params) / 1e6:.1f} M params, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, d_state "
+        f"{cfg.d_state}, {cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} "
+        f"heads of {cfg.ssm_head_dim}) on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SSM_B, SSM_S))).to(dev)
+    counters = (ssd_ops.ssd_scan, fa_ops.flash_attention,
+                pa_ops.paged_attention, gm_ops.gossip_mix)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with torch.no_grad():
+        # forward through K4: one call to warm up, then timed calls
+        secs = []
+        for i in range(4):
+            n0 = ssd_ops.ssd_scan.launches
+            t0 = time.perf_counter()
+            logits, _ = M.forward(params, cfg, tokens)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            check(ssd_ops.ssd_scan.launches - n0 == cfg.n_layers,
+                  f"ssm: forward {i} launched ssd_scan "
+                  f"{ssd_ops.ssd_scan.launches - n0} times, expected "
+                  f"{cfg.n_layers}")
+        check(bool(torch.isfinite(logits).all()), "ssm: non-finite logits")
+        check(tuple(logits.shape) == (SSM_B, SSM_S, cfg.vocab_size),
+              f"ssm: logits shape {tuple(logits.shape)}")
+        fwd_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+        logits32, _ = M.forward(params, f32_cfg, tokens)
+        n_fwd = len(secs) + 1
+
+        # decode against forward
+        Bd, Sd = SSM_DECODE
+        short = tokens[:Bd, :Sd]
+        full, _ = M.forward(params, f32_cfg, short)
+        n_fwd += 1
+        cache = M.init_cache(cfg, batch=Bd, cache_len=Sd,
+                             dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        outs = []
+        for t in range(Sd):
+            lg, cache = M.decode_step(params, f32_cfg, short[:, t:t + 1],
+                                      cache, t)
+            outs.append(lg)
+        dec = torch.cat(outs, dim=1)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        dec_err, dec_scale = _rel_err(dec, full)
+        del full, dec, outs, cache
+
+        # generate: the family's serving path
+        Bg, Pg, new = SSM_GEN
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (Bg, Pg))).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = S.generate(cfg, params, prompts, max_new=new, temperature=0.0,
+                         seed=seed, device=dev)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    check(launches["ssd_scan"] == cfg.n_layers * n_fwd,
+          f"ssm: ssd_scan launched {launches['ssd_scan']} times, expected "
+          f"{cfg.n_layers} x {n_fwd} forward calls")
+    check(all(v == 0 for k, v in launches.items() if k != "ssd_scan"),
+          f"ssm: other kernels launched {launches}")
+    check(tuple(out.shape) == (Bg, Pg + new), f"ssm: generate {out.shape}")
+    check(torch.equal(out[:, :Pg], prompts), "ssm: generate lost the prompt")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "ssm: generated token out of vocab")
+    log(f"  forward {SSM_B} x {SSM_S} tokens through K4: "
+        f"{[round(1e3 * t, 3) for t in secs]} ms; median of calls 2-4 "
+        f"{fwd_ms:.3f} ms = {SSM_B * SSM_S / fwd_ms * 1e3:.1f} tokens/s")
+    log(f"  launches on the main path: {launches} ({cfg.n_layers} x "
+        f"{n_fwd} forward calls; decode and generate run no kernel)")
+
+    # the same forwards with the plain chunked scan, on the card
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        plain, _ = M.forward(params, dataclasses.replace(
+            cfg, attention_impl="jnp"), tokens)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain32, _ = M.forward(params, dataclasses.replace(
+            f32_cfg, attention_impl="jnp"), tokens)
+    check(ssd_ops.ssd_scan.launches == launches["ssd_scan"],
+          "ssm: the plain forward launched K4")
+    err16, scale16 = _rel_err(logits, plain)
+    agree16 = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"  bf16 (not checked, see SSM_TOL): K4 vs plain forward max abs "
+        f"err {err16:.5g} of max-abs {scale16:.5g}, greedy agreement "
+        f"{agree16:.4f}; plain forward {1e3 * plain_s:.3f} ms")
+    del logits, plain
+    err, scale = _rel_err(logits32, plain32)
+    agree = float((logits32.argmax(-1) == plain32.argmax(-1)).float().mean())
+    log(f"  f32: K4 forward vs plain ssd_chunked forward: max abs err "
+        f"{err:.5g}, logits max-abs {scale:.5g}; tolerance {SSM_TOL} x "
+        f"max-abs = {SSM_TOL * scale:.5g}; greedy agreement {agree:.4f}")
+    check(err <= SSM_TOL * scale,
+          f"ssm: K4 and plain forward differ by {err} > {SSM_TOL * scale}")
+    log(f"  f32: decode {Bd} x {Sd} tokens vs K4 forward: max abs err "
+        f"{dec_err:.5g}, logits max-abs {dec_scale:.5g}; tolerance "
+        f"{SSM_TOL} x max-abs = {SSM_TOL * dec_scale:.5g}; "
+        f"{1e3 * dec_s / Sd:.3f} ms per decode step")
+    check(dec_err <= SSM_TOL * dec_scale,
+          f"ssm: decode vs forward differ by {dec_err} > "
+          f"{SSM_TOL * dec_scale}")
+    steps = Pg + new
+    log(f"  generate {Bg} prompts x {Pg} tokens + {new} new, greedy: "
+        f"{gen_s:.3f} s, {Bg * new / gen_s:.1f} new tokens/s, "
+        f"{1e3 * gen_s / steps:.3f} ms per decode step ({steps} steps), "
+        f"peak allocated {peak_gb:.3f} GB")
+    return {"launches": launches["ssd_scan"], "forward_calls": n_fwd,
+            "forward_ms": fwd_ms,
+            "forward_tokens_per_s": SSM_B * SSM_S / fwd_ms * 1e3,
+            "generate_tokens_per_s": Bg * new / gen_s,
+            "decode_step_ms": 1e3 * gen_s / steps, "peak_gb": peak_gb}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -555,7 +802,7 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions")
     kernels = [flash_phase(torch, dev), paged_phase(torch, dev),
-               gossip_phase(torch, dev)]
+               gossip_phase(torch, dev), ssd_phase(torch, dev)]
     torch.cuda.empty_cache()
 
     log("phase 4: full-width model, card against CPU")
@@ -576,8 +823,16 @@ def main() -> int:
 
     log("phase 6: train (the training main path)")
     train = train_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    log("phase 7: ssm (the mamba2-1.3b main path)")
+    ssm = ssm_phase(torch, dev, args.seed)
     for k in kernels:
-        if k["name"] == "gossip_mix":
+        if k["name"] == "ssd_scan":
+            k["launches"] = ssm["launches"]
+            k["launches_per_call"] = k["launches"] // ssm["forward_calls"]
+            k["forward_ms"] = ssm["forward_ms"]
+        elif k["name"] == "gossip_mix":
             k["launches"] = train["launches"]
             k["launches_per_call"] = 1              # per train step
             k["train_payload_ms"] = train["train_payload_ms"]

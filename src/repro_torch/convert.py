@@ -39,7 +39,9 @@ def _flatten(tree: dict, prefix: str = ""):
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
-    """JAX params (numpy leaves) of a dense config -> ``Model`` state_dict."""
+    """JAX params (numpy leaves) of a dense or ssm config -> ``Model``
+    state_dict (``layers.attn.wq`` stacked on L -> ``layers.{i}.attn.wq``;
+    ``layers.mixer.in_proj`` -> ``layers.{i}.mixer.in_proj``)."""
     _check_family(cfg)
     sd: dict[str, torch.Tensor] = {}
     for name, leaf in _flatten({k: v for k, v in tree.items()

@@ -3,6 +3,7 @@
   flash_attention/  causal GQA online-softmax attention (serving prefill)
   paged_attention/  one-token decode attention over a paged KV pool
   gossip_mix/       the weighted combine of a gossip round (training)
+  ssd_scan/         the Mamba-2 chunked SSD scan (ssm forward)
 
 Each has ref.py (the plain PyTorch version), kernel.py (checks, output
 allocation and the ctypes launch of ``csrc/<name>.cu``) and ops.py (the

@@ -26,7 +26,7 @@ import torch
 __all__ = ["KERNELS", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "DTYPE_CODES",
            "build", "load", "library_path", "aligned"]
 
-KERNELS = ("flash_attention", "paged_attention", "gossip_mix")
+KERNELS = ("flash_attention", "paged_attention", "gossip_mix", "ssd_scan")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,6 +9,21 @@ printing latency percentiles, throughput, and page/compile-cache
 statistics.  It serves the REDUCED config, as the JAX CLI does; the
 full-width path is driven by ``chip_smoke.py``.
 
+:func:`generate` is the reference's legacy one-batch loop, which serves
+the families the paged engine refuses: the ssm family prefills and
+decodes token by token through ``models.model.decode_step`` over an SSM
+cache.  It adds no CLI (the JAX ``main`` serves paged families only):
+
+  >>> from repro_torch import configs
+  >>> from repro_torch.launch.serve import generate
+  >>> from repro_torch.models import model as M
+  >>> cfg = configs.reduced_config(configs.get_config("mamba2-1.3b"))
+  >>> params = M.init(cfg, 0, device="cpu")
+  >>> prompts = torch.zeros((2, 8), dtype=torch.long)
+  >>> generate(cfg, params, prompts, max_new=4, temperature=0.0,
+  ...          device="cpu").shape
+  torch.Size([2, 12])
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 """
@@ -85,6 +100,64 @@ def latency_summary(finished):
         "first_token_p50_s": pct(first, 50), "first_token_p99_s": pct(first, 99),
         "total_p50_s": pct(total, 50), "total_p99_s": pct(total, 99),
     }
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float,
+                  gen: torch.Generator | None = None) -> torch.Tensor:
+    """One token per row.  logits: (B, V) -- audio: (B, K, V).  Returns
+    (B, 1) (audio: (B, 1, K)).  ``temperature == 0`` is greedy argmax of
+    the f32 logits, as the engine samples; otherwise a draw from
+    softmax(logits / temperature) with ``gen``, one independent draw per
+    codebook.  (The reference's ``fold_in`` key streams cannot be
+    reproduced.)"""
+    lg = logits.float()
+    if temperature == 0:
+        cur = lg.argmax(-1)
+    else:
+        probs = torch.softmax(lg / temperature, dim=-1)
+        flat = probs.reshape(-1, probs.shape[-1])
+        cur = torch.multinomial(flat, 1, generator=gen).reshape(
+            probs.shape[:-1])
+    return cur.unsqueeze(1)
+
+
+def generate(cfg, params, prompts, *, max_new: int = 32,
+             cache_len: int = 128, temperature: float = 1.0, seed: int = 0,
+             device="cuda") -> torch.Tensor:
+    """prompts: (B, P) int.  Returns (B, P + max_new) on ``device``.
+
+    The reference's legacy one-batch serving loop: the prompt is fed token
+    by token through ``decode_step`` (the ssm family always prefills this
+    way), then ``max_new`` tokens are sampled (``sample_tokens``, with a
+    ``torch.Generator`` seeded from ``seed``) and fed back.  The
+    uniform-attention families (the reference's fast path: one
+    ``forward_prefill`` filling a dense ring cache, or its ``prefill=
+    "loop"``) are ROADMAP slice D item 15 and raise here.
+    """
+    device = resolve_device(device)
+    if params.embed.device.type != device.type:
+        raise ValueError(f"params live on {params.embed.device}, generate "
+                         f"runs on {device}")
+    if cfg.family in M.PAGED_FAMILIES:
+        raise NotImplementedError(
+            "generate over a dense ring cache (forward_prefill + "
+            "attn_decode) is ROADMAP slice D item 15; serve "
+            f"{cfg.family} through ServeEngine")
+    toks = torch.as_tensor(prompts, device=device).long()
+    B, plen = toks.shape[:2]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cache = M.init_cache(cfg, batch=B, cache_len=cache_len,
+                         dtype=torch.float32, device=device)
+    out = [toks]
+    with torch.no_grad():
+        for t in range(plen):
+            logits, cache = M.decode_step(params, cfg, toks[:, t:t + 1],
+                                          cache, t)
+        for t in range(plen, plen + max_new):
+            cur = sample_tokens(logits[:, -1], temperature, gen)
+            out.append(cur)
+            logits, cache = M.decode_step(params, cfg, cur, cache, t)
+    return torch.cat(out, dim=1)
 
 
 def main(argv=None) -> None:

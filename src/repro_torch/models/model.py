@@ -1,15 +1,17 @@
-"""Decoder-only model composer (dense family).
+"""Decoder-only model composer (dense and ssm families).
 
 Mirrors the JAX package's ``models/model.py``.  ``ModelConfig`` is the
 same dataclass with torch dtypes, so every arch config copies across; the
-model itself runs the ``dense`` family ([attn + mlp] x L: llama / qwen /
-gemma / deepseek) and raises ``NotImplementedError`` for the others.
+model itself runs two families and raises ``NotImplementedError`` for the
+others:
+  dense   -- [attn + mlp] x L      (llama / qwen / gemma / deepseek)
+  ssm     -- [mamba2] x L          (mamba2; attention-free)
 
 Parameters live in an ``nn.Module`` whose names follow the JAX dict keys
 (``embed``, ``layers.{i}.attn.wq``, ``layers.{i}.ln1.scale``,
-``final_norm.scale``, ...) in the JAX layout; the layer ``scan`` of the
-reference becomes a Python loop over a ``ModuleList``, so each layer's
-window is a plain ``int | None``.
+``layers.{i}.mixer.in_proj``, ``final_norm.scale``, ...) in the JAX
+layout; the layer ``scan`` of the reference becomes a Python loop over a
+``ModuleList``, so each layer's window is a plain ``int | None``.
 
 Entry points (the JAX signatures, with the module in place of the
 params pytree):
@@ -17,6 +19,14 @@ params pytree):
   forward(params, cfg, tokens)                        -> logits, aux
   forward_prefill(params, cfg, tokens)                -> logits, (k, v)
   decode_step_paged(params, cfg, token, pool, ...)    -> logits, pool
+  init_cache(cfg, batch, cache_len, dtype, device)    -> cache   (ssm)
+  decode_step(params, cfg, token, cache, idx)         -> logits, cache (ssm)
+
+The paged serving entry points take the uniform-attention families
+(:data:`PAGED_FAMILIES`) only, as the reference's do; the ssm family is
+served by ``launch.serve.generate`` through ``decode_step`` over an SSM
+cache.  The dense ring-cache ``init_cache``/``decode_step`` is a later
+slice of the port (ROADMAP slice D item 15).
 
 ``params`` may also be :func:`params_view` of a flat ``{name: tensor}``
 dict -- how the train step runs one node's slice of the node-stacked
@@ -24,7 +34,8 @@ parameters.  ``forward`` (train and eval) takes the plain attention with a
 gradient and, when ``cfg.remat``, recomputes each layer in backward
 (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``);
 ``forward_prefill`` (serving) takes the forward-only flash-attention
-kernel.
+kernel.  The ssm ``forward`` reads ``cfg.attention_impl``: "pallas" runs
+the forward-only SSD-scan kernel, anything else the plain chunked scan.
 """
 from __future__ import annotations
 
@@ -38,15 +49,19 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as attn
+from . import mamba2 as m2
 from .layers import MLP, RMSNorm, dense_init, mlp_apply, rms_norm, softcap
 
 __all__ = ["ModelConfig", "Model", "init", "forward", "forward_prefill",
-           "decode_step_paged", "param_count", "params_view",
-           "SUPPORTED_FAMILIES"]
+           "decode_step_paged", "init_cache", "decode_step", "param_count",
+           "params_view", "SUPPORTED_FAMILIES", "PAGED_FAMILIES"]
 
-# families this package runs so far; moe, audio, ssm, hybrid and vlm are
-# later slices of the port
-SUPPORTED_FAMILIES = ("dense",)
+# families this package runs so far; moe, audio, hybrid and vlm are later
+# slices of the port
+SUPPORTED_FAMILIES = ("dense", "ssm")
+# families whose decode state is a uniform per-layer self-attention KV --
+# the ones the paged serving plane supports (the reference's list)
+PAGED_FAMILIES = ("dense", "moe", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,15 +106,21 @@ class ModelConfig:
     param_dtype: Any = torch.float32
     activation_dtype: Any = torch.bfloat16
     ssd_chunk: int = 128
-    # kept so configs copy across; nothing in this package reads it: the
-    # train forward always takes the plain attention (the reference's
-    # default "jnp"), serving prefill the kernel, and each kernel wrapper
-    # dispatches on the tensors' device
+    # jnp | pallas.  The ssm forward reads it, as the reference does:
+    # "pallas" runs the SSD-scan kernel (forward only), anything else the
+    # plain chunked scan that autograd differentiates.  The dense forward
+    # ignores it: the train forward always takes the plain attention (the
+    # reference's default "jnp"), serving prefill the kernel.  Each kernel
+    # wrapper dispatches on the tensors' device.
     attention_impl: str = "jnp"
     remat: bool = True
     attention_override_window: int | None = None
     broadcast_positions: bool = False
     gqa_layout: str = "grouped"
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
 
     def window_for(self, layer_flag_local: bool) -> int | None:
         if self.attention_override_window is not None:
@@ -114,6 +135,14 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"the PyTorch port runs {SUPPORTED_FAMILIES} so far, not "
             f"{cfg.family}")
+
+
+def _check_paged(cfg: ModelConfig) -> None:
+    _check_family(cfg)
+    if cfg.family not in PAGED_FAMILIES:
+        raise NotImplementedError(
+            f"paged serving supports {PAGED_FAMILIES}, not {cfg.family}; "
+            f"the {cfg.family} family is served by launch.serve.generate")
 
 
 # ---------------------------------------------------------------------------
@@ -131,9 +160,20 @@ class DenseLayer(nn.Module):
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
 
+class MambaLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, cfg.param_dtype, device)
+        self.mixer = m2.Mamba2(cfg.d_model, d_state=cfg.d_state,
+                               head_dim=cfg.ssm_head_dim,
+                               expand=cfg.ssm_expand, d_conv=cfg.d_conv,
+                               n_groups=cfg.ssm_n_groups,
+                               dtype=cfg.param_dtype, device=device)
+
+
 class Model(nn.Module):
-    """The parameters of a dense decoder, allocated but not initialised
-    (see :func:`init`, or ``load_state_dict`` of
+    """The parameters of a dense or ssm decoder, allocated but not
+    initialised (see :func:`init`, or ``load_state_dict`` of
     :func:`repro_torch.convert.params_from_jax`)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
@@ -146,7 +186,8 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
                 cfg.d_model, cfg.vocab_size, dtype=dt, device=device))
-        self.layers = nn.ModuleList(DenseLayer(cfg, device)
+        layer = MambaLayer if cfg.family == "ssm" else DenseLayer
+        self.layers = nn.ModuleList(layer(cfg, device)
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
 
@@ -154,19 +195,28 @@ class Model(nn.Module):
 @torch.no_grad()
 def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device``: truncated normals at fan_in^-0.5 (embed: d_model^-0.5),
-    norm scales zero, as the reference's init (not its random stream)."""
+    on ``device``, with the values of the reference's init (not its random
+    stream): truncated normals at fan_in^-0.5 (embed: d_model^-0.5; the
+    mamba conv_w: d_conv^-0.5), norm scales zero, and the mamba mixer's
+    deterministic leaves A_log = log(linspace(1, 16, H)), dt_bias = 0,
+    D = 1, conv_b = 0."""
     model = Model(cfg, device=device)
     dev = model.embed.device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    dt = cfg.param_dtype
     for name, w in model.named_parameters():
-        if name.endswith(".scale"):
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("scale", "dt_bias", "conv_b"):
             w.zero_()
-            continue
-        scale = cfg.d_model ** -0.5 if name == "embed" else None
-        w.copy_(dense_init(gen, tuple(w.shape), scale=scale, dtype=dt,
-                           device=dev))
+        elif leaf == "D":
+            w.fill_(1.0)
+        elif leaf == "A_log":
+            w.copy_(torch.log(torch.linspace(1.0, 16.0, w.shape[0],
+                                             device=dev)))
+        else:
+            scale = {"embed": cfg.d_model ** -0.5,
+                     "conv_w": cfg.d_conv ** -0.5}.get(leaf)
+            w.copy_(dense_init(gen, tuple(w.shape), scale=scale,
+                               dtype=w.dtype, device=dev))
     return model
 
 
@@ -226,14 +276,29 @@ def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
     return (x, kv) if prefill else x
 
 
+def _mamba_block(cfg: ModelConfig, p: MambaLayer, x):
+    """One [mamba2] layer: "pallas" runs the SSD-scan kernel, anything else
+    the plain chunked scan."""
+    h = rms_norm(p.ln.scale, x, cfg.norm_eps)
+    h = m2.mamba2_apply(p.mixer, h, d_state=cfg.d_state,
+                        head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
+                        d_conv=cfg.d_conv, n_groups=cfg.ssm_n_groups,
+                        chunk=cfg.ssd_chunk, impl=cfg.attention_impl
+                        if cfg.attention_impl == "pallas" else "jnp")
+    return x + h
+
+
 def _embed_tokens(params: Model, cfg: ModelConfig, tokens):
     """tokens: (B, S) int -> activations (B, S, d).  Gathers, then casts to
     the activation dtype (the same bits as the reference's cast-then-
-    gather), then applies the gemma-style sqrt(d_model) scale, rounded to
-    the activation dtype as the reference does for qwen3 too."""
+    gather), then, for the families the reference scales (not ssm), applies
+    the gemma-style sqrt(d_model) scale, rounded to the activation dtype as
+    the reference does for qwen3 too."""
     adt = cfg.activation_dtype
     x = params.embed[tokens.long()].to(adt)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=adt, device=x.device)
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt, device=x.device)
+    return x
 
 
 def _default_positions(tokens):
@@ -244,7 +309,7 @@ def _default_positions(tokens):
 
 def forward(params: Model, cfg: ModelConfig, tokens, *, positions=None):
     """Train / eval forward.  tokens: (B, S) int.  Returns logits (B, S, V)
-    and a scalar aux loss (zero for the dense family)."""
+    and a scalar aux loss (zero for the dense and ssm families)."""
     logits, _ = _forward(params, cfg, tokens, positions, prefill=False)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
@@ -253,7 +318,9 @@ def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
                     positions=None):
     """Full-sequence serving prefill: one forward pass that ALSO returns
     the per-layer decode KV.  Returns ``(logits, (k, v))`` with k, v shaped
-    (L, B, S, Kv, hd) -- the rotated/normed tensors the page pool stores."""
+    (L, B, S, Kv, hd) -- the rotated/normed tensors the page pool stores.
+    Uniform-attention families only (:data:`PAGED_FAMILIES`)."""
+    _check_paged(cfg)
     return _forward(params, cfg, tokens, positions, prefill=True)
 
 
@@ -270,11 +337,12 @@ def _forward(params, cfg, tokens, positions, prefill):
                                      prefill=True)
             ks.append(k)
             vs.append(v)
-        elif remat:
-            x = checkpoint(_dense_block, cfg, layer, x, positions, i,
-                           use_reentrant=False)
         else:
-            x = _dense_block(cfg, layer, x, positions, i)
+            block, args = ((_mamba_block, (cfg, layer, x))
+                           if cfg.family == "ssm" else
+                           (_dense_block, (cfg, layer, x, positions, i)))
+            x = (checkpoint(block, *args, use_reentrant=False) if remat
+                 else block(*args))
     x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
     logits = _lm_head(params, cfg, x)
     if prefill:
@@ -301,9 +369,10 @@ def decode_step_paged(params: Model, cfg: ModelConfig, token, pool,
     token: (B, 1) int; positions: (B,) int32 -- each sequence decodes at its
     OWN absolute position.  pool: ``{"k", "v"}`` shaped (L, Kv, n_pages,
     page_size, hd); page_table: (B, Pmax) int32.  The new k/v are written
-    into ``pool`` in place; returns (logits, pool).
+    into ``pool`` in place; returns (logits, pool).  Uniform-attention
+    families only (:data:`PAGED_FAMILIES`).
     """
-    _check_family(cfg)
+    _check_paged(cfg)
     x = _embed_tokens(params, cfg, token)
     for i, p in enumerate(params.layers):
         h = rms_norm(p.ln1.scale, x, cfg.norm_eps)
@@ -318,3 +387,54 @@ def decode_step_paged(params: Model, cfg: ModelConfig, token, pool,
         x = x + mlp_apply(p.mlp, h, cfg.mlp_kind)
     x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
     return _lm_head(params, cfg, x), pool
+
+
+def _check_ssm_decode(cfg: ModelConfig) -> None:
+    _check_family(cfg)
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"init_cache/decode_step run the ssm family so far, not "
+            f"{cfg.family}: the dense ring-cache decode (attn_decode) is "
+            f"ROADMAP slice D item 15; serve {cfg.family} through "
+            f"ServeEngine (decode_step_paged)")
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype=torch.bfloat16, *, device="cuda") -> dict:
+    """Stacked (per-layer) decode caches: ``{"ssm": SSMCache}`` with conv
+    (L, B, d_conv-1, conv_dim) in ``dtype`` and state (L, B, H, P, N) in
+    float32.  ``cache_len`` is unused by the ssm family, as in the
+    reference."""
+    _check_ssm_decode(cfg)
+    device = resolve_device(device)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    conv_dim = d_inner + 2 * cfg.ssm_n_groups * cfg.d_state
+    nh = d_inner // cfg.ssm_head_dim
+    L = cfg.n_layers
+    return {"ssm": m2.SSMCache(
+        torch.zeros((L, batch, cfg.d_conv - 1, conv_dim), dtype=dtype,
+                    device=device),
+        torch.zeros((L, batch, nh, cfg.ssm_head_dim, cfg.d_state),
+                    dtype=torch.float32, device=device))}
+
+
+def decode_step(params: Model, cfg: ModelConfig, token, cache: dict, idx):
+    """One-token decode.  token: (B, 1) int; idx: the position (unused by
+    the ssm family).  Returns (logits (B, 1, V), cache); the cache's
+    tensors are updated in place, as ``decode_step_paged`` updates its
+    pool."""
+    _check_ssm_decode(cfg)
+    x = _embed_tokens(params, cfg, token)
+    conv, state = cache["ssm"]
+    for i, p in enumerate(params.layers):
+        h = rms_norm(p.ln.scale, x, cfg.norm_eps)
+        h, c2 = m2.mamba2_decode(p.mixer, h, m2.SSMCache(conv[i], state[i]),
+                                 d_state=cfg.d_state,
+                                 head_dim=cfg.ssm_head_dim,
+                                 expand=cfg.ssm_expand, d_conv=cfg.d_conv,
+                                 n_groups=cfg.ssm_n_groups)
+        conv[i].copy_(c2.conv)
+        state[i].copy_(c2.state)
+        x = x + h
+    x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
+    return _lm_head(params, cfg, x), cache

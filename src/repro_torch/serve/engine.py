@@ -52,7 +52,7 @@ class ServeEngine:
                  temperature: float = 0.0, seed: int = 0,
                  pool_dtype=torch.bfloat16, max_cached_executables: int = 32,
                  compile_cache: CompileCache | None = None, device="cuda"):
-        M._check_family(cfg)
+        M._check_paged(cfg)
         self.device = resolve_device(device)
         param_dev = params.embed.device
         if param_dev.type != self.device.type:

@@ -36,7 +36,7 @@ def init_page_pool(cfg: M.ModelConfig, *, n_pages: int, page_size: int,
                    dtype=torch.bfloat16, device="cuda") -> dict:
     """Per-layer KV page pools for a supported config, zeroed, on
     ``device``."""
-    M._check_family(cfg)
+    M._check_paged(cfg)
     device = resolve_device(device)
     shape = (cfg.n_layers, cfg.n_kv_heads, n_pages, page_size, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -5,6 +5,8 @@ the card:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ from repro_torch import configs
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.gossip_mix import ops as gm_ops, ref as gm_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import model as M
 
@@ -193,3 +196,84 @@ def test_train_forward_backward_reaches_every_attention_weight(cuda):
             g = grads[f"layers.{i}.attn.{w}"]
             assert torch.isfinite(g).all() and float(g.abs().max()) > 0, w
     assert float(grads["layers.0.attn.q_norm.scale"].abs().max()) > 0
+
+
+def _ssd_inputs(b, s, h, p, g, n, device, seed, model_a=False):
+    """As tests/test_kernels.py:108-113 draws them (A = -exp(0.3 N)), or
+    with the model's own A range, A_log = log(linspace(1, 16, h))."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x, dt = rn(b, s, h, p), torch.nn.functional.softplus(rn(b, s, h))
+    A = (-torch.linspace(1.0, 16.0, h, device=device) if model_a
+         else -torch.exp(0.3 * rn(h)))
+    return x, dt, A, rn(b, s, g, n), rn(b, s, g, n)
+
+
+def _ssd_close(got, want):
+    """tests/test_kernels.py:117-118: 1e-3, scaled by max(1, max-abs)."""
+    tol = 1e-3 * max(1.0, float(want.abs().max()))
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-3, atol=tol)
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("s", [64, 1000, 2048])
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_scan_kernel(cuda, g, s, chunk):
+    h, p, n = 4, 64, 128
+    for model_a in (False, True):
+        x, dt, A, B, C = _ssd_inputs(1, s, h, p, g, n, cuda, s + g, model_a)
+        n0 = ssd_ops.ssd_scan.launches
+        y, hT = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_ops.ssd_scan.launches == n0 + 1
+        assert y.shape == x.shape and hT.shape == (1, h, p, n)
+        assert torch.isfinite(y).all() and torch.isfinite(hT).all()
+        y_ref, h_ref = ssd_ref.ssd_ref(x, dt, A, B, C)
+        _ssd_close(y, y_ref)
+        _ssd_close(hT, h_ref)
+
+
+@pytest.mark.parametrize("p,n", [(32, 16), (32, 32), (64, 64)])
+def test_ssd_scan_kernel_other_widths(cuda, p, n):
+    x, dt, A, B, C = _ssd_inputs(2, 96, 4, p, 2, n, cuda, p + n)
+    y, hT = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=32)
+    y_ref, h_ref = ssd_ref.ssd_ref(x, dt, A, B, C)
+    _ssd_close(y, y_ref)
+    _ssd_close(hT, h_ref)
+
+
+def test_ssd_scan_kernel_refuses_autograd_and_rejects(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 64, 2, 64, 1, 128, cuda, 0)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ssd_ops.ssd_scan(x.requires_grad_(True), dt, A, B, C)
+    with torch.no_grad():                      # inference: no gradient
+        assert ssd_ops.ssd_scan(x, dt, A, B, C)[0].shape == x.shape
+    x = x.detach()
+    with pytest.raises(ValueError, match="float32"):
+        ssd_ops.ssd_scan(x.bfloat16(), dt, A, B, C)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_ops.ssd_scan(x[..., :48], dt, A, B, C)
+
+
+def test_mamba2_forward_pallas_equals_jnp_on_the_card(cuda):
+    """Reduced mamba2: forward through the kernel ("pallas": one launch
+    per layer) against the plain chunked scan ("jnp"), both on the card."""
+    cfg = dataclasses.replace(
+        configs.reduced_config(configs.get_config("mamba2-1.3b")),
+        attention_impl="pallas", activation_dtype=torch.float32)
+    model = M.init(cfg, 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda)
+    with torch.no_grad():
+        n0 = ssd_ops.ssd_scan.launches
+        got, _ = M.forward(model, cfg, tokens)
+        assert ssd_ops.ssd_scan.launches == n0 + cfg.n_layers
+        want, _ = M.forward(model, dataclasses.replace(
+            cfg, attention_impl="jnp"), tokens)
+        assert ssd_ops.ssd_scan.launches == n0 + cfg.n_layers
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **TOL32)

@@ -27,7 +27,8 @@ def test_every_module_imports_without_jax_or_repro():
               "core.topology", "core.spectral", "core.schedule",
               "core.flatbuf", "core.gossip", "core.transforms", "core.optim",
               "core.plan", "data.pipeline", "launch.steps", "launch.train",
-              "launch.quickstart", "convert"):
+              "launch.quickstart", "convert", "models.mamba2",
+              "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -72,3 +73,22 @@ def test_train_entry_points_raise_without_a_card_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         quickstart.main(steps=1)
     train.main(argv + ["--device", "cpu"])
+
+
+def test_ssm_entry_points_raise_without_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch import configs
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    cfg = configs.reduced_config(configs.get_config("mamba2-1.3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        M.init_cache(cfg, batch=1, cache_len=8)
+    params = M.init(cfg, 0, device="cpu")
+    prompts = torch.zeros((1, 3), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(cfg, params, prompts, max_new=1)
+    assert generate(cfg, params, prompts, max_new=2, temperature=0.0,
+                    device="cpu").shape == (1, 5)

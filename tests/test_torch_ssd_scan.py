@@ -1,0 +1,169 @@
+"""PyTorch port parity: the SSD scan (``kernels/ssd_scan``) and the plain
+chunked algorithm (``models.mamba2.ssd_chunked``) against the JAX
+package's on the same numpy inputs.  The JAX kernel runs in interpret
+mode, as its own tests run it on the CPU; the port's wrapper takes its
+plain version (the naive recurrence) for CPU tensors.  Tolerances are the
+JAX tests': 1e-3 for the scan against the recurrence
+(tests/test_kernels.py:117), 2e-3 in the property test (:152), 2e-4 for
+float32 chunked against chunked, values and gradients."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests._hypothesis_compat import given, settings, st
+
+from repro.kernels.ssd_scan import ops as jssd_ops, ref as jssd_ref
+from repro.models import mamba2 as jm2
+from repro_torch.kernels.ssd_scan import ops as tssd_ops, ref as tssd_ref
+from repro_torch.models import mamba2 as tm2
+
+TOL_SCAN = dict(rtol=1e-3, atol=1e-3)
+TOL_PROP = dict(rtol=2e-3, atol=2e-3)
+TOL32 = dict(rtol=2e-4, atol=2e-4)
+
+
+def _inputs(b, s, h, p, g, n, seed, a_scale=0.3, model_a=False):
+    """x, dt (softplus of a normal), A, B, C as numpy float32: A =
+    -exp(a_scale N) as tests/test_kernels.py draws it, or the model's own
+    range -linspace(1, 16, h) (exp(cum) underflows within a chunk)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    if model_a:
+        A = -np.linspace(1.0, 16.0, h).astype(np.float32)
+    else:
+        A = -np.exp(a_scale * rng.standard_normal(h)).astype(np.float32)
+    B = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    C = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    return x, dt, A, B, C
+
+
+def _t(arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+def _j(arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 128, 2, 64, 1, 64, 64),
+    (2, 256, 4, 32, 2, 32, 128),
+    (1, 64, 2, 64, 1, 128, 32),
+    (1, 512, 2, 64, 1, 64, 128),
+])
+def test_ssd_scan_matches_jax_kernel(b, s, h, p, g, n, chunk):
+    arrs = _inputs(b, s, h, p, g, n, seed=s + h)
+    jy, jh = jssd_ops.ssd_scan(*_j(arrs), chunk=chunk, interpret=True)
+    ty, th = tssd_ops.ssd_scan(*_t(arrs), chunk=chunk)
+    assert ty.shape == (b, s, h, p) and th.shape == (b, h, p, n)
+    assert ty.dtype == torch.float32 and th.dtype == torch.float32
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL_SCAN)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL_SCAN)
+
+
+@settings(max_examples=8, deadline=None)
+@given(
+    s_pow=st.integers(6, 9),
+    h=st.sampled_from([1, 2, 4]),
+    chunk_pow=st.integers(5, 7),
+)
+def test_ssd_scan_property(s_pow, h, chunk_pow):
+    """Mirrors tests/test_kernels.py test_ssd_scan_property: the port's scan
+    and its chunked algorithm (at the chunk the scan would run) against
+    the JAX recurrence."""
+    b, p, g, n = 1, 32, 1, 32
+    s, chunk = 2 ** s_pow, 2 ** chunk_pow
+    arrs = _inputs(b, s, h, p, g, n, seed=s_pow * 31 + h)
+    jy, jh = jssd_ref.ssd_ref(*_j(arrs))
+    ty, th = tssd_ops.ssd_scan(*_t(arrs), chunk=chunk)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL_PROP)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL_PROP)
+    cy, ch = tm2.ssd_chunked(*_t(arrs),
+                             chunk=tssd_ops.chunk_len(s, chunk))
+    np.testing.assert_allclose(cy.numpy(), np.asarray(jy), **TOL_PROP)
+    np.testing.assert_allclose(ch.numpy(), np.asarray(jh), **TOL_PROP)
+
+
+@pytest.mark.parametrize("s,chunk,want", [
+    (2048, 128, 128), (64, 128, 64), (1000, 128, 8), (96, 64, 32),
+    (40, 16, 8), (7, 128, 7), (999, 128, 1),
+])
+def test_chunk_len_halves_until_it_divides(s, chunk, want):
+    assert tssd_ops.chunk_len(s, chunk) == want
+
+
+@pytest.mark.parametrize("s,chunk", [(96, 64), (40, 16)])
+def test_ssd_scan_non_dividing_s_matches_jax_kernel(s, chunk):
+    """s not a multiple of chunk: both wrappers halve the chunk until it
+    divides s."""
+    arrs = _inputs(1, s, 2, 32, 1, 16, seed=s)
+    jy, jh = jssd_ops.ssd_scan(*_j(arrs), chunk=chunk, interpret=True)
+    ty, th = tssd_ops.ssd_scan(*_t(arrs), chunk=chunk)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL_SCAN)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL_SCAN)
+
+
+def test_ragged_model_range_chunked_matches_recurrence():
+    """s = 1000 runs in chunks of 8, with the model's A range (decays that
+    underflow inside a chunk): chunked == recurrence, no NaN."""
+    arrs = _inputs(1, 1000, 4, 32, 2, 16, seed=5, model_a=True)
+    jy, jh = jssd_ref.ssd_ref(*_j(arrs))
+    ck = tssd_ops.chunk_len(1000, 128)
+    cy, ch = tm2.ssd_chunked(*_t(arrs), chunk=ck)
+    assert torch.isfinite(cy).all() and torch.isfinite(ch).all()
+    np.testing.assert_allclose(cy.numpy(), np.asarray(jy), **TOL_SCAN)
+    np.testing.assert_allclose(ch.numpy(), np.asarray(jh), **TOL_SCAN)
+
+
+@pytest.mark.parametrize("model_a", [False, True])
+def test_ssd_ref_with_h0_matches_jax(model_a):
+    arrs = _inputs(2, 48, 4, 32, 2, 16, seed=7, model_a=model_a)
+    h0 = np.random.default_rng(8).standard_normal(
+        (2, 4, 32, 16)).astype(np.float32)
+    jy, jh = jssd_ref.ssd_ref(*_j(arrs), h0=jnp.asarray(h0))
+    ty, th = tssd_ref.ssd_ref(*_t(arrs), h0=torch.from_numpy(h0))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL32)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TOL32)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,model_a", [
+    (2, 64, 4, 32, 1, 16, 16, False),
+    (1, 96, 4, 16, 2, 32, 32, True),
+    (1, 128, 2, 64, 1, 64, 64, False),
+])
+def test_ssd_chunked_values_and_grads_match_jax(b, s, h, p, g, n, chunk,
+                                                model_a):
+    arrs = _inputs(b, s, h, p, g, n, seed=s + n, model_a=model_a)
+    rng = np.random.default_rng(11)
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    wy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    wh = rng.standard_normal((b, h, p, n)).astype(np.float32)
+
+    def jloss(x, dt, A, B, C, h0):
+        y, hT = jm2.ssd_chunked(x, dt, A, B, C, chunk=chunk, h0=h0)
+        return jnp.sum(y * wy) + jnp.sum(hT * wh), (y, hT)
+
+    jgrads, (jy, jh) = jax.grad(jloss, argnums=tuple(range(6)),
+                                has_aux=True)(*_j(arrs), jnp.asarray(h0))
+    leaves = [t.requires_grad_(True) for t in _t(arrs + (h0,))]
+    ty, th = tm2.ssd_chunked(*leaves[:5], chunk=chunk, h0=leaves[5])
+    loss = (ty * torch.from_numpy(wy)).sum() + (th * torch.from_numpy(wh)).sum()
+    tgrads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), **TOL32)
+    np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh), **TOL32)
+    for name, tg, jg in zip(("x", "dt", "A", "B", "C", "h0"), tgrads,
+                            jgrads):
+        assert torch.isfinite(tg).all(), name
+        scale = max(1.0, float(np.abs(np.asarray(jg)).max()))
+        np.testing.assert_allclose(tg.numpy() / scale,
+                                   np.asarray(jg) / scale, **TOL32,
+                                   err_msg=name)
+
+
+def test_ssd_scan_rejects_other_devices():
+    x = torch.zeros(1, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tssd_ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x, x)
