@@ -12,16 +12,25 @@ family): its forward through the SSD-scan kernel, and generate.
 Phases, in order; any failure exits non-zero before the result lines:
   1. device   -- a CUDA device is required; prints nvidia-smi's name and
                  power limit
-  2. build    -- nvcc builds every kernel of csrc/ in parallel
+  2. build    -- nvcc builds every kernel of csrc/ in parallel; prints
+                 each function's registers, spills and static shared
+                 memory, and the HGMMA / UTMALDG count of K2's bf16 kernel
+                 (cuobjdump -sass), which must be non-zero
   3. kernels  -- each kernel vs its plain version at its path's shapes
-                 (attention: bf16, tolerance 2e-2 as tests/test_kernels.py;
-                 gossip_mix: f32 1e-5 and bf16 2e-2, degrees 1 and 3, on
+                 (attention: bf16, tolerance 2e-2 as tests/test_kernels.py,
+                 flash at the serving prefill's (4, 512, 16, 8, 128) and the
+                 operations-bound (1, 4096, 16, 8, 128), and its f32 branch
+                 at 2e-4; gossip_mix: f32 1e-5 and bf16 2e-2, degrees 1 and 3, on
                  (4, 2^27) and an odd tail; ssd_scan: f32, 1e-3 x max(1,
                  max-abs), at mamba2-1.3b's (1, 2048, 64, 64, 1, 128) with
                  the test draw of A and the model's A range, and a ragged
                  s = 1000, g = 2), timed with CUDA events beside
                  its plain version, the one PyTorch call computing the same
-                 function (where there is one), and its bound on the card
+                 function (where there is one), and its bound on the card,
+                 with the achieved TFLOP/s or GB/s and the share of the
+                 bound (K1 and lerp timed in turns, and their ratio; K2
+                 and SDPA in turns, each replayed from a CUDA graph so
+                 that the wrapper's host time does not hide the kernel's)
   4. model    -- full-width qwen3-0.6b (random weights from --seed):
                  prefill of 2 x 64 tokens and 4 paged decode steps on the
                  card against the same weights on the CPU
@@ -66,6 +75,9 @@ PEAK_F32_FLOPS = 67e12       # outside the tensor cores
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 KERNEL_TOL = 2e-2            # tests/test_kernels.py:15, bf16
+FLASH_F32_TOL = 2e-4         # tests/test_kernels.py:15, f32
+FLASH_MAIN = (4, 512, 16, 8, 128)   # (B, S, H, Kv, D): the serving prefill
+FLASH_LONG = (1, 4096, 16, 8, 128)  # bound by the bf16 tensor-core rate
 GOSSIP_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:189
 # the training phase run twice, kernel and plain combine: six steps of
 # bf16 activations apart only by the combine's rounding (and any
@@ -124,11 +136,46 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``, replayed from one CUDA
+    graph of ``iters`` calls: no host launch cost between them, so a call
+    shorter than its Python wrapper's host time is timed by the device."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = time_ms(graph.replay, iters=5, warmup=1) / iters
+    del graph
+    return ms
+
+
+def time_turns(fns: dict, rounds: int = 4, timer=time_ms) -> dict:
+    """Median of ``rounds`` timings of each function, taken in turns (a b,
+    b a, ...) so that a drift of the card's clock falls on both."""
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(timer(fns[name]))
+    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
+
+
 def bound(flops: float, nbytes: float,
           peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _short(function: str) -> str:
+    """A demangled kernel name without its namespace and arguments."""
+    return function.replace("(anonymous namespace)::", "").split("(")[0]
 
 
 def max_err(got, want) -> float:
@@ -144,43 +191,96 @@ def within(got, want, tol: float) -> bool:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def _flash_inputs(torch, dev, shape, dtype, seed):
+    B, S, H, Kv, D = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((B, S, H, D), (B, S, Kv, D), (B, S, Kv, D))]
+
+
+def _flash_cost(shape, elem_bytes: int) -> tuple[int, int]:
+    """Operations and bytes of one causal call: the visible (row, col)
+    pairs, two products of D each; q, k, v read once and out written once."""
+    B, S, H, Kv, D = shape
+    pairs = S * (S + 1) // 2
+    return 4 * B * H * D * pairs, elem_bytes * (2 * B * S * H * D
+                                                + 2 * B * S * Kv * D)
+
+
 def flash_phase(torch, dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
-    B, S, H, Kv, D = 4, 512, 16, 8, 128
-    g = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
-               for s in ((B, S, H, D), (B, S, Kv, D), (B, S, Kv, D)))
-    errs = []
-    for window, cap in ((None, None), (128, 50.0)):
-        got = ops.flash_attention(q, k, v, window=window, attn_cap=cap)
-        torch.cuda.synchronize()
-        want = ref.attention_ref(q, k, v, window=window, attn_cap=cap)
-        errs.append(max_err(got, want))
-        check(within(got, want, KERNEL_TOL),
-              f"flash_attention window={window} cap={cap}: max abs err "
-              f"{errs[-1]} beyond {KERNEL_TOL}")
-        log(f"  flash_attention B={B} S=T={S} H={H} Kv={Kv} D={D} bf16 "
-            f"window={window} cap={cap}: max abs err {errs[-1]:.3g}")
-    ms = time_ms(lambda: ops.flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v), iters=5)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    pairs = S * (S + 1) // 2                     # visible (row, col) pairs
-    flops = 4 * B * H * D * pairs
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Kv * D)
-    bound_ms, bound_by = bound(flops, nbytes)
-    log(f"  flash_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    rows, errs = {}, []
+    for name, shape, seed, cases, plain_iters in (
+            ("main", FLASH_MAIN, 1, ((None, None), (128, 50.0)), 5),
+            ("long", FLASH_LONG, 11, ((None, None), (1000, 30.0)), 2)):
+        B, S, H, Kv, D = shape
+        q, k, v = _flash_inputs(torch, dev, shape, torch.bfloat16, seed)
+        for window, cap in cases:
+            got = ops.flash_attention(q, k, v, window=window, attn_cap=cap)
+            torch.cuda.synchronize()
+            want = ref.attention_ref(q, k, v, window=window, attn_cap=cap)
+            errs.append(max_err(got, want))
+            check(bool(torch.isfinite(got).all()),
+                  f"flash_attention {shape}: non-finite")
+            check(within(got, want, KERNEL_TOL),
+                  f"flash_attention {shape} window={window} cap={cap}: max "
+                  f"abs err {errs[-1]} beyond {KERNEL_TOL}")
+            log(f"  flash_attention B={B} S=T={S} H={H} Kv={Kv} D={D} bf16 "
+                f"window={window} cap={cap}: max abs err {errs[-1]:.3g}")
+            del got, want
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t = time_turns({
+            "kernel": lambda: ops.flash_attention(q, k, v),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)}, rounds=2,
+            timer=time_graph_ms)
+        eager_ms = time_ms(lambda: ops.flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: ref.attention_ref(q, k, v),
+                           iters=plain_iters, warmup=1)
+        flops, nbytes = _flash_cost(shape, 2)
+        bound_ms, bound_by = bound(flops, nbytes)
+        rows[name] = {"ms": t["kernel"], "plain_ms": plain_ms,
+                      "library_ms": t["sdpa"], "bound_ms": bound_ms,
+                      "bound_by": bound_by,
+                      "tflops": flops / t["kernel"] / 1e9,
+                      "bound_share": bound_ms / t["kernel"],
+                      "eager_ms": eager_ms,
+                      "shape": f"B={B} S=T={S} H={H} Kv={Kv} D={D} bf16 "
+                               f"causal"}
+        log(f"  flash_attention {shape} bf16: kernel {t['kernel']:.4f} ms "
+            f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB: "
+            f"{rows[name]['tflops']:.1f} TFLOP/s, "
+            f"{100 * rows[name]['bound_share']:.1f} % of the bound), sdpa "
+            f"{t['sdpa']:.4f} ms (kernel / sdpa "
+            f"{t['kernel'] / t['sdpa']:.2f}), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); kernel and sdpa replayed from "
+            f"CUDA graphs, the kernel through its wrapper back to back "
+            f"{eager_ms:.4f} ms")
+        del q, k, v, qt, kt, vt
+    # the f32 branch: the first version's FMA kernel, not redesigned
+    q, k, v = _flash_inputs(torch, dev, FLASH_MAIN, torch.float32, 1)
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = ref.attention_ref(q, k, v)
+    f32_err = max_err(got, want)
+    check(within(got, want, FLASH_F32_TOL),
+          f"flash_attention f32: max abs err {f32_err} beyond "
+          f"{FLASH_F32_TOL}")
+    f32_ms = time_ms(lambda: ops.flash_attention(q, k, v))
+    f32_bound, f32_by = bound(*_flash_cost(FLASH_MAIN, 4), PEAK_F32_FLOPS)
+    log(f"  flash_attention {FLASH_MAIN} f32 (FMA branch): max abs err "
+        f"{f32_err:.3g} (tolerance {FLASH_F32_TOL}); kernel {f32_ms:.4f} "
+        f"ms, bound {f32_bound:.4f} ms ({f32_by}, f32 outside the tensor "
+        f"cores)")
+    main = rows.pop("main")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "shape": f"B={B} S=T={S} H={H} Kv={Kv} D={D} bf16 causal"}
+            "max_abs_err": max(errs), **main, "long": rows["long"],
+            "f32": {"ms": f32_ms, "max_abs_err": f32_err,
+                    "bound_ms": f32_bound, "bound_by": f32_by}}
 
 
 def paged_phase(torch, dev):
@@ -269,23 +369,29 @@ def gossip_phase(torch, dev):
         log(f"  gossip_mix {shape} {str(dtype)[6:]} degree {degree}: max abs "
             f"err {errs[-1]:.3g} (tolerance {tol})")
         del x, recvs, got, want
-    # the train path's case: f32, degree 1, weights 1/2
+    # the train path's case: f32, degree 1, weights 1/2; K1 and lerp in
+    # turns
     x, r = (torch.randn(big, generator=g, device=dev) for _ in range(2))
-    ms = time_ms(lambda: ops.gossip_mix(x, [r], w_self=0.5, ws=(0.5,)))
+    t = time_turns({
+        "kernel": lambda: ops.gossip_mix(x, [r], w_self=0.5, ws=(0.5,)),
+        "lerp": lambda: torch.lerp(x, r, 0.5)})
+    ms, library_ms = t["kernel"], t["lerp"]
     plain_ms = time_ms(lambda: ref.gossip_mix_ref(x, [r], 0.5, (0.5,)),
                        iters=10)
-    library_ms = time_ms(lambda: torch.lerp(x, r, 0.5))
     n = x.numel()
     bound_ms, bound_by = bound(3 * n, 3 * 4 * n, PEAK_F32_FLOPS)
-    log(f"  gossip_mix {big} f32 degree 1: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, lerp {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by})")
+    log(f"  gossip_mix {big} f32 degree 1: kernel {ms:.4f} ms "
+        f"({3 * 4 * n / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f} % of "
+        f"the bound), lerp {library_ms:.4f} ms ({100 * bound_ms / library_ms:.1f}"
+        f" %; kernel / lerp {ms / library_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "gossip_mix", "route": "cuda",
             "source": "src/repro_torch/csrc/gossip_mix.cu",
             "replaces": "src/repro/kernels/gossip_mix/kernel.py:34",
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "gbps": 3 * 4 * n / ms / 1e6,
+            "bound_share": bound_ms / ms, "lerp_ratio": ms / library_ms,
             "shape": f"{big} f32 degree 1 (library: torch.lerp(x, r, 0.5))"}
 
 
@@ -572,7 +678,8 @@ def train_phase(torch, dev, seed):
                          PEAK_F32_FLOPS)
     log(f"  K1 at the training payload {tuple(buf.shape)} f32 "
         f"({buf.numel() / 2**31:.3f} x 2^31 elements): {pay_ms:.3f} ms, "
-        f"bound {pay_bound:.3f} ms (bytes)")
+        f"bound {pay_bound:.3f} ms (bytes), {100 * pay_bound / pay_ms:.1f} % "
+        f"of it")
     del layout, bufs, buf, recv
 
     # Lemma 1: tau = 2 one-peer rounds average the 4 nodes exactly
@@ -795,10 +902,23 @@ def main() -> int:
     log(f"  built {list(secs)} in {time.perf_counter() - t0:.2f} s "
         f"(per kernel {dict((k, round(v, 2)) for k, v in secs.items())})")
     for name in build.KERNELS:
-        log_path = build.library_path(name).with_suffix(".log")
-        for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+        for r in build.ptxas_report(name):
+            log(f"  {name}: {_short(r['function'])}: {r['registers']} "
+                f"registers, spill stores/loads {r['spill_stores']}/"
+                f"{r['spill_loads']} bytes, static shared memory "
+                f"{r['smem_bytes']} bytes")
+        for line in build.library_path(name).with_suffix(".log") \
+                .read_text().splitlines():
+            if "warning" in line.lower():
                 log(f"  {name}: {line.strip()}")
+    sass = {_short(f): c for f, c in build.sass_counts("flash_attention")
+            .items()}
+    for fn, counts in sass.items():
+        log(f"  flash_attention SASS {fn}: {counts}")
+    wgmma = [c for fn, c in sass.items() if "flash_fwd_wgmma" in fn]
+    check(len(wgmma) == 2 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                  for c in wgmma),
+          f"flash_attention: the bf16 kernels hold no HGMMA / UTMALDG: {sass}")
 
     log("phase 3: kernels against their plain versions")
     kernels = [flash_phase(torch, dev), paged_phase(torch, dev),

@@ -60,6 +60,61 @@ def test_flash_attention_kernel(cuda, B, S, H, Kv, D, window, cap, dtype):
            dtype)
 
 
+def _qkv(B, S, T, H, Kv, D, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device).to(dtype)
+            for s in ((B, S, H, D), (B, T, Kv, D), (B, T, Kv, D))]
+
+
+def _flash_check(q, k, v, dtype, **kw):
+    n0 = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    _close(got, fa_ref.attention_ref(q, k, v, **kw), dtype)
+
+
+# bf16: the wgmma kernel (blocks pair two heads of a kv head where G is
+# even, two 64-row tiles of one head where G is odd); f32: the FMA kernel.
+# S = 1, 63, 65 and 1000 are ragged against the 64-row query and key tiles.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [1, 63, 65, 1000])
+def test_flash_attention_kernel_ragged_gqa(cuda, S, G, D, dtype):
+    q, k, v = _qkv(2, S, S, 2 * G, 2, D, dtype, cuda, S + 7 * G + D)
+    _flash_check(q, k, v, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,D,S,window,cap", [
+    (1, 128, 1000, 100, None),   # window starts mid-tile, odd G
+    (2, 128, 777, 37, 30.0),     # qwen3's G, window + softcap
+    (3, 64, 200, 70, None),      # odd G > 1
+    (4, 64, 300, 1, None),       # window 1: the diagonal alone
+    (8, 64, 129, 200, 50.0),     # window wider than the sequence
+])
+def test_flash_attention_kernel_window_softcap(cuda, G, D, S, window, cap,
+                                               dtype):
+    q, k, v = _qkv(1, S, S, 2 * G, 2, D, dtype, cuda, S + G)
+    _flash_check(q, k, v, dtype, window=window, attn_cap=cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T", [(128, 128), (100, 192)])
+def test_flash_attention_kernel_noncausal(cuda, S, T, dtype):
+    q, k, v = _qkv(2, S, T, 4, 2, 128, dtype, cuda, S + T)
+    _flash_check(q, k, v, dtype, causal=False)
+
+
+def test_flash_attention_kernel_serving_bucket(cuda):
+    """The serving prefill's bucket: qwen3-0.6b widths, 8 x 512, bf16."""
+    q, k, v = _qkv(8, 512, 512, 16, 8, 128, torch.bfloat16, cuda, 8)
+    _flash_check(q, k, v, torch.bfloat16)
+
+
 def test_flash_attention_kernel_rejects(cuda):
     q = torch.zeros(1, 64, 2, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -167,6 +222,46 @@ def test_gossip_mix_kernel_past_2_31_elements(cuda):
     np.testing.assert_allclose(
         got[idx].cpu().numpy(), (0.5 * x[idx] + 0.5 * r[idx]).cpu().numpy(),
         **GM_TOLS[torch.float32])
+
+
+def _gm_inputs(n, degree, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x, *recvs = (torch.randn(n, generator=g, device=device).to(dtype)
+                 for _ in range(degree + 1))
+    ws = tuple(float(w) for w in np.random.default_rng(seed).dirichlet(
+        np.ones(degree + 1))[1:])
+    return x, recvs, 1.0 - sum(ws), ws
+
+
+# Degrees 1 and 2 run their own kernels.  Receives of weight 0.0 lift the
+# degree to 3, the generic kernel, without changing the sum: fmaf(0, r, acc)
+# == acc for finite r, so the two must agree bit for bit.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 4099, 1_000_003, 3 << 22])
+@pytest.mark.parametrize("degree", [1, 2])
+def test_gossip_mix_fast_paths_match_generic_bits(cuda, degree, n, dtype):
+    x, recvs, w_self, ws = _gm_inputs(n, degree, dtype, cuda, n + degree)
+    fast = gm_ops.gossip_mix(x, recvs, w_self=w_self, ws=ws)
+    pad = 3 - degree
+    generic = gm_ops.gossip_mix(x, recvs + [x] * pad, w_self=w_self,
+                                ws=ws + (0.0,) * pad)
+    torch.cuda.synchronize()
+    assert torch.equal(fast, generic)
+
+
+def test_gossip_mix_fast_path_past_2_31_elements_matches_generic(cuda):
+    """Degree 2 past 2^31 elements, with an odd tail, bit for bit against
+    the generic kernel.  Checked where the card has room for x, two
+    receives and two outputs (5 x 8.6 GB)."""
+    n = (1 << 31) + 4099
+    if torch.cuda.mem_get_info(cuda)[0] < 5 * 4 * n + (4 << 30):
+        pytest.skip("needs ~47 GB of free device memory")
+    x, recvs, w_self, ws = _gm_inputs(n, 2, torch.float32, cuda, 2)
+    fast = gm_ops.gossip_mix(x, recvs, w_self=w_self, ws=ws)
+    generic = gm_ops.gossip_mix(x, recvs + [x], w_self=w_self,
+                                ws=ws + (0.0,))
+    torch.cuda.synchronize()
+    assert torch.equal(fast, generic)
 
 
 def test_flash_attention_kernel_refuses_autograd(cuda):

@@ -104,3 +104,69 @@ def test_flash_attention_raises_off_cpu_and_cuda():
     q = torch.zeros(1, 4, 2, 64, device="meta")
     with pytest.raises(ValueError):
         fa_ops.flash_attention(q, q, q)
+
+
+def _wgmma_arithmetic(q, k, v, *, causal=True, window=None, attn_cap=None):
+    """The bf16 CUDA kernel's arithmetic (csrc/flash_attention.cu,
+    wg::flash_fwd_wgmma) in torch on the CPU: per 64-row query tile, the
+    64-key tiles between its window start and causal diagonal, in order;
+    f32 scores of the bf16 inputs, f32 running m, l and acc; P rounded to
+    bf16 before P V while l sums the unrounded P; a row that has seen only
+    masked keys subtracts 0.  A test helper: it sits on no path."""
+    B, S, H, D = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(G, dim=2) for x in (k, v))
+    out = torch.empty(B, S, H, D, dtype=q.dtype)
+    for q0 in range(0, S, 64):
+        rows = torch.arange(q0, min(q0 + 64, S))
+        last = min(T, S, q0 + 64) if causal else T
+        lo = max(0, q0 - window + 1) // 64 if window else 0
+        m = torch.full((B, H, len(rows)), fa_ref.NEG_INF)
+        l = torch.zeros(B, H, len(rows))
+        acc = torch.zeros(B, H, len(rows), D)
+        for c0 in range(lo * 64, last, 64):
+            cols = torch.arange(c0, min(c0 + 64, T))
+            s = torch.einsum("brhd,bchd->bhrc", qf[:, rows], kf[:, cols])
+            s = s * D ** -0.5
+            if attn_cap is not None:
+                s = attn_cap * torch.tanh(s / attn_cap)
+            ok = torch.ones(len(rows), len(cols), dtype=torch.bool)
+            if causal:
+                ok &= cols[None] <= rows[:, None]
+            if window is not None:
+                ok &= cols[None] > rows[:, None] - window
+            s = torch.where(ok, s, fa_ref.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - torch.where(m_new == fa_ref.NEG_INF, 0.0,
+                                          m_new)[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhrc,bchd->bhrd", p.bfloat16().float(), vf[:, cols])
+            m = m_new
+        l = torch.where(l == 0, 1.0, l)
+        out[:, rows] = (acc / l[..., None]).permute(0, 2, 1, 3).to(q.dtype)
+    return out
+
+
+# reduced qwen3-0.6b widths (4 heads of 64, G = 1) and G = 2, windows that
+# start mid-tile, softcap; S ragged against the 64-row tiles
+@pytest.mark.parametrize("Kv", [4, 2])
+@pytest.mark.parametrize("S,window,attn_cap", [
+    (130, None, None), (200, 48, None), (130, None, 50.0), (256, 100, 30.0),
+])
+def test_wgmma_arithmetic_holds_the_bf16_tolerance(S, window, attn_cap, Kv):
+    """Rounding P to bf16 before P V (the bf16 kernel; the JAX kernel
+    multiplies in f32) stays within the reference's bf16 tolerance of the
+    JAX kernel in interpret mode and of the JAX oracle."""
+    (qj, kj, vj), (qt, kt, vt) = _qkv(1, S, S, 4, Kv, 64, S + Kv, "bf16")
+    got = _wgmma_arithmetic(qt, kt, vt, window=window, attn_cap=attn_cap)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    want = jfa_ops.flash_attention(qj, kj, vj, causal=True, window=window,
+                                   attn_cap=attn_cap, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL)
+    want_ref = jfa_ref.attention_ref(qj, kj, vj, causal=True, window=window,
+                                     attn_cap=attn_cap)
+    np.testing.assert_allclose(_f32(got), _f32(want_ref), **TOL)
