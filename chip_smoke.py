@@ -14,14 +14,19 @@ Phases, in order; any failure exits non-zero before the result lines:
                  power limit
   2. build    -- nvcc builds every kernel of csrc/ in parallel; prints
                  each function's registers, spills and static shared
-                 memory, and the HGMMA / UTMALDG count of K2's bf16 kernel
-                 (cuobjdump -sass), which must be non-zero
+                 memory, the HGMMA / UTMALDG count of K2's bf16 kernel and
+                 the HGMMA count of K4's tensor-core kernels (cuobjdump
+                 -sass), which must be non-zero
   3. kernels  -- each kernel vs its plain version at its path's shapes
                  (attention: bf16, tolerance 2e-2 as tests/test_kernels.py,
                  flash at the serving prefill's (4, 512, 16, 8, 128) and the
                  operations-bound (1, 4096, 16, 8, 128), and its f32 branch
-                 at 2e-4; gossip_mix: f32 1e-5 and bf16 2e-2, degrees 1 and 3, on
+                 at 2e-4; paged: the ragged batch, the serve decode shape
+                 and one 8,192-token sequence, timed from CUDA-graph
+                 replays over >= 4 copies of the pool, cold in L2;
+                 gossip_mix: f32 1e-5 and bf16 2e-2, degrees 1 and 3, on
                  (4, 2^27) and an odd tail; ssd_scan: f32, 1e-3 x max(1,
+                 max-abs) and on its tensor-core branch 5e-5 x max(1,
                  max-abs), at mamba2-1.3b's (1, 2048, 64, 64, 1, 128) with
                  the test draw of A and the model's A range, and a ragged
                  s = 1000, g = 2), timed with CUDA events beside
@@ -90,8 +95,13 @@ GOSSIP_TAIL = (3, 1_000_003)  # not a multiple of the 16-byte vector
 # roundings in every matmul): start from 2e-2 of the logits' max-abs
 MODEL_TOL = 2e-2
 SSD_TOL = 1e-3               # tests/test_kernels.py:117-118, x max(1, max-abs)
+# K4's tensor-core branch, x max(1, max-abs): 3xTF32 errs by up to 1.5e-5
+# and single TF32 by ~5e-4 (tests/test_torch_ssd_scan.py TOL_TC),
+# so a kernel that dropped its lo terms fails
+SSD_TOL_TC = 5e-5
 SSD_MAIN = (1, 2048, 64, 64, 1, 128)    # (b, s, h, p, g, n) of mamba2-1.3b
 SSD_RAGGED = (1, 1000, 64, 64, 2, 128)  # chunk 128 halves to 8
+SSD_FORWARD = (2, 2048, 64, 64, 1, 128)  # one layer of phase 7's forward
 # mamba2-1.3b at full width: the K4 forward against the plain chunked one,
 # and decode against forward, relative to the logits' max-abs.  Both are
 # held in f32 activations: with random weights the 48-layer bf16 forward
@@ -284,62 +294,56 @@ def flash_phase(torch, dev):
 
 
 def paged_phase(torch, dev):
-    import numpy as np
-
     from repro_torch.kernels.paged_attention import ops, ref
-    B, H, Kv, D, ps, pmax = 8, 16, 8, 128, 16, 64
-    rng = np.random.default_rng(2)
-    lengths = rng.integers(1, pmax * ps + 1, B)
-    lengths[0] = pmax * ps                        # one full-length sequence
-    lengths[-1] = 1                               # one trash-padded row
-    per_seq = -(-lengths // ps)
-    n_pages = 1 + int(per_seq.sum())
-    table = np.zeros((B, pmax), np.int32)
-    order = 1 + rng.permutation(n_pages - 1)
-    at = 0
-    for b in range(B - 1):
-        table[b, :per_seq[b]] = order[at:at + per_seq[b]]
-        at += per_seq[b]
-    g = torch.Generator(device=dev).manual_seed(3)
-    q = torch.randn(B, H, D, generator=g, device=dev).to(torch.bfloat16)
-    kp, vp = (torch.randn(Kv, n_pages, ps, D, generator=g, device=dev)
-              .to(torch.bfloat16) for _ in range(2))
-    tab = torch.from_numpy(table).to(dev)
-    lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
-    errs = []
-    for window, cap in ((None, None), (256, 30.0)):
-        got = ops.paged_attention(q, kp, vp, tab, lens, window=window,
-                                  attn_cap=cap)
-        torch.cuda.synchronize()
-        want = ref.paged_attention_ref(q, kp, vp, tab, lens, window=window,
-                                       attn_cap=cap)
-        errs.append(max_err(got, want))
-        check(bool(torch.isfinite(got).all()), "paged_attention: non-finite")
-        check(within(got, want, KERNEL_TOL),
-              f"paged_attention window={window} cap={cap}: max abs err "
-              f"{errs[-1]} beyond {KERNEL_TOL}")
-        log(f"  paged_attention B={B} H={H} Kv={Kv} D={D} page={ps} "
-            f"Pmax={pmax} lengths={lengths.tolist()} bf16 window={window} "
-            f"cap={cap}: max abs err {errs[-1]:.3g}")
-    ms = time_ms(lambda: ops.paged_attention(q, kp, vp, tab, lens))
-    plain_ms = time_ms(lambda: ref.paged_attention_ref(q, kp, vp, tab, lens),
-                       iters=5)
-    visible = int(lengths.sum())
-    flops = 4 * H * D * visible
-    nbytes = (2 * visible * Kv * D * 2            # the K and V it must read
-              + 2 * 2 * B * H * D                  # q and out
-              + 4 * (table.size + B))              # page table and lengths
-    bound_ms, bound_by = bound(flops, nbytes)
-    log(f"  paged_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
-        f"computes it")
+    from repro_torch.launch import time_paged as TP
+    errs, rows = [], {}
+    for name, cases in (("ragged", ((None, None), (256, 30.0))),
+                        ("serve", ((None, None), (100, 30.0))),
+                        ("long", ((None, None), (3000, 30.0)))):
+        q, pools, tab, lens, ln = TP.inputs(dev, name)
+        kp, vp = pools[0]
+        for window, cap in cases:
+            got = ops.paged_attention(q, kp, vp, tab, lens, window=window,
+                                      attn_cap=cap)
+            torch.cuda.synchronize()
+            want = ref.paged_attention_ref(q, kp, vp, tab, lens,
+                                           window=window, attn_cap=cap)
+            errs.append(max_err(got, want))
+            check(bool(torch.isfinite(got).all()),
+                  f"paged_attention {name}: non-finite")
+            check(within(got, want, KERNEL_TOL),
+                  f"paged_attention {name} window={window} cap={cap}: max "
+                  f"abs err {errs[-1]} beyond {KERNEL_TOL}")
+            log(f"  paged_attention {name}: B={len(ln)} H={TP.H} Kv={TP.KV} "
+                f"D={TP.D} page={TP.PAGE} Pmax={tab.shape[1]} lengths "
+                f"{ln.tolist() if len(ln) <= 8 else len(ln)} bf16 "
+                f"window={window} cap={cap}: max abs err {errs[-1]:.3g}")
+        plain_ms = time_ms(lambda: ref.paged_attention_ref(q, kp, vp, tab,
+                                                           lens), iters=3)
+        r = TP.time_shape(dev, name)
+        r["plain_ms"] = plain_ms
+        rows[name] = r
+        log(f"  paged_attention {name}: kernel {r['ms']:.4f} ms from CUDA-"
+            f"graph replays over {r['copies']} pool copies "
+            f"({r['pool_mb']:.1f} MB, cold in L2; {r['gbps']:.1f} GB/s, "
+            f"{100 * r['bound_share']:.1f} % of the bound), through the "
+            f"wrapper back to back {r['eager_ms']:.4f} ms; plain "
+            f"{plain_ms:.4f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['visible']} visible tokens); no single "
+            f"PyTorch call computes it")
+        del q, pools, kp, vp
+    main = rows.pop("serve")
     return {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:89",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": f"B={B} H={H} Kv={Kv} D={D} page={ps} Pmax={pmax} "
-                     f"{visible} visible tokens bf16"}
+            "max_abs_err": max(errs), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "eager_ms": main["eager_ms"], "bound_share": main["bound_share"],
+            "shape": f"serve decode: B={main['B']} H={TP.H} Kv={TP.KV} "
+                     f"D={TP.D} page={TP.PAGE} Pmax={main['pmax']} "
+                     f"{main['visible']} visible tokens bf16, cold pool",
+            "ragged": rows["ragged"], "long": rows["long"]}
 
 
 def gossip_phase(torch, dev):
@@ -411,7 +415,7 @@ def _ssd_inputs(torch, dev, shape, seed, model_a):
 
 
 def ssd_phase(torch, dev):
-    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
     from repro_torch.models import mamba2 as m2
     errs = []
     for shape, model_a, seed in ((SSD_MAIN, False, 5), (SSD_MAIN, True, 6),
@@ -426,43 +430,74 @@ def ssd_phase(torch, dev):
             errs.append(err)
             check(bool(torch.isfinite(got).all()),
                   f"ssd_scan {shape}: non-finite {name}")
-            check(err <= SSD_TOL * max(1.0, scale),
+            tc = kernel.tensor_core_branch(ck, shape[5])
+            tol = SSD_TOL_TC if tc else SSD_TOL
+            check(err <= tol * max(1.0, scale),
                   f"ssd_scan {shape} model_a={model_a} {name}: max abs err "
-                  f"{err} beyond {SSD_TOL} x max(1, {scale})")
+                  f"{err} beyond {tol} x max(1, {scale})")
             log(f"  ssd_scan (b,s,h,p,g,n)={shape} chunk {ck} f32 "
-                f"A={'model' if model_a else 'test'} {name}: max abs err "
-                f"{err:.3g} (max-abs {scale:.4g}, tolerance {SSD_TOL} x "
-                f"max(1, max-abs))")
-    x, dt, A, B, C = _ssd_inputs(torch, dev, SSD_MAIN, 6, True)
-    b, s, h, p, g, n = SSD_MAIN
-    L = ops.chunk_len(s, 128)
-    ms = time_ms(lambda: ops.ssd_scan(x, dt, A, B, C))
-    plain_ms = time_ms(lambda: ref.ssd_ref(x, dt, A, B, C), iters=2,
-                       warmup=1)
-    chunked_ms = time_ms(lambda: m2.ssd_chunked(x, dt, A, B, C, chunk=L),
-                         iters=5, warmup=1)
-    nc, pairs = s // L, L * (L + 1) // 2
-    # per (b, h, chunk): the causal half of C B^T and of M (dt x), C H_in
-    # and the chunk state B^T (w x); then the state pass over the chunks
-    flops = b * h * nc * (2 * pairs * (n + p) + 4 * L * n * p + 2 * p * n)
-    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
-                  + b * h * p * n)
-    bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
-    tf32_ms = flops / PEAK_TF32_FLOPS * 1e3
-    log(f"  ssd_scan {SSD_MAIN} chunk {L} f32: kernel {ms:.4f} ms, plain "
-        f"ssd_ref {plain_ms:.4f} ms, plain ssd_chunked {chunked_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP at "
-        f"67 TFLOP/s f32, {nbytes / 1e6:.1f} MB at 3.35 TB/s; at TF32's "
-        f"495 TFLOP/s {tf32_ms:.4f} ms); library: none exists (no single "
-        f"PyTorch call computes SSD)")
+                f"A={'model' if model_a else 'test'} {name} "
+                f"({'3xTF32 tensor-core' if tc else 'FMA'} branch): max abs "
+                f"err {err:.3g} = {err / max(1.0, scale):.3g} x max(1, "
+                f"max-abs {scale:.4g}), tolerance {tol} x max(1, max-abs)")
+    rows = {}
+    for name, shape in (("main", SSD_MAIN), ("forward", SSD_FORWARD)):
+        x, dt, A, B, C = _ssd_inputs(torch, dev, shape, 6, True)
+        b, s, h, p, g, n = shape
+        L = ops.chunk_len(s, 128)
+        ms = time_graph_ms(lambda: ops.ssd_scan(x, dt, A, B, C), iters=10)
+        eager_ms = time_ms(lambda: ops.ssd_scan(x, dt, A, B, C))
+        nc, pairs = s // L, L * (L + 1) // 2
+        # per (b, h, chunk): the causal half of M (dt x), C H_in and the
+        # chunk state B^T (w x); the causal half of C B^T once per (b, g,
+        # chunk), as the kernel shares it across a group's heads (per head
+        # as the reference computes it: flops_per_head); then the state
+        # pass
+        flops = (b * h * nc * (2 * pairs * p + 4 * L * n * p + 2 * p * n)
+                 + b * g * nc * 2 * pairs * n)
+        flops_per_head = flops + (h - g) * b * nc * 2 * pairs * n
+        nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                      + b * h * p * n)
+        # 3xTF32: three TF32 products for every f32 one
+        bound_ms, bound_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        per_head_ms = bound(3 * flops_per_head, nbytes, PEAK_TF32_FLOPS)[0]
+        f32_ms = bound(flops, nbytes, PEAK_F32_FLOPS)[0]
+        tf32_ms = bound(flops, nbytes, PEAK_TF32_FLOPS)[0]
+        row = {"ms": ms, "eager_ms": eager_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bound_per_head_scores_ms": per_head_ms,
+               "bound_f32_fma_ms": f32_ms,
+               "bound_tf32_ms": tf32_ms, "bound_share": bound_ms / ms,
+               "tflops_3xtf32": 3 * flops / ms / 1e9,
+               "per_head_scores_share": per_head_ms / ms,
+               "shape": f"(b,s,h,p,g,n)={shape} chunk {L} f32"}
+        if name == "main":
+            row["plain_ms"] = time_ms(lambda: ref.ssd_ref(x, dt, A, B, C),
+                                      iters=2, warmup=1)
+            row["chunked_ms"] = time_ms(
+                lambda: m2.ssd_chunked(x, dt, A, B, C, chunk=L), iters=5,
+                warmup=1)
+        rows[name] = row
+        log(f"  ssd_scan {shape} chunk {L} f32: kernel {ms:.4f} ms (CUDA-"
+            f"graph replays; through the wrapper back to back {eager_ms:.4f}"
+            f" ms), {row['tflops_3xtf32']:.1f} TFLOP/s of 3xTF32 work, "
+            f"{100 * row['bound_share']:.1f} % of the bound "
+            f"{bound_ms:.4f} ms ({bound_by}: 3 x {flops / 1e9:.3f} GFLOP "
+            f"at TF32's 495 TFLOP/s, {nbytes / 1e6:.1f} MB at 3.35 TB/s); "
+            f"beside it 3xTF32 with C B^T once a head "
+            f"({3 * flops_per_head / 1e9:.3f} GFLOP) {per_head_ms:.4f} ms "
+            f"({100 * per_head_ms / ms:.1f} %), the f32-FMA bound "
+            f"{f32_ms:.4f} ms and single TF32's {tf32_ms:.4f} ms"
+            + (f"; plain ssd_ref {row['plain_ms']:.4f} ms, plain "
+               f"ssd_chunked {row['chunked_ms']:.4f} ms; library: none "
+               f"exists (no single PyTorch call computes SSD)"
+               if name == "main" else ""))
+        del x, dt, A, B, C
+    main = rows.pop("main")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:75",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "chunked_ms": chunked_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bound_tf32_ms": tf32_ms,
-            "library_ms": None,
-            "shape": f"(b,s,h,p,g,n)={SSD_MAIN} chunk {L} f32"}
+            "max_abs_err": max(errs), **main, "library_ms": None,
+            "forward_shape": rows["forward"]}
 
 
 # ---------------------------------------------------------------------------
@@ -919,6 +954,14 @@ def main() -> int:
     check(len(wgmma) == 2 and all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
                                   for c in wgmma),
           f"flash_attention: the bf16 kernels hold no HGMMA / UTMALDG: {sass}")
+    ssd_sass = {_short(f): c for f, c in build.sass_counts(
+        "ssd_scan", ("HGMMA",)).items()}
+    for fn, counts in ssd_sass.items():
+        log(f"  ssd_scan SASS {fn}: {counts}")
+    tc = [c for fn, c in ssd_sass.items()
+          if fn.split("<")[0].endswith(("_tc", "_pair"))]
+    check(len(tc) >= 2 and all(c["HGMMA"] > 0 for c in tc),
+          f"ssd_scan: the tensor-core kernels hold no HGMMA: {ssd_sass}")
 
     log("phase 3: kernels against their plain versions")
     kernels = [flash_phase(torch, dev), paged_phase(torch, dev),

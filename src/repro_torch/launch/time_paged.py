@@ -1,0 +1,163 @@
+"""Times K3 (``kernels/paged_attention``) on the card at three shapes, with
+the page pool cold as the serving path finds it.
+
+Shapes (bf16, qwen3-0.6b's heads: H 16, Kv 8, D 128, page 16):
+
+  ragged  8 sequences of random lengths up to 1,024 (one at 1,024, one a
+          trash-padded row of length 1), Pmax 64: ``chip_smoke.py``'s
+  serve   8 sequences of 257-288 tokens, Pmax 32: a decode step of the
+          serve phase (256-token prompts, 32 new tokens)
+  long    one sequence of 8,192 tokens, Pmax 512
+
+Each is timed from CUDA-graph replays (no host launch cost between calls)
+cycling over at least four copies of the pool, more than 50 MB together,
+so that no call finds its pages in the 50 MB L2; the eager time through
+the Python wrapper is printed beside it.  The bound is bytes: the K and V
+of the visible tokens once, q, out, the page table and lengths.
+
+  PYTHONPATH=src python3 src/repro_torch/launch/time_paged.py
+
+It uses only ``paged_attention`` (the same signature in every version of
+the port), so with another checkout's ``src`` first on ``PYTHONPATH`` it
+times that checkout's kernel at the same shapes.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.paged_attention import ops
+
+PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
+PEAK_F32_FLOPS = 67e12   # the kernel's f32 arithmetic, outside tensor cores
+COLD_BYTES = 60e6        # the pool copies together: beyond the 50 MB L2
+H, KV, D, PAGE = 16, 8, 128, 16
+
+
+def lengths(name: str) -> tuple[np.ndarray, int]:
+    """(lengths, Pmax) of shape ``name``."""
+    if name == "ragged":
+        pmax = 64
+        ln = np.random.default_rng(2).integers(1, pmax * PAGE + 1, 8)
+        ln[0], ln[-1] = pmax * PAGE, 1
+        return ln, pmax
+    if name == "serve":
+        return np.random.default_rng(3).integers(257, 289, 8), 32
+    if name == "long":
+        return np.array([8192]), 512
+    raise ValueError(name)
+
+
+def inputs(dev, name: str, copies: int = 1, dtype=torch.bfloat16):
+    """q, [(k_pages, v_pages)] x copies, page_table, lengths (on ``dev``)
+    and the lengths as numpy.  Each sequence's pages are distinct pages of
+    the pool in a random order; a row of length 1 at the end of a ragged
+    batch reads the trash page 0, as a padded bucket row does."""
+    ln, pmax = lengths(name)
+    B = len(ln)
+    per_seq = -(-ln // PAGE)
+    trash_row = name == "ragged"
+    n_pages = 1 + int(per_seq[:B - trash_row].sum())
+    rng = np.random.default_rng(B + pmax)
+    order = 1 + rng.permutation(n_pages - 1)
+    table = np.zeros((B, pmax), np.int32)
+    at = 0
+    for b in range(B - trash_row):
+        table[b, :per_seq[b]] = order[at:at + per_seq[b]]
+        at += per_seq[b]
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
+    kp, vp = (torch.randn(KV, n_pages, PAGE, D, generator=g, device=dev)
+              .to(dtype) for _ in range(2))
+    pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(copies - 1)]
+    return (q, pools, torch.from_numpy(table).to(dev),
+            torch.from_numpy(ln.astype(np.int32)).to(dev), ln)
+
+
+def cost(ln: np.ndarray, pmax: int, elem: int = 2) -> tuple[int, int]:
+    """Operations and bytes one call needs: 4 H D flops per visible token
+    (q.k and p.v for the G rows of each kv head); K and V of the visible
+    tokens once, q and out, the page table and the lengths."""
+    visible, B = int(ln.sum()), len(ln)
+    return (4 * H * D * visible,
+            2 * visible * KV * D * elem + 2 * B * H * D * elem
+            + 4 * (B * pmax + B))
+
+
+def bound_ms(ln: np.ndarray, pmax: int) -> tuple[float, str]:
+    flops, nbytes = cost(ln, pmax)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def _events_ms(fn, reps: int) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_shape(dev, name: str) -> dict:
+    """Graph-replay and eager ms per call at shape ``name``, cold pool."""
+    ln, pmax = lengths(name)
+    copy_bytes = 2 * KV * (1 + int((-(-ln // PAGE)).sum())) * PAGE * D * 2
+    copies = max(4, -(-int(COLD_BYTES) // copy_bytes))
+    q, pools, table, lens, _ = inputs(dev, name, copies)
+    calls = copies * max(1, 32 // copies)
+
+    def run_all():
+        for kp, vp in pools * (calls // copies):
+            ops.paged_attention(q, kp, vp, table, lens)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run_all()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run_all()
+    graph_ms = _events_ms(graph.replay, 5) / calls
+    del graph
+    eager_ms = _events_ms(run_all, 3) / calls
+    b_ms, by = bound_ms(ln, pmax)
+    _, nbytes = cost(ln, pmax)
+    return {"shape": name, "B": len(ln), "pmax": pmax,
+            "visible": int(ln.sum()), "copies": copies,
+            "pool_mb": copies * copy_bytes / 1e6, "ms": graph_ms,
+            "eager_ms": eager_ms, "bound_ms": b_ms, "bound_by": by,
+            "gbps": nbytes / graph_ms / 1e6, "bound_share": b_ms / graph_ms}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("time_paged measures the card: run it on one")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"{smi}; paged_attention from {ops.__file__}", flush=True)
+    rows = []
+    for name in ("ragged", "serve", "long"):
+        r = time_shape(dev, name)
+        rows.append(r)
+        print(f"  {name}: B={r['B']} Pmax={r['pmax']} {r['visible']} "
+              f"visible tokens, {r['copies']} pool copies "
+              f"({r['pool_mb']:.1f} MB): graph {r['ms']:.4f} ms "
+              f"({r['gbps']:.1f} GB/s, {100 * r['bound_share']:.1f} % of "
+              f"the {r['bound_ms']:.4f} ms {r['bound_by']} bound), eager "
+              f"{r['eager_ms']:.4f} ms", flush=True)
+    print(json.dumps({"paged_times": rows}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,7 +15,8 @@ from repro_torch import configs
 from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
 from repro_torch.kernels.gossip_mix import ops as gm_ops, ref as gm_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
-from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
+from repro_torch.kernels.ssd_scan import (kernel as ssd_kernel,
+                                          ops as ssd_ops, ref as ssd_ref)
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import model as M
 
@@ -24,6 +25,9 @@ TOL32 = dict(rtol=2e-4, atol=2e-4)
 TOLS = {torch.float32: TOL32, torch.bfloat16: TOL}
 # gossip_mix: tests/test_kernels.py:189 (f32), :15 (bf16)
 GM_TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: TOL}
+# ssd_scan's tensor-core branch, x max(1, max-abs): 3xTF32 errs by up to
+# 1.5e-5 and single TF32 by ~5e-4 (tests/test_torch_ssd_scan.py)
+SSD_TOL_TC = 5e-5
 
 pytestmark = pytest.mark.gpu
 
@@ -169,6 +173,121 @@ def test_paged_attention_kernel(cuda, B, H, Kv, D, page_size, lengths,
            dtype)
 
 
+def _paged_check(q, kp, vp, table, lens, dtype, **kw):
+    n0 = pa_ops.paged_attention.launches
+    got = pa_ops.paged_attention(q, kp, vp, table, lens, **kw)
+    torch.cuda.synchronize()
+    assert pa_ops.paged_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    _close(got, pa_ref.paged_attention_ref(q, kp, vp, table, lens, **kw),
+           dtype)
+
+
+# The split-K kernel's edges at page 16, 128-token splits: lengths 1,
+# page_size - 1, a split boundary - 1 / + 0 / + 1, Pmax x page_size; a
+# window narrower than a split (whole splits empty) and one that starts
+# mid-split, with softcap; and a trash-padded last row (all page 0).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,cap", [(None, None), (5, None),
+                                        (200, 30.0), (1, 50.0)])
+def test_paged_attention_kernel_split_edges(cuda, window, cap, dtype):
+    lengths = [1, 15, 127, 128, 129, 384, 1]
+    q, kp, vp, table, lens = _pages(7, 16, 8, 128, 16, lengths, dtype, cuda,
+                                    seed=17)
+    table[-1] = 0
+    _paged_check(q, kp, vp, table, lens, dtype, window=window, attn_cap=cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8, 16])
+def test_paged_attention_kernel_gqa_widths(cuda, G, D, dtype):
+    """G = 3 pads its 4-row group, G = 16 takes two groups of 8."""
+    lengths = [300, 1, 129, 40]
+    q, kp, vp, table, lens = _pages(4, 2 * G, 2, D, 16, lengths, dtype,
+                                    cuda, seed=G + D)
+    table[1] = 0                     # trash-padded row
+    _paged_check(q, kp, vp, table, lens, dtype)
+
+
+@pytest.mark.parametrize("page_size", [1, 4, 8, 32, 256])
+def test_paged_attention_kernel_page_sizes(cuda, page_size):
+    """Runs of a page's rows are bulk-copied whole; pages shorter and
+    longer than a chunk, a split, and the ring."""
+    lengths = [1000, 3, 257]
+    q, kp, vp, table, lens = _pages(3, 8, 4, 64, page_size, lengths,
+                                    torch.bfloat16, cuda, seed=page_size)
+    _paged_check(q, kp, vp, table, lens, torch.bfloat16, window=700)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_long_context(cuda, dtype):
+    """B = 1 at 8,192 tokens, page 16 (Pmax 512, 64 splits)."""
+    q, kp, vp, table, lens = _pages(1, 16, 8, 128, 16, [8192], dtype, cuda,
+                                    seed=81)
+    _paged_check(q, kp, vp, table, lens, dtype)
+    _paged_check(q, kp, vp, table, lens, dtype, window=3000, attn_cap=30.0)
+
+
+def test_paged_attention_kernel_cuda_graph_replay(cuda):
+    """Captured once, replayed after `lengths` and `page_table` changed in
+    place: the grid is fixed by the shapes and the wrapper reads nothing
+    back from the card, so the replay is right at the new lengths."""
+    dtype = torch.bfloat16
+    q, kp, vp, table, lens = _pages(8, 16, 8, 128, 16, [512] * 8, dtype,
+                                    cuda, seed=5)
+    lens.copy_(torch.tensor([257, 270, 288, 300, 1, 511, 128, 129],
+                            dtype=torch.int32))
+    pa_ops.paged_attention(q, kp, vp, table, lens)      # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa_ops.paged_attention(q, kp, vp, table, lens)
+    for new_lens in ([512, 1, 2, 3, 128, 129, 300, 17],
+                     [40, 400, 16, 15, 500, 256, 1, 333]):
+        lens.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        perm = torch.randperm(table.numel(), generator=torch.Generator()
+                              .manual_seed(sum(new_lens)))
+        table.copy_(table.flatten()[perm.to(cuda)].view_as(table))
+        graph.replay()
+        torch.cuda.synchronize()
+        _close(out, pa_ref.paged_attention_ref(q, kp, vp, table, lens), dtype)
+
+
+def test_paged_attention_kernel_calls_share_no_state(cuda):
+    """The merge's counters lie in each call's own scratch: a captured
+    graph replays right after a larger call (130 sequences at Kv 8, more
+    counters than any earlier call), and while that call runs on another
+    stream, and every result agrees with the plain version."""
+    dtype = torch.bfloat16
+    small = _pages(8, 16, 8, 128, 16, [257, 270, 288, 300, 1, 511, 128, 129],
+                   dtype, cuda, seed=6)
+    pa_ops.paged_attention(*small)                      # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa_ops.paged_attention(*small)
+    big = _pages(130, 16, 8, 128, 16, [40 + 7 * i for i in range(130)],
+                 dtype, cuda, seed=7)
+    first = pa_ops.paged_attention(*big)
+    main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        side_out = pa_ops.paged_attention(*big)
+        graph.replay()
+    again = pa_ops.paged_attention(*big)                # meanwhile, on main
+    main.wait_stream(side)
+    torch.cuda.synchronize()
+    _close(out, pa_ref.paged_attention_ref(*small), dtype)
+    want = pa_ref.paged_attention_ref(*big)
+    for got in (first, side_out, again):
+        _close(got, want, dtype)
+    graph.replay()
+    torch.cuda.synchronize()
+    _close(out, pa_ref.paged_attention_ref(*small), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,degree", [
     ((8, 1024), 1), ((3, 5, 7), 3), ((17,), 2), ((1,), 1),
@@ -307,11 +426,21 @@ def _ssd_inputs(b, s, h, p, g, n, device, seed, model_a=False):
     return x, dt, A, rn(b, s, g, n), rn(b, s, g, n)
 
 
-def _ssd_close(got, want):
-    """tests/test_kernels.py:117-118: 1e-3, scaled by max(1, max-abs)."""
-    tol = 1e-3 * max(1.0, float(want.abs().max()))
+def _ssd_close(got, want, tc=False):
+    """tests/test_kernels.py:117-118: 1e-3, scaled by max(1, max-abs); on
+    the tensor-core branch (``tc``) also a max abs error within SSD_TOL_TC
+    x max(1, max-abs), which a kernel in single TF32 would exceed."""
+    scale = max(1.0, float(want.abs().max()))
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=1e-3, atol=tol)
+                               rtol=1e-3, atol=1e-3 * scale)
+    if tc:
+        err = float((got - want).abs().max())
+        assert err <= SSD_TOL_TC * scale, (
+            f"max abs err {err} beyond {SSD_TOL_TC} x max(1, {scale})")
+
+
+def _on_tensor_cores(s, chunk, n):
+    return ssd_kernel.tensor_core_branch(ssd_ops.chunk_len(s, chunk), n)
 
 
 @pytest.mark.parametrize("chunk", [32, 128])
@@ -328,8 +457,32 @@ def test_ssd_scan_kernel(cuda, g, s, chunk):
         assert y.shape == x.shape and hT.shape == (1, h, p, n)
         assert torch.isfinite(y).all() and torch.isfinite(hT).all()
         y_ref, h_ref = ssd_ref.ssd_ref(x, dt, A, B, C)
-        _ssd_close(y, y_ref)
-        _ssd_close(hT, h_ref)
+        tc = _on_tensor_cores(s, chunk, n)
+        _ssd_close(y, y_ref, tc)
+        _ssd_close(hT, h_ref, tc)
+
+
+# Both branches: the 3xTF32 tensor-core kernels where the chunk run is 64
+# or 128 and N a multiple of 64 (s = 64 runs L = 64; chunk 128 at
+# s = 2048), the FMA kernels elsewhere (chunk 32 and 256, s = 1000's
+# L = 8, N 16).
+@pytest.mark.parametrize("chunk", [32, 128, 256])
+@pytest.mark.parametrize("s", [64, 1000, 2048])
+@pytest.mark.parametrize("p,n", [(32, 16), (32, 64), (32, 128), (64, 16),
+                                 (64, 64), (64, 128)])
+def test_ssd_scan_kernel_branches(cuda, p, n, s, chunk):
+    for g, model_a in ((2, False), (1, True)):
+        x, dt, A, B, C = _ssd_inputs(1, s, 4, p, g, n, cuda,
+                                     s + p + n + chunk, model_a)
+        n0 = ssd_ops.ssd_scan.launches
+        y, hT = ssd_ops.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_ops.ssd_scan.launches == n0 + 1
+        assert torch.isfinite(y).all() and torch.isfinite(hT).all()
+        y_ref, h_ref = ssd_ref.ssd_ref(x, dt, A, B, C)
+        tc = _on_tensor_cores(s, chunk, n)
+        _ssd_close(y, y_ref, tc)
+        _ssd_close(hT, h_ref, tc)
 
 
 @pytest.mark.parametrize("p,n", [(32, 16), (32, 32), (64, 64)])

@@ -167,3 +167,133 @@ def test_ssd_scan_rejects_other_devices():
     x = torch.zeros(1, 8, 2, 32, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         tssd_ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x, x)
+
+
+# --- the tensor-core kernel's arithmetic (csrc/ssd_scan.cu, L = 64 or
+# 128): every product from TF32 operands as wgmma reads them, 3xTF32.
+# TOL_TC is what tests/test_torch_cuda_kernels.py and chip_smoke.py hold
+# that branch to on the card, x max(1, max-abs): 3xTF32 errs by 2e-6 to
+# 1.5e-5 (the model's A range at s = 2048), single TF32 by ~5e-4, so a
+# kernel that dropped its lo terms fails.
+TOL_TC = 5e-5
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to
+    nearest with ties away from zero, as float32 with the low 13 bits 0."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """A float32 operand as ``wgmma`` reads it in TF32: low 13 bits
+    ignored."""
+    return (x.float().contiguous().view(torch.int32) & -0x2000).view(
+        torch.float32)
+
+
+def _mm(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int):
+    """``einsum(eq, a, b)`` from TF32 operands: 3 terms split each operand
+    into hi = rna(a) and lo = rna(a - hi) and sum hi.hi + hi.lo + lo.hi;
+    1 term is single TF32 (hi.hi)."""
+    a_hi, b_hi = _tf32_round(a), _tf32_round(b)
+    out = torch.einsum(eq, _tf32_read(a_hi), _tf32_read(b_hi))
+    if terms == 3:
+        a_lo, b_lo = _tf32_round(a - a_hi), _tf32_round(b - b_hi)
+        out = (out + torch.einsum(eq, _tf32_read(a_hi), _tf32_read(b_lo))
+               + torch.einsum(eq, _tf32_read(a_lo), _tf32_read(b_hi)))
+    return out
+
+
+def _ssd_chunked_tf32(x, dt, A, B, C, *, chunk: int, terms: int = 3):
+    """The chunked SSD scan as the CUDA kernel's tensor-core branch
+    computes it, in plain PyTorch: chunk states Bᵀ(w x), the f32 pass
+    over chunks, then y = exp(cum_t) (C H_inᵀ) + ((C Bᵀ) ∘ decay) (dt x),
+    every product from TF32 operands (``terms`` 3 or 1).  Same arguments and results as
+    ``ssd_ref``; ``chunk`` divides s."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc, rep = s // chunk, h // g
+    x, dt, A = x.float(), dt.float(), A.float()
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bh = B.float().reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    Ch = C.float().reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(dtc * A, dim=2)                     # (b,nc,l,h)
+    w = torch.exp(cum[:, :, -1:] - cum) * dtc              # (b,nc,l,h)
+    states = _mm("bcuhn,bcuhp->bchpn", Bh, xc * w[..., None], terms)
+    carry = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(carry)
+        carry = carry * torch.exp(cum[:, c, -1])[..., None, None] + states[:, c]
+    h_in = torch.stack(h_in, dim=1)                        # (b,nc,h,p,n)
+    y = _mm("bcthn,bchpn->bcthp", Ch, h_in, terms) * torch.exp(cum)[..., None]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    ct = cum.permute(0, 1, 3, 2)                           # (b,nc,h,l)
+    diff = (ct[..., :, None] - ct[..., None, :]).masked_fill(~tri, -1e30)
+    M = _mm("bcthn,bcuhn->bchtu", Ch, Bh, terms) * torch.exp(diff)
+    y = y + _mm("bchtu,bcuhp->bcthp", M, xc * dtc[..., None], terms)
+    return y.reshape(b, s, h, p), carry
+
+
+def test_tf32_round_is_rna_with_13_zero_bits():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -11, 3.0e-30, -7.25])
+    got = _tf32_round(x)
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    want = [1.0 + 2.0 ** -10, 1.0, -(1.0 + 2.0 ** -10), 1.0 + 2 * 2.0 ** -10]
+    np.testing.assert_array_equal(got[:4].numpy(),
+                                  np.asarray(want, np.float32))
+    assert float(got[5]) == -7.25                   # already TF32
+    assert abs(float(got[4]) - 3.0e-30) <= 3.0e-30 * 2.0 ** -11
+
+
+def _tf32_err(arrs, chunk, terms):
+    jy, jh = jssd_ref.ssd_ref(*_j(arrs))
+    ty, th = _ssd_chunked_tf32(*_t(arrs), chunk=chunk, terms=terms)
+    errs = []
+    for got, want in ((ty, jy), (th, jh)):
+        want = np.asarray(want)
+        errs.append(float(np.abs(got.numpy() - want).max())
+                    / max(1.0, float(np.abs(want).max())))
+    return errs, (ty, th)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 256, 4, 64, 1, 128, 128),   # mamba2-1.3b's head, state and chunk
+    (2, 128, 4, 32, 2, 64, 64),     # P 32, two groups, L 64
+    (1, 512, 2, 64, 1, 64, 256),    # the longest chunk (FMA on the card)
+])
+@pytest.mark.parametrize("model_a", [False, True])
+def test_3xtf32_emulation_matches_jax(b, s, h, p, g, n, chunk, model_a):
+    """3xTF32 products hold the reference's 1e-3 x max(1, max-abs) against
+    the JAX recurrence and the Pallas kernel in interpret mode, with the
+    test's and the model's A range, and TOL_TC against the recurrence."""
+    arrs = _inputs(b, s, h, p, g, n, seed=s + n + model_a, model_a=model_a)
+    errs, (ty, th) = _tf32_err(arrs, chunk, 3)
+    assert max(errs) <= 1e-3, errs
+    assert max(errs) <= TOL_TC, errs
+    jy, jh = jssd_ops.ssd_scan(*_j(arrs), chunk=chunk, interpret=True)
+    for got, want in ((ty, jy), (th, jh)):
+        want = np.asarray(want)
+        tol = 1e-3 * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=tol)
+
+
+@pytest.mark.parametrize("model_a", [False, True])
+def test_single_tf32_is_far_less_accurate_than_3xtf32(model_a, capsys):
+    """Why three products: at mamba2-1.3b's widths single TF32 (~3 digits)
+    errs by far more than 3xTF32, and TOL_TC lies between the two.  Prints
+    both relative errors."""
+    arrs = _inputs(1, 256, 4, 64, 1, 128, seed=3, model_a=model_a)
+    e3, _ = _tf32_err(arrs, 128, 3)
+    e1, _ = _tf32_err(arrs, 128, 1)
+    with capsys.disabled():
+        a_range = "model" if model_a else "test"
+        print(f"\nssd 3xTF32 vs single TF32, A={a_range}: y, h_final "
+              f"error / max(1, max-abs): 3xTF32 "
+              f"{e3[0]:.3g}, {e3[1]:.3g}; single {e1[0]:.3g}, {e1[1]:.3g}")
+    assert max(e3) * 10 < max(e1)
+    assert max(e3) <= TOL_TC < max(e1), (e3, e1)
