@@ -4,8 +4,10 @@ H100: builds the CUDA kernels from the checkout, holds each against its
 plain PyTorch version, runs full-width qwen3-0.6b against the CPU, serves
 a Poisson trace through the continuous-batching engine, trains
 full-width qwen3-0.6b (cut to 8 layers) with DmSGD on 4 nodes over the
-one-peer exponential graph, and runs full-width mamba2-1.3b (the ssm
-family): its forward through the SSD-scan kernel, and generate.
+one-peer exponential graph, runs full-width mamba2-1.3b (the ssm
+family): its forward through the SSD-scan kernel, and generate, and runs
+full-width zamba2-1.2b (the hybrid family): its forward through the
+SSD-scan and flash-attention kernels, decode, and generate.
 
   python3 chip_smoke.py [--seed N]
 
@@ -29,7 +31,9 @@ Phases, in order; any failure exits non-zero before the result lines:
                  max-abs) and on its tensor-core branch 5e-5 x max(1,
                  max-abs), at mamba2-1.3b's (1, 2048, 64, 64, 1, 128) with
                  the test draw of A and the model's A range, and a ragged
-                 s = 1000, g = 2), timed with CUDA events beside
+                 s = 1000, g = 2; at zamba2's (2, 2048, 64, 64, 1, 64) with
+                 the model's A; K2 also at zamba2's (2, 2048, 32, 32, 64)),
+                 timed with CUDA events beside
                  its plain version, the one PyTorch call computing the same
                  function (where there is one), and its bound on the card,
                  with the achieved TFLOP/s or GB/s and the share of the
@@ -41,7 +45,12 @@ Phases, in order; any failure exits non-zero before the result lines:
                  card against the same weights on the CPU
   5. serve    -- ServeEngine over 16 Poisson requests (mean prompt 256,
                  32 new tokens, greedy): the serving main path; the launch
-                 counters are zeroed before and read after it
+                 counters are zeroed before and read after it.  Then the
+                 legacy ring-cache generate: the fast prefill (one
+                 forward_prefill, 28 K2 launches) against prefill="loop"
+                 (none) on 4 x 64 prompt tokens in f32 activations, logits
+                 of the prefill and 4 decode steps within 2e-2 x max-abs;
+                 one timed bf16 generate of 4 x 64 + 32 new, greedy
   6. train    -- launch.train.run: qwen3-0.6b at full width cut to 8
                  layers (the 28-layer 4-node state does not fit in 80 GB),
                  4 nodes, one_peer_exp, dmsgd beta 0.9, per-node batch
@@ -58,6 +67,16 @@ Phases, in order; any failure exits non-zero before the result lines:
                  forward on 2 x 64 tokens (f32); generate of 4 prompts x
                  64 tokens, 32 new, greedy, bf16 (tokens/s, ms per decode
                  step, peak memory)
+  8. hybrid   -- full-width zamba2-1.2b (38 mamba layers, the shared
+                 attention + MLP block after each group of 6, nothing cut,
+                 random weights from --seed), counters zeroed before and
+                 read after: forward of 2 x 2048 tokens with
+                 attention_impl="pallas" (38 K4 and 6 K2 launches per
+                 call, no other kernel), timed in bf16; the same forward
+                 in f32 activations against the plain chunked scan and
+                 attention on the card (2e-2 x max-abs); token-by-token
+                 decode against the K2/K4 forward on 2 x 64 tokens (f32);
+                 generate of 4 x 64 + 32 new, greedy, bf16
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -102,6 +121,8 @@ SSD_TOL_TC = 5e-5
 SSD_MAIN = (1, 2048, 64, 64, 1, 128)    # (b, s, h, p, g, n) of mamba2-1.3b
 SSD_RAGGED = (1, 1000, 64, 64, 2, 128)  # chunk 128 halves to 8
 SSD_FORWARD = (2, 2048, 64, 64, 1, 128)  # one layer of phase 7's forward
+SSD_HYBRID = (2, 2048, 64, 64, 1, 64)    # one layer of phase 8's forward
+FLASH_HYBRID = (2, 2048, 32, 32, 64)     # phase 8's shared block: G 1, D 64
 # mamba2-1.3b at full width: the K4 forward against the plain chunked one,
 # and decode against forward, relative to the logits' max-abs.  Both are
 # held in f32 activations: with random weights the 48-layer bf16 forward
@@ -113,6 +134,13 @@ SSM_TOL = 2e-2
 SSM_B, SSM_S = 2, 2048       # the forward
 SSM_DECODE = (2, 64)         # decode against forward
 SSM_GEN = (4, 64, 32)        # generate: prompts, prompt length, new tokens
+# the dense ring-cache generate (phase 5) and zamba2-1.2b (phase 8): held
+# as phase 7 holds mamba2, in f32 activations at 2e-2 of max-abs
+DENSE_GEN = (4, 64, 32)      # prompts, prompt length, new tokens
+DENSE_DECODE_STEPS = 4       # decode steps after the two prefills
+HYB_B, HYB_S = 2, 2048       # the forward
+HYB_DECODE = (2, 64)         # decode against forward
+HYB_GEN = (4, 64, 32)        # generate
 
 
 def log(msg: str) -> None:
@@ -224,7 +252,8 @@ def flash_phase(torch, dev):
     rows, errs = {}, []
     for name, shape, seed, cases, plain_iters in (
             ("main", FLASH_MAIN, 1, ((None, None), (128, 50.0)), 5),
-            ("long", FLASH_LONG, 11, ((None, None), (1000, 30.0)), 2)):
+            ("long", FLASH_LONG, 11, ((None, None), (1000, 30.0)), 2),
+            ("hybrid", FLASH_HYBRID, 13, ((None, None),), 2)):
         B, S, H, Kv, D = shape
         q, k, v = _flash_inputs(torch, dev, shape, torch.bfloat16, seed)
         for window, cap in cases:
@@ -289,6 +318,7 @@ def flash_phase(torch, dev):
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
             "max_abs_err": max(errs), **main, "long": rows["long"],
+            "hybrid": rows["hybrid"],
             "f32": {"ms": f32_ms, "max_abs_err": f32_err,
                     "bound_ms": f32_bound, "bound_by": f32_by}}
 
@@ -419,7 +449,8 @@ def ssd_phase(torch, dev):
     from repro_torch.models import mamba2 as m2
     errs = []
     for shape, model_a, seed in ((SSD_MAIN, False, 5), (SSD_MAIN, True, 6),
-                                 (SSD_RAGGED, False, 7)):
+                                 (SSD_RAGGED, False, 7),
+                                 (SSD_HYBRID, True, 8)):
         x, dt, A, B, C = _ssd_inputs(torch, dev, shape, seed, model_a)
         ck = ops.chunk_len(shape[1], 128)
         y, hT = ops.ssd_scan(x, dt, A, B, C, chunk=128)
@@ -441,7 +472,8 @@ def ssd_phase(torch, dev):
                 f"err {err:.3g} = {err / max(1.0, scale):.3g} x max(1, "
                 f"max-abs {scale:.4g}), tolerance {tol} x max(1, max-abs)")
     rows = {}
-    for name, shape in (("main", SSD_MAIN), ("forward", SSD_FORWARD)):
+    for name, shape in (("main", SSD_MAIN), ("forward", SSD_FORWARD),
+                        ("hybrid", SSD_HYBRID)):
         x, dt, A, B, C = _ssd_inputs(torch, dev, shape, 6, True)
         b, s, h, p, g, n = shape
         L = ops.chunk_len(s, 128)
@@ -497,7 +529,7 @@ def ssd_phase(torch, dev):
             "source": "src/repro_torch/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:75",
             "max_abs_err": max(errs), **main, "library_ms": None,
-            "forward_shape": rows["forward"]}
+            "forward_shape": rows["forward"], "hybrid_shape": rows["hybrid"]}
 
 
 # ---------------------------------------------------------------------------
@@ -633,6 +665,91 @@ def serve_phase(torch, dev, cfg, params, seed):
     per_call = {"flash_attention": st["prefill_calls"],
                 "paged_attention": st["decode_calls"]}
     return launches, per_call
+
+
+def dense_generate_phase(torch, dev, cfg, params, seed):
+    """The legacy ring-cache generate of the dense family: the fast prefill
+    (one forward_prefill, K2 once per layer, its k/v ring-filled) against
+    the token-by-token loop (no kernel), in f32 activations; then one
+    timed bf16 generate."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    Bg, Pg, new = DENSE_GEN
+    f32_cfg = dataclasses.replace(cfg, activation_dtype=torch.float32)
+    rng = np.random.default_rng(seed + 1)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (Bg, Pg))).to(dev)
+    cache_len = Pg + new
+    out, launches = {}, {}
+    with torch.no_grad():
+        for mode in ("auto", "loop"):
+            torch.cuda.synchronize()
+            n0 = fa_ops.flash_attention.launches
+            t0 = time.perf_counter()
+            logits, cache = S.prefill_cache(f32_cfg, params, prompts,
+                                            cache_len=cache_len, mode=mode)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches[mode] = fa_ops.flash_attention.launches - n0
+            out[mode] = (logits, cache, secs)
+        # the same decode steps from each ring, fed the fast path's picks
+        steps = {m: [out[m][0][:, -1].float()] for m in out}
+        cur = out["auto"][0][:, -1].argmax(-1)[:, None]
+        for t in range(Pg, Pg + DENSE_DECODE_STEPS):
+            for m in out:
+                lg, _ = M.decode_step(params, f32_cfg, cur, out[m][1], t)
+                steps[m].append(lg[:, -1].float())
+            cur = steps["auto"][-1].argmax(-1)[:, None]
+    fast, loop = (torch.stack(steps[m]) for m in ("auto", "loop"))
+    check(bool(torch.isfinite(fast).all()), "generate: non-finite logits")
+    err, scale = _rel_err(fast, loop)
+    check(launches["auto"] == cfg.n_layers and launches["loop"] == 0,
+          f"generate: flash_attention launched {launches} in the two "
+          f"prefills, expected {cfg.n_layers} (fast) and 0 (loop)")
+    log(f"  dense generate prefill {Bg} x {Pg} f32: fast (forward_prefill, "
+        f"{launches['auto']} K2 launches) {1e3 * out['auto'][2]:.3f} ms, "
+        f"loop ({Pg} decode steps, {launches['loop']} launches) "
+        f"{1e3 * out['loop'][2]:.3f} ms; logits of the prefill and "
+        f"{DENSE_DECODE_STEPS} decode steps fast vs loop: max abs err "
+        f"{err:.5g}, max-abs {scale:.5g}; tolerance {SSM_TOL} x max-abs = "
+        f"{SSM_TOL * scale:.5g}")
+    check(err <= SSM_TOL * scale,
+          f"generate: fast and loop prefill differ by {err} > "
+          f"{SSM_TOL * scale}")
+    del out, steps, fast, loop
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = (fa_ops.flash_attention.launches, pa_ops.paged_attention.launches)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        toks = S.generate(cfg, params, prompts, max_new=new, temperature=0.0,
+                          seed=seed, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gen_launches = fa_ops.flash_attention.launches - n0[0]
+    check(gen_launches == cfg.n_layers and
+          pa_ops.paged_attention.launches == n0[1],
+          f"generate: K2 launched {gen_launches} times (expected "
+          f"{cfg.n_layers}), K3 {pa_ops.paged_attention.launches - n0[1]}")
+    check(tuple(toks.shape) == (Bg, Pg + new) and
+          torch.equal(toks[:, :Pg], prompts) and
+          bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"generate: bad output {tuple(toks.shape)}")
+    log(f"  dense generate {Bg} prompts x {Pg} tokens + {new} new, greedy, "
+        f"bf16: {gen_s:.3f} s, {Bg * new / gen_s:.1f} new tokens/s, "
+        f"{1e3 * gen_s / (new + 1):.3f} ms per step (one prefill, {new} "
+        f"decode steps), peak allocated {peak_gb:.3f} GB; K2 launches "
+        f"{gen_launches} (one prefill)")
+    return {"generate_launches": gen_launches,
+            "generate_tokens_per_s": Bg * new / gen_s}
 
 
 # ---------------------------------------------------------------------------
@@ -906,6 +1023,162 @@ def ssm_phase(torch, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: hybrid, the zamba2-1.2b main path
+# ---------------------------------------------------------------------------
+
+def hybrid_phase(torch, dev, seed):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.gossip_mix import ops as gm_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import serve as S
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(configs.get_config("zamba2-1.2b"),
+                              attention_impl="pallas")
+    f32_cfg = dataclasses.replace(cfg, activation_dtype=torch.float32)
+    n_groups = cfg.n_layers // cfg.shared_attn_every
+    per_call = {"ssd_scan": cfg.n_layers, "flash_attention": n_groups,
+                "paged_attention": 0, "gossip_mix": 0}
+    t0 = time.perf_counter()
+    params = M.init(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    log(f"  init {cfg.name} ({M.param_count(params) / 1e6:.1f} M params: "
+        f"{cfg.n_layers} mamba layers, d_model {cfg.d_model}, d_state "
+        f"{cfg.d_state}; the shared block ({cfg.n_heads} heads of "
+        f"{cfg.head_dim}, kv {cfg.n_kv_heads}, d_ff {cfg.d_ff}) after each "
+        f"group of {cfg.shared_attn_every}, {n_groups} times) on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (HYB_B, HYB_S))).to(dev)
+    counters = (ssd_ops.ssd_scan, fa_ops.flash_attention,
+                pa_ops.paged_attention, gm_ops.gossip_mix)
+
+    def counts():
+        return {c.__name__: c.launches for c in counters}
+
+    def forward(c, toks):
+        n0 = counts()
+        logits, _ = M.forward(params, c, toks)
+        n1 = counts()
+        check({k: n1[k] - n0[k] for k in n1} == per_call,
+              f"hybrid: a forward launched "
+              f"{ {k: n1[k] - n0[k] for k in n1} }, expected {per_call}")
+        return logits
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with torch.no_grad():
+        secs = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            logits = forward(cfg, tokens)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()), "hybrid: non-finite logits")
+        check(tuple(logits.shape) == (HYB_B, HYB_S, cfg.vocab_size),
+              f"hybrid: logits shape {tuple(logits.shape)}")
+        fwd_ms = 1e3 * sorted(secs[1:])[len(secs[1:]) // 2]
+        logits32 = forward(f32_cfg, tokens)
+        n_fwd = len(secs) + 1
+
+        # decode against forward
+        Bd, Sd = HYB_DECODE
+        short = tokens[:Bd, :Sd]
+        full = forward(f32_cfg, short)
+        n_fwd += 1
+        cache = M.init_cache(cfg, batch=Bd, cache_len=Sd,
+                             dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        outs = []
+        for t in range(Sd):
+            lg, cache = M.decode_step(params, f32_cfg, short[:, t:t + 1],
+                                      cache, t)
+            outs.append(lg)
+        dec = torch.cat(outs, dim=1)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        dec_err, dec_scale = _rel_err(dec, full)
+        del full, dec, outs, cache
+
+        # generate: the family's serving path
+        Bg, Pg, new = HYB_GEN
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (Bg, Pg))).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = S.generate(cfg, params, prompts, max_new=new, temperature=0.0,
+                         seed=seed, device=dev)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == {k: v * n_fwd for k, v in per_call.items()},
+          f"hybrid: launches {launches}, expected {per_call} x {n_fwd} "
+          f"forward calls")
+    check(tuple(out.shape) == (Bg, Pg + new), f"hybrid: generate {out.shape}")
+    check(torch.equal(out[:, :Pg], prompts),
+          "hybrid: generate lost the prompt")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "hybrid: generated token out of vocab")
+    log(f"  forward {HYB_B} x {HYB_S} tokens through K4 and K2: "
+        f"{[round(1e3 * t, 3) for t in secs]} ms; median of calls 2-4 "
+        f"{fwd_ms:.3f} ms = {HYB_B * HYB_S / fwd_ms * 1e3:.1f} tokens/s")
+    log(f"  launches on the main path: {launches} ({per_call} per forward "
+        f"call x {n_fwd}; decode and generate run no kernel)")
+
+    # the same forwards with the plain chunked scan and attention
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        plain, _ = M.forward(params, dataclasses.replace(
+            cfg, attention_impl="jnp"), tokens)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain32, _ = M.forward(params, dataclasses.replace(
+            f32_cfg, attention_impl="jnp"), tokens)
+    check(counts() == launches, "hybrid: the plain forward launched a kernel")
+    err16, scale16 = _rel_err(logits, plain)
+    agree16 = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"  bf16 (not checked, see SSM_TOL): K2/K4 vs plain forward max abs "
+        f"err {err16:.5g} of max-abs {scale16:.5g}, greedy agreement "
+        f"{agree16:.4f}; plain forward {1e3 * plain_s:.3f} ms")
+    del logits, plain
+    err, scale = _rel_err(logits32, plain32)
+    agree = float((logits32.argmax(-1) == plain32.argmax(-1)).float().mean())
+    log(f"  f32: K2/K4 forward vs plain forward (_sdpa, ssd_chunked): max "
+        f"abs err {err:.5g}, logits max-abs {scale:.5g}; tolerance "
+        f"{SSM_TOL} x max-abs = {SSM_TOL * scale:.5g}; greedy agreement "
+        f"{agree:.4f}")
+    check(err <= SSM_TOL * scale,
+          f"hybrid: K2/K4 and plain forward differ by {err} > "
+          f"{SSM_TOL * scale}")
+    log(f"  f32: decode {Bd} x {Sd} tokens vs K2/K4 forward: max abs err "
+        f"{dec_err:.5g}, logits max-abs {dec_scale:.5g}; tolerance "
+        f"{SSM_TOL} x max-abs = {SSM_TOL * dec_scale:.5g}; "
+        f"{1e3 * dec_s / Sd:.3f} ms per decode step")
+    check(dec_err <= SSM_TOL * dec_scale,
+          f"hybrid: decode vs forward differ by {dec_err} > "
+          f"{SSM_TOL * dec_scale}")
+    steps = Pg + new
+    log(f"  generate {Bg} prompts x {Pg} tokens + {new} new, greedy: "
+        f"{gen_s:.3f} s, {Bg * new / gen_s:.1f} new tokens/s, "
+        f"{1e3 * gen_s / steps:.3f} ms per decode step ({steps} steps), "
+        f"peak allocated {peak_gb:.3f} GB")
+    return {"launches": launches, "per_call": per_call,
+            "forward_calls": n_fwd, "forward_ms": fwd_ms,
+            "forward_tokens_per_s": HYB_B * HYB_S / fwd_ms * 1e3,
+            "generate_tokens_per_s": Bg * new / gen_s,
+            "decode_step_ms": 1e3 * gen_s / steps, "peak_gb": peak_gb}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -981,6 +1254,7 @@ def main() -> int:
 
     log("phase 5: serve (the serving main path)")
     launches, per_call = serve_phase(torch, dev, cfg, params, args.seed)
+    dense_gen = dense_generate_phase(torch, dev, cfg, params, args.seed)
     del params
     torch.cuda.empty_cache()
 
@@ -990,7 +1264,16 @@ def main() -> int:
 
     log("phase 7: ssm (the mamba2-1.3b main path)")
     ssm = ssm_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    log("phase 8: hybrid (the zamba2-1.2b main path)")
+    hybrid = hybrid_phase(torch, dev, args.seed)
     for k in kernels:
+        if k["name"] in ("ssd_scan", "flash_attention"):
+            k["hybrid_launches"] = hybrid["launches"][k["name"]]
+            k["hybrid_launches_per_call"] = hybrid["per_call"][k["name"]]
+        if k["name"] == "flash_attention":
+            k["generate_launches"] = dense_gen["generate_launches"]
         if k["name"] == "ssd_scan":
             k["launches"] = ssm["launches"]
             k["launches_per_call"] = k["launches"] // ssm["forward_calls"]

@@ -1,8 +1,8 @@
 """Architecture configs (one module per arch) + registry.
 
 A copy of the JAX package's registry.  The arch modules are plain data;
-only the ``dense`` family runs in this package so far, and the others
-raise ``NotImplementedError`` at init and serve time.
+the ``dense``, ``ssm`` and ``hybrid`` families run in this package so
+far, and the others raise ``NotImplementedError`` at init and serve time.
 """
 from __future__ import annotations
 

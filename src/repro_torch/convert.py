@@ -4,7 +4,8 @@
 already a numpy array (``jax.tree.map(np.asarray, params)`` on the JAX
 side) and returns a ``state_dict`` for :class:`repro_torch.models.model.Model`.
 It unstacks the leading layer axis of ``tree["layers"]`` into the per-layer
-modules.  ``stacked_from_jax(tree, cfg)`` does the same for a node-stacked
+modules; every other leaf (``embed``, ``final_norm``, the hybrid family's
+``shared_attn.*``) keeps its dotted name.  ``stacked_from_jax(tree, cfg)`` does the same for a node-stacked
 tree (params or momentum: a leading node axis, then the layer axis of the
 layer leaves), giving the train path's ``{name: (n, ...)}`` dict, and
 ``stacked_to_jax`` is its inverse view, in numpy.  bf16 leaves
@@ -39,8 +40,8 @@ def _flatten(tree: dict, prefix: str = ""):
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
-    """JAX params (numpy leaves) of a dense or ssm config -> ``Model``
-    state_dict (``layers.attn.wq`` stacked on L -> ``layers.{i}.attn.wq``;
+    """JAX params (numpy leaves) of a dense, ssm or hybrid config ->
+    ``Model`` state_dict (``layers.attn.wq`` stacked on L -> ``layers.{i}.attn.wq``;
     ``layers.mixer.in_proj`` -> ``layers.{i}.mixer.in_proj``)."""
     _check_family(cfg)
     sd: dict[str, torch.Tensor] = {}

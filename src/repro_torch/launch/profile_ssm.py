@@ -1,14 +1,18 @@
-"""Where the ssm family's time goes on the card.
+"""Where the ssm and hybrid families' time goes on the card.
 
-Runs full-width mamba2-1.3b (random weights from ``--seed``) and traces,
-with ``torch.profiler``, one full-sequence ``forward`` through the SSD-scan
-kernel (``attention_impl="pallas"``) and a window of ``decode_step`` calls
-(the loop ``launch.serve.generate`` runs).  For each it prints the host
-time per call (ending in a device synchronisation), the device time per
-call summed over kernels, the device's idle share, and the kernels that
-take the most device time (``profile_serve.report``).
+Runs full-width mamba2-1.3b, or zamba2-1.2b with ``--arch zamba2-1.2b``
+(random weights from ``--seed``), and traces, with ``torch.profiler``, one
+full-sequence ``forward`` through the SSD-scan kernel (and, for hybrid,
+the flash-attention kernel in the shared block; ``attention_impl=
+"pallas"``) and a window of ``decode_step`` calls (the loop
+``launch.serve.generate`` runs; hybrid at position ``CACHE_LEN`` - 1,
+over full rings).  For each it prints the host time per call (ending in a
+device synchronisation), the device time per call summed over kernels,
+the device's idle share, and the kernels that take the most device time
+(``profile_serve.report``).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_ssm [--steps 8]
+  PYTHONPATH=src python -m repro_torch.launch.profile_ssm --arch zamba2-1.2b
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from .. import configs
 from ..device import resolve_device
 from ..models import model as M
 from .profile_serve import report
+
+CACHE_LEN = 128              # the hybrid decode's rings: generate's default
 
 
 def _timed(fn, calls: int, traced: bool):
@@ -43,6 +49,8 @@ def _timed(fn, calls: int, traced: bool):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2-1.3b",
+                    choices=["mamba2-1.3b", "zamba2-1.2b"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seq", type=int, default=2048)
@@ -55,14 +63,15 @@ def main(argv=None) -> None:
     if dev.type != "cuda":
         raise SystemExit("profile_ssm measures the card: run it on one")
 
-    cfg = dataclasses.replace(configs.get_config("mamba2-1.3b"),
+    cfg = dataclasses.replace(configs.get_config(args.arch),
                               attention_impl="pallas")
     params = M.init(cfg, args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
     tokens = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.seq)), device=dev)
-    cache = M.init_cache(cfg, batch=args.decode_batch, cache_len=0,
-                         dtype=torch.float32, device=dev)
+    cache = M.init_cache(cfg, batch=args.decode_batch,
+                         cache_len=CACHE_LEN, dtype=torch.float32,
+                         device=dev)
     token = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.decode_batch, 1)), device=dev)
 
@@ -70,12 +79,13 @@ def main(argv=None) -> None:
         M.forward(params, cfg, tokens)
 
     def step():
-        M.decode_step(params, cfg, token, cache, 0)
+        M.decode_step(params, cfg, token, cache, CACHE_LEN - 1)
 
     with torch.no_grad():
         for name, fn, calls in (
-                (f"forward ({args.batch} x {args.seq} tokens)", fwd, 1),
-                (f"decode step (batch {args.decode_batch})", step,
+                (f"{cfg.name} forward ({args.batch} x {args.seq} tokens)",
+                 fwd, 1),
+                (f"{cfg.name} decode step (batch {args.decode_batch})", step,
                  args.steps)):
             _timed(fn, 2, traced=False)                      # warm up
             wall, _ = _timed(fn, calls, traced=False)

@@ -9,15 +9,19 @@ printing latency percentiles, throughput, and page/compile-cache
 statistics.  It serves the REDUCED config, as the JAX CLI does; the
 full-width path is driven by ``chip_smoke.py``.
 
-:func:`generate` is the reference's legacy one-batch loop, which serves
-the families the paged engine refuses: the ssm family prefills and
-decodes token by token through ``models.model.decode_step`` over an SSM
-cache.  It adds no CLI (the JAX ``main`` serves paged families only):
+:func:`generate` is the reference's legacy one-batch loop over
+``models.model.decode_step``: the serving baseline of the dense family
+(a fast prefill, one ``forward_prefill`` through the flash-attention
+kernel whose k/v fill a ring cache, then ``attn_decode`` per token), and
+the way the families the paged engine refuses are served (ssm and hybrid
+prefill and decode token by token over their SSM caches and, for hybrid,
+the shared block's rings).  It adds no CLI (the JAX ``main`` serves paged
+families only):
 
   >>> from repro_torch import configs
   >>> from repro_torch.launch.serve import generate
   >>> from repro_torch.models import model as M
-  >>> cfg = configs.reduced_config(configs.get_config("mamba2-1.3b"))
+  >>> cfg = configs.reduced_config(configs.get_config("zamba2-1.2b"))
   >>> params = M.init(cfg, 0, device="cpu")
   >>> prompts = torch.zeros((2, 8), dtype=torch.long)
   >>> generate(cfg, params, prompts, max_new=4, temperature=0.0,
@@ -38,6 +42,7 @@ import torch
 from .. import configs
 from ..device import resolve_device
 from ..models import model as M
+from ..models.attention import KVCache
 from ..serve import ServeEngine
 
 
@@ -121,38 +126,75 @@ def sample_tokens(logits: torch.Tensor, temperature: float,
     return cur.unsqueeze(1)
 
 
+def _ring_fill(k_all, v_all, cache_len: int, dtype) -> KVCache:
+    """A ring ``KVCache`` filled from full-sequence prefill k/v.
+
+    k_all, v_all: (L, B, S, Kv, hd).  Ring slot ``s`` holds token ``t(s) =
+    (S-1) - mod(S-1-s, cache_len)`` (the newest token whose position is
+    congruent to s), so for S > cache_len only the last cache_len tokens
+    survive -- the state the token-by-token loop would have left; slots
+    with t(s) < 0 are zero.  Returns k, v as (L, B, Kv, cache_len, hd)."""
+    S = k_all.shape[2]
+    s = torch.arange(cache_len, device=k_all.device)
+    t_s = (S - 1) - torch.remainder(S - 1 - s, cache_len)
+    valid = (t_s >= 0)[:, None]
+    tc = t_s.clamp(min=0)
+
+    def take(a):
+        a = a.permute(0, 1, 3, 2, 4).to(dtype)          # (L, B, Kv, S, hd)
+        return torch.where(valid, a[:, :, :, tc], 0.0)
+
+    return KVCache(take(k_all), take(v_all))
+
+
+def prefill_cache(cfg, params, prompts, *, cache_len: int = 128,
+                  mode: str = "auto"):
+    """The prompt's decode state: ``(logits (B, 1, V) at its last token,
+    cache)``, with an f32 cache as the reference's ``generate`` keeps.
+
+    mode "auto" takes the fast path for the uniform-attention families
+    (:data:`models.model.PAGED_FAMILIES`): one ``forward_prefill``, which
+    runs the flash-attention kernel once per layer, and its k/v
+    ring-filled (:func:`_ring_fill`).  "loop", and every other family,
+    feeds the prompt token by token through ``decode_step``."""
+    if mode not in ("auto", "loop"):
+        raise ValueError(f"prefill mode {mode!r}: 'auto' or 'loop'")
+    device = params.embed.device
+    toks = torch.as_tensor(prompts, device=device).long()
+    if mode == "auto" and cfg.family in M.PAGED_FAMILIES:
+        logits, (k, v) = M.forward_prefill(params, cfg, toks)
+        return logits[:, -1:], {"kv": _ring_fill(k, v, cache_len,
+                                                 torch.float32)}
+    cache = M.init_cache(cfg, batch=toks.shape[0], cache_len=cache_len,
+                         dtype=torch.float32, device=device)
+    for t in range(toks.shape[1]):
+        logits, cache = M.decode_step(params, cfg, toks[:, t:t + 1], cache,
+                                      t)
+    return logits, cache
+
+
 def generate(cfg, params, prompts, *, max_new: int = 32,
              cache_len: int = 128, temperature: float = 1.0, seed: int = 0,
-             device="cuda") -> torch.Tensor:
+             prefill: str = "auto", device="cuda") -> torch.Tensor:
     """prompts: (B, P) int.  Returns (B, P + max_new) on ``device``.
 
-    The reference's legacy one-batch serving loop: the prompt is fed token
-    by token through ``decode_step`` (the ssm family always prefills this
-    way), then ``max_new`` tokens are sampled (``sample_tokens``, with a
-    ``torch.Generator`` seeded from ``seed``) and fed back.  The
-    uniform-attention families (the reference's fast path: one
-    ``forward_prefill`` filling a dense ring cache, or its ``prefill=
-    "loop"``) are ROADMAP slice D item 15 and raise here.
+    The reference's legacy one-batch serving loop: :func:`prefill_cache`
+    (fast for the uniform-attention families unless ``prefill="loop"``,
+    token by token otherwise), then ``max_new`` tokens are sampled
+    (``sample_tokens``, with a ``torch.Generator`` seeded from ``seed``)
+    and fed back through ``decode_step``.
     """
     device = resolve_device(device)
     if params.embed.device.type != device.type:
         raise ValueError(f"params live on {params.embed.device}, generate "
                          f"runs on {device}")
-    if cfg.family in M.PAGED_FAMILIES:
-        raise NotImplementedError(
-            "generate over a dense ring cache (forward_prefill + "
-            "attn_decode) is ROADMAP slice D item 15; serve "
-            f"{cfg.family} through ServeEngine")
     toks = torch.as_tensor(prompts, device=device).long()
-    B, plen = toks.shape[:2]
+    plen = toks.shape[1]
     gen = torch.Generator(device=device).manual_seed(seed)
-    cache = M.init_cache(cfg, batch=B, cache_len=cache_len,
-                         dtype=torch.float32, device=device)
     out = [toks]
     with torch.no_grad():
-        for t in range(plen):
-            logits, cache = M.decode_step(params, cfg, toks[:, t:t + 1],
-                                          cache, t)
+        logits, cache = prefill_cache(cfg, params, toks,
+                                      cache_len=cache_len, mode=prefill)
         for t in range(plen, plen + max_new):
             cur = sample_tokens(logits[:, -1], temperature, gen)
             out.append(cur)

@@ -1,18 +1,23 @@
 """Self-attention: GQA, qk-norm, soft-capping, sliding windows, and the
-one-token decode over a paged KV pool.
+one-token decodes over a ring-buffer KV cache and over a paged KV pool.
 
 Mirrors the JAX package's ``models/attention.py``.  The full-sequence path
 (:func:`attn_apply`) runs the flash-attention kernel in serving prefill
 and the positions-masked plain attention (:func:`_sdpa`) in the train
 forward, which needs gradients the forward-only kernel does not have --
 the JAX train path takes the same plain attention (its default
-``attention_impl="jnp"``).  The decode path (:func:`attn_decode_paged`)
-runs the paged-attention kernel.  Each kernel's ``ops`` wrapper dispatches
-on the tensors' device, so a CPU run takes the plain versions with no
-switch here.  Weights are cast to the activation dtype on use, as in the
-reference.
+``attention_impl="jnp"``); the hybrid family's shared block reads
+``attention_impl`` instead, as the reference's does.  The paged decode
+(:func:`attn_decode_paged`) runs the paged-attention kernel; the
+ring-cache decode (:func:`attn_decode`: the legacy ``generate`` and the
+hybrid shared block) is plain PyTorch, as the reference's is.  Each
+kernel's ``ops`` wrapper dispatches on the tensors' device, so a CPU run
+takes the plain versions with no switch here.  Weights are cast to the
+activation dtype on use, as in the reference.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -21,11 +26,37 @@ from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.paged_attention import ops as paged_ops
 from .layers import RMSNorm, rms_norm, rope
 
-__all__ = ["Attention", "attn_apply", "attn_decode_paged", "NEG_INF"]
+__all__ = ["Attention", "attn_apply", "attn_decode", "attn_decode_paged",
+           "KVCache", "init_kv_cache", "NEG_INF"]
 
 # finite fill for masked scores (never -inf): fully-masked and padded rows
 # then give the same finite numbers as the reference
 NEG_INF = -2.0 ** 30
+
+
+class KVCache(NamedTuple):
+    """Ring-buffer KV cache.
+
+    k, v: (batch, n_kv, cache_len, head_dim), with any leading stack axes
+    (layers, shared-block groups) in front.  After the decode of token
+    ``idx``, slot ``s`` holds token ``t(s) = idx - mod(idx - s,
+    cache_len)`` -- for a cache that never wraps (cache_len >= max_seq)
+    simply token ``s``.  Keys are stored *rotated* (RoPE applied at their
+    absolute position when written), which is valid because RoPE is
+    relative.
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_kv_cache(batch: int, n_kv: int, cache_len: int, head_dim: int,
+                  dtype=torch.bfloat16, *, stack: tuple = (),
+                  device=None) -> KVCache:
+    """Zeroed ``KVCache`` of shape ``stack + (batch, n_kv, cache_len,
+    head_dim)``."""
+    shape = tuple(stack) + (batch, n_kv, cache_len, head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
 
 class Attention(nn.Module):
@@ -87,7 +118,8 @@ def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
                attn_cap=None, return_kv=False, kernel=True):
     """Causal self-attention on a full sequence.
 
-    kernel: True (serving prefill) runs the flash-attention kernel, whose
+    kernel: True (serving prefill; the hybrid shared block when
+      ``attention_impl="pallas"``) runs the flash-attention kernel, whose
       causal mask assumes positions = arange(S) per row, as the
       reference's kernel path does; False (the train forward) runs
       :func:`_sdpa` under the mask ``positions_j <= positions_i`` (and
@@ -114,6 +146,51 @@ def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
     if return_kv:
         return y, k, v
     return y
+
+
+def attn_decode(p: Attention, x, cache: KVCache, idx: int, *, n_heads,
+                n_kv, head_dim, rope_theta=10000.0, qk_norm=False,
+                window=None, attn_cap=None):
+    """One-token decode over a ring-buffer KV cache.  x: (B, 1, d); idx:
+    the absolute position of the token (a Python int, the same for every
+    row); cache: one layer's ``KVCache`` (B, Kv, cache_len, hd).
+
+    Writes the token's (k, v) into ring slot ``idx % cache_len`` and
+    attends over the slots that hold tokens ``t(s) >= 0`` (and ``t(s) >
+    idx - window`` when a window is set).  The cache is cast to the
+    activation dtype before both products, the softmax runs in f32 with
+    the -2^30 fill, as in the reference.  Unlike the JAX reference, which
+    returns new arrays, the write is IN PLACE into the cache passed in
+    (as :func:`attn_decode_paged` writes its pools), which is returned.
+    Returns (y (B, 1, d), cache).
+    """
+    B = x.shape[0]
+    cache_len = cache.k.shape[2]
+    idx = int(idx)
+    pos = torch.full((B, 1), idx, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm,
+                                   pos, rope_theta)
+    slot = idx % cache_len
+    cache.k[:, :, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, :, slot] = v_new[:, 0].to(cache.v.dtype)
+    # slot s holds token t(s) = idx - mod(idx - s, cache_len)
+    s = torch.arange(cache_len, device=x.device)
+    t = idx - torch.remainder(idx - s, cache_len)
+    valid = t >= 0
+    if window is not None:
+        valid &= t > idx - window
+    G = n_heads // n_kv
+    qg = q.reshape(B, 1, n_kv, G, head_dim)
+    logits = torch.einsum("bskgh,bkth->bkgst", qg,
+                          cache.k.to(q.dtype)).float()
+    logits = logits * head_dim ** -0.5
+    if attn_cap is not None:
+        logits = attn_cap * torch.tanh(logits / attn_cap)
+    logits = torch.where(valid, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,bkth->bskgh", probs, cache.v.to(q.dtype))
+    y = out.reshape(B, 1, n_heads * head_dim) @ p.wo.to(x.dtype)
+    return y, cache
 
 
 def attn_decode_paged(p: Attention, x, k_pages, v_pages, page_table,

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssd_scan import ops as ssd_ops
-from .layers import RMSNorm, rms_norm
+from .layers import RMSNorm, rms_norm, silu
 
 __all__ = ["Mamba2", "mamba2_apply", "mamba2_decode", "SSMCache",
            "init_ssm_cache", "ssd_chunked"]
@@ -70,13 +70,6 @@ class Mamba2(nn.Module):
         self.out_proj = p(d_inner, d_model)
 
 
-def _silu(x):
-    """x * (1 / (1 + exp(-x))), op by op as ``jax.nn.silu`` computes it: in
-    bf16 each op rounds, where ``F.silu`` rounds once; its one-ulp flips
-    would otherwise ride the SSD through every layer."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
 def _split_proj(proj, d_inner, n_groups, d_state, n_heads):
     gn = n_groups * d_state
     z = proj[..., :d_inner]
@@ -96,7 +89,7 @@ def _causal_conv(xBC, conv_w, conv_b, history=None):
     xp = torch.cat([pad, xBC], dim=1)                    # (B, S+K-1, C)
     out = sum(xp[:, i:i + xBC.shape[1], :] * conv_w[i][None, None]
               for i in range(K))
-    return _silu(out + conv_b[None, None])
+    return silu(out + conv_b[None, None])
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int = 128, h0=None):
@@ -195,7 +188,7 @@ def mamba2_apply(p: Mamba2, x, *, d_state: int = 128, head_dim: int = 64,
     y = y.reshape(b, s, d_inner).to(dt_)
     # the inner norm keeps its default eps (1e-6), not cfg.norm_eps, as the
     # reference does
-    y = rms_norm(p.norm.scale, y * _silu(z))
+    y = rms_norm(p.norm.scale, y * silu(z))
     return y @ p.out_proj.to(dt_)
 
 
@@ -231,6 +224,6 @@ def mamba2_decode(p: Mamba2, x, cache: SSMCache, *, d_state: int = 128,
     y = torch.einsum("bhn,bhpn->bhp", Ch, new_state)
     y = y + p.D[None, :, None] * xh
     y = y.reshape(b, 1, d_inner).to(dt_)
-    y = rms_norm(p.norm.scale, y * _silu(z))
+    y = rms_norm(p.norm.scale, y * silu(z))
     out = y @ p.out_proj.to(dt_)
     return out, SSMCache(new_conv, new_state)

@@ -1,17 +1,21 @@
-"""Decoder-only model composer (dense and ssm families).
+"""Decoder-only model composer (dense, ssm and hybrid families).
 
 Mirrors the JAX package's ``models/model.py``.  ``ModelConfig`` is the
 same dataclass with torch dtypes, so every arch config copies across; the
-model itself runs two families and raises ``NotImplementedError`` for the
-others:
+model itself runs three families and raises ``NotImplementedError`` for
+the others (moe, vlm, audio), naming their ROADMAP items:
   dense   -- [attn + mlp] x L      (llama / qwen / gemma / deepseek)
   ssm     -- [mamba2] x L          (mamba2; attention-free)
+  hybrid  -- mamba2 x L with ONE shared attn + mlp block applied after
+             every ``shared_attn_every`` mamba layers to concat(hidden,
+             embedding) through ``in_proj``                      (zamba2)
 
 Parameters live in an ``nn.Module`` whose names follow the JAX dict keys
 (``embed``, ``layers.{i}.attn.wq``, ``layers.{i}.ln1.scale``,
-``layers.{i}.mixer.in_proj``, ``final_norm.scale``, ...) in the JAX
-layout; the layer ``scan`` of the reference becomes a Python loop over a
-``ModuleList``, so each layer's window is a plain ``int | None``.
+``layers.{i}.mixer.in_proj``, ``shared_attn.in_proj``,
+``final_norm.scale``, ...) in the JAX layout; the layer ``scan`` of the
+reference becomes a Python loop over a ``ModuleList``, so each layer's
+window is a plain ``int | None``.
 
 Entry points (the JAX signatures, with the module in place of the
 params pytree):
@@ -19,23 +23,28 @@ params pytree):
   forward(params, cfg, tokens)                        -> logits, aux
   forward_prefill(params, cfg, tokens)                -> logits, (k, v)
   decode_step_paged(params, cfg, token, pool, ...)    -> logits, pool
-  init_cache(cfg, batch, cache_len, dtype, device)    -> cache   (ssm)
-  decode_step(params, cfg, token, cache, idx)         -> logits, cache (ssm)
+  init_cache(cfg, batch, cache_len, dtype, device)    -> cache
+  decode_step(params, cfg, token, cache, idx)         -> logits, cache
 
 The paged serving entry points take the uniform-attention families
-(:data:`PAGED_FAMILIES`) only, as the reference's do; the ssm family is
-served by ``launch.serve.generate`` through ``decode_step`` over an SSM
-cache.  The dense ring-cache ``init_cache``/``decode_step`` is a later
-slice of the port (ROADMAP slice D item 15).
+(:data:`PAGED_FAMILIES`) only, as the reference's do.  ``init_cache`` and
+``decode_step`` are the legacy one-batch decode that
+``launch.serve.generate`` loops: a ring-buffer KV cache per layer for
+dense, an SSM cache per layer for ssm, and for hybrid both an SSM cache
+per mamba layer and one ring KV cache per application of the shared
+block.
 
 ``params`` may also be :func:`params_view` of a flat ``{name: tensor}``
 dict -- how the train step runs one node's slice of the node-stacked
 parameters.  ``forward`` (train and eval) takes the plain attention with a
-gradient and, when ``cfg.remat``, recomputes each layer in backward
-(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``);
-``forward_prefill`` (serving) takes the forward-only flash-attention
-kernel.  The ssm ``forward`` reads ``cfg.attention_impl``: "pallas" runs
-the forward-only SSD-scan kernel, anything else the plain chunked scan.
+gradient and, when ``cfg.remat``, recomputes each layer (hybrid: each
+mamba layer) in backward (``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint``); ``forward_prefill`` (serving) takes the forward-only
+flash-attention kernel.  The ssm and hybrid ``forward`` read
+``cfg.attention_impl`` as the reference does: "pallas" runs the
+forward-only SSD-scan kernel (and, in the hybrid shared block, the
+flash-attention kernel), anything else the plain chunked scan and
+attention.
 """
 from __future__ import annotations
 
@@ -56,9 +65,12 @@ __all__ = ["ModelConfig", "Model", "init", "forward", "forward_prefill",
            "decode_step_paged", "init_cache", "decode_step", "param_count",
            "params_view", "SUPPORTED_FAMILIES", "PAGED_FAMILIES"]
 
-# families this package runs so far; moe, audio, hybrid and vlm are later
-# slices of the port
-SUPPORTED_FAMILIES = ("dense", "ssm")
+# families this package runs so far; the others are later slices of the
+# port, named by their ROADMAP items
+SUPPORTED_FAMILIES = ("dense", "ssm", "hybrid")
+_LATER = {"moe": "ROADMAP slice E item 11 and slice D item 16",
+          "audio": "ROADMAP slice E item 13 and slice D item 16",
+          "vlm": "ROADMAP slice E item 13"}
 # families whose decode state is a uniform per-layer self-attention KV --
 # the ones the paged serving plane supports (the reference's list)
 PAGED_FAMILIES = ("dense", "moe", "audio")
@@ -106,12 +118,13 @@ class ModelConfig:
     param_dtype: Any = torch.float32
     activation_dtype: Any = torch.bfloat16
     ssd_chunk: int = 128
-    # jnp | pallas.  The ssm forward reads it, as the reference does:
-    # "pallas" runs the SSD-scan kernel (forward only), anything else the
-    # plain chunked scan that autograd differentiates.  The dense forward
-    # ignores it: the train forward always takes the plain attention (the
-    # reference's default "jnp"), serving prefill the kernel.  Each kernel
-    # wrapper dispatches on the tensors' device.
+    # jnp | pallas.  The ssm and hybrid forwards read it, as the reference
+    # does: "pallas" runs the SSD-scan kernel (and in the hybrid shared
+    # block the flash-attention kernel; both forward only), anything else
+    # the plain chunked scan and attention that autograd differentiates.
+    # The dense forward ignores it: the train forward always takes the
+    # plain attention (the reference's default "jnp"), serving prefill the
+    # kernel.  Each kernel wrapper dispatches on the tensors' device.
     attention_impl: str = "jnp"
     remat: bool = True
     attention_override_window: int | None = None
@@ -134,7 +147,7 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
             f"the PyTorch port runs {SUPPORTED_FAMILIES} so far, not "
-            f"{cfg.family}")
+            f"{cfg.family} ({_LATER.get(cfg.family, 'unknown family')})")
 
 
 def _check_paged(cfg: ModelConfig) -> None:
@@ -171,8 +184,20 @@ class MambaLayer(nn.Module):
                                dtype=cfg.param_dtype, device=device)
 
 
+class SharedBlock(DenseLayer):
+    """zamba2's one shared attention + MLP block: a dense layer's weights
+    plus ``in_proj`` (2 d_model, d_model), which projects concat(hidden,
+    embedding) to d_model."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.in_proj = nn.Parameter(torch.empty(
+            2 * cfg.d_model, cfg.d_model, dtype=cfg.param_dtype,
+            device=device))
+
+
 class Model(nn.Module):
-    """The parameters of a dense or ssm decoder, allocated but not
+    """The parameters of a dense, ssm or hybrid decoder, allocated but not
     initialised (see :func:`init`, or ``load_state_dict`` of
     :func:`repro_torch.convert.params_from_jax`)."""
 
@@ -186,9 +211,11 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
                 cfg.d_model, cfg.vocab_size, dtype=dt, device=device))
-        layer = MambaLayer if cfg.family == "ssm" else DenseLayer
+        layer = DenseLayer if cfg.family == "dense" else MambaLayer
         self.layers = nn.ModuleList(layer(cfg, device)
                                     for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.shared_attn = SharedBlock(cfg, device)
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
 
 
@@ -197,7 +224,8 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``, with the values of the reference's init (not its random
     stream): truncated normals at fan_in^-0.5 (embed: d_model^-0.5; the
-    mamba conv_w: d_conv^-0.5), norm scales zero, and the mamba mixer's
+    mamba conv_w: d_conv^-0.5; the hybrid ``shared_attn.in_proj``: fan_in
+    2 d_model), norm scales zero, and the mamba mixer's
     deterministic leaves A_log = log(linspace(1, 16, H)), dt_bias = 0,
     D = 1, conv_b = 0."""
     model = Model(cfg, device=device)
@@ -288,6 +316,29 @@ def _mamba_block(cfg: ModelConfig, p: MambaLayer, x):
     return x + h
 
 
+def _attn_kw(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                qk_norm=cfg.qk_norm, attn_cap=cfg.attn_softcap)
+
+
+def _attn_mlp(cfg: ModelConfig, p: DenseLayer, x, attend):
+    """Pre-norm residual attention then MLP: ``attend`` maps the normed
+    activations to the attention's output (a full sequence or one decode
+    token)."""
+    x = x + attend(rms_norm(p.ln1.scale, x, cfg.norm_eps))
+    h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
+    return x + mlp_apply(p.mlp, h, cfg.mlp_kind)
+
+
+def _shared_block(cfg: ModelConfig, p: SharedBlock, x, x0, attend):
+    """zamba2's shared block on concat(x, x0): ``h = concat @ in_proj``,
+    then h's own attention and MLP residuals, and the block returns
+    ``x + h`` -- h, in_proj output included, is what joins the stream."""
+    h = torch.cat([x, x0], dim=-1) @ p.in_proj.to(x.dtype)
+    return x + _attn_mlp(cfg, p, h, attend)
+
+
 def _embed_tokens(params: Model, cfg: ModelConfig, tokens):
     """tokens: (B, S) int -> activations (B, S, d).  Gathers, then casts to
     the activation dtype (the same bits as the reference's cast-then-
@@ -309,7 +360,7 @@ def _default_positions(tokens):
 
 def forward(params: Model, cfg: ModelConfig, tokens, *, positions=None):
     """Train / eval forward.  tokens: (B, S) int.  Returns logits (B, S, V)
-    and a scalar aux loss (zero for the dense and ssm families)."""
+    and a scalar aux loss (zero for the dense, ssm and hybrid families)."""
     logits, _ = _forward(params, cfg, tokens, positions, prefill=False)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
@@ -327,9 +378,11 @@ def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
 def _forward(params, cfg, tokens, positions, prefill):
     _check_family(cfg)
     x = _embed_tokens(params, cfg, tokens)
+    x0 = x                     # hybrid: the shared block's embedding input
     if positions is None:
         positions = _default_positions(tokens)
     remat = cfg.remat and not prefill and torch.is_grad_enabled()
+    every = cfg.shared_attn_every
     ks, vs = [], []
     for i, layer in enumerate(params.layers):
         if prefill:
@@ -337,12 +390,21 @@ def _forward(params, cfg, tokens, positions, prefill):
                                      prefill=True)
             ks.append(k)
             vs.append(v)
-        else:
-            block, args = ((_mamba_block, (cfg, layer, x))
-                           if cfg.family == "ssm" else
-                           (_dense_block, (cfg, layer, x, positions, i)))
-            x = (checkpoint(block, *args, use_reentrant=False) if remat
-                 else block(*args))
+            continue
+        block, args = ((_dense_block, (cfg, layer, x, positions, i))
+                       if cfg.family == "dense" else
+                       (_mamba_block, (cfg, layer, x)))
+        x = (checkpoint(block, *args, use_reentrant=False) if remat
+             else block(*args))
+        if cfg.family == "hybrid" and (i + 1) % every == 0:
+            # after each group of `every` mamba layers (none after the
+            # L % every tail); remat covers the mamba layers only, as the
+            # reference's _maybe_remat(mamba_body)
+            shared = params.shared_attn
+            x = _shared_block(cfg, shared, x, x0, lambda h: attn.attn_apply(
+                shared.attn, h, positions=positions,
+                window=cfg.window_for(True),
+                kernel=cfg.attention_impl == "pallas", **_attn_kw(cfg)))
     x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
     logits = _lm_head(params, cfg, x)
     if prefill:
@@ -375,66 +437,90 @@ def decode_step_paged(params: Model, cfg: ModelConfig, token, pool,
     _check_paged(cfg)
     x = _embed_tokens(params, cfg, token)
     for i, p in enumerate(params.layers):
-        h = rms_norm(p.ln1.scale, x, cfg.norm_eps)
-        h, _, _ = attn.attn_decode_paged(
+        x = _attn_mlp(cfg, p, x, lambda h: attn.attn_decode_paged(
             p.attn, h, pool["k"][i], pool["v"][i], page_table, positions,
-            page_size=page_size, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-            qk_norm=cfg.qk_norm, window=_effective_window(cfg, i),
-            attn_cap=cfg.attn_softcap)
-        x = x + h
-        h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
-        x = x + mlp_apply(p.mlp, h, cfg.mlp_kind)
+            page_size=page_size, window=_effective_window(cfg, i),
+            **_attn_kw(cfg))[0])
     x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
     return _lm_head(params, cfg, x), pool
 
 
-def _check_ssm_decode(cfg: ModelConfig) -> None:
-    _check_family(cfg)
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"init_cache/decode_step run the ssm family so far, not "
-            f"{cfg.family}: the dense ring-cache decode (attn_decode) is "
-            f"ROADMAP slice D item 15; serve {cfg.family} through "
-            f"ServeEngine (decode_step_paged)")
-
-
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, *, device="cuda") -> dict:
-    """Stacked (per-layer) decode caches: ``{"ssm": SSMCache}`` with conv
-    (L, B, d_conv-1, conv_dim) in ``dtype`` and state (L, B, H, P, N) in
-    float32.  ``cache_len`` is unused by the ssm family, as in the
-    reference."""
-    _check_ssm_decode(cfg)
+    """Stacked decode caches, as the reference's ``init_cache``:
+
+    - dense: ``{"kv": KVCache}``, k and v (L, B, Kv, cache_len, hd);
+    - ssm: ``{"ssm": SSMCache}``, conv (L, B, d_conv-1, conv_dim) and
+      state (L, B, H, P, N) in float32 (``cache_len`` is unused);
+    - hybrid: both, the ``KVCache`` as ``"shared_kv"`` with one ring per
+      application of the shared block, (L // shared_attn_every, B, Kv,
+      cache_len, hd).
+
+    Every tensor but the SSM state is in ``dtype``."""
+    _check_family(cfg)
     device = resolve_device(device)
+
+    def kv(n):
+        return attn.init_kv_cache(batch, cfg.n_kv_heads, cache_len,
+                                  cfg.head_dim, dtype, stack=(n,),
+                                  device=device)
+
+    if cfg.family == "dense":
+        return {"kv": kv(cfg.n_layers)}
     d_inner = cfg.ssm_expand * cfg.d_model
     conv_dim = d_inner + 2 * cfg.ssm_n_groups * cfg.d_state
     nh = d_inner // cfg.ssm_head_dim
     L = cfg.n_layers
-    return {"ssm": m2.SSMCache(
+    ssm = m2.SSMCache(
         torch.zeros((L, batch, cfg.d_conv - 1, conv_dim), dtype=dtype,
                     device=device),
         torch.zeros((L, batch, nh, cfg.ssm_head_dim, cfg.d_state),
-                    dtype=torch.float32, device=device))}
+                    dtype=torch.float32, device=device))
+    if cfg.family == "ssm":
+        return {"ssm": ssm}
+    return {"ssm": ssm, "shared_kv": kv(L // cfg.shared_attn_every)}
 
 
-def decode_step(params: Model, cfg: ModelConfig, token, cache: dict, idx):
-    """One-token decode.  token: (B, 1) int; idx: the position (unused by
-    the ssm family).  Returns (logits (B, 1, V), cache); the cache's
-    tensors are updated in place, as ``decode_step_paged`` updates its
-    pool."""
-    _check_ssm_decode(cfg)
+def _mamba_decode(cfg: ModelConfig, p: MambaLayer, x, conv, state):
+    """One mamba layer's decode; its SSM cache is updated in place."""
+    h = rms_norm(p.ln.scale, x, cfg.norm_eps)
+    h, c2 = m2.mamba2_decode(p.mixer, h, m2.SSMCache(conv, state),
+                             d_state=cfg.d_state, head_dim=cfg.ssm_head_dim,
+                             expand=cfg.ssm_expand, d_conv=cfg.d_conv,
+                             n_groups=cfg.ssm_n_groups)
+    conv.copy_(c2.conv)
+    state.copy_(c2.state)
+    return x + h
+
+
+def decode_step(params: Model, cfg: ModelConfig, token, cache: dict,
+                idx: int):
+    """One-token decode.  token: (B, 1) int; idx: the token's absolute
+    position (a Python int; the ssm family ignores it).  Returns (logits
+    (B, 1, V), cache); the cache's tensors are updated in place, as
+    ``decode_step_paged`` updates its pool.  Dense layers attend over
+    their own ring (each with its static window); the hybrid shared
+    block's g-th application over ``shared_kv[g]``."""
+    _check_family(cfg)
     x = _embed_tokens(params, cfg, token)
-    conv, state = cache["ssm"]
-    for i, p in enumerate(params.layers):
-        h = rms_norm(p.ln.scale, x, cfg.norm_eps)
-        h, c2 = m2.mamba2_decode(p.mixer, h, m2.SSMCache(conv[i], state[i]),
-                                 d_state=cfg.d_state,
-                                 head_dim=cfg.ssm_head_dim,
-                                 expand=cfg.ssm_expand, d_conv=cfg.d_conv,
-                                 n_groups=cfg.ssm_n_groups)
-        conv[i].copy_(c2.conv)
-        state[i].copy_(c2.state)
-        x = x + h
+    if cfg.family == "dense":
+        kv = cache["kv"]
+        for i, p in enumerate(params.layers):
+            x = _attn_mlp(cfg, p, x, lambda h: attn.attn_decode(
+                p.attn, h, attn.KVCache(kv.k[i], kv.v[i]), idx,
+                window=_effective_window(cfg, i), **_attn_kw(cfg))[0])
+    else:
+        x0 = x                 # hybrid: this token's embedding
+        conv, state = cache["ssm"]
+        every = cfg.shared_attn_every
+        for i, p in enumerate(params.layers):
+            x = _mamba_decode(cfg, p, x, conv[i], state[i])
+            if cfg.family == "hybrid" and (i + 1) % every == 0:
+                g = (i + 1) // every - 1         # this application's ring
+                kv, shared = cache["shared_kv"], params.shared_attn
+                x = _shared_block(
+                    cfg, shared, x, x0, lambda h: attn.attn_decode(
+                        shared.attn, h, attn.KVCache(kv.k[g], kv.v[g]), idx,
+                        window=cfg.window_for(True), **_attn_kw(cfg))[0])
     x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
     return _lm_head(params, cfg, x), cache

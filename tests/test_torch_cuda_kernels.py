@@ -525,3 +525,62 @@ def test_mamba2_forward_pallas_equals_jnp_on_the_card(cuda):
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                **TOL32)
+
+
+def test_hybrid_forward_pallas_equals_jnp_on_the_card(cuda):
+    """Reduced zamba2 (7 mamba layers, the shared block twice): forward
+    through K4 (7 launches a call) and K2 (2) against the plain chunked
+    scan and attention, both on the card."""
+    cfg = dataclasses.replace(
+        configs.reduced_config(configs.get_config("zamba2-1.2b")),
+        attention_impl="pallas", activation_dtype=torch.float32)
+    model = M.init(cfg, 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda)
+    with torch.no_grad():
+        s0, f0 = ssd_ops.ssd_scan.launches, fa_ops.flash_attention.launches
+        got, _ = M.forward(model, cfg, tokens)
+        assert ssd_ops.ssd_scan.launches == s0 + 7
+        assert fa_ops.flash_attention.launches == f0 + 2
+        want, _ = M.forward(model, dataclasses.replace(
+            cfg, attention_impl="jnp"), tokens)
+        assert ssd_ops.ssd_scan.launches == s0 + 7
+        assert fa_ops.flash_attention.launches == f0 + 2
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               **TOL32)
+
+
+def test_flash_attention_kernel_hybrid_width(cuda):
+    """K2 bf16 at zamba2's shared-block width: D 64, G 1, 32 heads, 2048
+    tokens (the card tests above stop at 1000 tokens for G 1, D 64)."""
+    q, k, v = _qkv(1, 2048, 2048, 32, 32, 64, torch.bfloat16, cuda, 64)
+    _flash_check(q, k, v, torch.bfloat16)
+
+
+def test_dense_generate_fast_prefill_equals_loop_on_the_card(cuda):
+    """Reduced qwen3 in f32: the fast prefill (one forward_prefill, K2 once
+    per layer) ring-filled against the token-by-token loop (no kernel):
+    last-token logits and the ring; then generate runs with each."""
+    from repro_torch.launch import serve as S
+    cfg = dataclasses.replace(
+        configs.reduced_config(configs.get_config("qwen3-0.6b")),
+        activation_dtype=torch.float32)
+    model = M.init(cfg, 0, device=cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda)
+    with torch.no_grad():
+        f0 = fa_ops.flash_attention.launches
+        fl, fc = S.prefill_cache(cfg, model, prompts, cache_len=32)
+        assert fa_ops.flash_attention.launches == f0 + cfg.n_layers
+        ll, lc = S.prefill_cache(cfg, model, prompts, cache_len=32,
+                                 mode="loop")
+        assert fa_ops.flash_attention.launches == f0 + cfg.n_layers
+    for got, want in ((fl, ll), (fc["kv"].k, lc["kv"].k),
+                      (fc["kv"].v, lc["kv"].v)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL32)
+    a, b = (S.generate(cfg, model, prompts, max_new=8, cache_len=32,
+                       temperature=0.0, prefill=mode, device=cuda)
+            for mode in ("auto", "loop"))
+    for out in (a, b):
+        assert out.shape == (2, 32) and torch.equal(out[:, :24], prompts)
+        assert ((0 <= out) & (out < cfg.vocab_size)).all()
