@@ -7,7 +7,9 @@ full-width qwen3-0.6b (cut to 8 layers) with DmSGD on 4 nodes over the
 one-peer exponential graph, runs full-width mamba2-1.3b (the ssm
 family): its forward through the SSD-scan kernel, and generate, and runs
 full-width zamba2-1.2b (the hybrid family): its forward through the
-SSD-scan and flash-attention kernels, decode, and generate.
+SSD-scan and flash-attention kernels, decode, and generate, and trains
+the ssm and hybrid families with d_adamw and qg_dmsgd, over random
+matchings and the uniform one-peer order, with a checkpoint round trip.
 
   python3 chip_smoke.py [--seed N]
 
@@ -56,8 +58,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                  4 nodes, one_peer_exp, dmsgd beta 0.9, per-node batch
                  2 x 128 tokens, 6 steps, hetero 0.5: the training main
                  path, counters zeroed before and read after; then K1 at the
-                 training payload, the Lemma-1 check, and the same 6 steps
-                 with the plain combine, which must agree
+                 training payload (against its plain version at 1e-5,
+                 timed beside torch.lerp, the plain version and its bound),
+                 the Lemma-1 check, and the same 6 steps with the plain
+                 combine, which must agree
   7. ssm      -- full-width mamba2-1.3b (48 layers, random weights from
                  --seed), counters zeroed before and read after: forward
                  of 2 x 2048 tokens with attention_impl="pallas" (48 K4
@@ -77,6 +81,22 @@ Phases, in order; any failure exits non-zero before the result lines:
                  attention on the card (2e-2 x max-abs); token-by-token
                  decode against the K2/K4 forward on 2 x 64 tokens (f32);
                  generate of 4 x 64 + 32 new, greedy, bf16
+  9. train    -- the ssm and hybrid families through launch.train.run,
+   families      counters zeroed before and read after each run (K1 once
+                 a step, no K2/K3/K4; one executable per distinct
+                 realization drawn; losses and consensus finite): (a)
+                 mamba2-1.3b at full width cut to 4 layers (8 do not fit
+                 in 80 GB), 4 nodes, d_adamw over random_match, 2 x 128
+                 tokens a node, 6 steps, then K1 at the d_adamw payload as
+                 in phase 6; (b) zamba2-1.2b at full width cut to 6 layers
+                 (one shared-block application), qg_dmsgd over
+                 one_peer_exp, 4 steps; (c) reduced qwen3 over the uniform
+                 one-peer order, 4 steps, kernel against plain combine
+                 within 2e-4 x max-abs; (d) reduced mamba2 with --ckpt-dir
+                 in a temporary directory, --ckpt-every 2, 5 steps, and
+                 the restore of step 4 onto the live trees on the card, bit
+                 for bit (a full-width checkpoint would write >= 10 GB to
+                 disk on every run)
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -770,11 +790,108 @@ def _max_diff(a, b) -> float:
     return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
 
 
-def train_phase(torch, dev, seed):
-    from repro_torch.core import flatbuf, gossip
+def _counters():
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.gossip_mix import ops as gm_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return (gm_ops.gossip_mix, fa_ops.flash_attention,
+            pa_ops.paged_attention, ssd_ops.ssd_scan)
+
+
+def _distinct(plan, steps: int) -> int:
+    """Distinct realizations the topology drew over ``steps`` steps."""
+    return len({plan.topology.realization(k).structure_key()
+                for k in range(steps)})
+
+
+def _train_run(torch, T, args, what):
+    """One driver run with the counters zeroed before and read after: the
+    losses and consensus finite, K1 once a step and no other kernel, one
+    executable per distinct realization drawn.  Returns the run and its
+    metrics."""
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    res = T.run(args)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plan, hist, cfg = res["plan"], res["history"], res["config"]
+    losses = [h["loss"] for h in hist]
+    cons = [h["consensus"] for h in hist]
+    check(len(hist) == args.steps and all(
+        abs(v) < float("inf") for v in losses + cons),
+        f"{what}: losses {losses}, consensus {cons}")
+    want = {"gossip_mix": args.steps, "flash_attention": 0,
+            "paged_attention": 0, "ssd_scan": 0}
+    check(launches == want, f"{what}: launches {launches}, expected {want} "
+          "(one f32 payload group a step; K2 and K4 are forward-only)")
+    distinct = _distinct(plan, args.steps)
+    check(plan.num_compiled == distinct,
+          f"{what}: {plan.num_compiled} executables for {distinct} distinct "
+          "realizations")
+    step_ms = 1e3 * sorted(res["step_s"][1:])[len(res["step_s"][1:]) // 2]
+    tokens = args.nodes * args.batch * args.seq
+    log(f"  {what}: losses {[round(v, 5) for v in losses]}; consensus per "
+        f"step {[f'{v:.4g}' for v in cons]}")
+    log(f"  {what}: step ms {[round(1e3 * t, 3) for t in res['step_s']]}; "
+        f"median of steps 2-{args.steps} {step_ms:.3f} ms = "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s; peak allocated "
+        f"{peak_gb:.3f} GB; launches {launches}; {plan.num_compiled} "
+        f"executables for {distinct} distinct realizations, cache "
+        f"{plan.cache_stats()}")
+    return res, {"launches": launches["gossip_mix"], "step_ms": step_ms,
+                 "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak_gb,
+                 "layers": cfg.n_layers}
+
+
+def _within_chunked(got, want, tol, cols: int = 1 << 26):
+    """``within`` and ``max_err`` block of columns by block, so a
+    payload-sized comparison holds no payload-sized temporaries."""
+    ok, err = True, 0.0
+    for j in range(0, got.shape[1], cols):
+        g, w = got[:, j:j + cols], want[:, j:j + cols]
+        ok = ok and within(g, w, tol)
+        err = max(err, max_err(g, w))
+    return ok, err
+
+
+def _k1_at_payload(torch, buf, recv, what):
+    """K1 on a training payload (one packed f32 group) and the buffer it
+    receives: against its plain version at 1e-5, then the kernel and
+    ``torch.lerp`` in turns, the plain version, and the bytes bound."""
+    from repro_torch.kernels.gossip_mix import ops, ref
+    got = ops.gossip_mix(buf, [recv], w_self=0.5, ws=(0.5,))
+    want = ref.gossip_mix_ref(buf, [recv], 0.5, (0.5,))
+    tol = GOSSIP_TOL["float32"]
+    ok, err = _within_chunked(got, want, tol)
+    check(ok, f"gossip_mix at {what}: max abs err {err} beyond {tol}")
+    del got, want
+    t = time_turns({
+        "kernel": lambda: ops.gossip_mix(buf, [recv], w_self=0.5, ws=(0.5,)),
+        "lerp": lambda: torch.lerp(buf, recv, 0.5)},
+        timer=lambda f: time_ms(f, iters=5, warmup=1))
+    plain_ms = time_ms(lambda: ref.gossip_mix_ref(buf, [recv], 0.5, (0.5,)),
+                       iters=3, warmup=1)
+    n = buf.numel()
+    bound_ms, bound_by = bound(3 * n, 3 * 4 * n, PEAK_F32_FLOPS)
+    ms, lerp_ms = t["kernel"], t["lerp"]
+    log(f"  K1 at {what} {tuple(buf.shape)} f32 ({n / 2**31:.3f} x 2^31 "
+        f"elements): max abs err {err:.3g} (tolerance {tol}); kernel "
+        f"{ms:.4f} ms ({12 * n / ms / 1e6:.1f} GB/s, "
+        f"{100 * bound_ms / ms:.1f} % of the bound), lerp {lerp_ms:.4f} ms "
+        f"(kernel / lerp {ms / lerp_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return {"shape": list(buf.shape), "ms": ms, "lerp_ms": lerp_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": err}
+
+
+def train_phase(torch, dev, seed):
+    from repro_torch.core import flatbuf, gossip
+    from repro_torch.kernels.gossip_mix import ops as gm_ops
     from repro_torch.launch import train as T
     args = T.parse_args(TRAIN_ARGV + ["--seed", str(seed)])
     log(f"  {args.arch} at full width, depth cut to {args.layers} layers "
@@ -783,56 +900,17 @@ def train_phase(torch, dev, seed):
         f"{args.optimizer} beta {args.beta}, batch {args.batch} x "
         f"{args.seq} tokens per node, {args.steps} steps, hetero "
         f"{args.hetero}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa_ops.flash_attention.launches = 0
-    pa_ops.paged_attention.launches = 0
-    gm_ops.gossip_mix.launches = 0
-    res = T.run(args)
-    torch.cuda.synchronize()
-    launches = {"gossip_mix": gm_ops.gossip_mix.launches,
-                "flash_attention": fa_ops.flash_attention.launches,
-                "paged_attention": pa_ops.paged_attention.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    plan, hist = res["plan"], res["history"]
-    losses = [h["loss"] for h in hist]
-    check(len(losses) == args.steps and all(
-        l == l and abs(l) < float("inf") for l in losses),
-        f"train: losses {losses}")
-    check(launches["gossip_mix"] == args.steps,
-          f"train: gossip_mix launched {launches['gossip_mix']} times, "
-          f"expected {args.steps} (one f32 group, one shift per step)")
-    check(launches["flash_attention"] == 0 and
-          launches["paged_attention"] == 0,
-          f"train: attention kernels launched {launches}")
-    check(plan.num_compiled == 2,
-          f"train: {plan.num_compiled} executables, expected 2")
-    step_ms = 1e3 * sorted(res["step_s"][1:])[len(res["step_s"][1:]) // 2]
-    tokens = args.nodes * args.batch * args.seq
-    cfg = res["config"]
-    log(f"  losses {[round(l, 5) for l in losses]}")
-    cons = [f"{h['consensus']:.4g}" for h in hist]
-    log(f"  consensus per step {cons}")
-    log(f"  step ms {[round(1e3 * t, 3) for t in res['step_s']]}; median "
-        f"of steps 2-{args.steps} {step_ms:.3f} ms = "
-        f"{tokens / step_ms * 1e3:.1f} tokens/s; peak allocated "
-        f"{peak_gb:.3f} GB; launches {launches}; "
-        f"{plan.num_compiled} executables, cache {plan.cache_stats()}")
+    res, out = _train_run(torch, T, args, "train")
+    plan = res["plan"]
 
     # K1 at the training payload: (m_next, x_next) packed, one f32 group
-    layout, bufs = flatbuf.pack((res["state"].momentum, res["params"]))
+    _, bufs = flatbuf.pack((res["state"].momentum, res["params"]))
     check(len(bufs) == 1, f"train: {len(bufs)} payload groups")
     buf = bufs[0]
+    del bufs
     recv = torch.roll(buf, plan.realization(args.steps).shifts[0][0], 0)
-    pay_ms = time_ms(lambda: gm_ops.gossip_mix(buf, [recv], w_self=0.5,
-                                               ws=(0.5,)), iters=5, warmup=1)
-    pay_bound, _ = bound(3 * buf.numel(), 3 * 4 * buf.numel(),
-                         PEAK_F32_FLOPS)
-    log(f"  K1 at the training payload {tuple(buf.shape)} f32 "
-        f"({buf.numel() / 2**31:.3f} x 2^31 elements): {pay_ms:.3f} ms, "
-        f"bound {pay_bound:.3f} ms (bytes), {100 * pay_bound / pay_ms:.1f} % "
-        f"of it")
-    del layout, bufs, buf, recv
+    pay = _k1_at_payload(torch, buf, recv, "the training payload")
+    del buf, recv
 
     # Lemma 1: tau = 2 one-peer rounds average the 4 nodes exactly
     mixed = res["params"]
@@ -867,10 +945,8 @@ def train_phase(torch, dev, seed):
         f"{[round(h['loss'], 5) for h in off['history']]}")
     check(dx <= TRAIN_TOL * sx and dm <= TRAIN_TOL * sm,
           f"train: kernel and plain runs differ (params {dx}, momentum {dm})")
-    return {"launches": launches["gossip_mix"], "step_ms": step_ms,
-            "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak_gb,
-            "train_payload_ms": pay_ms, "train_payload_bound_ms": pay_bound,
-            "layers": cfg.n_layers}
+    out.update({f"train_payload_{k}": v for k, v in pay.items()})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1179,6 +1255,184 @@ def hybrid_phase(torch, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: train ssm and hybrid, d_adamw / qg_dmsgd, aperiodic gossip
+# ---------------------------------------------------------------------------
+
+# (a) mamba2-1.3b at full width, depth cut to 4 layers (0.21 B params: the
+# tied 50,280 x 2048 embedding and 25.9 M a layer): x, mu, nu, g, the
+# three *_next trees, the bias-corrected moments, and the gossip's packed
+# payload, received copy and output are ~19 f32 trees of 4 x 0.21 B
+# (3.3 GB each), reckoned ~60 GB; 8 layers would not fit in 80 GB
+SSM_TRAIN_ARGV = ["--arch", "mamba2-1.3b", "--full", "--layers", "4",
+                  "--nodes", "4", "--topology", "random_match",
+                  "--optimizer", "d_adamw", "--lr", "0.01", "--batch", "2",
+                  "--seq", "128", "--steps", "6", "--hetero", "0.5",
+                  "--log-every", "1", "--device", "cuda"]
+# (b) zamba2-1.2b at full width, 6 layers: one shared-block application
+HYB_TRAIN_ARGV = ["--arch", "zamba2-1.2b", "--full", "--layers", "6",
+                  "--nodes", "4", "--topology", "one_peer_exp",
+                  "--optimizer", "qg_dmsgd", "--batch", "2", "--seq", "128",
+                  "--steps", "4", "--hetero", "0.5", "--log-every", "1",
+                  "--device", "cuda"]
+UNIFORM_STEPS = 4            # (c) reduced qwen3, uniform one-peer order
+# (d) the checkpoint round trip, reduced mamba2 (a full-width checkpoint
+# would write >= 10 GB to disk on every run)
+CKPT_ARGV = ["--arch", "mamba2-1.3b", "--nodes", "4", "--optimizer",
+             "d_adamw", "--topology", "random_match", "--batch", "2",
+             "--seq", "64", "--steps", "5", "--ckpt-every", "2",
+             "--log-every", "1", "--device", "cuda"]
+
+
+def _adamw_payload(torch, res, steps):
+    """K1 at the d_adamw payload: (mu, nu, x) packed as the gossip packs
+    (mu_next, nu_next, x_next), one f32 group, gathered by the next step's
+    matching.  Empties ``res`` so that the trees' memory goes back."""
+    from repro_torch.core import flatbuf
+    plan, mom = res["plan"], res["state"].momentum
+    _, bufs = flatbuf.pack((mom["mu"], mom["nu"], res["params"]))
+    check(len(bufs) == 1, f"d_adamw payload: {len(bufs)} dtype groups")
+    buf = bufs[0]
+    del bufs, mom
+    res.clear()
+    partner = plan.realization(steps).partner
+    recv = buf.index_select(0, torch.as_tensor(partner, device=buf.device))
+    return _k1_at_payload(torch, buf, recv, "the d_adamw payload")
+
+
+def _uniform_run(torch, dev, seed, T):
+    """``build_trainer`` over the uniform one-peer order on reduced qwen3:
+    UNIFORM_STEPS steps with the kernel, counters zeroed before and read
+    after, then the same steps with the plain combine."""
+    from repro_torch import configs
+    from repro_torch.core import gossip, schedule, topology
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as M
+    cfg = configs.reduced_config(configs.get_config("qwen3-0.6b"))
+    n = 4
+    data = SyntheticLM(cfg.vocab_size, n, hetero=0.5, seed=seed)
+    lr_fn = schedule.warmup_step_decay(0.05, 2, [100])
+    batches = [{"tokens": torch.from_numpy(data.sample(k, 2, 64))}
+               for k in range(UNIFORM_STEPS)]
+
+    def train():
+        top = topology.one_peer_exponential(n, schedule="uniform", seed=seed)
+        opt, step_for = T.build_trainer(cfg, top, "dmsgd", 0.9)
+        stacked = T.stack_nodes(M.init(cfg, seed, device=dev), n)
+        state = opt.init(stacked)
+        losses = []
+        for k in range(UNIFORM_STEPS):
+            stacked, state, loss = step_for(k)(stacked, state, batches[k],
+                                               lr_fn(k))
+            losses.append(float(loss))
+        return stacked, state, losses, step_for.plan
+
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+    x1, s1, losses, plan = train()
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    want = {"gossip_mix": UNIFORM_STEPS, "flash_attention": 0,
+            "paged_attention": 0, "ssd_scan": 0}
+    check(launches == want, f"uniform: launches {launches}, expected {want}")
+    check(all(abs(v) < float("inf") for v in losses),
+          f"uniform: losses {losses}")
+    draws = [plan.topology.realization(k).shifts[0][0]
+             for k in range(UNIFORM_STEPS)]
+    distinct = _distinct(plan, UNIFORM_STEPS)
+    check(plan.num_compiled == distinct,
+          f"uniform: {plan.num_compiled} executables for {distinct} draws")
+    gossip.set_kernel_mode("off")
+    try:
+        x2, s2, losses2, _ = train()
+    finally:
+        gossip.set_kernel_mode("auto")
+    dx, dm = _max_diff(x1, x2), _max_diff(s1.momentum, s2.momentum)
+    sx, sm = _max_abs(x2), _max_abs(s2.momentum)
+    log(f"  (c) reduced {cfg.name}, one_peer_exp_uniform (shifts drawn "
+        f"{draws}), dmsgd, {n} nodes, {UNIFORM_STEPS} steps: losses "
+        f"{[round(v, 5) for v in losses]}; launches {launches}; "
+        f"{plan.num_compiled} executables for {distinct} distinct draws; "
+        f"kernel vs plain combine: params {dx:.3g} (max-abs {sx:.4g}), "
+        f"momentum {dm:.3g} (max-abs {sm:.4g}), tolerance {TRAIN_TOL} x "
+        "max-abs")
+    check(dx <= TRAIN_TOL * sx and dm <= TRAIN_TOL * sm,
+          f"uniform: kernel and plain runs differ (params {dx}, "
+          f"momentum {dm})")
+    return launches["gossip_mix"]
+
+
+def _checkpoint_run(torch, seed, T):
+    """--ckpt-dir on the card, then ``restore`` onto the live trees: bit
+    for bit, the same dtypes, on the card."""
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.convert import train_state_to_jax
+    gm = _counters()[0]
+    with tempfile.TemporaryDirectory() as d:
+        args = T.parse_args(CKPT_ARGV + ["--ckpt-dir", d, "--seed",
+                                         str(seed)])
+        gm.launches = 0
+        res = T.run(args)
+        torch.cuda.synchronize()
+        launches = gm.launches
+        saved = sorted(os.listdir(d))
+        check(saved == ["step_2", "step_4"] and launches == args.steps,
+              f"checkpoint: saved {saved}, {launches} K1 launches")
+        live = train_state_to_jax(res["params"], res["state"].momentum,
+                                  res["config"])
+        got = checkpoint.restore(d, checkpoint.latest_step(d), live)
+        nbytes = sum(f.stat().st_size for f in Path(d, "step_4").iterdir())
+    leaves = []
+
+    def walk(a, b):
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k])
+            else:
+                leaves.append((a[k], b[k]))
+
+    walk(got, live)
+    for g, w in leaves:
+        check(g.dtype == w.dtype and g.device == w.device
+              and torch.equal(g, w),
+              "checkpoint: a restored leaf differs from the live one")
+    log(f"  (d) reduced mamba2-1.3b, d_adamw over random_match, "
+        f"--ckpt-every {args.ckpt_every}, {args.steps} steps: saved "
+        f"{saved} ({nbytes / 1e6:.2f} MB at step 4); restore of step 4 "
+        f"onto the live trees on the card: {len(leaves)} leaves bit-equal, "
+        f"same dtypes ({sorted({str(w.dtype) for _, w in leaves})}); "
+        "full-width checkpoints left out (>= 10 GB to disk a run)")
+    return launches
+
+
+def train_families_phase(torch, dev, seed):
+    from repro_torch.launch import train as T
+    log("  (a) mamba2-1.3b at full width, depth cut to 4 layers (~19 f32 "
+        "trees of 4 x 0.21 B parameters, reckoned ~60 GB; 8 layers do not "
+        "fit in 80 GB), 4 nodes, d_adamw over random_match (aperiodic "
+        "matchings)")
+    args = T.parse_args(SSM_TRAIN_ARGV + ["--seed", str(seed)])
+    res, ssm = _train_run(torch, T, args, "ssm d_adamw")
+    payload = _adamw_payload(torch, res, args.steps)
+    del res
+    torch.cuda.empty_cache()
+    log("  (b) zamba2-1.2b at full width, 6 layers (one shared-block "
+        "application), 4 nodes, qg_dmsgd over one_peer_exp")
+    res, hyb = _train_run(torch, T, T.parse_args(
+        HYB_TRAIN_ARGV + ["--seed", str(seed)]), "hybrid qg_dmsgd")
+    del res
+    torch.cuda.empty_cache()
+    uniform = _uniform_run(torch, dev, seed, T)
+    ckpt = _checkpoint_run(torch, seed, T)
+    return {"ssm": ssm, "hybrid": hyb, "payload": payload,
+            "launches": {"ssm_d_adamw": ssm["launches"],
+                         "hybrid_qg_dmsgd": hyb["launches"],
+                         "uniform": uniform, "checkpoint": ckpt}}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1268,6 +1522,11 @@ def main() -> int:
 
     log("phase 8: hybrid (the zamba2-1.2b main path)")
     hybrid = hybrid_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    log("phase 9: train: ssm and hybrid, d_adamw / qg_dmsgd, aperiodic "
+        "gossip")
+    fam = train_families_phase(torch, dev, args.seed)
     for k in kernels:
         if k["name"] in ("ssd_scan", "flash_attention"):
             k["hybrid_launches"] = hybrid["launches"][k["name"]]
@@ -1281,8 +1540,14 @@ def main() -> int:
         elif k["name"] == "gossip_mix":
             k["launches"] = train["launches"]
             k["launches_per_call"] = 1              # per train step
-            k["train_payload_ms"] = train["train_payload_ms"]
-            k["train_payload_bound_ms"] = train["train_payload_bound_ms"]
+            k.update({key: v for key, v in train.items()
+                      if key.startswith("train_payload_")})
+            k.update({f"adamw_payload_{key}": v
+                      for key, v in fam["payload"].items()})
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   train["train_payload_max_abs_err"],
+                                   fam["payload"]["max_abs_err"])
+            k["train_families_launches"] = fam["launches"]
         else:
             k["launches"] = launches[k["name"]]
             k["launches_per_call"] = (k["launches"]

@@ -11,6 +11,13 @@ layer leaves), giving the train path's ``{name: (n, ...)}`` dict, and
 ``stacked_to_jax`` is its inverse view, in numpy.  bf16 leaves
 (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) cross as an
 int16 view reinterpreted with ``.view(torch.bfloat16)``: the same bits.
+
+``stacked_to_nested`` / ``stacked_from_nested`` are the same layout
+change on torch tensors, dtype and device kept, and
+``train_state_to_jax`` / ``train_state_from_jax`` apply it to a train
+state ``{"params", "momentum"}`` (one momentum slot, or d_adamw's
+``{"mu", "nu"}``): the tree :mod:`repro_torch.checkpoint` writes, leaf
+for leaf what the JAX driver writes.
 Plain numpy <-> torch; nothing of JAX is imported.
 """
 from __future__ import annotations
@@ -20,7 +27,9 @@ import torch
 
 from .models.model import ModelConfig, _check_family
 
-__all__ = ["params_from_jax", "stacked_from_jax", "stacked_to_jax"]
+__all__ = ["params_from_jax", "stacked_from_jax", "stacked_to_jax",
+           "stacked_to_nested", "stacked_from_nested",
+           "train_state_to_jax", "train_state_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -62,19 +71,7 @@ def stacked_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """Node-stacked JAX tree (numpy leaves: ``(n, ...)``, and ``(n, L,
     ...)`` under ``layers``) -> ``{name: (n, ...) tensor}`` named as
     ``Model``'s parameters."""
-    _check_family(cfg)
-    out: dict[str, torch.Tensor] = {}
-    for name, leaf in _flatten({k: v for k, v in tree.items()
-                                if k != "layers"}):
-        out[name] = _tensor(leaf)
-    for name, leaf in _flatten(tree["layers"]):
-        stacked = _tensor(leaf)
-        if stacked.ndim < 2 or stacked.shape[1] != cfg.n_layers:
-            raise ValueError(f"layers.{name}: shape {tuple(stacked.shape)} "
-                             f"has no (n, n_layers={cfg.n_layers}) lead")
-        for i in range(cfg.n_layers):
-            out[f"layers.{i}.{name}"] = stacked[:, i].clone()
-    return out
+    return stacked_from_nested(_map(_tensor, tree), cfg)
 
 
 def stacked_to_jax(stacked: dict[str, torch.Tensor],
@@ -86,6 +83,35 @@ def stacked_to_jax(stacked: dict[str, torch.Tensor],
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
+    return _map(np_, stacked_to_nested(stacked, cfg))
+
+
+def _map(fn, tree: dict) -> dict:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def stacked_from_nested(tree: dict, cfg: ModelConfig
+                        ) -> dict[str, torch.Tensor]:
+    """Node-stacked tree in the JAX layout, torch leaves (``(n, L, ...)``
+    under ``layers``) -> ``{name: (n, ...) tensor}`` named as ``Model``'s
+    parameters; dtype and device kept."""
+    _check_family(cfg)
+    out = dict(_flatten({k: v for k, v in tree.items() if k != "layers"}))
+    for name, stacked in _flatten(tree["layers"]):
+        if stacked.ndim < 2 or stacked.shape[1] != cfg.n_layers:
+            raise ValueError(f"layers.{name}: shape {tuple(stacked.shape)} "
+                             f"has no (n, n_layers={cfg.n_layers}) lead")
+        for i in range(cfg.n_layers):
+            out[f"layers.{i}.{name}"] = stacked[:, i].clone()
+    return out
+
+
+def stacked_to_nested(stacked: dict[str, torch.Tensor],
+                      cfg: ModelConfig) -> dict:
+    """Inverse of :func:`stacked_from_nested`: the JAX nested layout, the
+    layer leaves stacked on axis 1 (``(n, L, ...)``), dtype and device
+    kept."""
     tree: dict = {}
 
     def put(path, val):
@@ -100,8 +126,33 @@ def stacked_to_jax(stacked: dict[str, torch.Tensor],
         if parts[0] == "layers":
             layer_leaves.setdefault(".".join(parts[2:]), {})[int(parts[1])] = t
         else:
-            put(parts, np_(t))
+            put(parts, t.detach())
     for name, per_layer in layer_leaves.items():
         put(["layers"] + name.split("."),
-            np.stack([np_(per_layer[i]) for i in range(cfg.n_layers)], 1))
+            torch.stack([per_layer[i].detach()
+                         for i in range(cfg.n_layers)], 1))
     return tree
+
+
+def train_state_to_jax(params: dict, momentum: dict,
+                       cfg: ModelConfig) -> dict:
+    """``{"params", "momentum"}`` in the JAX driver's checkpoint layout.
+    ``momentum`` is one slot's tree (``{name: tensor}``) or a dict of
+    slots (``{"mu": tree, "nu": tree}``)."""
+    if all(isinstance(v, dict) for v in momentum.values()):
+        mom = {s: stacked_to_nested(t, cfg) for s, t in momentum.items()}
+    else:
+        mom = stacked_to_nested(momentum, cfg)
+    return {"params": stacked_to_nested(params, cfg), "momentum": mom}
+
+
+def train_state_from_jax(tree: dict, cfg: ModelConfig) -> tuple[dict, dict]:
+    """Inverse of :func:`train_state_to_jax` -> ``(params, momentum)``.
+    A one-slot momentum is a params-like tree (it has ``"layers"``); else
+    each of its keys is a slot."""
+    mom = tree["momentum"]
+    if "layers" in mom:
+        momentum = stacked_from_nested(mom, cfg)
+    else:
+        momentum = {s: stacked_from_nested(t, cfg) for s, t in mom.items()}
+    return stacked_from_nested(tree["params"], cfg), momentum

@@ -22,10 +22,15 @@ buffer and takes the plain version on a CPU one.  :func:`set_kernel_mode`
 ``set_pallas_mode("off")`` does; it exists to hold the kernel against the
 plain version on the card.
 
+:func:`mix_switch` is the reference's traced-step entry point: this
+package has no traced step, so it takes an int or a 0-d tensor and mixes
+with realization ``step % period``, refusing aperiodic schedules as the
+reference does.
+
 Not here yet: int8 wire compression (ROADMAP slice C), runtime-valued
-rounds and traced schedules (slice C), the overlapped pipeline (slice C)
-and the shard-native multi-process engine (``mesh=``, slice F).  Each
-raises ``NotImplementedError`` naming its slice.
+rounds and data-dependent schedules (slice C), the overlapped pipeline
+(slice C) and the shard-native multi-process engine (``mesh=``, slice
+F).  Each raises ``NotImplementedError`` naming its slice.
 """
 from __future__ import annotations
 
@@ -37,12 +42,14 @@ import torch
 from ..kernels.gossip_mix import ops as gm_ops
 from ..kernels.gossip_mix import ref as gm_ref
 from . import flatbuf
-from .topology import Dense, Identity, Matching, Shifts, Topology
+from .topology import (AperiodicScheduleError, Dense, Identity, Matching,
+                       Shifts, Topology)
 
 Tree = Any
 
 __all__ = ["mix_dense", "mix_shifts", "mix_matching", "mix_realization",
-           "mix", "gossip_spec", "set_kernel_mode"]
+           "mix", "mix_switch", "gossip_spec", "set_kernel_mode",
+           "AperiodicScheduleError"]
 
 # "auto": the tensors' device picks (CUDA -> the kernel, CPU -> plain);
 # "off": the plain combine everywhere
@@ -156,6 +163,27 @@ def mix(tree: Tree, topology: Topology, step: int,
     int.  Dispatches on the realization IR node type."""
     return mix_realization(tree, topology.realization(int(step)),
                            compression=compression, mesh=mesh)
+
+
+def mix_switch(tree: Tree, topology: Topology, step, mesh=None) -> Tree:
+    """The reference's traced-step mix: realization ``step % period`` of a
+    periodic schedule.  ``step`` is an int or a 0-d integer tensor (read
+    on the host: this package has no traced step, so one call serves the
+    whole period by dispatching here).
+
+    Aperiodic schedules (``RandomPerm``, ``Aperiodic``) have no step ->
+    realization map over a period and raise
+    :class:`~repro_torch.core.topology.AperiodicScheduleError`; they take
+    the static-step path (:func:`mix`, or ``GossipPlan``)."""
+    _refuse(None, mesh)
+    if not topology.schedule.is_periodic:
+        raise AperiodicScheduleError(
+            f"mix_switch needs a periodic schedule, but {topology.name!r} "
+            f"carries {topology.schedule!r}; aperiodic schedules must use "
+            "the static-step path (GossipPlan builds one executable per "
+            "realization)")
+    k = int(step.item()) if isinstance(step, torch.Tensor) else int(step)
+    return mix(tree, topology, k % topology.schedule.period)
 
 
 def gossip_spec(topology: Topology, step: int,

@@ -14,12 +14,19 @@ The port of the JAX package's ``core/optim.py``.  Every optimizer is a
 * ``dsgd``          -- DmSGD with beta = 0 (Remark 8).
 * ``vanilla_dmsgd`` -- momentum is NOT exchanged (only ``x_next`` is
                        gossiped; descent uses the freshly traced momentum).
+* ``qg_dmsgd``      -- quasi-global momentum: no momentum gossip; the
+                       buffer EMAs the quasi-global displacement AFTER the
+                       ``x_next`` mix.
 * ``parallel_msgd`` -- global averaging baseline: ``average_gradients()``,
                        the paper's averaged-recursion convention.
+* ``d_adamw``       -- decentralized AdamW: both moments gossiped WITH the
+                       params, three f32 trees in one payload -- one flat
+                       buffer, one combine per step.
 
-``qg_dmsgd`` and ``d_adamw``, and the ``compression`` / ``overlap`` /
-``loss_aware`` / ``deadline`` options, wait for ROADMAP slice C and raise
-``NotImplementedError``.
+The ``compression`` / ``overlap`` / ``loss_aware`` / ``deadline`` options
+wait for ROADMAP slice C (items 8-10) and raise ``NotImplementedError``;
+``overlap`` is first checked by :func:`chain` as in the reference, so
+qg_dmsgd's overlap is a ``ValueError`` there too.
 """
 from __future__ import annotations
 
@@ -29,10 +36,13 @@ from .topology import Topology, full_averaging
 from .transforms import (
     DecentralizedOptimizer,
     OptState,
+    adam_descent,
     average_gradients,
     chain,
     gossip,
+    quasi_global_momentum,
     scale_by_lr,
+    trace_adam_moments,
     trace_momentum,
 )
 
@@ -42,43 +52,63 @@ __all__ = [
     "dmsgd",
     "dsgd",
     "vanilla_dmsgd",
+    "qg_dmsgd",
     "parallel_msgd",
+    "d_adamw",
     "make_optimizer",
     "OPTIMIZERS",
 ]
 
-_LATER = {"qg_dmsgd": "C", "d_adamw": "C"}
 
-
-def _later(what: str, slice_: str = "C") -> NotImplementedError:
+def _later(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} waits for ROADMAP slice {slice_} of the PyTorch port")
+        f"{what} waits for ROADMAP slice C ({item}) of the PyTorch port")
 
 
 def dmsgd(topology: Topology, beta: float = 0.9, *,
-          momentum_dtype=None) -> DecentralizedOptimizer:
+          momentum_dtype=None, overlap: bool = False
+          ) -> DecentralizedOptimizer:
     """Algorithm 1 (the paper's DmSGD); fused single-payload gossip."""
     return chain(
         trace_momentum(beta, dtype=momentum_dtype),
         scale_by_lr("m"),
-        gossip(where=("m_next", "x_next")),
+        gossip(where=("m_next", "x_next"), overlap=overlap),
         topology=topology, name="dmsgd", beta=beta)
 
 
-def dsgd(topology: Topology, *, momentum_dtype=None) -> DecentralizedOptimizer:
+def dsgd(topology: Topology, *, momentum_dtype=None,
+         overlap: bool = False) -> DecentralizedOptimizer:
     """Decentralized SGD = DmSGD with beta = 0 (Remark 8)."""
-    opt = dmsgd(topology, beta=0.0, momentum_dtype=momentum_dtype)
+    opt = dmsgd(topology, beta=0.0, momentum_dtype=momentum_dtype,
+                overlap=overlap)
     return dataclasses.replace(opt, name="dsgd")
 
 
 def vanilla_dmsgd(topology: Topology, beta: float = 0.9, *,
-                  momentum_dtype=None) -> DecentralizedOptimizer:
+                  momentum_dtype=None, overlap: bool = False
+                  ) -> DecentralizedOptimizer:
     """Vanilla DmSGD: no momentum exchange."""
     return chain(
         trace_momentum(beta, dtype=momentum_dtype),
         scale_by_lr("m_next"),
-        gossip(where=("x_next",)),
+        gossip(where=("x_next",), overlap=overlap),
         topology=topology, name="vanilla_dmsgd", beta=beta)
+
+
+def qg_dmsgd(topology: Topology, beta: float = 0.9, *, momentum_dtype=None,
+             overlap: bool = False) -> DecentralizedOptimizer:
+    """QG-DmSGD: quasi-global momentum tracks the averaged trajectory.
+
+    No overlapped variant exists: the quasi-global EMA reads the MIXED
+    ``x_next`` in the same step, which delayed mixing only produces one
+    step later (``overlap=True`` raises ``ValueError`` from
+    :func:`chain`'s validation)."""
+    return chain(
+        trace_momentum(beta, dtype=momentum_dtype, out="qg_dir"),
+        scale_by_lr("qg_dir"),
+        gossip(where=("x_next",), overlap=overlap),
+        quasi_global_momentum(beta),
+        topology=topology, name="qg_dmsgd", beta=beta)
 
 
 def parallel_msgd(n: int, beta: float = 0.9, *,
@@ -94,10 +124,26 @@ def parallel_msgd(n: int, beta: float = 0.9, *,
         topology=full_averaging(n), name="parallel_msgd", beta=beta)
 
 
+def d_adamw(topology: Topology, b1: float = 0.9, b2: float = 0.999, *,
+            eps: float = 1e-8, weight_decay: float = 0.0,
+            momentum_dtype=None, overlap: bool = False
+            ) -> DecentralizedOptimizer:
+    """Decentralized AdamW: both Adam moments are gossiped together with
+    the params.  The three f32 trees share one flat-buffer dtype group, so
+    a one-peer round is still ONE roll (or gather) and one K1 combine."""
+    return chain(
+        trace_adam_moments(b1, b2, dtype=momentum_dtype),
+        adam_descent(eps=eps, weight_decay=weight_decay),
+        gossip(where=("mu_next", "nu_next", "x_next"), overlap=overlap),
+        topology=topology, name="d_adamw", beta=b1)
+
+
 OPTIMIZERS = {
     "dmsgd": dmsgd,
     "dsgd": dsgd,
     "vanilla_dmsgd": vanilla_dmsgd,
+    "qg_dmsgd": qg_dmsgd,
+    "d_adamw": d_adamw,
 }
 
 
@@ -105,22 +151,29 @@ def make_optimizer(name: str, topology: Topology, beta: float = 0.9,
                    *, momentum_dtype=None, compression: str | None = None,
                    overlap: bool = False, loss_aware: bool | float = False,
                    deadline: bool = False) -> DecentralizedOptimizer:
-    """Name-keyed construction, with the JAX package's signature."""
+    """Name-keyed construction, with the JAX package's signature;
+    ``d_adamw`` takes ``beta`` as its ``b1``.  ``overlap=True`` reaches
+    :func:`chain`, which checks the composition and refuses it."""
     if compression is not None:
-        raise _later(f"compression={compression!r}")
-    if overlap:
-        raise _later("the overlapped (delayed-mix) pipeline")
+        raise _later(f"compression={compression!r}", "item 8")
     if loss_aware or deadline:
-        raise _later("runtime-valued gossip (loss_aware / deadline)")
-    if name in _LATER:
-        raise _later(f"the {name!r} optimizer", _LATER[name])
+        raise _later("runtime-valued gossip (loss_aware / deadline)",
+                     "item 9")
     if name == "parallel_msgd":
+        if overlap:
+            raise ValueError(
+                "parallel_msgd's exact all-reduce has no gossip payload "
+                "to overlap; pick a decentralized optimizer")
         return parallel_msgd(topology.n, beta=beta,
                              momentum_dtype=momentum_dtype)
     if name == "dsgd":
-        return dsgd(topology, momentum_dtype=momentum_dtype)
+        return dsgd(topology, momentum_dtype=momentum_dtype, overlap=overlap)
+    if name == "d_adamw":
+        return d_adamw(topology, b1=beta, momentum_dtype=momentum_dtype,
+                       overlap=overlap)
     if name in OPTIMIZERS:
         return OPTIMIZERS[name](topology, beta=beta,
-                                momentum_dtype=momentum_dtype)
+                                momentum_dtype=momentum_dtype,
+                                overlap=overlap)
     raise KeyError(f"unknown optimizer {name!r}; options: "
                    f"{sorted(OPTIMIZERS) + ['parallel_msgd']}")

@@ -6,7 +6,10 @@ the realization IR (:mod:`repro_torch.core.topology`) and keys every
 "executable" by the gossip REALIZATION, with the JAX package's keys:
 
 * ``Shifts`` / ``Matching`` -- one executable per distinct realization
-  (``structure_key()``: the weights and the shifts or the pairing).
+  (``structure_key()``: the weights and the shifts or the pairing).  An
+  aperiodic matching stream (``random_match``) builds one per distinct
+  pairing it visits, LRU-bounded by ``max_compiles``; a pooled stream
+  plateaus at <= its pool.
 * ``Dense`` -- a Static schedule bakes ``W`` into one executable
   (``("static",)``); a time-varying dense schedule shares ONE
   ``("dense",)`` executable that takes the realized ``W^{(k)}`` as its
@@ -46,18 +49,20 @@ class GossipPlan:
     warm-up phase, communication interval) triple.
 
     ``fn(mix, *args)`` is the function bound per realization.
-    ``warmup_steps`` and ``every``
-    normally come from the optimizer (see :meth:`for_optimizer`)."""
+    ``warmup_steps`` and ``every`` normally come from the optimizer (see
+    :meth:`for_optimizer`); ``max_compiles`` bounds the cache."""
 
     topology: Topology
     warmup_steps: int = 0
     fn: Callable | None = None
     every: int = 1
+    max_compiles: int = 256
 
     def __post_init__(self):
-        # LRU-bounded, as the reference's: a static schedule's working set
-        # is its period, far below the bound
-        self._cache = CompileCache(max_entries=256)
+        # LRU-bounded, as the reference's: a periodic schedule's working
+        # set is its period, far below the bound; an aperiodic matching
+        # stream would otherwise grow the cache for the whole run
+        self._cache = CompileCache(max_entries=self.max_compiles)
 
     @classmethod
     def for_optimizer(cls, opt, fn: Callable | None = None) -> "GossipPlan":

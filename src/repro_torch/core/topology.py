@@ -12,10 +12,12 @@ static-weight realization IR:
 * :class:`Identity` -- skipped round (``W = I``).
 
 *When* each realization applies is a :class:`Schedule`: :class:`Static`,
-:class:`Cyclic` or :class:`RandomPerm`.  Traced weights, the ``Gated``
-node and the ``Aperiodic`` schedule (random matchings, the uniform
-one-peer order) are ROADMAP slice C; the code paths that need them raise
-``NotImplementedError``.
+:class:`Cyclic`, :class:`RandomPerm`, or :class:`Aperiodic` (a fresh
+seeded draw per step: random matchings, the uniform one-peer order).
+Every draw is numpy, as in the JAX package, so the same ``(n, seed,
+step)`` realizes the same node there and here.  Traced weights and the
+``Gated`` node are ROADMAP slice C (item 9); the code paths that need
+them raise ``NotImplementedError``.
 
 Conventions follow the paper: ``w_ij`` scales information flowing from node
 ``j`` to node ``i``; every realized ``W`` is doubly stochastic.  Static
@@ -41,6 +43,8 @@ __all__ = [
     "Static",
     "Cyclic",
     "RandomPerm",
+    "Aperiodic",
+    "AperiodicScheduleError",
     "Topology",
     "one_peer_hypercube",
     "ring",
@@ -59,8 +63,13 @@ __all__ = [
     "TOPOLOGIES",
 ]
 
-SLICE_C = ("{} waits for ROADMAP slice C of the PyTorch port (runtime-valued "
-           "realizations and aperiodic schedules)")
+SLICE_C = ("{} waits for ROADMAP slice C of the PyTorch port (item 9, "
+           "runtime-valued realizations)")
+
+
+class AperiodicScheduleError(ValueError):
+    """A periodic-only code path (``gossip.mix_switch``) was handed an
+    aperiodic :class:`Schedule`."""
 
 
 def _static_weight(w, what: str) -> float:
@@ -270,7 +279,28 @@ class RandomPerm:
         return int(self._perms[block][off])
 
 
-Schedule = Static | Cyclic | RandomPerm
+@dataclasses.dataclass(frozen=True, eq=False)
+class Aperiodic:
+    """A fresh realization per step: ``draw(step) -> Realization``.
+
+    Draws are deterministic in ``step`` (seeded), so replays and cache
+    keys stay reproducible.  There is no step -> index map (``index``
+    raises), and :class:`repro_torch.core.plan.GossipPlan` builds one
+    executable per distinct realization drawn."""
+
+    draw: Callable[[int], Realization]
+    is_periodic = False
+
+    @property
+    def period(self):
+        return None
+
+    def index(self, step: int) -> int:
+        raise AperiodicScheduleError(
+            f"{self!r} draws realizations directly; it has no index map")
+
+
+Schedule = Static | Cyclic | RandomPerm | Aperiodic
 
 
 def _metropolis(adj: np.ndarray) -> np.ndarray:
@@ -301,7 +331,8 @@ class Topology:
         in one realization -- the paper's per-iteration communication
         measure.
       realizations: the finite tuple of :data:`Realization` values the
-        schedule selects from.
+        schedule selects from (None when the schedule is
+        :class:`Aperiodic` and draws them per step).
       schedule: WHICH realization applies at each step; defaults to
         :class:`Static`/:class:`Cyclic` over ``realizations``.
 
@@ -318,22 +349,35 @@ class Topology:
     def __post_init__(self):
         object.__setattr__(self, "n", int(self.n))
         object.__setattr__(self, "max_degree", int(self.max_degree))
-        if not self.realizations:
-            raise ValueError("Topology needs realizations=...")
-        object.__setattr__(self, "realizations", tuple(self.realizations))
+        if self.realizations is not None:
+            object.__setattr__(self, "realizations",
+                               tuple(self.realizations))
         if self.schedule is None:
+            if not self.realizations:
+                raise ValueError("Topology needs a schedule or realizations")
             object.__setattr__(
                 self, "schedule",
                 Static() if len(self.realizations) == 1
                 else Cyclic(len(self.realizations)))
+        if self.realizations is None and not isinstance(self.schedule,
+                                                        Aperiodic):
+            raise ValueError(
+                "Topology needs realizations=... unless the schedule is "
+                "Aperiodic (which draws them per step)")
 
     def realization(self, step: int = 0) -> Realization:
         """The IR node describing step ``step``'s gossip round."""
+        if isinstance(self.schedule, Aperiodic):
+            return self.schedule.draw(step)
         return self.realizations[self.schedule.index(step)]
 
     def realization_types(self) -> frozenset:
-        """IR node types this topology realizes."""
-        return frozenset(type(r) for r in self.realizations)
+        """IR node types this topology realizes.  For an :class:`Aperiodic`
+        schedule without a realization set this samples ``draw(0)`` (the
+        draws of every family here are of one type)."""
+        if self.realizations is not None:
+            return frozenset(type(r) for r in self.realizations)
+        return frozenset({type(self.realization(0))})
 
     @property
     def period(self) -> int | None:
@@ -350,8 +394,9 @@ class Topology:
 
     def all_weights(self) -> list[np.ndarray]:
         if self.period is None:
-            raise ValueError(f"{self.name!r} has no finite period "
-                             f"({self.schedule!r})")
+            raise AperiodicScheduleError(
+                f"{self.name!r} has an aperiodic schedule "
+                f"({self.schedule!r}); there is no finite matrix list")
         return [self.weights(k) for k in range(self.period)]
 
     def iter_weights(self) -> Iterator[np.ndarray]:
@@ -484,7 +529,9 @@ def one_peer_exponential(
     ``schedule`` selects the order the tau realizations are visited:
       - "cyclic": k -> mod(k, tau)              (paper main body; Lemma 1)
       - "random_perm": without-replacement shuffles per period (Remark 5).
-      - "uniform": with replacement -- an aperiodic draw, slice C.
+      - "uniform": with replacement (Remark 5 / App. B.3.2: exact
+        averaging only asymptotically) -- an :class:`Aperiodic` draw of
+        ``default_rng(seed).integers(tau)`` per step.
     """
     if n == 1:
         return _static("one_peer_exp", 1, Dense(np.ones((1, 1))), 0)
@@ -496,13 +543,21 @@ def one_peer_exponential(
     elif schedule == "random_perm":
         sched = RandomPerm(tau, seed)
     elif schedule == "uniform":
-        raise NotImplementedError(
-            SLICE_C.format("the uniform (aperiodic) one-peer schedule"))
+        rng = np.random.default_rng(seed)
+        draws: list[int] = []
+
+        def draw(k: int) -> Realization:
+            while len(draws) <= k:
+                draws.append(int(rng.integers(tau)))
+            return reals[draws[k]]
+
+        sched = Aperiodic(draw)
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
 
     name = "one_peer_exp" if schedule == "cyclic" else f"one_peer_exp_{schedule}"
-    return Topology(name, n, max_degree=1, realizations=reals,
+    return Topology(name, n, max_degree=1,
+                    realizations=None if schedule == "uniform" else reals,
                     schedule=sched)
 
 
@@ -526,9 +581,49 @@ def one_peer_hypercube(n: int) -> Topology:
 
 def bipartite_random_match(n: int, seed: int = 0,
                            pool: int | None = None) -> Topology:
-    """Bipartite random match graph (App. A.3.1): a fresh random perfect
-    matching per step -- an aperiodic schedule, which is slice C."""
-    raise NotImplementedError(SLICE_C.format("random_match"))
+    """Bipartite random match graph (App. A.3.1): a random perfect matching
+    per step; matched pairs average (w = 1/2 each).  Requires even n.
+
+    An :class:`Aperiodic` schedule drawing a fresh :class:`Matching` per
+    step, seeded by ``(seed, k)``: stateless and reproducible.  ``pool=k``
+    draws each step's matching from a pre-seeded pool of ``k`` distinct
+    matchings instead, so :class:`repro_torch.core.plan.GossipPlan`'s
+    cache plateaus at <= ``k`` executables."""
+    if n % 2:
+        raise ValueError("bipartite_random_match requires even n")
+
+    def draw_matching(rng) -> Realization:
+        perm = rng.permutation(n)
+        partner = np.empty(n, dtype=np.int64)
+        for j in range(n // 2):
+            a, b = int(perm[2 * j]), int(perm[2 * j + 1])
+            partner[a], partner[b] = b, a
+        return Matching(tuple(partner), 0.5)
+
+    if pool is None:
+        def draw(k: int) -> Realization:
+            return draw_matching(np.random.default_rng((seed, k)))
+
+        return Topology("random_match", n, max_degree=1,
+                        schedule=Aperiodic(draw))
+
+    if pool < 1:
+        raise ValueError(f"random_match pool must be >= 1, got {pool}")
+    matchings: list = []
+    rng0 = np.random.default_rng((seed, 0x9E3779B9))
+    for _ in range(100 * pool):    # distinct entries; tiny n has only
+        if len(matchings) == pool:  # (n-1)!! matchings, so cap the retries
+            break
+        m = draw_matching(rng0)
+        if m not in matchings:
+            matchings.append(m)
+    size = len(matchings)
+
+    def draw(k: int) -> Realization:
+        return matchings[int(np.random.default_rng((seed, k)).integers(size))]
+
+    return Topology("random_match", n, max_degree=1,
+                    realizations=tuple(matchings), schedule=Aperiodic(draw))
 
 
 def _factorize(n: int, kmax: int) -> list[int]:

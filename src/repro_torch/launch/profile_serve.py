@@ -27,10 +27,12 @@ from ..serve import ServeEngine, pages_needed
 
 def report(name: str, prof, wall_s: float, calls: int, top: int) -> None:
     """Print host and device ms per call, the device's idle share and the
-    ``top`` kernels by device time from a ``torch.profiler`` trace."""
+    ``top`` kernels by device time from a ``torch.profiler`` trace.  The
+    device rows of ``record_function`` ranges span kernels counted in
+    their own rows, so they are left out of the sum."""
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and not e.is_user_annotation]
     device_us = sum(e.self_device_time_total for e in rows)
     wall_ms = wall_s * 1e3 / calls
     dev_ms = device_us / 1e3 / calls

@@ -1,15 +1,17 @@
 """Where the training path's time goes on the card.
 
-Trains qwen3-0.6b at full width with its depth cut (``--layers``, 8 by
-default: the 28-layer 4-node state does not fit in 80 GB) on ``--nodes``
-stacked nodes with DmSGD over the one-peer exponential graph, as
-``chip_smoke.py`` phase 6 does, and traces a steady window of steps with
-``torch.profiler``.  Prints the first steps' times (the warm-up), the
+Trains ``--arch`` (qwen3-0.6b by default) at full width with its depth
+cut (``--layers``, 8 by default: the 28-layer 4-node state does not fit
+in 80 GB) on ``--nodes`` stacked nodes with ``--optimizer`` (dmsgd) over
+``--topology`` (the one-peer exponential graph), as ``chip_smoke.py``
+phase 6 does (phase 9: ``--arch mamba2-1.3b --layers 4 --optimizer
+d_adamw --topology random_match``), and traces a steady window of steps
+with ``torch.profiler``.  Prints the first steps' times (the warm-up), the
 untraced step time, then for the traced window the host and device time
 per step, the device's idle share, the kernels that take the most device
 time, and two ranges: the optimizer update (momentum, descent and the
-gossip) and, inside it, the gossip (pack, roll, K1, unpack); the per-node
-gradients are the rest of the step.
+gossip) and, inside it, the gossip (pack, roll or gather, K1, unpack); the
+per-node gradients are the rest of the step.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 3]
 """
@@ -34,7 +36,7 @@ from .profile_serve import report
 from .train import stack_nodes
 
 UPDATE = "optimizer update (incl. gossip)"
-GOSSIP = "gossip: pack, roll, gossip_mix, unpack"
+GOSSIP = "gossip: pack, roll or gather, gossip_mix, unpack"
 
 
 class _TracedOptimizer:
@@ -52,6 +54,10 @@ class _TracedOptimizer:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--optimizer", default="dmsgd")
+    ap.add_argument("--topology", default="one_peer_exp",
+                    choices=sorted(topo_mod.TOPOLOGIES))
     ap.add_argument("--layers", type=int, default=8)
     ap.add_argument("--nodes", type=int, default=4)
     ap.add_argument("--batch", type=int, default=2)
@@ -64,10 +70,11 @@ def main(argv=None) -> None:
     if dev.type != "cuda":
         raise SystemExit("profile_train measures the card: run it on one")
 
-    cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+    cfg = dataclasses.replace(configs.get_config(args.arch),
                               n_layers=args.layers)
     n = args.nodes
-    opt = optim_mod.dmsgd(topo_mod.one_peer_exponential(n), beta=0.9)
+    opt = optim_mod.make_optimizer(
+        args.optimizer, topo_mod.get_topology(args.topology, n), beta=0.9)
     step_fn = steps_mod.make_train_step(cfg, _TracedOptimizer(opt))
 
     def traced_step(mix, *a):
@@ -102,7 +109,8 @@ def main(argv=None) -> None:
     for _ in range(args.steps):
         step()
     torch.cuda.synchronize()
-    print(f"train step ({n} nodes x {args.batch} x {args.seq} tokens, "
+    print(f"train step ({args.arch}, {args.optimizer} over "
+          f"{args.topology}, {n} nodes x {args.batch} x {args.seq} tokens, "
           f"{args.layers} layers), untraced: host "
           f"{(time.perf_counter() - t0) * 1e3 / args.steps:.3f} ms/step")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
@@ -113,11 +121,22 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report("train step", prof, wall, args.steps, args.top)
-    for e in prof.key_averages():
-        if e.key in (UPDATE, GOSSIP):
-            print(f"{e.key}: host {e.cpu_time_total / 1e3 / args.steps:.3f} "
-                  f"ms/step, device {e.device_time_total / 1e3 / args.steps:.3f}"
-                  f" ms/step")
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation)
+    for key in (UPDATE, GOSSIP):
+        # the range's host row, and its device row (the span of its kernels)
+        host = [e.cpu_time_total for e in events
+                if e.key == key and e.device_type ==
+                torch.autograd.DeviceType.CPU]
+        dev = [e.device_time_total for e in events
+               if e.key == key and e.is_user_annotation and e.device_type ==
+               torch.autograd.DeviceType.CUDA]
+        print(f"{key}: host {sum(host) / 1e3 / args.steps:.3f} ms/step, "
+              f"device {sum(dev) / 1e3 / args.steps:.3f} ms/step "
+              f"({100 * sum(dev) / device_us:.1f} % of the step's device "
+              "time)")
 
 
 if __name__ == "__main__":

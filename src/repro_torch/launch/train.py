@@ -1,8 +1,10 @@
 """End-to-end decentralized training driver.
 
-The port of the JAX package's ``launch/train.py``: DmSGD (or a variant)
-over any static-schedule topology, with the n nodes stacked on the
-leading axis of every tensor on one device.  Runs on the card by default
+The port of the JAX package's ``launch/train.py``: DmSGD (or a variant:
+dsgd, vanilla_dmsgd, qg_dmsgd, parallel_msgd, d_adamw) over any topology
+(aperiodic ones too: random_match), for the dense, ssm and hybrid
+families, with the n nodes stacked on the leading axis of every tensor
+on one device.  Runs on the card by default
 (``--device cuda`` raises without one); ``--device cpu`` runs the plain
 PyTorch path.  As in the reference, the CLI trains the REDUCED config
 unless ``--full``; ``--layers N`` cuts the depth (full width, N layers).
@@ -11,11 +13,16 @@ unless ``--full``; ``--layers N`` cuts the depth (full width, N layers).
       --nodes 8 --steps 12
   PYTHONPATH=src python -m repro_torch.launch.train --full --layers 8 \\
       --nodes 4 --batch 2 --seq 128 --steps 6 --hetero 0.5
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch mamba2-1.3b --optimizer d_adamw --topology random_match \\
+      --nodes 4 --steps 6 --ckpt-dir /tmp/ck --ckpt-every 2
 
 Every step's batch is sampled before the loop (``SyntheticLM.sample`` is
 host work that grows with the vocabulary), and each step is timed on the
-host clock up to a device synchronisation.  Overlap, loss-aware and
-deadline gossip and checkpoints are ROADMAP slice C and raise
+host clock up to a device synchronisation.  ``--ckpt-dir`` saves
+``{"params", "momentum"}`` every ``--ckpt-every`` steps after step 0, in
+the JAX driver's format and layout (:mod:`repro_torch.checkpoint`).
+Overlap, loss-aware and deadline gossip are ROADMAP slice C and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -26,7 +33,8 @@ import time
 
 import torch
 
-from .. import configs
+from .. import checkpoint, configs
+from ..convert import train_state_to_jax
 from ..core import flatbuf
 from ..core import optim as optim_mod
 from ..core import schedule
@@ -93,10 +101,6 @@ def run(args) -> dict:
     entry per logged step: step, loss, consensus, lr, step_s), every
     step's seconds, the final params and state, the config and the plan."""
     device = resolve_device(args.device)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing (--ckpt-dir) waits for ROADMAP slice C of the "
-            "PyTorch port")
     cfg = configs.get_config(args.arch)
     if args.reduced:
         cfg = configs.reduced_config(cfg)
@@ -151,6 +155,9 @@ def run(args) -> dict:
                   f"consensus {cd:.3e}  lr {lr:.2e}  "
                   f"step {1e3 * step_s[-1]:.1f} ms  "
                   f"({time.perf_counter() - t0:.1f}s)", flush=True)
+        if args.ckpt_dir and step and step % args.ckpt_every == 0:
+            checkpoint.save(args.ckpt_dir, step, train_state_to_jax(
+                stacked, state.momentum, cfg))
     return {"history": history, "step_s": step_s, "params": stacked,
             "state": state, "config": cfg, "plan": plan}
 
@@ -187,8 +194,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--desync", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--ckpt-dir", default=None,
-                    help="checkpoint directory (ROADMAP slice C)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     return ap.parse_args(argv)
@@ -201,8 +208,10 @@ def main(argv=None) -> None:
              == "cuda" else "cpu")
     print(f"arch={out['config'].name} ({out['config'].n_layers} layers) on "
           f"{where}: {args.nodes} nodes, {args.topology}, {args.optimizer}; "
-          f"{out['plan'].num_compiled} executables for "
-          f"{out['plan'].topology.period} gossip realizations")
+          f"{out['plan'].num_compiled} executables for " + (
+              f"{period} gossip realizations" if (
+                  period := out["plan"].topology.period)
+              else "an aperiodic gossip schedule"))
 
 
 if __name__ == "__main__":

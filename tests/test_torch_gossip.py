@@ -138,6 +138,56 @@ def test_gossip_spec_matches_jax(name):
             assert ts.get(key) == js.get(key), key
 
 
+@pytest.mark.parametrize("name", ["one_peer_exp", "one_peer_hypercube",
+                                  "base_k", "ceca", "static_exp"])
+def test_mix_switch_matches_mix(name):
+    """mix_switch(step) == mix(step % period) at every step of two periods,
+    with the step an int or a 0-d tensor (mirrors tests/test_gossip.py:
+    79-88 and the periodic half of :129-148)."""
+    n = 8
+    top = TT.get_topology(name, n)
+    _, tree = _pair(n, seed=8)
+    for step in range(2 * top.period):
+        want = TG.mix(tree, top, step % top.period)
+        for s in (step, torch.tensor(step)):
+            got = TG.mix_switch(tree, top, s)
+            for k in tree:
+                assert torch.equal(got[k], want[k])
+
+
+def test_mix_switch_typed_aperiodic_error():
+    """Aperiodic schedules raise the typed error naming the schedule, as
+    the reference's (tests/test_gossip.py:129-139)."""
+    tree = {"x": torch.zeros(8, 4)}
+    for top in (TT.bipartite_random_match(8),
+                TT.bipartite_random_match(8, pool=3),
+                TT.one_peer_exponential(8, schedule="random_perm"),
+                TT.one_peer_exponential(8, schedule="uniform")):
+        with pytest.raises(TG.AperiodicScheduleError,
+                           match=type(top.schedule).__name__):
+            TG.mix_switch(tree, top, 0)
+    with pytest.raises(NotImplementedError, match="slice F"):
+        TG.mix_switch(tree, TT.one_peer_exponential(8), 0, mesh=object())
+
+
+@pytest.mark.parametrize("kind", ["random_match", "uniform"])
+def test_aperiodic_stream_mixes_like_jax(kind, jax_interpret):
+    """Ten steps of an aperiodic schedule mix like the reference's (the
+    matching path's gather, or the uniform draw's shifts)."""
+    n = 8
+    if kind == "uniform":
+        jtop = JT.one_peer_exponential(n, schedule="uniform", seed=1)
+        ttop = TT.one_peer_exponential(n, schedule="uniform", seed=1)
+    else:
+        jtop = JT.bipartite_random_match(n, seed=1)
+        ttop = TT.bipartite_random_match(n, seed=1)
+    jt, tt = _pair(n, seed=9)
+    for k in range(10):
+        jt = JG.mix(jt, jtop, k)
+        tt = TG.mix(tt, ttop, k)
+        _close(tt, jt)
+
+
 def test_later_slices_raise():
     _, tree = _pair(4)
     with pytest.raises(NotImplementedError, match="slice C"):

@@ -4,7 +4,8 @@ qwen3 (2 layers, d_model 256), with the JAX weights carried across by
 the pipeline is a numpy copy).  Both sides start from the same
 desynchronized node params (numpy noise), train 3 steps over the one-peer
 exponential graph, and must agree on the per-step losses, the params and
-momentum, the consensus distance and the number of executables.
+momentum, the consensus distance and the number of executables (the ssm
+and hybrid families: tests/test_torch_train_families.py).
 Tolerances: 2e-4 with activation_dtype=float32 on both sides (the
 reference's f32 tolerance, tests/test_kernels.py:16; sums run in another
 order), 2e-2 with bf16 activations (tests/test_kernels.py:15; bf16 rounds
@@ -33,11 +34,10 @@ ACT = {"f32": (jnp.float32, torch.float32, dict(rtol=2e-4, atol=2e-4)),
 B, S, STEPS = 2, 16, 3
 
 
-@pytest.fixture(scope="module")
-def jax_params():
+def _draw_params(arch):
     """Random weights in the JAX param tree (shapes from ``eval_shape``,
     values from numpy: no init executable to compile)."""
-    cfg = jconfigs.reduced_config(jconfigs.get_config("qwen3-0.6b"))
+    cfg = jconfigs.reduced_config(jconfigs.get_config(arch))
     shapes = jax.eval_shape(lambda: JM.init(cfg, jax.random.key(0)))
     rng = np.random.default_rng(0)
 
@@ -48,13 +48,18 @@ def jax_params():
     return jax.tree.map(draw, shapes)
 
 
-def _cfgs(act):
+@pytest.fixture(scope="module")
+def jax_params():
+    return _draw_params("qwen3-0.6b")
+
+
+def _cfgs(act, arch="qwen3-0.6b"):
     jdt, tdt, tol = ACT[act]
     jcfg = dataclasses.replace(
-        jconfigs.reduced_config(jconfigs.get_config("qwen3-0.6b")),
+        jconfigs.reduced_config(jconfigs.get_config(arch)),
         activation_dtype=jdt)
     tcfg = dataclasses.replace(
-        tconfigs.reduced_config(tconfigs.get_config("qwen3-0.6b")),
+        tconfigs.reduced_config(tconfigs.get_config(arch)),
         activation_dtype=tdt)
     return jcfg, tcfg, tol
 
@@ -68,13 +73,14 @@ def _stacked_np(np_params, n, seed=1):
         np_params)
 
 
-def _train_both(np_params, act, n, steps=STEPS, micro_batch=None):
-    jcfg, tcfg, tol = _cfgs(act)
+def _train_both(np_params, act, n, steps=STEPS, micro_batch=None,
+                arch="qwen3-0.6b", optimizer="dmsgd", topology="one_peer_exp"):
+    jcfg, tcfg, tol = _cfgs(act, arch)
     stacked = _stacked_np(np_params, n)
-    jtop, ttop = JT.one_peer_exponential(n), TT.one_peer_exponential(n)
-    jopt, jstep_for = JTrain.build_trainer(jcfg, jtop, "dmsgd", 0.9,
+    jtop, ttop = JT.get_topology(topology, n), TT.get_topology(topology, n)
+    jopt, jstep_for = JTrain.build_trainer(jcfg, jtop, optimizer, 0.9,
                                            micro_batch)
-    topt, tstep_for = TTrain.build_trainer(tcfg, ttop, "dmsgd", 0.9,
+    topt, tstep_for = TTrain.build_trainer(tcfg, ttop, optimizer, 0.9,
                                            micro_batch)
     jx = jax.tree.map(jnp.asarray, stacked)
     tx = stacked_from_jax(stacked, tcfg)
@@ -98,15 +104,14 @@ def _train_both(np_params, act, n, steps=STEPS, micro_batch=None):
             (tx, ts, tstep_for.plan))
 
 
-@pytest.mark.parametrize("act,n", [("f32", 4), ("f32", 8), ("bf16", 4),
-                                   ("bf16", 8)])
-def test_train_steps_match_jax(jax_params, act, n):
-    tcfg, tol, losses, (jx, js, jplan), (tx, ts, tplan) = _train_both(
-        jax_params, act, n)
-    got, want = zip(*losses)
-    np.testing.assert_allclose(got, want, **tol)
-    assert len(set(got)) == STEPS                 # the loss moves
-    for mine, theirs in ((tx, jx), (ts.momentum, js.momentum)):
+def _check_state(tcfg, tol, tx, ts, jx, js):
+    """Params and every momentum slot against the JAX tree, leaf by leaf."""
+    pairs = [(tx, jx)]
+    if isinstance(js.momentum, dict) and set(js.momentum) == {"mu", "nu"}:
+        pairs += [(ts.momentum[s], js.momentum[s]) for s in ("mu", "nu")]
+    else:
+        pairs += [(ts.momentum, js.momentum)]
+    for mine, theirs in pairs:
         back = stacked_to_jax(mine, tcfg)
         flat_t = jax.tree_util.tree_leaves_with_path(back)
         flat_j = dict(jax.tree_util.tree_leaves_with_path(
@@ -116,6 +121,17 @@ def test_train_steps_match_jax(jax_params, act, n):
             np.testing.assert_allclose(leaf, flat_j[path], **tol)
     np.testing.assert_allclose(TTrain.consensus_distance(tx),
                                JTrain.consensus_distance(jx), **tol)
+
+
+@pytest.mark.parametrize("act,n", [("f32", 4), ("f32", 8), ("bf16", 4),
+                                   ("bf16", 8)])
+def test_train_steps_match_jax(jax_params, act, n):
+    tcfg, tol, losses, (jx, js, jplan), (tx, ts, tplan) = _train_both(
+        jax_params, act, n)
+    got, want = zip(*losses)
+    np.testing.assert_allclose(got, want, **tol)
+    assert len(set(got)) == STEPS                 # the loss moves
+    _check_state(tcfg, tol, tx, ts, jx, js)
     assert tplan.num_compiled == jplan.num_compiled == min(
         STEPS, int(np.log2(n)))
 
@@ -127,7 +143,7 @@ def test_quickstart_runs_short():
     assert out["num_compiled"] == 3
 
 
-def test_cli_on_cpu(capsys):
+def test_cli_on_cpu(capsys, tmp_path):
     TTrain.main(["--device", "cpu", "--nodes", "4", "--steps", "3",
                  "--batch", "1", "--seq", "16", "--log-every", "1",
                  "--hetero", "0.5"])
@@ -138,5 +154,11 @@ def test_cli_on_cpu(capsys):
     for flag in ("--overlap", "--loss-aware", "--deadline-skip"):
         with pytest.raises(NotImplementedError, match="slice C"):
             TTrain.main(["--device", "cpu", "--steps", "1", flag])
-    with pytest.raises(NotImplementedError, match="slice C"):
-        TTrain.main(["--device", "cpu", "--steps", "1", "--ckpt-dir", "x"])
+    # --ckpt-dir (refused before checkpoints were ported) saves every
+    # --ckpt-every steps after step 0
+    ck = tmp_path / "ck"
+    TTrain.main(["--device", "cpu", "--nodes", "4", "--steps", "3",
+                 "--batch", "1", "--seq", "16", "--topology", "random_match",
+                 "--ckpt-dir", str(ck), "--ckpt-every", "1"])
+    assert sorted(p.name for p in ck.iterdir()) == ["step_1", "step_2"]
+    assert "random_match, dmsgd; " in capsys.readouterr().out
