@@ -9,7 +9,10 @@ family): its forward through the SSD-scan kernel, and generate, and runs
 full-width zamba2-1.2b (the hybrid family): its forward through the
 SSD-scan and flash-attention kernels, decode, and generate, and trains
 the ssm and hybrid families with d_adamw and qg_dmsgd, over random
-matchings and the uniform one-peer order, with a checkpoint round trip.
+matchings and the uniform one-peer order, with a checkpoint round trip,
+then trains full-width qwen3-0.6b with simulated stragglers through the
+runtime-valued gossip (deadline gating, loss-aware weights), runs
+data-dependent skips, and prints the paper's figures from the card.
 
   python3 chip_smoke.py [--seed N]
 
@@ -97,6 +100,23 @@ Phases, in order; any failure exits non-zero before the result lines:
                  the restore of step 4 onto the live trees on the card, bit
                  for bit (a full-width checkpoint would write >= 10 GB to
                  disk on every run)
+ 10. runtime  -- runtime-valued gossip and the paper's figures: (a)
+                 phase 6's run with --deadline-skip --straggler-prob 0.25
+                 --loss-aware (the alive draws printed; no K1, every
+                 round runtime-valued; one executable per distinct
+                 realization); (a') phase 6's run again (K1) and with
+                 --deadline-skip --straggler-prob 0 (all alive: the
+                 runtime f32 combine, self weight 1/2), held within
+                 2e-4 x max-abs, then one round of each at the 9 GB
+                 training payload in turns; (b) dmsgd(when=...) over
+                 one_peer_exp(8), 2^20 + 3 f32 elements a node, zero
+                 gradients, 3 of 6 rounds communicating: every node at the
+                 node mean within 1e-5, sched_pos 3, K1 on all 6 rounds;
+                 (c) repro_torch.benchmarks.run's spectral_gap,
+                 consensus, transient and hetero suites on the card at the
+                 reference's sizes, and bench_hetero.run_quick: every CSV
+                 line printed, every derived boolean True,
+                 prop1_max_dev <= 1e-12, K1 launched in transient
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -805,11 +825,11 @@ def _distinct(plan, steps: int) -> int:
                 for k in range(steps)})
 
 
-def _train_run(torch, T, args, what):
+def _train_run(torch, T, args, what, k1_per_step=1):
     """One driver run with the counters zeroed before and read after: the
-    losses and consensus finite, K1 once a step and no other kernel, one
-    executable per distinct realization drawn.  Returns the run and its
-    metrics."""
+    losses and consensus finite, K1 ``k1_per_step`` times a step (0 when
+    every round is runtime-valued) and no other kernel, one executable per
+    distinct realization drawn.  Returns the run and its metrics."""
     counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -825,7 +845,7 @@ def _train_run(torch, T, args, what):
     check(len(hist) == args.steps and all(
         abs(v) < float("inf") for v in losses + cons),
         f"{what}: losses {losses}, consensus {cons}")
-    want = {"gossip_mix": args.steps, "flash_attention": 0,
+    want = {"gossip_mix": k1_per_step * args.steps, "flash_attention": 0,
             "paged_attention": 0, "ssd_scan": 0}
     check(launches == want, f"{what}: launches {launches}, expected {want} "
           "(one f32 payload group a step; K2 and K4 are forward-only)")
@@ -1433,6 +1453,232 @@ def train_families_phase(torch, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: runtime-valued gossip and the paper's figures
+# ---------------------------------------------------------------------------
+
+# (a) phase 6's run with simulated stragglers, per-node deadline gating
+# and AL-DSGD weights: every round is runtime-valued (no K1)
+STRAGGLER_ARGV = TRAIN_ARGV + ["--deadline-skip", "--straggler-prob",
+                               "0.25", "--loss-aware"]
+# (a') every node alive: the runtime combine derives self weight 1/2, the
+# K1 run's static weight
+ALL_ALIVE_ARGV = TRAIN_ARGV + ["--deadline-skip", "--straggler-prob", "0"]
+SCHED_NODES, SCHED_ELEMS = 8, (1 << 20) + 3      # (b): f32 elements a node
+SCHED_GATES = [True, False, False, True, False, True]
+FIGURE_SUITES = ["spectral_gap", "consensus", "transient", "hetero"]
+# the booleans the figures' derived columns must hold (and the
+# finite-time zeros, base_k2_zero_at_5 and its kin)
+FIGURE_CLAIMS = {"exp>grid>ring", "one_peer_zero_at_tau", "static_nonzero",
+                 "perm_zero", "unif_not_periodic", "n48_not_periodic",
+                 "exp<grid<ring", "ring_degrades_faster",
+                 "skip_beats_wait_wallclock"}
+
+
+def _stragglers(torch, T, seed):
+    args = T.parse_args(STRAGGLER_ARGV + ["--seed", str(seed)])
+    log(f"  (a) {args.arch} at full width, {args.layers} layers, "
+        f"{args.nodes} nodes, {args.topology}, {args.optimizer}, "
+        f"--deadline-skip --straggler-prob {args.straggler_prob} "
+        "--loss-aware: every round runtime-valued (no K1)")
+    res, out = _train_run(torch, T, args, "stragglers", k1_per_step=0)
+    log(f"  (a) alive per step {res['alive']} (numpy draws "
+        "default_rng(2**20 + step).random(n) >= p)")
+    check(res["state"].sched_pos is None, "stragglers: a schedule position")
+    return out
+
+
+def _runtime_against_k1(torch, T, seed):
+    """(a') phase 6's static run (K1) and the same run through the
+    runtime combine with every node alive, held within TRAIN_TOL x
+    max-abs; then one round of each at the training payload, in turns."""
+    from repro_torch.core import gossip
+    from repro_torch.core.topology import Gated
+    res, static = _train_run(torch, T, T.parse_args(
+        TRAIN_ARGV + ["--seed", str(seed)]), "static (K1)")
+    x1, m1 = res["params"], res["state"].momentum
+    del res
+    res, runtime = _train_run(torch, T, T.parse_args(
+        ALL_ALIVE_ARGV + ["--seed", str(seed)]), "all alive (runtime)",
+        k1_per_step=0)
+    check(all(all(a) for a in res["alive"]), "all alive: a node was dropped")
+    x2, m2 = res["params"], res["state"].momentum
+    dx, dm = _max_diff(x2, x1), _max_diff(m2, m1)
+    sx, sm = _max_abs(x1), _max_abs(m1)
+    log(f"  (a') runtime combine (all alive) vs K1 after 6 steps: params "
+        f"max abs diff {dx:.3g} (max-abs {sx:.4g}), momentum {dm:.3g} "
+        f"(max-abs {sm:.4g}); tolerance {TRAIN_TOL} x max-abs")
+    check(dx <= TRAIN_TOL * sx and dm <= TRAIN_TOL * sm,
+          f"runtime vs K1: params {dx}, momentum {dm}")
+    del x1, m1
+    torch.cuda.empty_cache()
+    # one gossip round at the training payload: the static round (pack,
+    # roll, K1, unpack) against the runtime round (pack, roll, f32
+    # combine with an all-alive gate, unpack), in turns
+    payload = (m2, x2)
+    r = res["plan"].realization(6)
+    alive = torch.ones(len(res["alive"][0]), dtype=torch.bool,
+                       device=x2[next(iter(x2))].device)
+    del res
+    nbytes = sum(v.numel() * 4 for v in x2.values()) * 2
+    t = time_turns({
+        "k1_round": lambda: gossip.mix_realization(payload, r),
+        "runtime_round": lambda: gossip.mix_realization(
+            payload, Gated(r, alive))},
+        timer=lambda f: time_ms(f, iters=3, warmup=1))
+    log(f"  (a') one gossip round at the training payload ({nbytes / 1e9:.3f}"
+        f" GB f32): K1 round {t['k1_round']:.3f} ms, runtime round "
+        f"{t['runtime_round']:.3f} ms (runtime / K1 "
+        f"{t['runtime_round'] / t['k1_round']:.3f})")
+    return {"static": static, "runtime": runtime, "params_diff": dx,
+            "momentum_diff": dm, "k1_round_ms": t["k1_round"],
+            "runtime_round_ms": t["runtime_round"], "payload_gb": nbytes / 1e9}
+
+
+def _scheduled_skips(torch, dev, seed):
+    """(b) Lemma 1 with interleaved skips: dmsgd(when=...) over the
+    one-peer exponential graph of 8 nodes, zero gradients (pure gossip),
+    through a GossipPlan; after 3 communicating rounds every node holds
+    the node mean, the position counts the communicating rounds, and K1
+    ran every round, the skipped ones too (their result discarded)."""
+    from repro_torch.core import optim, topology
+    from repro_torch.core.plan import GossipPlan
+    gm = _counters()[0]
+    n = SCHED_NODES
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    params = {"a": torch.randn((n, 1 << 20), generator=g, device=dev),
+              "b": torch.randn((n, 3), generator=g, device=dev)}
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    opt = optim.dmsgd(topology.one_peer_exponential(n), beta=0.9,
+                      when=lambda ctx: ctx.aux["comm"])
+    plan = GossipPlan.for_optimizer(
+        opt, fn=lambda mix, p, s, gr, lr, aux: opt.update_with_mix(
+            p, s, gr, lr, mix, aux=aux))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    gm.launches = 0
+    for k, c in enumerate(SCHED_GATES):
+        params, state = plan.step_fn(k)(params, state, zeros, 0.05,
+                                        {"comm": torch.tensor(c)})
+    torch.cuda.synchronize()
+    launches = gm.launches
+    comms = sum(SCHED_GATES)
+    dev_max = 0.0
+    for v in params.values():
+        mean = v.mean(0, keepdim=True)
+        dev_max = max(dev_max, float((v - mean).abs().max()))
+        check(bool(((v - mean).abs() <= LEMMA_TOL + LEMMA_TOL * mean.abs())
+                   .all()), "scheduled skips: not averaged after 3 "
+              "communicating rounds")
+    log(f"  (b) dmsgd(when=...) over one_peer_exp({n}), {SCHED_ELEMS} f32 "
+        f"elements a node, gates {SCHED_GATES}: sched_pos "
+        f"{int(state.sched_pos)} (communicating rounds {comms}), max "
+        f"deviation from the node mean {dev_max:.3g} (tolerance "
+        f"rtol=atol={LEMMA_TOL}), K1 launches {launches} over "
+        f"{len(SCHED_GATES)} rounds, {plan.num_compiled} executable")
+    check(int(state.sched_pos) == comms, "scheduled skips: sched_pos")
+    check(launches == len(SCHED_GATES),
+          f"scheduled skips: {launches} K1 launches")
+    check(plan.num_compiled == 1, "scheduled skips: executables")
+    return launches
+
+
+class _Tee:
+    """A stdout that also keeps what is written (the suites print their
+    CSV rows)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def rows(self) -> list:
+        """(name, us, derived) of every CSV row written."""
+        return [tuple(ln.split(",", 2)) for ln in "".join(self.text)
+                .splitlines() if ln.count(",") >= 2
+                and not ln.startswith("name,")]
+
+
+def _derived_claims(rows) -> dict:
+    """``{"row:key": bool}`` for every boolean of the derived columns."""
+    out = {}
+    for name, _, derived in rows:
+        for kv in derived.split(";"):
+            key, _, val = kv.partition("=")
+            if val in ("True", "False"):
+                out[f"{name}:{key}"] = val == "True"
+    return out
+
+
+def _figures(torch, dev):
+    """(c) every figure suite on the card at the reference's default
+    sizes, then the straggler trade at run_quick's size; each CSV line
+    printed, each derived boolean held True."""
+    import contextlib
+
+    from repro_torch.benchmarks import bench_hetero
+    from repro_torch.benchmarks import run as bench_run
+    gm = _counters()[0]
+    log("name,us_per_call,derived")
+    seconds, launches = {}, {}
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        for name in FIGURE_SUITES:
+            gm.launches = 0
+            secs, failed = bench_run.run_suites([name], dev)
+            torch.cuda.synchronize()
+            check(not failed, f"figures: suite {name} raised")
+            seconds[name], launches[name] = secs[name], gm.launches
+        t0 = time.perf_counter()
+        bench_hetero.run_quick(device=dev)
+        seconds["hetero_quick"] = time.perf_counter() - t0
+    rows = tee.rows()
+    claims = _derived_claims(rows)
+    keys = {k.split(":", 1)[1] for k in claims}
+    missing = FIGURE_CLAIMS - keys
+    check(not missing, f"figures: derived booleans missing: {missing}")
+    zeros = [k for k in keys
+             if "_zero_at_" in k and k.rsplit("_", 1)[1].isdigit()]
+    check(len(zeros) == 4, f"figures: finite-time zeros {zeros}")
+    dev_prop1 = float(next(kv.split("=")[1] for name, _, d in rows
+                           if name == "spectral_gap_fig3"
+                           for kv in d.split(";")
+                           if kv.startswith("prop1_max_dev=")))
+    false = [k for k, v in claims.items() if not v]
+    log(f"  (c) seconds per suite {dict((k, round(v, 2)) for k, v in seconds.items())}; "
+        f"K1 launches per suite {launches}; prop1_max_dev {dev_prop1:.3g}; "
+        f"{len(claims)} derived booleans, false: {false}")
+    check(dev_prop1 <= 1e-12, f"figures: prop1_max_dev {dev_prop1}")
+    check(not false, f"figures: derived booleans false: {false}")
+    check(launches["transient"] > 0, "figures: transient launched no K1")
+    return {"seconds": seconds, "launches": launches}
+
+
+def runtime_phase(torch, dev, seed):
+    from repro_torch.launch import train as T
+    t0 = time.perf_counter()
+    a = _stragglers(torch, T, seed)
+    torch.cuda.empty_cache()
+    vs = _runtime_against_k1(torch, T, seed)
+    torch.cuda.empty_cache()
+    sched = _scheduled_skips(torch, dev, seed)
+    torch.cuda.empty_cache()
+    figs = _figures(torch, dev)
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    return {"stragglers": a, "against_k1": vs, "figures": figs,
+            "launches": {"stragglers": a["launches"],
+                         "static_rerun": vs["static"]["launches"],
+                         "all_alive": vs["runtime"]["launches"],
+                         "scheduled_skips": sched,
+                         **{f"figures_{k}": v
+                            for k, v in figs["launches"].items()}}}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1527,6 +1773,11 @@ def main() -> int:
     log("phase 9: train: ssm and hybrid, d_adamw / qg_dmsgd, aperiodic "
         "gossip")
     fam = train_families_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    log("phase 10: runtime-valued gossip (stragglers, scheduled skips) and "
+        "the paper's figures")
+    rt = runtime_phase(torch, dev, args.seed)
     for k in kernels:
         if k["name"] in ("ssd_scan", "flash_attention"):
             k["hybrid_launches"] = hybrid["launches"][k["name"]]
@@ -1548,6 +1799,7 @@ def main() -> int:
                                    train["train_payload_max_abs_err"],
                                    fam["payload"]["max_abs_err"])
             k["train_families_launches"] = fam["launches"]
+            k["runtime_phase_launches"] = rt["launches"]
         else:
             k["launches"] = launches[k["name"]]
             k["launches_per_call"] = (k["launches"]

@@ -1,0 +1,78 @@
+"""Benchmark harness: one module per figure of the paper.
+
+Prints ``name,us_per_call,derived`` CSV, as the JAX package's
+``benchmarks/run.py``:
+
+  spectral_gap  Fig. 3 / Table 5  (Proposition 1)         host math
+  consensus     Fig. 4 / 10 / 11  (Lemma 1, Remarks 4-5)  host math
+  transient     Fig. 1 / Fig. 13  (transient iterations)  DmSGD on --device
+  hetero        eq. 3 / 4         (b^2 vs topology; stragglers)  --device
+
+  PYTHONPATH=src python -m repro_torch.benchmarks.run [--only a,b] \\
+      [--device cuda|cpu]
+
+``comm``, ``kernels`` and ``roofline`` are not ported yet (ROADMAP items
+21, 20 and 23) and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+import traceback
+
+from ..device import resolve_device
+from . import bench_consensus, bench_hetero, bench_spectral_gap
+from . import bench_transient
+
+__all__ = ["SUITES", "LATER", "run_suites", "main"]
+
+SUITES = {
+    "spectral_gap": lambda device: bench_spectral_gap.run(),
+    "consensus": lambda device: bench_consensus.run(),
+    "transient": lambda device: bench_transient.run(device=device),
+    "hetero": lambda device: bench_hetero.run(device=device),
+}
+LATER = {"kernels": "item 20", "comm": "item 21", "roofline": "item 23"}
+
+
+def run_suites(names, device="cuda") -> tuple[dict, list]:
+    """Run the named suites on ``device``; returns the seconds each took
+    and the names of those that raised (their tracebacks printed)."""
+    for name in names:
+        if name in LATER:
+            raise NotImplementedError(
+                f"benchmark suite {name!r} waits for ROADMAP {LATER[name]} "
+                "of the PyTorch port")
+        if name not in SUITES:
+            raise KeyError(f"unknown suite {name!r}; options: "
+                           f"{sorted(SUITES)}")
+    dev = resolve_device(device)
+    seconds, failed = {}, []
+    for name in names:
+        t0 = time.perf_counter()
+        try:
+            SUITES[name](dev)
+        except Exception:  # noqa: BLE001
+            failed.append(name)
+            traceback.print_exc()
+        seconds[name] = time.perf_counter() - t0
+    return seconds, failed
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None,
+                    help="comma-separated suite names")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    names = args.only.split(",") if args.only else list(SUITES)
+    print("name,us_per_call,derived")
+    _, failed = run_suites(names, args.device)
+    if failed:
+        sys.exit(f"benchmark suites failed: {failed}")
+
+
+if __name__ == "__main__":
+    main()

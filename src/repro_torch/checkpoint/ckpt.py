@@ -2,10 +2,14 @@
 on-disk format, so that each package restores the other's checkpoints.
 
 Path layout: ``<dir>/step_<N>/{manifest.json, arrays.npz}``, written to
-``step_<N>.tmp`` and renamed.  A tree is a nested dict of tensors; its
-leaves are written as ``leaf_<i>`` in JAX's flatten order (keys sorted at
-every level), which is the order the JAX ``restore`` reads them by
-position.  A train state goes through
+``step_<N>.tmp`` and renamed.  A tree is nested dicts, tuples (an
+``OptState`` among them) and tensors; its leaves are written as
+``leaf_<i>`` in JAX's flatten order (dict keys sorted at every level,
+tuple fields in order, ``None`` holding no leaf), which is the order the
+JAX ``restore`` reads them by position: an optimizer state from
+:func:`repro_torch.convert.opt_state_to_jax` writes its momentum, its
+int32 ``count`` and, for a ``gossip(when=...)`` chain, its int32
+``sched_pos``, as the reference's ``OptState`` flattens.  A train state goes through
 :func:`repro_torch.convert.train_state_to_jax` first, so its leaves also
 have JAX's shapes (layer leaves stacked on the layer axis).
 
@@ -27,20 +31,37 @@ import torch
 __all__ = ["save", "latest_step", "restore"]
 
 
-def _flatten(tree: dict, prefix: str = ""):
-    """(key path, leaf) pairs in JAX's dict flatten order."""
-    for key in sorted(tree):
-        val = tree[key]
-        if isinstance(val, dict):
+def _children(tree):
+    """(key, child) pairs of a dict (keys sorted) or a tuple/list (in
+    order), as JAX flattens them."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    return [(str(i), v) for i, v in enumerate(tree)]
+
+
+def _flatten(tree, prefix: str = ""):
+    """(key path, leaf) pairs in JAX's flatten order (``None`` holds no
+    leaf)."""
+    for key, val in _children(tree):
+        if val is None:
+            continue
+        if isinstance(val, (dict, tuple, list)):
             yield from _flatten(val, f"{prefix}{key}/")
         else:
             yield f"{prefix}{key}", val
 
 
-def _unflatten_like(like: dict, leaves) -> dict:
-    return {key: (_unflatten_like(like[key], leaves)
-                  if isinstance(like[key], dict) else next(leaves))
-            for key in sorted(like)}
+def _unflatten_like(like, leaves):
+    if like is None:
+        return None
+    if not isinstance(like, (dict, tuple, list)):
+        return next(leaves)
+    if isinstance(like, dict):
+        return {k: _unflatten_like(like[k], leaves) for k in sorted(like)}
+    vals = [_unflatten_like(v, leaves) for v in like]
+    if hasattr(like, "_fields"):                 # a NamedTuple
+        return type(like)(*vals)
+    return type(like)(vals)
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -52,7 +73,7 @@ def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return t.numpy(), dtype
 
 
-def save(ckpt_dir: str, step: int, tree: dict) -> str:
+def save(ckpt_dir: str, step: int, tree) -> str:
     """Write ``tree`` as step ``step`` of ``ckpt_dir``; returns its path."""
     paths, arrays, dtypes = [], {}, []
     for i, (path, leaf) in enumerate(_flatten(tree)):
@@ -81,7 +102,7 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like_tree: dict) -> dict:
+def restore(ckpt_dir: str, step: int, like_tree):
     """Restore into the structure of ``like_tree``: each leaf takes the
     like leaf's dtype, shape and device (a byte-view leaf is
     reinterpreted as the like leaf's dtype first)."""

@@ -17,7 +17,11 @@ change on torch tensors, dtype and device kept, and
 ``train_state_to_jax`` / ``train_state_from_jax`` apply it to a train
 state ``{"params", "momentum"}`` (one momentum slot, or d_adamw's
 ``{"mu", "nu"}``): the tree :mod:`repro_torch.checkpoint` writes, leaf
-for leaf what the JAX driver writes.
+for leaf what the JAX driver writes.  ``opt_state_to_jax`` /
+``opt_state_from_jax`` carry a whole ``OptState`` the same way: its
+``count`` as an int32 scalar and, for a ``gossip(when=...)`` chain, its
+``sched_pos`` as one more int32 scalar after it, where the reference's
+``OptState`` flattens them.
 Plain numpy <-> torch; nothing of JAX is imported.
 """
 from __future__ import annotations
@@ -25,11 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.transforms import OptState
 from .models.model import ModelConfig, _check_family
 
 __all__ = ["params_from_jax", "stacked_from_jax", "stacked_to_jax",
            "stacked_to_nested", "stacked_from_nested",
-           "train_state_to_jax", "train_state_from_jax"]
+           "train_state_to_jax", "train_state_from_jax",
+           "opt_state_to_jax", "opt_state_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -139,20 +145,50 @@ def train_state_to_jax(params: dict, momentum: dict,
     """``{"params", "momentum"}`` in the JAX driver's checkpoint layout.
     ``momentum`` is one slot's tree (``{name: tensor}``) or a dict of
     slots (``{"mu": tree, "nu": tree}``)."""
-    if all(isinstance(v, dict) for v in momentum.values()):
-        mom = {s: stacked_to_nested(t, cfg) for s, t in momentum.items()}
-    else:
-        mom = stacked_to_nested(momentum, cfg)
-    return {"params": stacked_to_nested(params, cfg), "momentum": mom}
+    return {"params": stacked_to_nested(params, cfg),
+            "momentum": _momentum_to_jax(momentum, cfg)}
 
 
 def train_state_from_jax(tree: dict, cfg: ModelConfig) -> tuple[dict, dict]:
     """Inverse of :func:`train_state_to_jax` -> ``(params, momentum)``.
     A one-slot momentum is a params-like tree (it has ``"layers"``); else
     each of its keys is a slot."""
-    mom = tree["momentum"]
+    return (stacked_from_nested(tree["params"], cfg),
+            _momentum_from_jax(tree["momentum"], cfg))
+
+
+def _momentum_to_jax(momentum: dict, cfg):
+    if cfg is None:
+        return momentum
+    if all(isinstance(v, dict) for v in momentum.values()):
+        return {s: stacked_to_nested(t, cfg) for s, t in momentum.items()}
+    return stacked_to_nested(momentum, cfg)
+
+
+def _momentum_from_jax(mom: dict, cfg):
+    if cfg is None:
+        return mom
     if "layers" in mom:
-        momentum = stacked_from_nested(mom, cfg)
-    else:
-        momentum = {s: stacked_from_nested(t, cfg) for s, t in mom.items()}
-    return stacked_from_nested(tree["params"], cfg), momentum
+        return stacked_from_nested(mom, cfg)
+    return {s: stacked_from_nested(t, cfg) for s, t in mom.items()}
+
+
+def opt_state_to_jax(state, cfg: ModelConfig | None = None):
+    """The port's ``OptState`` as the reference's flattens: the momentum
+    (in the JAX layout when ``cfg`` is given; a plain tree as it is), the
+    step count as an int32 0-d tensor, no in-flight buffer, and the
+    schedule position (None, or an int32 0-d tensor)."""
+    sched = (None if state.sched_pos is None
+             else torch.as_tensor(state.sched_pos, dtype=torch.int32))
+    return OptState(_momentum_to_jax(state.momentum, cfg),
+                    torch.tensor(int(state.count), dtype=torch.int32),
+                    None, sched)
+
+
+def opt_state_from_jax(tree, cfg: ModelConfig | None = None):
+    """Inverse of :func:`opt_state_to_jax`: the count back to a Python int
+    and the schedule position to a host int32 tensor."""
+    sched = (None if tree.sched_pos is None
+             else torch.as_tensor(tree.sched_pos).to("cpu", torch.int32))
+    return OptState(_momentum_from_jax(tree.momentum, cfg),
+                    int(tree.count), None, sched)

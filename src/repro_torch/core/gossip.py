@@ -1,9 +1,9 @@
 """Partial averaging (gossip) over the node axis: the single-process path.
 
-The port of the JAX package's ``core/gossip.py`` for static realizations
-without a mesh.  Every quantity is a tree (``dict[str, Tensor]``, or a
-tuple/list of such dicts) whose leaves carry a leading node axis of size
-``n``; each mix first packs the tree into one ``(n, B)`` buffer per dtype
+The port of the JAX package's ``core/gossip.py`` without a mesh.  Every
+quantity is a tree (``dict[str, Tensor]``, or a tuple/list of such dicts)
+whose leaves carry a leading node axis of size ``n``; each mix first packs
+the tree into one ``(n, B)`` buffer per dtype
 (:mod:`repro_torch.core.flatbuf`), so its cost does not depend on the leaf
 count.  One lowering per realization-IR node:
 
@@ -14,23 +14,33 @@ count.  One lowering per realization-IR node:
   one combine; fixed points keep their value bit-exactly.
 * ``Dense``    -> :func:`mix_dense`: one ``einsum('ij,jb->ib')`` in f32.
 * ``Identity`` -> no-op.
+* ``Gated``    -> the inner round, its combine gated (per node, or the
+  whole round selected by ``torch.where``).
 
-The combine of Shifts and Matching rounds is the ``gossip_mix`` kernel
-(``kernels/gossip_mix``): its wrapper launches the CUDA kernel on a CUDA
-buffer and takes the plain version on a CPU one.  :func:`set_kernel_mode`
-``("off")`` forces the plain combine on any device, as the JAX package's
-``set_pallas_mode("off")`` does; it exists to hold the kernel against the
-plain version on the card.
+The combine of static Shifts and Matching rounds is the ``gossip_mix``
+kernel (``kernels/gossip_mix``): its wrapper launches the CUDA kernel on a
+CUDA buffer and takes the plain version on a CPU one.
+:func:`set_kernel_mode` ``("off")`` forces the plain combine on any
+device, as the JAX package's ``set_pallas_mode("off")`` does; it exists to
+hold the kernel against the plain version on the card.
+
+Runtime-valued rounds -- tensor weights, piggybacked metadata
+(``meta=``), loss-aware edge weights (``edge_weight=``) or a per-node
+gate (``node_gate=``) -- gather exactly what the static round gathers and
+combine in plain f32 torch, as the reference combines them in ``jnp``
+(the kernel takes static float weights).  :func:`mix_scheduled` mixes
+with realization ``pos % period`` of a schedule position held in
+optimizer state.
 
 :func:`mix_switch` is the reference's traced-step entry point: this
 package has no traced step, so it takes an int or a 0-d tensor and mixes
 with realization ``step % period``, refusing aperiodic schedules as the
 reference does.
 
-Not here yet: int8 wire compression (ROADMAP slice C), runtime-valued
-rounds and data-dependent schedules (slice C), the overlapped pipeline
-(slice C) and the shard-native multi-process engine (``mesh=``, slice
-F).  Each raises ``NotImplementedError`` naming its slice.
+Not here yet: int8 wire compression (ROADMAP slice C, item 8), the
+overlapped pipeline (slice C, item 10) and the shard-native
+multi-process engine (``mesh=``, slice F).  Each raises
+``NotImplementedError`` naming its slice.
 """
 from __future__ import annotations
 
@@ -42,14 +52,14 @@ import torch
 from ..kernels.gossip_mix import ops as gm_ops
 from ..kernels.gossip_mix import ref as gm_ref
 from . import flatbuf
-from .topology import (AperiodicScheduleError, Dense, Identity, Matching,
-                       Shifts, Topology)
+from .topology import (AperiodicScheduleError, Dense, Gated, Identity,
+                       Matching, Shifts, Topology, _is_static_value)
 
 Tree = Any
 
 __all__ = ["mix_dense", "mix_shifts", "mix_matching", "mix_realization",
-           "mix", "mix_switch", "gossip_spec", "set_kernel_mode",
-           "AperiodicScheduleError"]
+           "mix", "mix_switch", "mix_scheduled", "gossip_spec",
+           "set_kernel_mode", "AperiodicScheduleError"]
 
 # "auto": the tensors' device picks (CUDA -> the kernel, CPU -> plain);
 # "off": the plain combine everywhere
@@ -67,8 +77,8 @@ def set_kernel_mode(mode: str) -> None:
 def _refuse(compression, mesh) -> None:
     if compression is not None:
         raise NotImplementedError(
-            f"compression={compression!r} waits for ROADMAP slice C of the "
-            "PyTorch port")
+            f"compression={compression!r} waits for ROADMAP slice C (item "
+            "8) of the PyTorch port")
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the shard-native multi-process engine) waits for "
@@ -90,20 +100,178 @@ def mix_dense(tree: Tree, W, *, mesh=None) -> Tree:
     layout, bufs = flatbuf.pack(tree)
     out = []
     for b in bufs:
-        Wt = torch.as_tensor(np.asarray(W), dtype=torch.float32,
-                             device=b.device)
+        Wt = (W if isinstance(W, torch.Tensor) else np.asarray(W))
+        Wt = torch.as_tensor(Wt, dtype=torch.float32, device=b.device)
         out.append(torch.einsum("ij,jb->ib", Wt, b.float()).to(b.dtype))
     return flatbuf.unpack(layout, out)
 
 
+# ---------------------------------------------------------------------------
+# Runtime-valued rounds: tensor weights, metadata piggyback, node gating
+# ---------------------------------------------------------------------------
+#
+# A round is RUNTIME-valued when any of its weights is a tensor, or when it
+# carries per-node metadata (``meta=``), loss-aware edge weights
+# (``edge_weight=``) or a straggler gate (``node_gate=``).  It gathers
+# exactly the rows the static round gathers (a gated-off edge still moves
+# its bytes) and combines in plain f32 torch with weights that are
+# tensors.  Metadata rides the f32 dtype group's gather, cast to that
+# group's dtype (group 0's when the payload has no f32 group): the
+# receiver reads its sender's (loss, grad-norm, alive) row from the rows
+# the round moves anyway.  The reference concatenates the columns onto
+# the buffer before its permute; in one process that only moves data, so
+# gathering the (n, M) meta rows with the payload's index gives the same
+# bits without a second payload-sized copy.
+#
+# ``edge_weight(own_meta, recv_meta, base_w) -> w`` gives the RECEIVING
+# node's weight for that edge.  Under gating or edge_weight the self
+# weight is derived as ``1 - sum_d w_d`` per node in f32 tensors, so every
+# realized row stays stochastic (a dropped edge's mass returns to self).
+
+def _assemble_meta(meta, node_gate, device):
+    """Stack user metadata and the alive flag into one (n, M) f32 matrix
+    on ``device``.  Returns ``(meta_mat | None, n_user_cols, has_gate)``;
+    the gate flag is always the LAST column."""
+    cols = []
+    n_user = 0
+    if meta is not None:
+        m = torch.as_tensor(meta, dtype=torch.float32, device=device)
+        if m.ndim == 1:
+            m = m[:, None]
+        n_user = m.shape[1]
+        cols.append(m)
+    if node_gate is not None:
+        g = torch.as_tensor(node_gate, device=device)
+        cols.append(g.to(torch.float32)[:, None])
+    if not cols:
+        return None, 0, False
+    return torch.cat(cols, 1), n_user, node_gate is not None
+
+
+def _f32_group_index(layout: flatbuf.FlatLayout) -> int:
+    """The dtype group the metadata columns ride on (f32 if present)."""
+    for i, g in enumerate(layout.groups):
+        if g.dtype == torch.float32:
+            return i
+    return 0
+
+
+def _wcol(w, device):
+    """A weight as an f32 tensor on ``device``, broadcast against an
+    (n, B) buffer when per-node."""
+    w = torch.as_tensor(w, dtype=torch.float32, device=device)
+    return w[:, None] if w.ndim == 1 else w
+
+
+def _runtime_combine(bufs: list, layout: flatbuf.FlatLayout, permute,
+                     base_ws: list, self_w, meta_mat, n_user: int,
+                     has_gate: bool, edge_weight, keep) -> list:
+    """Weighted combine with runtime weights / piggybacked metadata.
+
+    ``permute(arr, d)`` returns edge ``d``'s received rows (a roll or a
+    gather, the static round's primitive).  ``keep`` is an optional (n, 1)
+    mask of rows that keep their value bit-exactly (matching fixed
+    points)."""
+    D = len(base_ws)
+    dev = bufs[0].device
+    gi = _f32_group_index(layout)
+    recv_meta: list = [None] * D
+    if meta_mat is not None:
+        wire = meta_mat.to(bufs[gi].dtype)
+        for d in range(D):
+            recv_meta[d] = permute(wire, d).to(torch.float32)
+    own_user = meta_mat[:, :n_user] if n_user else None
+    own_alive = meta_mat[:, -1] > 0.5 if has_gate else None
+    eff = []
+    for d in range(D):
+        w = base_ws[d]
+        if edge_weight is not None:
+            w = edge_weight(own_user, recv_meta[d][:, :n_user]
+                            if n_user else None, w)
+        w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+        if has_gate:
+            both = torch.logical_and(own_alive, recv_meta[d][:, -1] > 0.5)
+            w = torch.where(both, w, torch.zeros_like(w))
+        eff.append(w)
+    if self_w is None or has_gate or edge_weight is not None:
+        # dropped-edge mass returns to self: rows stay stochastic
+        total = 0
+        for w in eff:
+            total = total + _wcol(w, dev)
+        self_col = 1.0 - total
+    else:
+        self_col = _wcol(self_w, dev)
+    outs = []
+    for buf in bufs:
+        x32 = buf.to(torch.float32)
+        acc = self_col * x32
+        for d in range(D):
+            # a fresh gathered f32 buffer, scaled in place: one extra
+            # payload-sized tensor at a time
+            r = permute(buf, d).to(torch.float32)
+            acc.add_(r.mul_(_wcol(eff[d], dev)))
+            del r
+        if keep is not None:
+            acc = torch.where(keep, x32, acc)
+        outs.append(acc.to(buf.dtype))
+    return outs
+
+
+def _runtime_mix(tree: Tree, *, permute, base_ws: list, self_w, meta,
+                 node_gate, edge_weight, fixed_mask, mesh) -> Tree:
+    """Runtime-valued Shifts/Matching round on the global path.
+    ``permute(arr, d)`` is edge ``d``'s wire primitive; ``base_ws[d]`` its
+    base weight (float, 0-d or per-node tensor; ``edge_weight`` may
+    override)."""
+    _refuse(None, mesh)
+    layout, bufs = flatbuf.pack(tree)
+    dev = bufs[0].device
+    meta_mat, n_user, has_gate = _assemble_meta(meta, node_gate, dev)
+    keep = (None if fixed_mask is None
+            else torch.as_tensor(fixed_mask, device=dev)[:, None])
+    outs = _runtime_combine(bufs, layout, permute, base_ws, self_w,
+                            meta_mat, n_user, has_gate, edge_weight, keep)
+    return flatbuf.unpack(layout, outs)
+
+
+def _is_runtime_round(self_w, ws, meta, edge_weight, node_gate) -> bool:
+    """True when the round needs the runtime combine (a tensor weight, a
+    derived self weight, metadata, loss-aware weights, or gating).  A
+    plain static round returns False and takes the kernel path."""
+    return (meta is not None or edge_weight is not None
+            or node_gate is not None
+            or not _is_static_value(self_w)
+            or any(not _is_static_value(w) for w in ws))
+
+
+def _refuse_runtime_compression(compression) -> None:
+    if compression is not None:
+        raise ValueError(
+            "compression is not supported on runtime-valued rounds "
+            "(tensor weights / metadata / gating); drop compression= "
+            "or use static weights")
+
+
 def mix_shifts(tree: Tree, self_weight: float,
                shifts: list[tuple[int, float]],
-               compression: str | None = None, *, mesh=None) -> Tree:
+               compression: str | None = None, *, mesh=None, meta=None,
+               edge_weight=None, node_gate=None) -> Tree:
     """x_i <- self_weight * x_i + sum_d w_d * x_{(i - s_d) mod n}.
 
     Each (s_d, w_d) descriptor means node i *sends* its buffer to node
     (i + s_d) mod n: one ``torch.roll`` of each packed buffer per shift,
-    then the weighted combine."""
+    then the weighted combine.  Runtime-valued rounds (tensor weights,
+    ``meta=``/``edge_weight=``/``node_gate=``) roll the same buffers and
+    take the plain f32 combine; ``compression`` is refused there."""
+    ws_list = [w for _, w in shifts]
+    if _is_runtime_round(self_weight, ws_list, meta, edge_weight,
+                         node_gate):
+        _refuse_runtime_compression(compression)
+        return _runtime_mix(
+            tree, permute=lambda arr, d: torch.roll(arr, shifts[d][0], 0),
+            base_ws=ws_list, self_w=self_weight,
+            meta=meta, node_gate=node_gate, edge_weight=edge_weight,
+            fixed_mask=None, mesh=mesh)
     _refuse(compression, mesh)
     layout, bufs = flatbuf.pack(tree)
     ws = tuple(w for _, w in shifts)
@@ -115,15 +283,38 @@ def mix_shifts(tree: Tree, self_weight: float,
 
 
 def mix_matching(tree: Tree, partner: tuple, w_self: float = 0.5,
-                 compression: str | None = None, mesh=None) -> Tree:
+                 compression: str | None = None, mesh=None, *, meta=None,
+                 edge_weight=None, node_gate=None) -> Tree:
     """Pairwise gossip: x_i <- w_self * x_i + (1 - w_self) * x_{partner[i]}.
 
     ``partner`` is an involution; fixed points keep their value EXACTLY
-    (bit-for-bit, enforced with a mask)."""
-    _refuse(compression, mesh)
+    (bit-for-bit, enforced with a mask).  Runtime-valued rounds (tensor
+    ``w_self``, ``meta=``/``edge_weight=``/``node_gate=``) gather the
+    same rows and take the plain f32 combine; under a per-node gate a pair
+    averages only when BOTH endpoints are alive."""
     n = len(partner)
     fixed = np.fromiter((j == i for i, j in enumerate(partner)),
                         dtype=bool, count=n)
+    if _is_runtime_round(w_self, (), meta, edge_weight, node_gate):
+        _refuse_runtime_compression(compression)
+        dev = flatbuf.tree_flatten(tree)[0][0].device
+        idx = torch.as_tensor(partner, dtype=torch.long, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        base = (torch.tensor(0.5, **f32) if w_self is None
+                else 1.0 - torch.as_tensor(w_self, **f32))
+        # paired nodes carry the peer weight; fixed points contribute 0 so
+        # the derived self weight stays 1 there (the keep mask then makes
+        # the row bit-exact)
+        base = torch.where(torch.as_tensor(fixed, device=dev),
+                           torch.zeros((), **f32), base.broadcast_to((n,)))
+        return _runtime_mix(
+            tree, permute=lambda arr, d: arr.index_select(0, idx),
+            base_ws=[base],
+            self_w=None if (node_gate is not None or edge_weight is not None
+                            or w_self is None) else w_self,
+            meta=meta, node_gate=node_gate, edge_weight=edge_weight,
+            fixed_mask=fixed if fixed.any() else None, mesh=mesh)
+    _refuse(compression, mesh)
     layout, bufs = flatbuf.pack(tree)
     out = []
     for buf in bufs:
@@ -138,23 +329,64 @@ def mix_matching(tree: Tree, partner: tuple, w_self: float = 0.5,
 
 
 def mix_realization(tree: Tree, realization, *,
-                    compression: str | None = None, mesh=None) -> Tree:
-    """Lower one realization-IR node onto its path."""
+                    compression: str | None = None, mesh=None, meta=None,
+                    edge_weight=None, node_gate=None) -> Tree:
+    """Lower one realization-IR node onto its path.
+
+    ``meta``/``edge_weight``/``node_gate`` flow to the runtime combine of
+    Shifts/Matching rounds; a :class:`Gated` node realizes its inner round
+    or Identity from its gate -- the wire is always issued, only the
+    combine is gated."""
     if isinstance(realization, Identity):
         return tree
+    if isinstance(realization, Gated):
+        gate = realization.gate
+        if getattr(gate, "ndim", 0) == 0:
+            # whole-round gate: run the round, select the result
+            mixed = mix_realization(
+                tree, realization.inner, compression=compression, mesh=mesh,
+                meta=meta, edge_weight=edge_weight, node_gate=node_gate)
+            return _select(gate, mixed, tree)
+        if node_gate is not None:
+            raise ValueError("Gated realization with an explicit node_gate=;"
+                             " pass one or the other")
+        if isinstance(realization.inner, Dense):
+            raise ValueError(
+                "per-node gating of a Dense round is not supported; gate "
+                "Shifts/Matching rounds (or use a scalar whole-round gate)")
+        return mix_realization(
+            tree, realization.inner, compression=compression, mesh=mesh,
+            meta=meta, edge_weight=edge_weight, node_gate=gate)
     if isinstance(realization, Shifts):
         return mix_shifts(tree, realization.self_w, list(realization.shifts),
-                          compression, mesh=mesh)
+                          compression, mesh=mesh, meta=meta,
+                          edge_weight=edge_weight, node_gate=node_gate)
     if isinstance(realization, Matching):
         return mix_matching(tree, realization.partner, realization.w_self,
-                            compression, mesh)
+                            compression, mesh, meta=meta,
+                            edge_weight=edge_weight, node_gate=node_gate)
     if isinstance(realization, Dense):
         if compression is not None:
             raise ValueError(
                 f"compression={compression!r} has no dense-matrix wire "
                 f"format; only Shifts/Matching realizations quantize")
+        if meta is not None or edge_weight is not None or node_gate is not None:
+            raise ValueError(
+                "metadata piggyback / loss-aware weights / gating need a "
+                "permute wire (Shifts or Matching); Dense rounds all-gather")
         return mix_dense(tree, realization.W, mesh=mesh)
     raise TypeError(f"not a realization IR node: {realization!r}")
+
+
+def _select(gate, mixed: Tree, tree: Tree) -> Tree:
+    """``torch.where(gate, mixed, tree)`` leaf by leaf (a scalar gate)."""
+    m_leaves, treedef = flatbuf.tree_flatten(mixed)
+    t_leaves, _ = flatbuf.tree_flatten(tree)
+    out = []
+    for m, t in zip(m_leaves, t_leaves):
+        g = torch.as_tensor(gate, device=m.device).to(torch.bool)
+        out.append(torch.where(g, m, t))
+    return flatbuf.tree_unflatten(treedef, out)
 
 
 def mix(tree: Tree, topology: Topology, step: int,
@@ -186,19 +418,57 @@ def mix_switch(tree: Tree, topology: Topology, step, mesh=None) -> Tree:
     return mix(tree, topology, k % topology.schedule.period)
 
 
+def mix_scheduled(tree: Tree, topology: Topology, pos, gate=None, *,
+                  compression: str | None = None, mesh=None, meta=None,
+                  edge_weight=None, node_gate=None) -> Tree:
+    """Mix with realization ``pos % period``, where ``pos`` is the schedule
+    position held in optimizer state (a 0-d int tensor, advanced only on
+    rounds that communicate: ``schedule.advance_position``).  ``pos`` is
+    read on the host once (one scalar sync) and only that realization
+    runs.  An optional scalar ``gate`` selects between the mixed result
+    and the unmixed tree AFTER the round, so a gated-off round still
+    gathers and combines (as the reference still issues its permute).
+
+    Exactness: since ``pos`` only advances on communicating rounds, a
+    finite-time family (one_peer_exp / base_k / ceca) averages exactly
+    once ``period`` COMMUNICATING rounds complete, however many skipped
+    rounds interleave.  Periodic schedules only, as :func:`mix_switch`."""
+    if not topology.schedule.is_periodic:
+        raise AperiodicScheduleError(
+            f"mix_scheduled needs a periodic schedule, but "
+            f"{topology.name!r} carries {topology.schedule!r}")
+    k = int(pos.item()) if isinstance(pos, torch.Tensor) else int(pos)
+    mixed = mix_realization(
+        tree, topology.realization(k % topology.schedule.period),
+        compression=compression, mesh=mesh, meta=meta,
+        edge_weight=edge_weight, node_gate=node_gate)
+    if gate is None:
+        return mixed
+    return _select(gate, mixed, tree)
+
+
 def gossip_spec(topology: Topology, step: int,
                 layout: flatbuf.FlatLayout | None = None,
-                compression: str | None = None) -> dict:
+                compression: str | None = None,
+                meta_cols: int = 0) -> dict:
     """Structural description of one gossip round, read off the
     realization IR (for roofline accounting).
 
     ``wire_multiplier`` is the number of per-node payload copies the round
     moves: one per shift for ``Shifts``, exactly 1 for any ``Matching``,
-    ``n - 1`` for ``Dense`` (an all-gather), 0 for ``Identity``.  With a
-    ``layout`` (from :func:`flatbuf.layout_of`), adds the packed-path byte
-    accounting: collectives per step and bytes sent per node."""
+    ``n - 1`` for ``Dense`` (an all-gather), 0 for ``Identity``; a
+    ``Gated`` round moves its inner round's bytes (the wire is always
+    issued).  With a ``layout`` (from :func:`flatbuf.layout_of`), adds the
+    packed-path byte accounting: collectives per step and bytes sent per
+    node.  ``meta_cols`` counts the piggybacked per-node metadata columns
+    (the gate column included): they ride the f32 group's existing
+    gather -- zero extra collectives, ``4 * meta_cols`` bytes per payload
+    copy, reported as ``meta_bytes_per_node_per_step``."""
     r = topology.realization(step)
     n = topology.n
+    gated = isinstance(r, Gated)
+    if gated:
+        r = r.inner          # the wire structure is always issued
     mult = r.wire_multiplier(n)
     if isinstance(r, Shifts):
         spec = {"kind": "ppermute", "rounds": len(r.shifts),
@@ -215,13 +485,18 @@ def gossip_spec(topology: Topology, step: int,
         spec = {"kind": "dense", "rounds": 1, "fanin": r.max_degree}
         rounds = 1
     spec["wire_multiplier"] = mult
+    if gated:
+        spec["gated"] = True
+    if meta_cols:
+        spec["meta_cols"] = meta_cols
     if layout is not None:
         split = flatbuf.wire_bytes_split(layout, compression)
+        meta_bytes = 4 * meta_cols * mult
         spec["dtype_groups"] = len(layout.groups)
         spec["collectives_per_step"] = rounds * len(layout.groups)
         spec["payload_bytes_per_node_per_step"] = split["payload"] * mult
         spec["scale_bytes_per_node_per_step"] = split["scales"] * mult
-        spec["meta_bytes_per_node_per_step"] = 0
+        spec["meta_bytes_per_node_per_step"] = meta_bytes
         spec["bytes_per_node_per_step"] = (
-            (split["payload"] + split["scales"]) * mult)
+            (split["payload"] + split["scales"]) * mult + meta_bytes)
     return spec

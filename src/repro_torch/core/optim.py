@@ -23,10 +23,14 @@ The port of the JAX package's ``core/optim.py``.  Every optimizer is a
                        params, three f32 trees in one payload -- one flat
                        buffer, one combine per step.
 
-The ``compression`` / ``overlap`` / ``loss_aware`` / ``deadline`` options
-wait for ROADMAP slice C (items 8-10) and raise ``NotImplementedError``;
-``overlap`` is first checked by :func:`chain` as in the reference, so
-qg_dmsgd's overlap is a ``ValueError`` there too.
+``dmsgd`` and ``dsgd`` take the runtime-valued gossip hooks, fed by
+``update(..., aux=...)``: ``loss_aware`` (AL-DSGD weights from the
+per-node losses), ``deadline`` (per-node straggler gating from
+``aux["alive"]``) and ``when=`` (a data-dependent whole-round skip).
+``compression`` waits for ROADMAP slice C item 8 and ``overlap`` for item
+10 (``NotImplementedError``); ``overlap`` is first checked by
+:func:`chain` as in the reference, so qg_dmsgd's overlap, or overlap with
+a runtime hook, is a ``ValueError`` there too.
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ from .transforms import (
     DecentralizedOptimizer,
     OptState,
     adam_descent,
+    al_dsgd,
     average_gradients,
     chain,
+    deadline_skip,
     gossip,
     quasi_global_momentum,
     scale_by_lr,
@@ -65,22 +71,52 @@ def _later(what: str, item: str) -> NotImplementedError:
         f"{what} waits for ROADMAP slice C ({item}) of the PyTorch port")
 
 
-def dmsgd(topology: Topology, beta: float = 0.9, *,
-          momentum_dtype=None, overlap: bool = False
-          ) -> DecentralizedOptimizer:
-    """Algorithm 1 (the paper's DmSGD); fused single-payload gossip."""
+def _refuse_compression(compression, runtime: bool) -> None:
+    if compression is None:
+        return
+    if runtime:
+        # the reference's chain() refusal, ahead of the missing item
+        raise ValueError(
+            "int8 wire compression cannot combine with runtime-valued "
+            "gossip (loss_aware / deadline / when); the quantized combine "
+            "needs static weights -- drop one")
+    raise _later(f"compression={compression!r}", "item 8")
+
+
+def dmsgd(topology: Topology, beta: float = 0.9, *, momentum_dtype=None,
+          compression: str | None = None, overlap: bool = False,
+          loss_aware: bool | float = False, deadline: bool = False,
+          when=None) -> DecentralizedOptimizer:
+    """Algorithm 1 (the paper's DmSGD); fused single-payload gossip.
+
+    Runtime-valued variants (feed ``aux=`` to ``update``):
+    ``loss_aware=True`` (or a float ``pull``) binds the AL-DSGD
+    adjacent-leader rule; ``deadline=True`` prepends :func:`deadline_skip`
+    (nodes whose ``aux['alive']`` is False drop out of the round);
+    ``when=`` (``ctx -> bool``) makes whole-round skips data-dependent,
+    the schedule position riding optimizer state."""
+    _refuse_compression(compression,
+                        bool(loss_aware or deadline or when is not None))
+    rule = None
+    if loss_aware:
+        rule = al_dsgd() if loss_aware is True else al_dsgd(pull=loss_aware)
     return chain(
         trace_momentum(beta, dtype=momentum_dtype),
         scale_by_lr("m"),
-        gossip(where=("m_next", "x_next"), overlap=overlap),
+        deadline_skip() if deadline else None,
+        gossip(where=("m_next", "x_next"), overlap=overlap,
+               weights_from=rule, when=when),
         topology=topology, name="dmsgd", beta=beta)
 
 
 def dsgd(topology: Topology, *, momentum_dtype=None,
-         overlap: bool = False) -> DecentralizedOptimizer:
+         compression: str | None = None, overlap: bool = False,
+         loss_aware: bool | float = False, deadline: bool = False,
+         when=None) -> DecentralizedOptimizer:
     """Decentralized SGD = DmSGD with beta = 0 (Remark 8)."""
     opt = dmsgd(topology, beta=0.0, momentum_dtype=momentum_dtype,
-                overlap=overlap)
+                compression=compression, overlap=overlap,
+                loss_aware=loss_aware, deadline=deadline, when=when)
     return dataclasses.replace(opt, name="dsgd")
 
 
@@ -152,13 +188,25 @@ def make_optimizer(name: str, topology: Topology, beta: float = 0.9,
                    overlap: bool = False, loss_aware: bool | float = False,
                    deadline: bool = False) -> DecentralizedOptimizer:
     """Name-keyed construction, with the JAX package's signature;
-    ``d_adamw`` takes ``beta`` as its ``b1``.  ``overlap=True`` reaches
+    ``d_adamw`` takes ``beta`` as its ``b1``.  ``loss_aware=`` /
+    ``deadline=`` bind the runtime-valued gossip hooks, as in the
+    reference only for ``dmsgd`` and ``dsgd``.  ``overlap=True`` reaches
     :func:`chain`, which checks the composition and refuses it."""
+    runtime_kw = {}
+    if loss_aware or deadline:
+        if name not in ("dmsgd", "dsgd"):
+            raise ValueError(
+                f"loss_aware/deadline runtime gossip is wired for "
+                f"dmsgd/dsgd, not {name!r}")
+        runtime_kw = {"loss_aware": loss_aware, "deadline": deadline}
+    if name == "dsgd":
+        return dsgd(topology, momentum_dtype=momentum_dtype,
+                    compression=compression, overlap=overlap, **runtime_kw)
+    if name == "dmsgd":
+        return dmsgd(topology, beta=beta, momentum_dtype=momentum_dtype,
+                     compression=compression, overlap=overlap, **runtime_kw)
     if compression is not None:
         raise _later(f"compression={compression!r}", "item 8")
-    if loss_aware or deadline:
-        raise _later("runtime-valued gossip (loss_aware / deadline)",
-                     "item 9")
     if name == "parallel_msgd":
         if overlap:
             raise ValueError(
@@ -166,8 +214,6 @@ def make_optimizer(name: str, topology: Topology, beta: float = 0.9,
                 "to overlap; pick a decentralized optimizer")
         return parallel_msgd(topology.n, beta=beta,
                              momentum_dtype=momentum_dtype)
-    if name == "dsgd":
-        return dsgd(topology, momentum_dtype=momentum_dtype, overlap=overlap)
     if name == "d_adamw":
         return d_adamw(topology, b1=beta, momentum_dtype=momentum_dtype,
                        overlap=overlap)

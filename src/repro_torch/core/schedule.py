@@ -4,8 +4,13 @@ The JAX package's ``core/schedule.py`` with plain Python floats in place of
 traced scalars: warmup over the first ``warmup_steps`` then step decay by
 ``decay_factor`` at each milestone, plus the linear scaling rule, and the
 theory-side rate gamma = sqrt(n (1-beta)^3 / T) (Corollary 1 / Theorem 1).
-The traced gossip schedule position (``initial_position`` /
-``advance_position``) is ROADMAP slice C.
+
+Gossip: with a data-dependent skip (``transforms.gossip(when=...)``) the
+topology's schedule position lives in optimizer state
+(``OptState.sched_pos``, a 0-d int32 tensor on the host) and advances
+only on rounds that COMMUNICATE (:func:`advance_position`), so a
+finite-time family still averages exactly once ``period`` communicating
+rounds complete, however many skipped rounds interleave.
 """
 from __future__ import annotations
 
@@ -13,8 +18,25 @@ import math
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["warmup_step_decay", "theory_lr", "constant"]
+__all__ = ["warmup_step_decay", "theory_lr", "constant",
+           "initial_position", "advance_position"]
+
+
+def initial_position() -> torch.Tensor:
+    """The gossip schedule's starting position (optimizer state)."""
+    return torch.zeros((), dtype=torch.int32)
+
+
+def advance_position(pos: torch.Tensor, gate=None) -> torch.Tensor:
+    """``pos_next = pos + gate``: the schedule advances ONLY on rounds that
+    communicate (``gate`` a bool scalar; None = always communicated, the
+    static ``every=1`` behaviour).  The position stays on the host."""
+    if gate is None:
+        return pos + torch.ones((), dtype=pos.dtype)
+    gate = torch.as_tensor(gate).to(device=pos.device, dtype=pos.dtype)
+    return pos + gate
 
 
 def constant(lr: float) -> Callable[[int], float]:

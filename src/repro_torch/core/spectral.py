@@ -1,18 +1,23 @@
 """Spectral analysis of gossip weight matrices (numpy only).
 
-A copy of the JAX package's ``core/spectral.py`` for the quantities the
-training slice reads:
+A copy of the JAX package's ``core/spectral.py``:
   * rho(W): second-largest eigenvalue magnitude (NOT the spectral radius;
     W may be non-symmetric with complex eigenvalues), and the gap 1 - rho.
-  * consensus-residue operator products (Lemma 1 / eq. 9).
+  * Proposition 1's closed form of the static exponential graph's gap.
+  * ||W - J||_2 and consensus-residue operator products (Lemma 1 / eq. 9).
+  * eq. (4)'s transient-iteration scaling.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
 from .topology import Topology
 
-__all__ = ["rho", "spectral_gap", "consensus_residue_products"]
+__all__ = ["rho", "spectral_gap", "static_exp_gap_closed_form",
+           "residual_norm", "consensus_residue_products",
+           "transient_iterations"]
 
 
 def rho(W: np.ndarray) -> float:
@@ -28,6 +33,19 @@ def rho(W: np.ndarray) -> float:
 
 def spectral_gap(W: np.ndarray) -> float:
     return 1.0 - rho(W)
+
+
+def static_exp_gap_closed_form(n: int) -> float:
+    """Proposition 1: 1 - rho = 2 / (1 + ceil(log2 n)) (equality for even n)."""
+    if n == 1:
+        return 1.0
+    return 2.0 / (1.0 + math.ceil(math.log2(n)))
+
+
+def residual_norm(W: np.ndarray) -> float:
+    """||W - (1/n) 1 1^T||_2 (matrix 2-norm)."""
+    n = W.shape[0]
+    return float(np.linalg.norm(W - np.ones((n, n)) / n, ord=2))
 
 
 def consensus_residue_products(top: Topology, steps: int,
@@ -49,3 +67,10 @@ def consensus_residue_products(top: Topology, steps: int,
         P = top.weights(k) @ P
         out[k] = np.linalg.norm((P - J) @ x)
     return out
+
+
+def transient_iterations(n: int, gap: float,
+                         heterogeneous: bool = False) -> float:
+    """Eq. (4): T = n^3/(1-rho)^2 (homogeneous) or n^3/(1-rho)^4 (hetero)."""
+    p = 4 if heterogeneous else 2
+    return n ** 3 / max(gap, 1e-300) ** p

@@ -15,9 +15,17 @@ static-weight realization IR:
 :class:`Cyclic`, :class:`RandomPerm`, or :class:`Aperiodic` (a fresh
 seeded draw per step: random matchings, the uniform one-peer order).
 Every draw is numpy, as in the JAX package, so the same ``(n, seed,
-step)`` realizes the same node there and here.  Traced weights and the
-``Gated`` node are ROADMAP slice C (item 9); the code paths that need
-them raise ``NotImplementedError``.
+step)`` realizes the same node there and here.
+
+Weights are STATIC (Python or NumPy scalars: part of the node's identity
+and of :class:`repro_torch.core.plan.GossipPlan`'s cache key) or
+RUNTIME-valued (a ``torch.Tensor``, 0-d or ``(n,)`` per receiving node:
+the port's counterpart of the reference's traced values).  A runtime
+node keys by its wire structure only (``structure_key``), exposes its
+weights (``weight_values``) and rebinds them (``with_weights``), so a
+pool of differently weighted rounds of one structure shares one
+executable.  :class:`Gated` realizes its inner round or ``Identity``
+from a runtime gate, per node or for the whole round.
 
 Conventions follow the paper: ``w_ij`` scales information flowing from node
 ``j`` to node ``i``; every realized ``W`` is doubly stochastic.  Static
@@ -38,6 +46,7 @@ __all__ = [
     "Dense",
     "Identity",
     "IDENTITY",
+    "Gated",
     "Realization",
     "Schedule",
     "Static",
@@ -63,50 +72,89 @@ __all__ = [
     "TOPOLOGIES",
 ]
 
-SLICE_C = ("{} waits for ROADMAP slice C of the PyTorch port (item 9, "
-           "runtime-valued realizations)")
-
-
 class AperiodicScheduleError(ValueError):
-    """A periodic-only code path (``gossip.mix_switch``) was handed an
-    aperiodic :class:`Schedule`."""
+    """A periodic-only code path (``gossip.mix_switch``,
+    ``gossip.mix_scheduled``) was handed an aperiodic :class:`Schedule`."""
 
 
-def _static_weight(w, what: str) -> float:
-    """A realization weight as a Python float; anything else (a tensor, a
-    per-node array) is a runtime-valued weight, which is slice C."""
-    if isinstance(w, (int, float, np.integer, np.floating)):
-        return float(w)
-    raise NotImplementedError(SLICE_C.format(f"a traced {what}"))
+def _is_static_value(w) -> bool:
+    """True when ``w`` is a concrete Python/NumPy scalar (part of the cache
+    key); False for tensors (runtime values)."""
+    return isinstance(w, (int, float, np.integer, np.floating))
 
 
 # ---------------------------------------------------------------------------
 # Realization IR
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class Shifts:
     """Circulant realization: ``x_i^+ = self_w x_i + sum_d w_d x_{(i-s_d)%n}``.
 
     Each ``(s, w)`` descriptor means node ``i`` *sends* its buffer by
     ``+s`` (``torch.roll(x, s, 0)`` on the node axis) and receives from
     ``(i - s) mod n`` with weight ``w``.
+
+    Weights are Python floats on the static path; any of them may instead
+    be a tensor -- 0-d, or ``(n,)`` giving each RECEIVING node its own
+    weight -- and the realization is then ``traced`` (runtime-valued).  A
+    traced ``self_w=None`` derives the self weight as ``1 - sum_d w_d``
+    per node.
     """
 
-    self_w: float
-    shifts: tuple  # tuple[(int shift, float weight), ...]
+    self_w: float | None
+    shifts: tuple  # tuple[(int shift, float-or-tensor weight), ...]
 
     def __post_init__(self):
         object.__setattr__(self, "shifts", tuple(
-            (int(s), _static_weight(w, "Shifts weight"))
+            (int(s), float(w) if _is_static_value(w) else w)
             for s, w in self.shifts))
-        object.__setattr__(self, "self_w",
-                           _static_weight(self.self_w, "Shifts self weight"))
+        if _is_static_value(self.self_w):
+            object.__setattr__(self, "self_w", float(self.self_w))
+        elif self.self_w is None and not self.traced:
+            raise ValueError(
+                "Shifts(self_w=None) is only meaningful with runtime shift "
+                "weights (self_w is then derived as 1 - sum of weights)")
 
-    traced = False
+    @property
+    def traced(self) -> bool:
+        return (not _is_static_value(self.self_w)
+                or any(not _is_static_value(w) for _, w in self.shifts))
 
     def structure_key(self) -> tuple:
-        return ("shifts", self.self_w, self.shifts)
+        """Hashable cache key: static nodes key by VALUES, runtime nodes by
+        wire structure only (their weights are arguments)."""
+        if not self.traced:
+            return ("shifts", self.self_w, self.shifts)
+        return ("shifts*", self.self_w is None,
+                tuple(s for s, _ in self.shifts))
+
+    def weight_values(self) -> tuple:
+        """The weight operands, in ``(self_w?, *shift_ws)`` order
+        (``self_w`` omitted when derived)."""
+        ws = tuple(w for _, w in self.shifts)
+        return ws if self.self_w is None else (self.self_w,) + ws
+
+    def with_weights(self, values: tuple) -> "Shifts":
+        """Rebuild from :meth:`weight_values`-ordered operands."""
+        if self.self_w is None:
+            self_w, ws = None, values
+        else:
+            self_w, ws = values[0], values[1:]
+        return Shifts(self_w, tuple(
+            (s, w) for (s, _), w in zip(self.shifts, ws)))
+
+    def __eq__(self, other):
+        if not isinstance(other, Shifts):
+            return NotImplemented
+        if self.traced or other.traced:
+            return self is other
+        return (self.self_w, self.shifts) == (other.self_w, other.shifts)
+
+    def __hash__(self):
+        if self.traced:
+            return id(self)
+        return hash(("Shifts", self.self_w, self.shifts))
 
     @property
     def max_degree(self) -> int:
@@ -117,6 +165,11 @@ class Shifts:
         return len(self.shifts)
 
     def dense(self, n: int) -> np.ndarray:
+        if self.traced:
+            raise ValueError(
+                "a runtime-weight Shifts has no concrete dense matrix; "
+                "resolve the weights first (with_weights) or use the "
+                "gossip path")
         W = np.zeros((n, n), dtype=np.float64)
         np.fill_diagonal(W, self.self_w)
         for s, w in self.shifts:
@@ -125,14 +178,17 @@ class Shifts:
         return W
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class Matching:
     """Pairwise realization: node ``i`` averages with ``partner[i]``.
 
     ``partner`` must be an involution (``partner[partner[i]] == i``); a
     fixed point ``partner[i] == i`` leaves node ``i`` silent that round.
     Paired nodes take ``w_self`` on their own value and ``1 - w_self`` on
-    the partner's.
+    the partner's.  ``w_self`` is a Python float on the static path; a
+    0-d or ``(n,)`` tensor makes the realization ``traced`` (per-node
+    values make ``W`` row- but not column-stochastic unless both ends of
+    every pair agree).
     """
 
     partner: tuple  # tuple[int, ...], involution over range(n)
@@ -141,18 +197,40 @@ class Matching:
     def __post_init__(self):
         p = tuple(int(j) for j in self.partner)
         object.__setattr__(self, "partner", p)
-        object.__setattr__(self, "w_self",
-                           _static_weight(self.w_self, "Matching weight"))
+        if _is_static_value(self.w_self):
+            object.__setattr__(self, "w_self", float(self.w_self))
         for i, j in enumerate(p):
             if not 0 <= j < len(p) or p[j] != i:
                 raise ValueError(
                     f"Matching.partner must be an involution; "
                     f"partner[{i}]={j} but partner[{j}]={p[j] if 0 <= j < len(p) else '?'}")
 
-    traced = False
+    @property
+    def traced(self) -> bool:
+        return not _is_static_value(self.w_self)
 
     def structure_key(self) -> tuple:
-        return ("matching", self.partner, self.w_self)
+        if not self.traced:
+            return ("matching", self.partner, self.w_self)
+        return ("matching*", self.partner)
+
+    def weight_values(self) -> tuple:
+        return (self.w_self,)
+
+    def with_weights(self, values: tuple) -> "Matching":
+        return Matching(self.partner, values[0])
+
+    def __eq__(self, other):
+        if not isinstance(other, Matching):
+            return NotImplemented
+        if self.traced or other.traced:
+            return self is other
+        return (self.partner, self.w_self) == (other.partner, other.w_self)
+
+    def __hash__(self):
+        if self.traced:
+            return id(self)
+        return hash(("Matching", self.partner, self.w_self))
 
     @property
     def max_degree(self) -> int:
@@ -162,6 +240,11 @@ class Matching:
         return 1
 
     def dense(self, n: int) -> np.ndarray:
+        if self.traced:
+            raise ValueError(
+                "a runtime-weight Matching has no concrete dense matrix; "
+                "resolve the weights first (with_weights) or use the "
+                "gossip path")
         W = np.eye(n, dtype=np.float64)
         for i, j in enumerate(self.partner):
             if j != i:
@@ -174,19 +257,28 @@ class Matching:
 class Dense:
     """Explicit doubly-stochastic ``(n, n)`` W: mixing is
     ``einsum('ij,jb->ib')`` on the packed buffer (an all-gather of O(n)
-    bytes per node on a multi-node wire)."""
+    bytes per node on a multi-node wire).  A tensor ``W`` is
+    runtime-valued (``traced``)."""
 
     W: np.ndarray
 
     def __post_init__(self):
-        if not isinstance(self.W, (np.ndarray, list, tuple)):
-            raise NotImplementedError(SLICE_C.format("a traced Dense W"))
-        object.__setattr__(self, "W", np.asarray(self.W, dtype=np.float64))
+        if not self.traced:
+            object.__setattr__(self, "W", np.asarray(self.W,
+                                                     dtype=np.float64))
 
-    traced = False
+    @property
+    def traced(self) -> bool:
+        return not isinstance(self.W, (np.ndarray, list, tuple))
 
     def structure_key(self) -> tuple:
-        return ("dense", self.W.shape[0])
+        return ("dense*",) if self.traced else ("dense", self.W.shape[0])
+
+    def weight_values(self) -> tuple:
+        return (self.W,)
+
+    def with_weights(self, values: tuple) -> "Dense":
+        return Dense(values[0])
 
     @property
     def max_degree(self) -> int:
@@ -223,7 +315,64 @@ class Identity:
         return np.eye(n, dtype=np.float64)
 
 
-Realization = Shifts | Matching | Dense | Identity
+@dataclasses.dataclass(frozen=True, eq=False)
+class Gated:
+    """Runtime-gated realization: ``inner`` when ``gate`` holds, else
+    :class:`Identity` -- per NODE when ``gate`` is an ``(n,)`` bool tensor
+    (a straggler drops out of the round; its row of ``W`` collapses to
+    ``e_i``), for the whole round when ``gate`` is a 0-d tensor.
+
+    The wire of ``inner`` is always issued -- a gated-off round still
+    gathers its rows, only the combine is gated.  Under a per-node gate
+    the edge ``(i, j)`` is active only when BOTH endpoints are alive, so
+    symmetric ``Matching`` rounds stay exactly mean-preserving, while
+    directed ``Shifts`` rounds are row- but not column-stochastic.
+
+    A Python or NumPy bool gate folds at construction (``inner`` or
+    ``IDENTITY``) and never builds a ``Gated`` node.
+    """
+
+    inner: "Realization"
+    gate: object   # 0-d or (n,) bool tensor
+
+    def __post_init__(self):
+        if isinstance(self.inner, (Gated, Identity)):
+            raise TypeError(
+                f"Gated(inner={type(self.inner).__name__}) is not "
+                "meaningful; gate a Shifts/Matching/Dense round directly")
+
+    def __new__(cls, inner=None, gate=None):
+        if isinstance(gate, (bool, np.bool_)):
+            return inner if gate else IDENTITY
+        return super().__new__(cls)
+
+    traced = True
+
+    def structure_key(self) -> tuple:
+        return ("gated", getattr(self.gate, "ndim", 0) == 0,
+                self.inner.structure_key())
+
+    def weight_values(self) -> tuple:
+        return (self.gate,) + self.inner.weight_values()
+
+    def with_weights(self, values: tuple) -> "Gated":
+        return Gated(self.inner.with_weights(tuple(values[1:])), values[0])
+
+    @property
+    def max_degree(self) -> int:
+        return self.inner.max_degree
+
+    def wire_multiplier(self, n: int) -> int:
+        # the wire structure is always issued (see class docstring)
+        return self.inner.wire_multiplier(n)
+
+    def dense(self, n: int) -> np.ndarray:
+        raise ValueError(
+            "a Gated realization is runtime-valued; it has no concrete "
+            "dense matrix")
+
+
+Realization = Shifts | Matching | Dense | Identity | Gated
 IDENTITY = Identity()
 
 

@@ -22,14 +22,21 @@ x_next)`` payload packs into one flat buffer per dtype),
 :func:`adam_descent` (AdamW), :func:`average_gradients` and the
 :func:`allreduce_warmup` combinator.
 
+The runtime gossip hooks: ``gossip(weights_from=al_dsgd(...))``
+(AL-DSGD loss-aware weights, the losses riding the round's gather),
+:func:`deadline_skip` (per-node straggler gating from ``aux["alive"]``)
+and ``gossip(when=...)`` (a data-dependent whole-round skip, the schedule
+position held in ``OptState.sched_pos``).  They read the per-node step
+data passed as ``update(..., aux=...)``.
+
 The gossip executor is injected: ``opt.update_with_mix(..., mix=...)``
 takes the realization-bound mixing callable, which
 :class:`repro_torch.core.plan.GossipPlan` resolves and caches; ``update``
 resolves it from a static Python-int step.  The arithmetic is out of
-place: each step allocates its new tensors.  Int8 compression, runtime
-gossip hooks (loss-aware weights, deadlines, ``when=``) and the overlapped
-pipeline are ROADMAP slice C (items 8-10): :func:`chain` validates an
-overlapped composition as the reference does, then refuses it.
+place: each step allocates its new tensors.  Int8 compression (item 8)
+and the overlapped pipeline (item 10) are ROADMAP slice C: :func:`chain`
+validates an overlapped composition as the reference does, then refuses
+it.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from . import schedule as schedule_mod
 from .topology import Topology
 
 Tree = Any
@@ -52,6 +60,9 @@ __all__ = [
     "trace_momentum",
     "scale_by_lr",
     "gossip",
+    "deadline_skip",
+    "al_dsgd",
+    "AdjacentLeaderPull",
     "quasi_global_momentum",
     "trace_adam_moments",
     "adam_descent",
@@ -61,13 +72,19 @@ __all__ = [
 
 
 class OptState(NamedTuple):
-    """Optimizer state: ``momentum`` holds the state slot's tree when the
-    chain has one slot, else a dict ``{slot: tree}`` in declaration order
-    (d_adamw's ``{"mu": ..., "nu": ...}``); ``count`` is the number of
-    steps taken (a Python int)."""
+    """Optimizer state, with the reference's fields in its order:
+    ``momentum`` holds the state slot's tree when the chain has one slot,
+    else a dict ``{slot: tree}`` in declaration order (d_adamw's
+    ``{"mu": ..., "nu": ...}``); ``count`` is the number of steps taken (a
+    Python int); ``buf`` is the overlap pipeline's in-flight payload
+    (item 10; always None here); ``sched_pos`` is the gossip schedule
+    position of a ``gossip(when=...)`` chain (a 0-d int32 tensor on the
+    host, advanced only on communicating rounds), else None."""
 
     momentum: Tree
     count: int
+    buf: Any = None
+    sched_pos: Any = None
 
 
 @dataclasses.dataclass
@@ -78,6 +95,16 @@ class Context:
     lr: float              # scalar learning rate
     count: int             # steps taken before this one
     mix: Callable[[Tree], Tree]   # realization-bound gossip executor
+    # per-node step data from update(..., aux=...): what loss-aware
+    # weights, deadline gates and when= predicates read
+    aux: dict | None = None
+    # (n,) bool: which nodes take part in this step's gossip (set by
+    # deadline_skip, read by the gossip transform's mix call)
+    node_gate: Any = None
+    # schedule position (state.sched_pos) of a when= chain, and the gate
+    # the gossip transform resolved this step (drives the advance)
+    sched_pos: Any = None
+    sched_gate: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,17 +113,21 @@ class Transform:
 
     ``slots`` declares the state tensors this transform owns; ``init``
     builds their initial values from the params tree; ``apply`` reads and
-    writes ``ctx.tensors``.  ``where``/``every`` are the gossip metadata
-    set by :func:`gossip`: which tensors are mixed, how often, and
-    whether one step late."""
+    writes ``ctx.tensors``; ``tag`` marks a declarative role
+    (``"deadline"``).  ``where``/``every``/``overlap`` are the gossip
+    metadata set by :func:`gossip` (which tensors are mixed, how often,
+    whether one step late), ``weights_from``/``when`` its runtime hooks."""
 
     name: str
     slots: tuple = ()
     init: Callable[[Tree], dict] | None = None
     apply: Callable[[Context], None] | None = None
+    tag: str | None = None
     where: tuple = ()
     every: int = 1
     overlap: bool = False
+    weights_from: Any = None
+    when: Any = None
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
@@ -139,7 +170,8 @@ def scale_by_lr(momentum: str = "m", *, out: str = "x_next") -> Transform:
 
 
 def gossip(where: tuple = ("x_next",), every: int = 1,
-           overlap: bool = False) -> Transform:
+           overlap: bool = False, weights_from=None,
+           when=None) -> Transform:
     """Partially average the named tensors with this step's ``W^{(k)}``.
 
     All tensors in one ``where`` tuple are mixed as a SINGLE tree, so the
@@ -150,15 +182,38 @@ def gossip(where: tuple = ("x_next",), every: int = 1,
     ``Identity`` and the schedule advances one realization per
     communicating step.  ``overlap=True`` (one-step-delayed mixing) is
     ROADMAP item 10: :func:`chain` checks the composition as the reference
-    does and then refuses it."""
+    does and then refuses it.
+
+    ``weights_from=`` binds a loss-aware weight rule (:func:`al_dsgd`): its
+    per-node metadata row (loss, grad norm) rides the round's gather and
+    its ``edge_weight`` reweights each edge from (own, received) rows.
+    ``when=`` makes the round's skip DATA-DEPENDENT: ``when(ctx) -> bool
+    scalar`` decides whether this round communicates; the schedule
+    position then lives in ``OptState.sched_pos`` and advances only on
+    communicating rounds.  The wire is still issued on skipped rounds."""
     where = tuple(where)
     if every < 1:
         raise ValueError(f"gossip(every=...) needs every >= 1, got {every}")
+    if when is not None and every > 1:
+        raise ValueError("gossip(when=...) generalizes every=k (the runtime "
+                         "gate decides which rounds communicate); set one, "
+                         "not both")
 
     def apply(ctx):
+        kw = {}
+        if weights_from is not None:
+            kw["meta"] = weights_from.meta(ctx)
+            kw["edge_weight"] = weights_from.edge_weight
+        if ctx.node_gate is not None:
+            kw["node_gate"] = ctx.node_gate
         payload = (ctx.tensors[where[0]] if len(where) == 1
                    else tuple(ctx.tensors[k] for k in where))
-        mixed = ctx.mix(payload)
+        if when is not None:
+            gate = when(ctx)
+            ctx.sched_gate = gate
+            mixed = ctx.mix(payload, ctx.sched_pos, gate, **kw)
+        else:
+            mixed = ctx.mix(payload, **kw)
         if len(where) == 1:
             ctx.tensors[where[0]] = mixed
         else:
@@ -166,8 +221,80 @@ def gossip(where: tuple = ("x_next",), every: int = 1,
                 ctx.tensors[k] = v
 
     name = f"gossip{where}" + (f"@every{every}" if every > 1 else "") \
-        + ("@overlap" if overlap else "")
-    return Transform(name, (), None, apply, where, every, overlap)
+        + ("@overlap" if overlap else "") \
+        + ("@loss_aware" if weights_from is not None else "") \
+        + ("@when" if when is not None else "")
+    return Transform(name, (), None, apply, where=where, every=every,
+                     overlap=overlap, weights_from=weights_from, when=when)
+
+
+def deadline_skip(flag: str = "alive") -> Transform:
+    """Straggler tolerance: gate this step's gossip PER NODE on the
+    deadline flag ``aux[flag]`` ((n,) bool, True = the node produced its
+    payload in time).  An edge mixes only when BOTH endpoints are alive
+    (the flag rides the payload's gather), the dropped edges' mass returns
+    to the self weight, and symmetric Matching rounds stay exactly
+    mean-preserving.  The wire is still issued.  Must come BEFORE the
+    chain's gossip transform (checked by :func:`chain`)."""
+
+    def apply(ctx):
+        if ctx.aux is None or flag not in ctx.aux:
+            raise ValueError(
+                f"deadline_skip needs aux[{flag!r}] ((n,) bool per-node "
+                "deadline flags); pass aux=... to update/update_with_mix")
+        ctx.node_gate = torch.as_tensor(ctx.aux[flag])
+
+    return Transform(f"deadline_skip({flag})", (), None, apply,
+                     tag="deadline")
+
+
+@dataclasses.dataclass(frozen=True)
+class AdjacentLeaderPull:
+    """AL-DSGD loss-aware mixing weights (adjacent-leader pull).
+
+    Each node publishes its step loss (and with ``gn_weight`` its gradient
+    norm) as a metadata row riding the gossip gather; the receiver
+    reweights each edge ``w = base * 2 * sigmoid(pull * (own_score -
+    recv_score))`` -- pulling harder from better-loss neighbours, up to
+    twice the base weight.  The self weight is derived as ``1 - sum`` per
+    node, so rows stay stochastic (not columns).  The gradient norm sums
+    the squares over every leaf of a node: the port's leaves are per
+    layer, the reference's layer-stacked, so the order of that sum
+    differs."""
+
+    pull: float = 2.0
+    gn_weight: float = 0.0
+
+    @property
+    def cols(self) -> int:
+        """Metadata columns this rule piggybacks (gossip_spec accounting)."""
+        return 2 if self.gn_weight else 1
+
+    def meta(self, ctx) -> torch.Tensor:
+        if ctx.aux is None or "loss" not in ctx.aux:
+            raise ValueError(
+                "gossip(weights_from=al_dsgd(...)) needs aux={'loss': (n,) "
+                "per-node losses}; pass aux=... to update/update_with_mix")
+        loss = torch.as_tensor(ctx.aux["loss"]).to(torch.float32).reshape(-1)
+        if not self.gn_weight:
+            return loss
+        sq = None
+        for leaf in ctx.tensors["g"].values():
+            s = torch.sum(torch.square(_f32(leaf)),
+                          dim=tuple(range(1, leaf.ndim)))
+            sq = s if sq is None else sq + s
+        return torch.stack([loss.to(sq.device), torch.sqrt(sq)], 1)
+
+    def edge_weight(self, own, recv, base):
+        s = own[:, 0] - recv[:, 0]
+        if self.gn_weight:
+            s = s + self.gn_weight * (own[:, 1] - recv[:, 1])
+        return base * 2.0 * torch.sigmoid(self.pull * s)
+
+
+def al_dsgd(pull: float = 2.0, gn_weight: float = 0.0) -> AdjacentLeaderPull:
+    """The :class:`AdjacentLeaderPull` rule for ``gossip(weights_from=...)``."""
+    return AdjacentLeaderPull(pull=pull, gn_weight=gn_weight)
 
 
 def average_gradients() -> Transform:
@@ -319,6 +446,30 @@ class DecentralizedOptimizer:
         return True
 
     @property
+    def weights_from(self):
+        """The loss-aware weight rule bound via ``gossip(weights_from=...)``
+        (None for plain chains)."""
+        for t in self.transforms:
+            if t.where and t.weights_from is not None:
+                return t.weights_from
+        return None
+
+    @property
+    def scheduled_gossip(self) -> bool:
+        """True when a ``gossip(when=...)`` makes the skip decision a
+        runtime value: the schedule position lives in ``OptState.sched_pos``
+        and :class:`repro_torch.core.plan.GossipPlan` builds ONE scheduled
+        executable instead of one per realization."""
+        return any(t.where and t.when is not None for t in self.transforms)
+
+    @property
+    def has_runtime_gossip(self) -> bool:
+        """Any runtime-valued gossip hook: loss-aware weights, a
+        data-dependent skip, or per-node deadline gating."""
+        return (self.scheduled_gossip or self.weights_from is not None
+                or any(t.tag == "deadline" for t in self.transforms))
+
+    @property
     def slot_names(self) -> tuple:
         names: list = []
         for t in self.transforms:
@@ -333,11 +484,13 @@ class DecentralizedOptimizer:
             return {names[0]: state.momentum}
         return dict(state.momentum)
 
-    def _state_of(self, slots: dict, count: int) -> OptState:
+    def _state_of(self, slots: dict, count: int,
+                  sched_pos=None) -> OptState:
         names = self.slot_names
         if len(names) == 1:
-            return OptState(slots[names[0]], count)
-        return OptState({k: slots[k] for k in names}, count)
+            return OptState(slots[names[0]], count, None, sched_pos)
+        return OptState({k: slots[k] for k in names}, count, None,
+                        sched_pos)
 
     def init(self, params: Tree) -> OptState:
         slots: dict = {}
@@ -346,17 +499,23 @@ class DecentralizedOptimizer:
                 continue
             for k, v in t.init(params).items():
                 slots.setdefault(k, v)
-        return self._state_of(slots, 0)
+        sched = (schedule_mod.initial_position()
+                 if self.scheduled_gossip else None)
+        return self._state_of(slots, 0, sched)
 
     def update_with_mix(self, params: Tree, state: OptState, grads: Tree,
-                        lr, mix: Callable[[Tree], Tree]
-                        ) -> tuple[Tree, OptState]:
-        """One step with an explicitly injected gossip executor."""
+                        lr, mix: Callable[[Tree], Tree],
+                        aux: dict | None = None) -> tuple[Tree, OptState]:
+        """One step with an explicitly injected gossip executor.  ``aux``
+        carries per-node step data -- losses for ``weights_from``, deadline
+        flags for :func:`deadline_skip`, whatever a ``when=`` predicate
+        reads; it never changes which executable runs."""
         slots = self._slots_of(state)
         tensors = dict(slots)
         tensors["x"] = params
         tensors["g"] = grads
-        ctx = Context(tensors=tensors, lr=lr, count=state.count, mix=mix)
+        ctx = Context(tensors=tensors, lr=lr, count=state.count, mix=mix,
+                      aux=aux, sched_pos=state.sched_pos)
         for t in self.transforms:
             if t.apply is not None:
                 t.apply(ctx)
@@ -365,15 +524,20 @@ class DecentralizedOptimizer:
         new_slots = {s: {k: v.to(slots[s][k].dtype)
                          for k, v in tensors[s + "_next"].items()}
                      for s in self.slot_names}
-        return new_params, self._state_of(new_slots, state.count + 1)
+        sched = state.sched_pos
+        if sched is not None:
+            sched = schedule_mod.advance_position(sched, ctx.sched_gate)
+        return new_params, self._state_of(new_slots, state.count + 1, sched)
 
     def update(self, params: Tree, state: OptState, grads: Tree,
-               step: int, lr) -> tuple[Tree, OptState]:
+               step: int, lr, aux: dict | None = None
+               ) -> tuple[Tree, OptState]:
         """One step; the gossip realization is resolved from the Python-int
-        ``step`` (traced steps do not exist in this package)."""
+        ``step`` (traced steps do not exist in this package; a ``when=``
+        chain's executor reads ``state.sched_pos`` instead)."""
         from .plan import GossipPlan
         mix = GossipPlan.for_optimizer(self).mix(int(step))
-        return self.update_with_mix(params, state, grads, lr, mix)
+        return self.update_with_mix(params, state, grads, lr, mix, aux=aux)
 
 
 def chain(*transforms, topology: Topology, name: str = "chain",
@@ -394,7 +558,28 @@ def chain(*transforms, topology: Topology, name: str = "chain",
             f"chain {name!r} declares no state slots; every optimizer needs "
             "at least one (e.g. trace_momentum)")
     opt.gossip_every   # fail fast on mixed gossip(every=...) intervals
-    if opt.overlap:
+    overlap = opt.overlap   # fail fast on an invalid overlapped composition
+    whens = {t.when for t in ts if t.where}
+    if len(whens) > 1:
+        raise ValueError(
+            f"chain {name!r} mixes gossip(when=...) predicates; all gossip "
+            "transforms share one realization per step, so they must share "
+            "one skip gate")
+    if opt.has_runtime_gossip and overlap:
+        raise ValueError(
+            f"chain {name!r} combines the overlap pipeline with "
+            "runtime-valued gossip (weights_from / when / deadline_skip); "
+            "the in-flight realization cannot depend on runtime values -- "
+            "drop one")
+    deadline_idx = [i for i, t in enumerate(ts) if t.tag == "deadline"]
+    if deadline_idx:
+        gossip_idx = [i for i, t in enumerate(ts) if t.where]
+        if not gossip_idx or deadline_idx[0] > gossip_idx[0]:
+            raise ValueError(
+                f"chain {name!r} places deadline_skip after (or without) "
+                "its gossip transform; the gate must be set before the "
+                "mix consumes it")
+    if overlap:
         raise NotImplementedError(
             "the overlapped (delayed-mix) pipeline waits for ROADMAP slice "
             "C (item 10) of the PyTorch port")
@@ -407,6 +592,12 @@ def allreduce_warmup(tau: int):
     ``GossipPlan`` folds the warm-up phase into its cache key."""
 
     def wrap(opt: DecentralizedOptimizer) -> DecentralizedOptimizer:
+        if opt.has_runtime_gossip:
+            raise ValueError(
+                f"chain {opt.name!r} has runtime-valued gossip "
+                "(weights_from / when / deadline_skip); the all-reduce "
+                "warm-up executor takes no runtime operands -- start the "
+                "runtime schedule after the warm-up, or drop one")
         return dataclasses.replace(opt, warmup_steps=int(tau))
 
     return wrap

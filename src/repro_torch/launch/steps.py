@@ -50,8 +50,11 @@ def make_train_step(cfg: M.ModelConfig,
     :func:`~repro_torch.models.model.params_view`, with optional
     micro-batch accumulation in f32; then ``opt.update_with_mix`` partially
     averages.  ``batch["tokens"]`` (n, B, S) may lie on the CPU; it is
-    moved to the parameters' device.  Returns the new params, the new
-    state, and the node-mean loss (a device scalar).
+    moved to the parameters' device.  When the optimizer has runtime
+    gossip hooks, ``aux`` carries the per-node losses and the batch's
+    ``"alive"`` / ``"comm"`` flags (AL-DSGD weights, deadline gates,
+    ``when=`` predicates).  Returns the new params, the new state, and the
+    node-mean loss (a device scalar).
     """
 
     def loss_and_grads(p: dict, tokens):
@@ -88,8 +91,15 @@ def make_train_step(cfg: M.ModelConfig,
             for k, v in g.items():
                 grads[k][i].copy_(v)
             losses.append(loss)
+        losses = torch.stack(losses)
+        aux = None
+        if opt.has_runtime_gossip:
+            aux = {"loss": losses}
+            for key in ("alive", "comm"):
+                if key in batch:
+                    aux[key] = batch[key]
         new_params, new_state = opt.update_with_mix(
-            params, opt_state, grads, lr, mix)
-        return new_params, new_state, torch.stack(losses).mean()
+            params, opt_state, grads, lr, mix, aux=aux)
+        return new_params, new_state, losses.mean()
 
     return train_step

@@ -16,13 +16,23 @@ unless ``--full``; ``--layers N`` cuts the depth (full width, N layers).
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch mamba2-1.3b --optimizer d_adamw --topology random_match \\
       --nodes 4 --steps 6 --ckpt-dir /tmp/ck --ckpt-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --nodes 8 --steps 12 --loss-aware --deadline-skip \\
+      --straggler-prob 0.25
 
 Every step's batch is sampled before the loop (``SyntheticLM.sample`` is
 host work that grows with the vocabulary), and each step is timed on the
 host clock up to a device synchronisation.  ``--ckpt-dir`` saves
 ``{"params", "momentum"}`` every ``--ckpt-every`` steps after step 0, in
 the JAX driver's format and layout (:mod:`repro_torch.checkpoint`).
-Overlap, loss-aware and deadline gossip are ROADMAP slice C and raise
+``--loss-aware`` binds AL-DSGD weights and ``--deadline-skip`` per-node
+straggler gating; ``--straggler-prob p`` simulates the stragglers: node i
+misses step k's deadline when ``np.random.default_rng(2**20 +
+k).random(n)[i] < p``.  The reference draws the same flags from
+``jax.random.uniform(jax.random.key(2**20 + k), (n,))``, a stream torch
+cannot reproduce, so the two drivers drop different nodes; parity tests
+put the same ``alive`` in both batches.  The overlapped pipeline
+(``--overlap``) is ROADMAP slice C item 10 and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -31,6 +41,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from .. import checkpoint, configs
@@ -55,8 +66,9 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     executable for that step's gossip realization (the plan rides along as
     ``step_for.plan``).  All schedule handling lives in
     :class:`repro_torch.core.plan.GossipPlan`; this is optimizer + step
-    function + plan wiring.  ``overlap``, ``loss_aware`` and ``deadline``
-    are ROADMAP slice C: ``make_optimizer`` refuses them."""
+    function + plan wiring.  ``loss_aware`` / ``deadline`` bind the
+    runtime gossip hooks (the step then reads ``batch["alive"]``);
+    ``overlap`` is ROADMAP slice C item 10: ``chain`` refuses it."""
     opt = optim_mod.make_optimizer(optimizer_name, topology, beta=beta,
                                    momentum_dtype=momentum_dtype,
                                    overlap=overlap, loss_aware=loss_aware,
@@ -99,7 +111,11 @@ def _sync(device: torch.device) -> None:
 def run(args) -> dict:
     """Train per ``args`` (the CLI's namespace).  Returns the history (one
     entry per logged step: step, loss, consensus, lr, step_s), every
-    step's seconds, the final params and state, the config and the plan."""
+    step's seconds, the final params and state, the config, the plan and
+    the per-step ``alive`` flags (None without ``--deadline-skip``)."""
+    if args.straggler_prob and not args.deadline_skip:
+        raise ValueError("--straggler-prob simulates missed deadlines; "
+                         "pair it with --deadline-skip")
     device = resolve_device(args.device)
     cfg = configs.get_config(args.arch)
     if args.reduced:
@@ -134,16 +150,24 @@ def run(args) -> dict:
     data = SyntheticLM(cfg.vocab_size, n, hetero=args.hetero, seed=args.seed)
     lr_fn = schedule.warmup_step_decay(
         args.lr, args.warmup, [int(args.steps * 0.6), int(args.steps * 0.85)])
-    batches = [torch.from_numpy(data.sample(step, args.batch, args.seq))
-               for step in range(args.steps)]
+    batches = [{"tokens": torch.from_numpy(
+        data.sample(step, args.batch, args.seq))}
+        for step in range(args.steps)]
+    if args.deadline_skip:
+        # simulated stragglers: each node misses the round's deadline with
+        # probability p; the gossip drops it per node (both directions)
+        for step, batch in enumerate(batches):
+            batch["alive"] = torch.from_numpy(
+                np.random.default_rng(2**20 + step).random(n)
+                >= args.straggler_prob)
 
     history, step_s = [], []
     t0 = time.perf_counter()
     for step in range(args.steps):
         lr = lr_fn(step)
         t = time.perf_counter()
-        stacked, state, loss = step_for(step)(
-            stacked, state, {"tokens": batches[step]}, lr)
+        stacked, state, loss = step_for(step)(stacked, state,
+                                              batches[step], lr)
         _sync(device)
         step_s.append(time.perf_counter() - t)
         if step % args.log_every == 0 or step == args.steps - 1:
@@ -158,8 +182,10 @@ def run(args) -> dict:
         if args.ckpt_dir and step and step % args.ckpt_every == 0:
             checkpoint.save(args.ckpt_dir, step, train_state_to_jax(
                 stacked, state.momentum, cfg))
+    alive = ([b["alive"].tolist() for b in batches] if args.deadline_skip
+             else None)
     return {"history": history, "step_s": step_s, "params": stacked,
-            "state": state, "config": cfg, "plan": plan}
+            "state": state, "config": cfg, "plan": plan, "alive": alive}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -178,11 +204,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "families (Takezawa 23 / cf. Ding 23)")
     ap.add_argument("--optimizer", default="dmsgd")
     ap.add_argument("--overlap", action="store_true",
-                    help="one-step-delayed gossip (ROADMAP slice C)")
+                    help="one-step-delayed gossip (ROADMAP slice C item 10)")
     ap.add_argument("--loss-aware", action="store_true",
-                    help="AL-DSGD adjacent-leader weights (ROADMAP slice C)")
+                    help="AL-DSGD adjacent-leader weights: pull harder from "
+                         "better-loss neighbours; the per-node losses ride "
+                         "the gossip's gather")
     ap.add_argument("--deadline-skip", action="store_true",
-                    help="per-node straggler tolerance (ROADMAP slice C)")
+                    help="per-node straggler tolerance: nodes whose alive "
+                         "flag is False drop out of the round (dropped "
+                         "edges' mass returns to the self weight)")
+    ap.add_argument("--straggler-prob", type=float, default=0.0,
+                    help="per-step probability each node misses the gossip "
+                         "deadline (simulated; needs --deadline-skip)")
     ap.add_argument("--beta", type=float, default=0.9)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=4, help="per-node batch")

@@ -158,3 +158,74 @@ def test_train_ckpt_dir_restores_in_both(tmp_path):
             jax.tree_util.tree_leaves_with_path(jgot["params"]),
             jax.tree_util.tree_leaves_with_path(want)):
         np.testing.assert_array_equal(np.asarray(g), w, err_msg=str(path))
+
+
+def _when_states(n=8, d=5, T=5):
+    """The same ``gossip(when=...)`` DmSGD run on both packages: T steps,
+    numpy grads and the same skip pattern.  Returns (JAX opt, params,
+    state), (port opt, params, state), the grads of one more step."""
+    from repro.core import optim as JO, topology as JT
+    from repro_torch.core import optim as TO, topology as TT
+    rng = np.random.default_rng(3)
+    x0 = rng.standard_normal((n, d)).astype(np.float32)
+    grads = [rng.standard_normal((n, d)).astype(np.float32)
+             for _ in range(T + 1)]
+    comm = [True, False, True, True, False, True][:T + 1]
+    jopt = JO.dmsgd(JT.one_peer_exponential(n), beta=0.9,
+                    when=lambda ctx: ctx.aux["comm"])
+    topt = TO.dmsgd(TT.one_peer_exponential(n), beta=0.9,
+                    when=lambda ctx: ctx.aux["comm"])
+    jx, tx = {"x": jnp.asarray(x0)}, {"x": torch.from_numpy(x0.copy())}
+    js, ts = jopt.init(jx), topt.init(tx)
+    for k in range(T):
+        jx, js = jopt.update(jx, js, {"x": jnp.asarray(grads[k])}, k,
+                             jnp.float32(0.1),
+                             aux={"comm": jnp.asarray(comm[k])})
+        tx, ts = topt.update(tx, ts, {"x": torch.from_numpy(grads[k])}, k,
+                             0.1, aux={"comm": torch.tensor(comm[k])})
+    assert int(ts.sched_pos) == int(js.sched_pos) == sum(comm[:T])
+    return (jopt, jx, js), (topt, tx, ts), (grads[T], comm[T])
+
+
+@pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+def test_when_chain_sched_pos_survives_checkpoints(tmp_path, direction):
+    """A ``when=`` chain's OptState -- momentum, int32 count, int32
+    sched_pos, in the reference's flatten order -- saved by one package
+    restores in the other, and the port resumes from it exactly."""
+    from repro.core.transforms import OptState as JOptState
+    from repro_torch.convert import opt_state_from_jax, opt_state_to_jax
+    (jopt, jx, js), (topt, tx, ts), (g, c) = _when_states()
+    d = str(tmp_path)
+    if direction == "port_to_jax":
+        tckpt.save(d, 5, {"params": tx, "state": opt_state_to_jax(ts)})
+        like = {"params": {"x": jnp.zeros_like(jx["x"])},
+                "state": JOptState({"x": jnp.zeros_like(jx["x"])},
+                                   jnp.zeros((), jnp.int32), None,
+                                   jnp.zeros((), jnp.int32))}
+        got = jckpt.restore(d, 5, like)
+        assert got["state"].sched_pos.dtype == jnp.int32
+        assert int(got["state"].sched_pos) == int(ts.sched_pos)
+        assert int(got["state"].count) == ts.count == 5
+        np.testing.assert_array_equal(np.asarray(got["state"].momentum["x"]),
+                                      ts.momentum["x"].numpy())
+        return
+    jckpt.save(d, 5, {"params": jx, "state": js})
+    like = {"params": {"x": torch.zeros_like(tx["x"])},
+            "state": opt_state_to_jax(topt.init(
+                {"x": torch.zeros_like(tx["x"])}))}
+    got = tckpt.restore(d, 5, like)
+    state = opt_state_from_jax(got["state"])
+    assert state.count == int(js.count) == 5
+    assert state.sched_pos.dtype == torch.int32
+    assert int(state.sched_pos) == int(js.sched_pos)
+    np.testing.assert_array_equal(state.momentum["x"].numpy(),
+                                  np.asarray(js.momentum["x"]))
+    # the port resumes from the restored state as from its live one
+    args = ({"x": torch.from_numpy(g)}, 5, 0.1)
+    aux = {"comm": torch.tensor(c)}
+    xa, sa = topt.update(got["params"], state, *args, aux=aux)
+    jxa, jsa = jopt.update(jx, js, {"x": jnp.asarray(g)}, 5,
+                           jnp.float32(0.1), aux={"comm": jnp.asarray(c)})
+    assert int(sa.sched_pos) == int(jsa.sched_pos)
+    np.testing.assert_allclose(xa["x"].numpy(), np.asarray(jxa["x"]),
+                               rtol=1e-5, atol=1e-5)

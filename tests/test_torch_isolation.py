@@ -28,7 +28,9 @@ def test_every_module_imports_without_jax_or_repro():
               "core.flatbuf", "core.gossip", "core.transforms", "core.optim",
               "core.plan", "data.pipeline", "launch.steps", "launch.train",
               "launch.quickstart", "convert", "models.mamba2",
-              "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops"):
+              "kernels.ssd_scan.kernel", "kernels.ssd_scan.ops",
+              "benchmarks.run", "benchmarks.bench_hetero",
+              "launch.topology_compare"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -92,3 +94,19 @@ def test_ssm_entry_points_raise_without_a_card_unless_cpu_is_asked():
         generate(cfg, params, prompts, max_new=1)
     assert generate(cfg, params, prompts, max_new=2, temperature=0.0,
                     device="cpu").shape == (1, 5)
+
+
+def test_figure_entry_points_raise_without_a_card_unless_cpu_is_asked():
+    """The figure harness, the straggler bench and topology_compare run on
+    the card by default, as every other entry point."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch.benchmarks import bench_hetero, run
+    from repro_torch.launch import topology_compare
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["--only", "transient"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_hetero.main(["--quick"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        topology_compare.main(["--nodes", "4", "--steps", "2"])
+    run.main(["--only", "consensus", "--device", "cpu"])

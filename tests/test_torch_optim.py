@@ -229,20 +229,28 @@ def test_uniform_one_peer_plan_matches_jax():
 
 
 def test_make_optimizer_refuses_later_slices():
+    """int8 (item 8) and overlap (item 10) stay refused; the runtime hooks
+    (item 9) build, for dmsgd and dsgd only, as in the reference."""
     top = TT.one_peer_exponential(4)
     jtop = JT.one_peer_exponential(4)
-    for kw in ({"compression": "int8"}, {"overlap": True},
-               {"loss_aware": True}, {"deadline": True}):
+    for kw in ({"compression": "int8"}, {"overlap": True}):
         with pytest.raises(NotImplementedError, match="slice C"):
             TO.make_optimizer("dmsgd", top, **kw)
     for name in ("d_adamw", "vanilla_dmsgd", "dsgd"):
         with pytest.raises(NotImplementedError, match="slice C"):
             TO.make_optimizer(name, top, overlap=True)
+    for name in ("dmsgd", "dsgd"):
+        for kw in ({"loss_aware": True}, {"deadline": True},
+                   {"loss_aware": True, "deadline": True}):
+            opt = TO.make_optimizer(name, top, **kw)
+            assert opt.has_runtime_gossip and not opt.scheduled_gossip
     # a composition the pipeline cannot run is a ValueError on both sides
     for mod, t in ((TO, top), (JO, jtop)):
         with pytest.raises(ValueError, match="AFTER the overlapped"):
             mod.make_optimizer("qg_dmsgd", t, overlap=True)
         with pytest.raises(ValueError, match="parallel_msgd"):
             mod.make_optimizer("parallel_msgd", t, overlap=True)
+        with pytest.raises(ValueError, match="dmsgd/dsgd"):
+            mod.make_optimizer("d_adamw", t, loss_aware=True)
     with pytest.raises(KeyError):
         TO.make_optimizer("sgd", top)

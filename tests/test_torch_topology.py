@@ -6,6 +6,7 @@ one-peer order) draw with numpy on both sides, so every realization is
 bit-identical for the same (n, seed, step)."""
 import numpy as np
 import pytest
+import torch
 
 from repro.core import spectral as JS, topology as JT
 from repro_torch.core import spectral as TS, topology as TT
@@ -107,14 +108,18 @@ def test_half_random_seed_matches():
 
 
 def test_later_slices_raise():
-    """Traced weights stay refused (item 9); the port has no ``Gated``."""
-    assert not hasattr(TT, "Gated")
-    with pytest.raises(NotImplementedError, match="slice C"):
-        TT.Shifts(np.zeros(4), ((1, 0.5),))          # a per-node weight
-    with pytest.raises(NotImplementedError, match="slice C"):
-        TT.Matching((1, 0), np.float64(0.5) * np.ones(2))
-    with pytest.raises(NotImplementedError, match="slice C"):
-        TT.Dense(object())                            # a traced W
+    """Runtime-valued nodes (tensor weights, ``Gated``) build, and refuse
+    what the reference refuses: a concrete dense matrix, gating a gated
+    or skipped round."""
+    ws = torch.full((4,), 0.5)
+    for r in (TT.Shifts(ws, ((1, 0.5),)), TT.Matching((1, 0, 3, 2), ws),
+              TT.Gated(TT.Matching((1, 0, 3, 2)), torch.tensor(True))):
+        assert r.traced
+        with pytest.raises(ValueError, match="dense matrix"):
+            r.dense(4)
+    assert TT.Dense(torch.eye(4)).traced
+    with pytest.raises(TypeError):
+        TT.Gated(TT.IDENTITY, torch.tensor(True))
     with pytest.raises(ValueError, match="involution"):
         TT.Matching((1, 2, 0))
 

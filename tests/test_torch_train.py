@@ -74,14 +74,20 @@ def _stacked_np(np_params, n, seed=1):
 
 
 def _train_both(np_params, act, n, steps=STEPS, micro_batch=None,
-                arch="qwen3-0.6b", optimizer="dmsgd", topology="one_peer_exp"):
+                arch="qwen3-0.6b", optimizer="dmsgd", topology="one_peer_exp",
+                straggler_prob=None):
+    """``steps`` train steps on both packages.  With ``straggler_prob``
+    the trainers are loss-aware with deadline skips, and both batches
+    carry the same numpy ``alive`` draws."""
     jcfg, tcfg, tol = _cfgs(act, arch)
     stacked = _stacked_np(np_params, n)
     jtop, ttop = JT.get_topology(topology, n), TT.get_topology(topology, n)
+    rt = ({} if straggler_prob is None
+          else {"loss_aware": True, "deadline": True})
     jopt, jstep_for = JTrain.build_trainer(jcfg, jtop, optimizer, 0.9,
-                                           micro_batch)
+                                           micro_batch, **rt)
     topt, tstep_for = TTrain.build_trainer(tcfg, ttop, optimizer, 0.9,
-                                           micro_batch)
+                                           micro_batch, **rt)
     jx = jax.tree.map(jnp.asarray, stacked)
     tx = stacked_from_jax(stacked, tcfg)
     js, ts = jopt.init(jx), topt.init(tx)
@@ -94,11 +100,15 @@ def _train_both(np_params, act, n, steps=STEPS, micro_batch=None,
         tokens = tdata.sample(step, B, S)
         np.testing.assert_array_equal(tokens, jdata.sample(step, B, S))
         assert tlr(step) == float(jlr(step))
-        jx, js, jl = jstep_for(step)(jx, js, {"tokens": jnp.asarray(tokens)},
-                                     jlr(step))
-        tx, ts, tl = tstep_for(step)(tx, ts,
-                                     {"tokens": torch.from_numpy(tokens)},
-                                     tlr(step))
+        jb, tb = ({"tokens": jnp.asarray(tokens)},
+                  {"tokens": torch.from_numpy(tokens)})
+        if straggler_prob is not None:
+            alive = np.random.default_rng(2**20 + step).random(n) \
+                >= straggler_prob
+            jb["alive"], tb["alive"] = (jnp.asarray(alive),
+                                        torch.from_numpy(alive))
+        jx, js, jl = jstep_for(step)(jx, js, jb, jlr(step))
+        tx, ts, tl = tstep_for(step)(tx, ts, tb, tlr(step))
         losses.append((float(tl), float(jl)))
     return (tcfg, tol, losses, (jx, js, jstep_for.plan),
             (tx, ts, tstep_for.plan))
@@ -136,6 +146,37 @@ def test_train_steps_match_jax(jax_params, act, n):
         STEPS, int(np.log2(n)))
 
 
+def test_runtime_train_steps_match_jax(jax_params, n=4):
+    """Loss-aware DmSGD with deadline skips: the per-node losses weight
+    the edges and the same ``alive`` flags (in both batches) gate them;
+    the train steps agree with the reference's (no kernel combine: every
+    round is runtime-valued)."""
+    tcfg, tol, losses, (jx, js, jplan), (tx, ts, tplan) = _train_both(
+        jax_params, "f32", n, straggler_prob=0.4)
+    got, want = zip(*losses)
+    np.testing.assert_allclose(got, want, **tol)
+    _check_state(tcfg, tol, tx, ts, jx, js)
+    assert tplan.num_compiled == jplan.num_compiled == 2
+
+
+def test_cli_trains_with_stragglers_on_cpu():
+    """``--loss-aware --deadline-skip --straggler-prob 0.25`` on reduced
+    qwen3: finite losses, the numpy straggler draws, one executable per
+    distinct realization."""
+    out = TTrain.run(TTrain.parse_args([
+        "--device", "cpu", "--nodes", "4", "--steps", "4", "--batch", "1",
+        "--seq", "16", "--log-every", "1", "--hetero", "0.5",
+        "--loss-aware", "--deadline-skip", "--straggler-prob", "0.25"]))
+    losses = [h["loss"] for h in out["history"]]
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert np.isfinite([h["consensus"] for h in out["history"]]).all()
+    assert out["alive"] == [
+        (np.random.default_rng(2**20 + k).random(4) >= 0.25).tolist()
+        for k in range(4)]
+    assert out["plan"].num_compiled == 2
+    assert out["state"].sched_pos is None
+
+
 def test_quickstart_runs_short():
     out = quickstart.main(steps=3, device="cpu")
     assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
@@ -151,9 +192,11 @@ def test_cli_on_cpu(capsys, tmp_path):
     lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
     assert len(lines) == 3
     assert "on cpu: 4 nodes, one_peer_exp, dmsgd; 2 executables" in out
-    for flag in ("--overlap", "--loss-aware", "--deadline-skip"):
-        with pytest.raises(NotImplementedError, match="slice C"):
-            TTrain.main(["--device", "cpu", "--steps", "1", flag])
+    with pytest.raises(NotImplementedError, match="slice C"):
+        TTrain.main(["--device", "cpu", "--steps", "1", "--overlap"])
+    with pytest.raises(ValueError, match="--deadline-skip"):
+        TTrain.main(["--device", "cpu", "--steps", "1",
+                     "--straggler-prob", "0.25"])
     # --ckpt-dir (refused before checkpoints were ported) saves every
     # --ckpt-every steps after step 0
     ck = tmp_path / "ck"
