@@ -12,7 +12,10 @@ the ssm and hybrid families with d_adamw and qg_dmsgd, over random
 matchings and the uniform one-peer order, with a checkpoint round trip,
 then trains full-width qwen3-0.6b with simulated stragglers through the
 runtime-valued gossip (deadline gating, loss-aware weights), runs
-data-dependent skips, and prints the paper's figures from the card.
+data-dependent skips, prints the paper's figures from the card, and
+trains full-width qwen3-0.6b with int8 gossip payloads and with the
+overlapped (one-step-delayed) pipeline, its delayed round on a side
+stream.
 
   python3 chip_smoke.py [--seed N]
 
@@ -117,6 +120,25 @@ Phases, in order; any failure exits non-zero before the result lines:
                  reference's sizes, and bench_hetero.run_quick: every CSV
                  line printed, every derived boolean True,
                  prop1_max_dev <= 1e-12, K1 launched in transient
+ 11. pipeline -- int8 wire compression and the overlapped pipeline, each
+                 run with the counters zeroed before and read after: (a)
+                 phase 6's cell with --overlap: step ms, peak memory, K1
+                 launches = delayed rounds + logged flushes + the final
+                 flush, executables = the reference plan's count (prime,
+                 realizations in flight, flushes), the delayed round's
+                 device ms and its share concurrent with the per-node
+                 gradients (CUDA events on both streams), and the flushed
+                 params and momentum bit-equal to the sequential delayed
+                 recursion built from the synchronous pieces on the main
+                 stream; (b) the cell with --compression int8: 0 K1
+                 launches, one round at the 9 GB payload against the K1
+                 round in turns, every element within sum_d w_d x
+                 scale(sender, group) / 2 + 1e-6 x max|x| of the f32 mix;
+                 (c) --overlap --compression int8, its peak reckoned from
+                 (a) first (the depth halved if it would not fit), bit-equal
+                 to its sequential recursion; (d) dsgd(overlap=True) over
+                 one_peer_exp(8), 2^20 + 3 f32 a node, zero gradients: a
+                 period and the flush reach the node mean within 1e-6
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -1679,6 +1701,291 @@ def runtime_phase(torch, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: int8 wire compression and the overlapped (delayed-mix) pipeline
+# ---------------------------------------------------------------------------
+
+OVERLAP_ARGV = TRAIN_ARGV + ["--overlap"]
+INT8_ARGV = TRAIN_ARGV + ["--compression", "int8"]
+LEMMA_OVERLAP = (8, (1 << 20) + 3)   # (d): nodes, f32 elements a node
+OVERLAP_ATOL = 1e-6                  # tests/test_overlap.py:158-185
+
+
+class _Sequential:
+    """The synchronous optimizer driven as the one-step-delayed recursion
+    (tests/test_overlap.py:45-75's construction), all on the main stream:
+    the previous payload is mixed synchronously (``mix``: the sync plan's
+    executor of step t-1, None at step 0) and lands on the params and
+    slots, then the chain runs with an identity mix."""
+
+    overlap = False
+    has_runtime_gossip = False
+
+    def __init__(self, opt):
+        self.opt, self.payload = opt, None
+
+    def update_with_mix(self, p, s, g, lr, mix, aux=None):
+        opt = self.opt
+        if mix is not None:
+            p, slots = opt._land(mix(self.payload), p, opt._slots_of(s))
+            s = opt._state_of(slots, s.count)
+        p2, s2 = opt.update_with_mix(p, s, g, lr, lambda t: t)
+        slots2 = opt._slots_of(s2)
+        parts = tuple({k: v.float() for k, v in (
+            p2 if w == "x_next" else slots2[w[:-5]]).items()}
+            for w in opt._overlap_names())
+        self.payload = parts[0] if len(parts) == 1 else parts
+        return p2, s2
+
+
+def _sequential_delayed(torch, T, args):
+    """The run of ``args`` (``--overlap`` aside) as the sequential
+    delayed recursion through the same train step; the flushed params and
+    momentum."""
+    from repro_torch.core import optim
+    from repro_torch.core.plan import GossipPlan
+    from repro_torch.launch import steps as steps_mod
+    start = T.prepare(args)
+    opt = optim.make_optimizer(args.optimizer, start["topology"],
+                               beta=args.beta,
+                               momentum_dtype=start["momentum_dtype"],
+                               compression=args.compression)
+    sync = GossipPlan.for_optimizer(opt)
+    seq = _Sequential(opt)
+    step = steps_mod.make_train_step(start["config"], seq)
+    p, s = start["params"], opt.init(start["params"])
+    batches, lr_fn = start["batches"], start["lr_fn"]
+    del start
+    for k in range(args.steps):
+        p, s, _ = step(sync.mix(k - 1) if k else None, p, s, batches[k],
+                       lr_fn(k))
+    p, slots = opt._land(sync.mix(args.steps - 1)(seq.payload), p,
+                         opt._slots_of(s))
+    return p, opt._state_of(slots, s.count).momentum
+
+
+def _bit_equal(torch, a, b) -> bool:
+    return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _overlap_executables(plan, steps: int, logged: list) -> int:
+    """The reference plan's executable count for a pipelined run: the
+    prime, one per realization in flight at steps 1..T-1, one flush per
+    realization drained (each logged step's and the final)."""
+    key = lambda k: plan.topology.realization(k).structure_key()  # noqa
+    return (1 + len({key(k) for k in range(steps - 1)})
+            + len({key(k) for k in logged + [steps - 1]}))
+
+
+def _overlap_report(timeline, steps: int, what: str) -> tuple:
+    """The delayed rounds' device ms and the ms of each that ran while the
+    per-node gradients ran (CUDA events on both streams); the medians."""
+    from repro_torch.launch import steps as steps_mod
+    rounds = [steps_mod.overlap_ms(m) for m in timeline]
+    check(len(rounds) == steps - 1,
+          f"{what}: {len(rounds)} delayed rounds timed")
+    ms = sorted(r[0] for r in rounds)[len(rounds) // 2]
+    under = sorted(r[1] for r in rounds)[len(rounds) // 2]
+    log(f"  {what}: delayed round on the side stream, device ms per step "
+        f"{[round(r[0], 3) for r in rounds]}, of which under the per-node "
+        f"gradients {[round(r[1], 3) for r in rounds]}; median {ms:.3f} ms, "
+        f"{under:.3f} ms ({100 * under / ms:.1f} %) concurrent")
+    return ms, under
+
+
+def _pipelined(torch, T, args, what):
+    """(a)/(c): one ``--overlap`` run, counters zeroed before and read
+    after, against the sequential delayed recursion, bit for bit."""
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    timeline: list = []
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    res = T.run(args, timeline=timeline)
+    torch.cuda.synchronize()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plan, hist = res["plan"], res["history"]
+    losses = [h["loss"] for h in hist]
+    cons = [h["consensus"] for h in hist]
+    check(len(hist) == args.steps and all(
+        abs(v) < float("inf") for v in losses + cons),
+        f"{what}: losses {losses}, consensus {cons}")
+    logged = [h["step"] for h in hist]
+    # K1: a delayed round at steps 1..T-1, a flush at each logged step and
+    # at the end; an int8 round never takes K1
+    k1 = 0 if args.compression else (args.steps - 1) + len(logged) + 1
+    want = {"gossip_mix": k1, "flash_attention": 0, "paged_attention": 0,
+            "ssd_scan": 0}
+    check(launches == want, f"{what}: launches {launches}, expected {want}")
+    execs = _overlap_executables(plan, args.steps, logged)
+    check(plan.num_compiled == execs,
+          f"{what}: {plan.num_compiled} executables, reckoned {execs}")
+    step_ms = 1e3 * sorted(res["step_s"][1:])[len(res["step_s"][1:]) // 2]
+    tokens = args.nodes * args.batch * args.seq
+    log(f"  {what}: losses {[round(v, 5) for v in losses]}; consensus "
+        f"(flushed view) {[f'{v:.4g}' for v in cons]}")
+    log(f"  {what}: step ms {[round(1e3 * t, 3) for t in res['step_s']]}; "
+        f"median of steps 2-{args.steps} {step_ms:.3f} ms = "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s; peak allocated "
+        f"{peak_gb:.3f} GB; launches {launches} (reckoned K1 {k1}: " + (
+            "an int8 round takes no K1" if args.compression else
+            f"{args.steps - 1} delayed rounds + {len(logged)} logged "
+            "flushes + 1 final flush") + f"); {plan.num_compiled} "
+        f"executables (reckoned "
+        f"{execs}: prime, realizations in flight, flushes), cache "
+        f"{plan.cache_stats()}; allocator retries {retries} (each frees the "
+        "cache: a device synchronisation)")
+    ms, under = _overlap_report(timeline, args.steps, what)
+    x1, m1 = res["params"], res["state"].momentum
+    del res
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - sum(
+        t.numel() * t.element_size() for t in (*x1.values(), *m1.values()))
+    log(f"  {what}: allocated beyond the final params and momentum once the "
+        f"run returned: {held / 1e9:.3f} GB")
+    x2, m2 = _sequential_delayed(torch, T, args)
+    same = _bit_equal(torch, x1, x2) and _bit_equal(torch, m1, m2)
+    log(f"  {what}: flushed params and momentum against the sequential "
+        f"delayed recursion (synchronous pieces, main stream): "
+        f"{'bit-equal' if same else 'DIFFERENT'} (params max abs diff "
+        f"{_max_diff(x1, x2):.3g}, momentum {_max_diff(m1, m2):.3g})")
+    check(same, f"{what}: pipelined and sequential delayed runs differ")
+    return {"launches": launches["gossip_mix"], "step_ms": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_gb": peak_gb,
+            "executables": plan.num_compiled, "delayed_ms": ms,
+            "concurrent_ms": under, "layers": args.layers,
+            "alloc_retries": retries}
+
+
+def _int8_round(torch, res, args):
+    """(b): one round at the training payload, K1 against int8 in turns,
+    and the int8 error held to its bound against the f32 mix."""
+    from repro_torch.core import flatbuf, gossip
+    payload = (res["state"].momentum, res["params"])
+    r = res["plan"].realization(args.steps)
+    nbytes = sum(v.numel() * 4 for v in res["params"].values()) * 2
+    t = time_turns({
+        "k1_round": lambda: gossip.mix_realization(payload, r),
+        "int8_round": lambda: gossip.mix_realization(payload, r,
+                                                     compression="int8")},
+        timer=lambda f: time_ms(f, iters=3, warmup=1))
+    log(f"  (b) one gossip round at the training payload ({nbytes / 1e9:.3f}"
+        f" GB f32): K1 round {t['k1_round']:.3f} ms, int8 round "
+        f"{t['int8_round']:.3f} ms (int8 / K1 "
+        f"{t['int8_round'] / t['k1_round']:.3f})")
+    layout = flatbuf.layout_of(payload)
+    g = layout.groups[0]
+    _, bufs = flatbuf.pack(payload, layout)
+    sc = gossip._scale_columns(bufs[0], g)
+    del bufs
+    # each receiver's bound: sum over its senders of w * scale / 2
+    half = sum(w * torch.roll(sc, s, 0) for s, w in r.shifts) / 2
+    exact = flatbuf.tree_flatten(gossip.mix_realization(payload, r))[0]
+    quant = flatbuf.tree_flatten(gossip.mix_realization(
+        payload, r, compression="int8"))[0]
+    leaves = flatbuf.tree_flatten(payload)[0]
+    n, worst = leaves[0].shape[0], 0.0
+    for sl in g.slots:
+        x = leaves[sl.leaf_index]
+        err = (quant[sl.leaf_index] - exact[sl.leaf_index]).reshape(
+            n, -1).abs().amax(1)
+        lim = half[:, sl.scale_group] + 1e-6 * float(x.abs().max())
+        check(bool((err <= lim).all()),
+              f"int8 round: slot {sl.leaf_index} err {err.tolist()} beyond "
+              f"{lim.tolist()}")
+        worst = max(worst, float((err / lim).max()))
+    log(f"  (b) int8 against the f32 mix of the same payload: every element "
+        f"within sum_d w_d scale_(sender, group) / 2 + 1e-6 max|x| "
+        f"({len(g.slots)} slots in {len(g.scale_groups)} scale groups); "
+        f"largest error / bound {worst:.4f}")
+    return {"k1_round_ms": t["k1_round"], "int8_round_ms": t["int8_round"],
+            "payload_gb": nbytes / 1e9, "worst_err_over_bound": worst,
+            "slot_gb": max(b - a for a, b in g.scale_ranges) * n * 4 / 1e9}
+
+
+def _lemma_overlap(torch, dev, seed):
+    """(d): dsgd(overlap=True) over one_peer_exp(8), zero gradients: one
+    period of delayed rounds (on the side stream) and the flush reach the
+    exact average."""
+    from repro_torch.core import optim, topology
+    from repro_torch.core.plan import GossipPlan
+    gm = _counters()[0]
+    n, elems = LEMMA_OVERLAP
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    params = {"a": torch.randn((n, elems - 3), generator=gen, device=dev),
+              "b": torch.randn((n, 3), generator=gen, device=dev)}
+    zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+    top = topology.one_peer_exponential(n)
+    opt = optim.dsgd(top, overlap=True)
+    plan = GossipPlan.for_optimizer(
+        opt, fn=lambda io, p, s, g: opt.update_pipelined(
+            p, s, g, 0.0, io, pending=opt.start_delayed(p, s, io)))
+    p, s = params, opt.init(params)
+    torch.cuda.synchronize()
+    gm.launches = 0
+    for k in range(top.period):
+        p, s = plan.step_fn(k)(p, s, zeros)
+    p, s = plan.flush_step_fn(top.period)(p, s)
+    torch.cuda.synchronize()
+    dev_max = max(float((v - params[k].mean(0, keepdim=True)).abs().max())
+                  for k, v in p.items())
+    log(f"  (d) dsgd(overlap=True) over one_peer_exp({n}), {elems} f32 a "
+        f"node, zero gradients: {top.period} steps (a period) and the flush, "
+        f"max deviation from the initial node mean {dev_max:.3g} (atol "
+        f"{OVERLAP_ATOL}); K1 launches {gm.launches}")
+    check(dev_max <= OVERLAP_ATOL, "overlap: not averaged after a period")
+    check(s.buf is None and gm.launches == top.period,
+          f"overlap Lemma 1: {gm.launches} K1 launches")
+    return gm.launches
+
+
+def pipeline_phase(torch, dev, seed):
+    from repro_torch.launch import train as T
+    t0 = time.perf_counter()
+    args = T.parse_args(OVERLAP_ARGV + ["--seed", str(seed)])
+    log(f"  (a) phase 6's cell with --overlap: {args.arch}, {args.layers} "
+        f"layers, {args.nodes} nodes, {args.topology}, {args.optimizer} beta "
+        f"{args.beta}, {args.batch} x {args.seq} a node, {args.steps} steps")
+    a = _pipelined(torch, T, args, "overlap")
+    torch.cuda.empty_cache()
+
+    args = T.parse_args(INT8_ARGV + ["--seed", str(seed)])
+    log(f"  (b) the same cell with --compression int8, synchronous")
+    res, b = _train_run(torch, T, args, "int8", k1_per_step=0)
+    b.update(_int8_round(torch, res, args))
+    del res
+    torch.cuda.empty_cache()
+
+    # (c) reckoned from (a): the int8 round on the side stream holds the
+    # int8 copy, its received copy, one scale group's f32 quotient and the
+    # accumulator, where the f32 round held the received copy and K1's
+    # output
+    payload_gb, slot_gb = b["payload_gb"], b["slot_gb"]
+    est = a["peak_gb"] - 2 * payload_gb + (payload_gb / 2 + slot_gb
+                                           + payload_gb)
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    layers = args.layers if est < 0.9 * card_gb else args.layers // 2
+    log(f"  (c) int8 + overlap reckoned at {args.layers} layers: peak of (a)"
+        f" {a['peak_gb']:.3f} GB - f32 round {2 * payload_gb:.3f} + int8 "
+        f"round {payload_gb / 2 + slot_gb + payload_gb:.3f} = {est:.3f} GB "
+        f"of {card_gb:.1f}; " + ("no cut" if layers == args.layers else
+                                 f"depth cut {args.layers} -> {layers}"))
+    args = T.parse_args(OVERLAP_ARGV + ["--compression", "int8", "--layers",
+                                        str(layers), "--seed", str(seed)])
+    c = _pipelined(torch, T, args, "int8 + overlap")
+    torch.cuda.empty_cache()
+
+    d = _lemma_overlap(torch, dev, seed)
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    return {"overlap": a, "int8": b, "int8_overlap": c,
+            "launches": {"overlap": a["launches"], "int8": b["launches"],
+                         "int8_overlap": c["launches"], "lemma_overlap": d}}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1778,6 +2085,11 @@ def main() -> int:
     log("phase 10: runtime-valued gossip (stragglers, scheduled skips) and "
         "the paper's figures")
     rt = runtime_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    log("phase 11: int8 wire compression and the overlapped (delayed-mix) "
+        "pipeline")
+    pipe = pipeline_phase(torch, dev, args.seed)
     for k in kernels:
         if k["name"] in ("ssd_scan", "flash_attention"):
             k["hybrid_launches"] = hybrid["launches"][k["name"]]
@@ -1800,6 +2112,13 @@ def main() -> int:
                                    fam["payload"]["max_abs_err"])
             k["train_families_launches"] = fam["launches"]
             k["runtime_phase_launches"] = rt["launches"]
+            # the delayed round of the overlap pipeline combines through K1
+            # (phase 11); the int8 rounds combine in plain f32 torch
+            k["pipeline_phase_launches"] = pipe["launches"]
+            k["consumers"] = [
+                "train step (phases 6, 9, 10)", "figure suites (phase 10)",
+                "delayed round of the overlap pipeline and its flush "
+                "(phase 11)"]
         else:
             k["launches"] = launches[k["name"]]
             k["launches_per_call"] = (k["launches"]

@@ -52,12 +52,17 @@ def _flatten(tree, prefix: str = ""):
 
 
 def _unflatten_like(like, leaves):
+    """``like``'s structure, dict keys in ``like``'s order, the leaves
+    taken from ``leaves`` in JAX's flatten order (keys sorted): a packed
+    gossip buffer's layout follows the tree's key order, so a restored
+    tree keeps it."""
     if like is None:
         return None
     if not isinstance(like, (dict, tuple, list)):
         return next(leaves)
     if isinstance(like, dict):
-        return {k: _unflatten_like(like[k], leaves) for k in sorted(like)}
+        vals = {k: _unflatten_like(like[k], leaves) for k in sorted(like)}
+        return {k: vals[k] for k in like}
     vals = [_unflatten_like(v, leaves) for v in like]
     if hasattr(like, "_fields"):                 # a NamedTuple
         return type(like)(*vals)

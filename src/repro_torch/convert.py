@@ -21,7 +21,12 @@ for leaf what the JAX driver writes.  ``opt_state_to_jax`` /
 ``opt_state_from_jax`` carry a whole ``OptState`` the same way: its
 ``count`` as an int32 scalar and, for a ``gossip(when=...)`` chain, its
 ``sched_pos`` as one more int32 scalar after it, where the reference's
-``OptState`` flattens them.
+``OptState`` flattens them.  ``gossip_buf_to_jax`` / ``gossip_buf_from_jax``
+carry the overlap pipeline's in-flight buffer (a carry-buffer
+checkpoint's ``gossip_buf``): the reference packs the nested, layer-stacked
+payload in JAX's flatten order, padded to 8,192 columns, where the port
+packs its per-layer tree padded to 8, so the buffer goes through the
+unpacked trees.
 Plain numpy <-> torch; nothing of JAX is imported.
 """
 from __future__ import annotations
@@ -29,13 +34,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .checkpoint.ckpt import _flatten as _jax_items, _unflatten_like
+from .core import flatbuf
 from .core.transforms import OptState
 from .models.model import ModelConfig, _check_family
 
 __all__ = ["params_from_jax", "stacked_from_jax", "stacked_to_jax",
            "stacked_to_nested", "stacked_from_nested",
            "train_state_to_jax", "train_state_from_jax",
-           "opt_state_to_jax", "opt_state_from_jax"]
+           "opt_state_to_jax", "opt_state_from_jax", "gossip_buf_to_jax",
+           "gossip_buf_from_jax"]
+
+# the reference pads each packed group to its Pallas tile, (8, 1024)
+JAX_PAD_MULTIPLE = 8 * 1024
 
 
 def _tensor(a) -> torch.Tensor:
@@ -192,3 +203,70 @@ def opt_state_from_jax(tree, cfg: ModelConfig | None = None):
              else torch.as_tensor(tree.sched_pos).to("cpu", torch.int32))
     return OptState(_momentum_from_jax(tree.momentum, cfg),
                     int(tree.count), None, sched)
+
+
+def _jax_leaves(tree) -> list:
+    """Leaves in JAX's flatten order (dict keys sorted), as checkpoints
+    write them."""
+    return [leaf for _, leaf in _jax_items(tree)]
+
+
+def _payload_parts(tree) -> tuple:
+    return tree if isinstance(tree, tuple) else (tree,)
+
+
+def _nested(part: dict, cfg):
+    return part if cfg is None else stacked_to_nested(part, cfg)
+
+
+def _jax_groups(leaves) -> dict:
+    """Leaf positions by dtype, groups in order of first appearance (the
+    reference's packing)."""
+    groups: dict = {}
+    for i, leaf in enumerate(leaves):
+        groups.setdefault(leaf.dtype, []).append(i)
+    return groups
+
+
+def gossip_buf_to_jax(buf, template, cfg: ModelConfig | None) -> tuple:
+    """The port's in-flight buffer (one ``(n, B)`` tensor per dtype group,
+    packed against ``template``: ``opt.payload_template(params, state)``)
+    -> the reference's: the payload unpacked, its layer leaves restacked
+    (``stacked_to_nested``; ``cfg=None`` for a tree without layers),
+    packed in JAX's flatten order and zero-padded to a multiple of 8,192
+    columns."""
+    payload = flatbuf.unpack(flatbuf.layout_of(template), list(buf))
+    nested = tuple(_nested(p, cfg) for p in _payload_parts(payload))
+    leaves = _jax_leaves(nested)
+    n = leaves[0].shape[0]
+    out = []
+    for idxs in _jax_groups(leaves).values():
+        strips = [leaves[i].reshape(n, -1) for i in idxs]
+        width = sum(s.shape[1] for s in strips)
+        pad = -width % JAX_PAD_MULTIPLE
+        if pad:
+            strips.append(strips[0].new_zeros((n, pad)))
+        out.append(torch.cat(strips, 1))
+    return tuple(out)
+
+
+def gossip_buf_from_jax(jbuf, template, cfg: ModelConfig | None) -> tuple:
+    """Inverse of :func:`gossip_buf_to_jax`: the reference's packed
+    buffers (tensors) -> the port's, packed against ``template``."""
+    parts = _payload_parts(template)
+    like = tuple(_nested(p, cfg) for p in parts)
+    shapes = _jax_leaves(like)
+    leaves = [None] * len(shapes)
+    for idxs, b in zip(_jax_groups(shapes).values(), jbuf):
+        off = 0
+        for i in idxs:
+            size = int(np.prod(shapes[i].shape[1:], dtype=np.int64))
+            leaves[i] = b[:, off:off + size].reshape(shapes[i].shape)
+            off += size
+    nested = _unflatten_like(like, iter(leaves))
+    flat = []
+    for p, tpl in zip(nested, parts):
+        got = p if cfg is None else stacked_from_nested(p, cfg)
+        flat.append({k: got[k] for k in tpl})
+    payload = tuple(flat) if isinstance(template, tuple) else flat[0]
+    return tuple(flatbuf.pack(payload, flatbuf.layout_of(template))[1])

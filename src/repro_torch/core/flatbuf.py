@@ -12,8 +12,21 @@ Padding follows the port's kernel, not the TPU's (8, 1024) tile: each
 group's width is rounded up to :data:`PAD_MULTIPLE` = 8 elements, which
 keeps every node's row 16-byte aligned for the kernel's vector loads.  So
 ``GroupLayout.size`` (the used columns) equals the JAX package's, while
-``padded`` does not.  Leaf order is the tree's order (dict insertion
-order), so a port buffer is a column permutation of the JAX one.
+``padded`` does not.  Leaves keep the tree's order (dict insertion
+order) but for the grouping below, so a port buffer is a column
+permutation of the JAX one.
+
+Each slot belongs to a *scale group*, the unit of the int8 wire format's
+scales (one f32 scale per node and group).  The JAX package scales per
+JAX leaf, and its layer leaves are stacked on a layer axis, so the port's
+per-layer leaves of one JAX leaf share one group: a dict key
+``layers.<i>.<rest>`` is grouped as ``layers.<rest>`` (the tree position
+kept, so DmSGD's ``m`` and ``x`` halves stay apart).  Every other leaf is
+a group of its own.  The slots of one scale group are adjacent in the
+buffer (groups in order of first appearance, leaves in tree order within
+a group: all layers of ``wq`` side by side, as the JAX package packs its
+stacked leaf), so each int8 pass runs once per group over one column
+range (``GroupLayout.scale_ranges``).
 
 The layout depends only on the tree's structure, dtypes and shapes and is
 kept in an LRU-bounded cache.  :func:`unpack` returns views into the
@@ -22,6 +35,7 @@ buffer (no copy).
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any
 
 import numpy as np
@@ -33,42 +47,45 @@ Tree = Any
 
 __all__ = ["FlatLayout", "GroupLayout", "LeafSlot", "layout_of", "pack",
            "unpack", "tree_flatten", "tree_unflatten", "wire_bytes_split",
-           "wire_bytes_per_round", "PAD_MULTIPLE"]
+           "wire_bytes_per_round", "scale_group_key", "PAD_MULTIPLE"]
 
 # 8 elements = 16 bytes of bf16 (32 of f32): every row of a group buffer
 # starts on a 16-byte boundary, as the kernel's vector loads want
 PAD_MULTIPLE = 8
 
 
+def _treedef(t, leaves: list):
+    if isinstance(t, dict):
+        return ("dict", tuple(t), tuple(_treedef(v, leaves)
+                                        for v in t.values()))
+    if isinstance(t, (tuple, list)):
+        return (type(t).__name__, len(t), tuple(_treedef(v, leaves)
+                                                for v in t))
+    leaves.append(t)
+    return None
+
+
 def tree_flatten(tree: Tree) -> tuple[list, tuple | None]:
-    """Leaves of a dict/tuple/list tree in order, and a hashable treedef."""
+    """Leaves of a dict/tuple/list tree in order, and a hashable treedef.
+    (Module-level recursion: a recursive closure would hold the leaves in
+    a reference cycle, alive until the garbage collector runs.)"""
     leaves: list = []
+    return leaves, _treedef(tree, leaves)
 
-    def go(t):
-        if isinstance(t, dict):
-            return ("dict", tuple(t), tuple(go(v) for v in t.values()))
-        if isinstance(t, (tuple, list)):
-            return (type(t).__name__, len(t), tuple(go(v) for v in t))
-        leaves.append(t)
-        return None
 
-    return leaves, go(tree)
+def _build(d, it):
+    if d is None:
+        return next(it)
+    kind, _, children = d
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], children)}
+    vals = [_build(c, it) for c in children]
+    return tuple(vals) if kind == "tuple" else vals
 
 
 def tree_unflatten(treedef: tuple | None, leaves) -> Tree:
     """Inverse of :func:`tree_flatten`."""
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, _, children = d
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], children)}
-        vals = [build(c) for c in children]
-        return tuple(vals) if kind == "tuple" else vals
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,17 +96,20 @@ class LeafSlot:
     offset: int            # start column in the (n, B) group buffer
     size: int              # number of elements per node (prod(shape[1:]))
     shape: tuple           # full leaf shape, including the node axis
+    scale_group: int = 0   # int8 scale column within the dtype group
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class GroupLayout:
     dtype: torch.dtype     # dtype of every leaf in the group
-    slots: tuple           # tuple[LeafSlot, ...] in leaf order
+    slots: tuple           # tuple[LeafSlot, ...] in buffer order
     size: int              # used columns (sum of slot sizes)
     padded: int            # allocated columns (size rounded up)
-    # (padded,) int32: element -> slot position within this group; padding
-    # elements map to len(slots) (the per-leaf int8 scales of slice C)
-    seg_ids: np.ndarray
+    # the scale groups' keys (scale_group_key), in column order; the int8
+    # scale rows carry one more column, 1.0, for the padding
+    scale_groups: tuple
+    # (start, stop) columns of each scale group's adjacent slots
+    scale_ranges: tuple
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -114,6 +134,33 @@ def _pad_up(size: int, multiple: int) -> int:
     return max(-(-size // multiple) * multiple, multiple)
 
 
+_LAYER = re.compile(r"layers\.\d+\.(.+)")
+
+
+def _leaf_paths(tree: Tree, path: tuple = ()):
+    """Each leaf's path (dict keys, sequence positions), in
+    :func:`tree_flatten` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _leaf_paths(v, path + (i,))
+    else:
+        yield path
+
+
+def scale_group_key(path: tuple) -> tuple:
+    """The scale group of the leaf at ``path``: a last key
+    ``layers.<i>.<rest>`` becomes ``layers.<rest>`` (the JAX leaf that
+    stacks the layers), anything else is kept."""
+    if path and isinstance(path[-1], str):
+        m = _LAYER.fullmatch(path[-1])
+        if m:
+            return path[:-1] + ("layers." + m.group(1),)
+    return path
+
+
 def layout_of(tree: Tree, pad_multiple: int = PAD_MULTIPLE) -> FlatLayout:
     """Compute (or fetch) the packing layout for ``tree``'s structure."""
     leaves, treedef = tree_flatten(tree)
@@ -132,19 +179,25 @@ def layout_of(tree: Tree, pad_multiple: int = PAD_MULTIPLE) -> FlatLayout:
         by_dtype: dict = {}
         for i, leaf in enumerate(leaves):
             by_dtype.setdefault(leaf.dtype, []).append(i)
+        keys = [scale_group_key(p) for p in _leaf_paths(tree)]
 
         groups = []
         for dt, idxs in by_dtype.items():
-            slots, off = [], 0
+            members: dict = {}
             for i in idxs:
-                size = int(np.prod(leaves[i].shape[1:], dtype=np.int64))
-                slots.append(LeafSlot(i, off, size, tuple(leaves[i].shape)))
-                off += size
-            padded = _pad_up(off, pad_multiple)
-            seg = np.full((padded,), len(slots), np.int32)
-            for pos, s in enumerate(slots):
-                seg[s.offset:s.offset + s.size] = pos
-            groups.append(GroupLayout(dt, tuple(slots), off, padded, seg))
+                members.setdefault(keys[i], []).append(i)
+            slots, ranges, off = [], [], 0
+            for j, group in enumerate(members.values()):
+                start = off
+                for i in group:
+                    size = int(np.prod(leaves[i].shape[1:], dtype=np.int64))
+                    slots.append(LeafSlot(i, off, size,
+                                          tuple(leaves[i].shape), j))
+                    off += size
+                ranges.append((start, off))
+            groups.append(GroupLayout(dt, tuple(slots), off,
+                                      _pad_up(off, pad_multiple),
+                                      tuple(members), tuple(ranges)))
 
         return FlatLayout(treedef, int(n), tuple(groups), len(leaves))
 
@@ -180,14 +233,18 @@ def unpack(layout: FlatLayout, bufs) -> Tree:
 
 def wire_bytes_split(layout: FlatLayout,
                      compression: str | None = None) -> dict:
-    """Per-round wire bytes one node sends: ``{"payload", "scales"}``
-    (``scales`` is the int8 scale rows of slice C, 0 here)."""
-    if compression is not None:
-        raise NotImplementedError(
-            f"compression={compression!r} waits for ROADMAP slice C of the "
-            "PyTorch port")
-    payload = sum(g.padded * g.dtype.itemsize for g in layout.groups)
-    return {"payload": payload, "scales": 0}
+    """Per-round wire bytes one node sends: ``{"payload", "scales"}``.
+    Under int8 the payload is 1 byte per element and each dtype group
+    sends one f32 scale per scale group plus the padding's (``scales`` is
+    0 uncompressed), the JAX package's count of its per-leaf scales."""
+    payload = scales = 0
+    for g in layout.groups:
+        if compression == "int8":
+            payload += g.padded
+            scales += 4 * (len(g.scale_groups) + 1)
+        else:
+            payload += g.padded * g.dtype.itemsize
+    return {"payload": payload, "scales": scales}
 
 
 def wire_bytes_per_round(layout: FlatLayout,

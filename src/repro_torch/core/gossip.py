@@ -20,6 +20,25 @@ count.  One lowering per realization-IR node:
 The combine of static Shifts and Matching rounds is the ``gossip_mix``
 kernel (``kernels/gossip_mix``): its wrapper launches the CUDA kernel on a
 CUDA buffer and takes the plain version on a CPU one.
+
+``compression="int8"`` quantizes what a Shifts or Matching round sends:
+each packed buffer is rounded to int8 against one f32 scale per (node,
+scale group) (``max|x| / 127 + 1e-30``, the groups of
+:mod:`~repro_torch.core.flatbuf`: one per JAX leaf, so the scales are the
+reference's), and the int8 buffer and its scale rows are rolled or
+gathered.  The receiver dequantizes and combines in plain f32 torch, as
+the reference combines in ``jnp``, in its order of operations
+(``self_w * x`` first, then ``+ w * (q * scale)`` per received buffer);
+its own term stays full precision, and matching fixed points keep their
+full-precision buffer bit for bit.  Quantizing and dequantizing go slot by
+slot through views of the buffer, so a round holds one int8 copy and one
+f32 accumulator beside the payload, never an f32 tensor of scales.
+
+:func:`pack_payload` and :func:`delayed_mix` are the two halves of the
+overlapped pipeline (a payload packed at one step and mixed at the next);
+:func:`delayed_mix` of a Shifts or Matching round combines the packed
+buffers as they are, bit for bit what :func:`mix_realization` gives the
+unpacked tree.
 :func:`set_kernel_mode` ``("off")`` forces the plain combine on any
 device, as the JAX package's ``set_pallas_mode("off")`` does; it exists to
 hold the kernel against the plain version on the card.
@@ -37,10 +56,8 @@ package has no traced step, so it takes an int or a 0-d tensor and mixes
 with realization ``step % period``, refusing aperiodic schedules as the
 reference does.
 
-Not here yet: int8 wire compression (ROADMAP slice C, item 8), the
-overlapped pipeline (slice C, item 10) and the shard-native
-multi-process engine (``mesh=``, slice F).  Each raises
-``NotImplementedError`` naming its slice.
+Not here yet: the shard-native multi-process engine (``mesh=``, ROADMAP
+slice F), which raises ``NotImplementedError`` naming its slice.
 """
 from __future__ import annotations
 
@@ -58,8 +75,9 @@ from .topology import (AperiodicScheduleError, Dense, Gated, Identity,
 Tree = Any
 
 __all__ = ["mix_dense", "mix_shifts", "mix_matching", "mix_realization",
-           "mix", "mix_switch", "mix_scheduled", "gossip_spec",
-           "set_kernel_mode", "AperiodicScheduleError"]
+           "mix", "mix_switch", "mix_scheduled", "pack_payload",
+           "delayed_mix", "gossip_spec", "set_kernel_mode",
+           "AperiodicScheduleError"]
 
 # "auto": the tensors' device picks (CUDA -> the kernel, CPU -> plain);
 # "off": the plain combine everywhere
@@ -74,15 +92,17 @@ def set_kernel_mode(mode: str) -> None:
     _KERNEL_MODE = mode
 
 
-def _refuse(compression, mesh) -> None:
-    if compression is not None:
-        raise NotImplementedError(
-            f"compression={compression!r} waits for ROADMAP slice C (item "
-            "8) of the PyTorch port")
+def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the shard-native multi-process engine) waits for "
             "ROADMAP slice F of the PyTorch port")
+
+
+def _check_compression(compression) -> None:
+    if compression not in (None, "int8"):
+        raise ValueError(f"unknown compression {compression!r}; the wire "
+                         "format is None (full precision) or 'int8'")
 
 
 def _combine(x, recvs, w_self: float, ws: tuple):
@@ -96,7 +116,7 @@ def _combine(x, recvs, w_self: float, ws: tuple):
 def mix_dense(tree: Tree, W, *, mesh=None) -> Tree:
     """x_i <- sum_j W[i, j] x_j over the leading node axis of every leaf:
     one ``einsum('ij,jb->ib')`` in f32 per dtype group."""
-    _refuse(None, mesh)
+    _refuse_mesh(mesh)
     layout, bufs = flatbuf.pack(tree)
     out = []
     for b in bufs:
@@ -223,7 +243,7 @@ def _runtime_mix(tree: Tree, *, permute, base_ws: list, self_w, meta,
     ``permute(arr, d)`` is edge ``d``'s wire primitive; ``base_ws[d]`` its
     base weight (float, 0-d or per-node tensor; ``edge_weight`` may
     override)."""
-    _refuse(None, mesh)
+    _refuse_mesh(mesh)
     layout, bufs = flatbuf.pack(tree)
     dev = bufs[0].device
     meta_mat, n_user, has_gate = _assemble_meta(meta, node_gate, dev)
@@ -252,6 +272,105 @@ def _refuse_runtime_compression(compression) -> None:
             "or use static weights")
 
 
+# ---------------------------------------------------------------------------
+# Static rounds on packed buffers: the K1 combine, or the int8 wire
+# ---------------------------------------------------------------------------
+
+def _scale_columns(buf: torch.Tensor, g: flatbuf.GroupLayout) -> torch.Tensor:
+    """(n, G + 1) f32 int8 scales of one packed group: ``max|x| / 127 +
+    1e-30`` per (node, scale group) -- a JAX leaf's layers are one column
+    range -- then a column of 1.0 for the padding."""
+    cols = []
+    for a, b in g.scale_ranges:
+        lo, hi = torch.aminmax(buf[:, a:b], dim=1)
+        cols.append(torch.maximum(lo.float().abs(), hi.float().abs()))
+    m = torch.stack(cols, 1)
+    return torch.cat([m / 127.0 + 1e-30, torch.ones_like(m[:, :1])], 1)
+
+
+def _quantize(buf: torch.Tensor, g: flatbuf.GroupLayout,
+              sc: torch.Tensor) -> torch.Tensor:
+    """``round(x / scale)`` as int8, one scale group at a time (half to
+    even, as ``jnp.round``); the padding stays 0."""
+    q = torch.zeros(buf.shape, dtype=torch.int8, device=buf.device)
+    for j, (a, b) in enumerate(g.scale_ranges):
+        q[:, a:b] = torch.div(buf[:, a:b], sc[:, j:j + 1]).round_()
+    return q
+
+
+def _add_dequantized(acc, rq: torch.Tensor, rs: torch.Tensor,
+                     g: flatbuf.GroupLayout, w: float) -> torch.Tensor:
+    """``acc + w * (rq * rs)`` in f32 with the reference's roundings
+    (product, weight, sum), one scale group at a time; ``acc=None``
+    starts the sum."""
+    if acc is None:
+        acc = rq.to(torch.float32)
+        for j, (a, b) in enumerate(g.scale_ranges):
+            acc[:, a:b].mul_(rs[:, j:j + 1])
+        return acc.mul_(w)
+    for j, (a, b) in enumerate(g.scale_ranges):
+        acc[:, a:b].add_(rq[:, a:b].to(torch.float32)
+                         .mul_(rs[:, j:j + 1]).mul_(w))
+    return acc
+
+
+def _shifts_bufs(layout: flatbuf.FlatLayout, bufs, self_weight: float,
+                 shifts, compression) -> list:
+    """A static Shifts round on packed buffers: one roll per shift, then
+    K1 (or, under int8, the quantized wire and the f32 combine)."""
+    _check_compression(compression)
+    out = []
+    for g, buf in zip(layout.groups, bufs):
+        if compression is None:
+            recvs = [torch.roll(buf, s, 0) for s, _ in shifts]
+            out.append(_combine(buf, recvs, self_weight,
+                                tuple(w for _, w in shifts)))
+            continue
+        sc = _scale_columns(buf, g)
+        q = _quantize(buf, g, sc)
+        acc = (self_weight * buf.float()) if self_weight else None
+        for s, w in shifts:
+            # the int8 buffer and its scale rows over the wire
+            acc = _add_dequantized(acc, torch.roll(q, s, 0),
+                                   torch.roll(sc, s, 0), g, float(w))
+        del q
+        out.append(acc.to(buf.dtype))
+    return out
+
+
+def _matching_bufs(layout: flatbuf.FlatLayout, bufs, partner: tuple,
+                   w_self: float, compression) -> list:
+    """A static Matching round on packed buffers: one gather of the
+    partner rows, then K1 (or the int8 wire); fixed points keep their
+    full-precision buffer bit for bit."""
+    _check_compression(compression)
+    fixed = np.fromiter((j == i for i, j in enumerate(partner)),
+                        dtype=bool, count=len(partner))
+    out = []
+    for g, buf in zip(layout.groups, bufs):
+        idx = torch.as_tensor(partner, dtype=torch.long, device=buf.device)
+        if compression is None:
+            o = _combine(buf, [buf.index_select(0, idx)], w_self,
+                         (1.0 - w_self,))
+            if fixed.any():
+                keep = torch.as_tensor(fixed, device=buf.device)[:, None]
+                o = torch.where(keep, buf, o)
+            out.append(o)
+            continue
+        sc = _scale_columns(buf, g)
+        q = _quantize(buf, g, sc)
+        x32 = buf.float()
+        acc = _add_dequantized(w_self * x32, q.index_select(0, idx),
+                               sc.index_select(0, idx), g, 1.0 - w_self)
+        del q
+        if fixed.any():
+            # in place: no second payload-sized tensor
+            rows = np.flatnonzero(fixed).tolist()
+            acc[rows] = x32[rows]
+        out.append(acc.to(buf.dtype))
+    return out
+
+
 def mix_shifts(tree: Tree, self_weight: float,
                shifts: list[tuple[int, float]],
                compression: str | None = None, *, mesh=None, meta=None,
@@ -272,14 +391,10 @@ def mix_shifts(tree: Tree, self_weight: float,
             base_ws=ws_list, self_w=self_weight,
             meta=meta, node_gate=node_gate, edge_weight=edge_weight,
             fixed_mask=None, mesh=mesh)
-    _refuse(compression, mesh)
+    _refuse_mesh(mesh)
     layout, bufs = flatbuf.pack(tree)
-    ws = tuple(w for _, w in shifts)
-    out = []
-    for buf in bufs:
-        recvs = [torch.roll(buf, s, 0) for s, _ in shifts]
-        out.append(_combine(buf, recvs, self_weight, ws))
-    return flatbuf.unpack(layout, out)
+    return flatbuf.unpack(layout, _shifts_bufs(layout, bufs, self_weight,
+                                               shifts, compression))
 
 
 def mix_matching(tree: Tree, partner: tuple, w_self: float = 0.5,
@@ -314,18 +429,10 @@ def mix_matching(tree: Tree, partner: tuple, w_self: float = 0.5,
                             or w_self is None) else w_self,
             meta=meta, node_gate=node_gate, edge_weight=edge_weight,
             fixed_mask=fixed if fixed.any() else None, mesh=mesh)
-    _refuse(compression, mesh)
+    _refuse_mesh(mesh)
     layout, bufs = flatbuf.pack(tree)
-    out = []
-    for buf in bufs:
-        idx = torch.as_tensor(partner, dtype=torch.long, device=buf.device)
-        recv = buf.index_select(0, idx)
-        o = _combine(buf, [recv], w_self, (1.0 - w_self,))
-        if fixed.any():
-            keep = torch.as_tensor(fixed, device=buf.device)[:, None]
-            o = torch.where(keep, buf, o)
-        out.append(o)
-    return flatbuf.unpack(layout, out)
+    return flatbuf.unpack(layout, _matching_bufs(layout, bufs, partner,
+                                                 w_self, compression))
 
 
 def mix_realization(tree: Tree, realization, *,
@@ -407,7 +514,7 @@ def mix_switch(tree: Tree, topology: Topology, step, mesh=None) -> Tree:
     realization map over a period and raise
     :class:`~repro_torch.core.topology.AperiodicScheduleError`; they take
     the static-step path (:func:`mix`, or ``GossipPlan``)."""
-    _refuse(None, mesh)
+    _refuse_mesh(mesh)
     if not topology.schedule.is_periodic:
         raise AperiodicScheduleError(
             f"mix_switch needs a periodic schedule, but {topology.name!r} "
@@ -447,6 +554,39 @@ def mix_scheduled(tree: Tree, topology: Topology, pos, gate=None, *,
     return _select(gate, mixed, tree)
 
 
+def pack_payload(tree: Tree, *, mesh=None) -> tuple:
+    """SEND half of the overlapped pipeline: ``tree`` packed into its wire
+    buffers (one ``(n, B)`` buffer per dtype group), not mixed."""
+    _refuse_mesh(mesh)
+    return tuple(flatbuf.pack(tree)[1])
+
+
+def delayed_mix(template: Tree, bufs, realization, *,
+                compression: str | None = None, mesh=None) -> Tree:
+    """COMBINE half of the overlapped pipeline: apply ``realization`` to
+    the packed buffers of :func:`pack_payload` and unpack them to
+    ``template``'s structure (tensors, meta ones too: only shapes and
+    dtypes are read).  Every realization kind is taken: ``Identity`` just
+    unpacks; a static Shifts or Matching round rolls or gathers and
+    combines the buffers as they are (no second pack); any other round
+    mixes the unpacked tree.  Each is bit for bit what
+    :func:`mix_realization` gives the unpacked tree."""
+    _refuse_mesh(mesh)
+    layout = flatbuf.layout_of(template)
+    bufs = list(bufs)
+    r = realization
+    if isinstance(r, Identity):
+        return flatbuf.unpack(layout, bufs)
+    if isinstance(r, Shifts) and not r.traced:
+        return flatbuf.unpack(layout, _shifts_bufs(
+            layout, bufs, r.self_w, list(r.shifts), compression))
+    if isinstance(r, Matching) and not r.traced:
+        return flatbuf.unpack(layout, _matching_bufs(
+            layout, bufs, r.partner, r.w_self, compression))
+    return mix_realization(flatbuf.unpack(layout, bufs), r,
+                           compression=compression)
+
+
 def gossip_spec(topology: Topology, step: int,
                 layout: flatbuf.FlatLayout | None = None,
                 compression: str | None = None,
@@ -460,10 +600,12 @@ def gossip_spec(topology: Topology, step: int,
     ``Gated`` round moves its inner round's bytes (the wire is always
     issued).  With a ``layout`` (from :func:`flatbuf.layout_of`), adds the
     packed-path byte accounting: collectives per step and bytes sent per
-    node.  ``meta_cols`` counts the piggybacked per-node metadata columns
-    (the gate column included): they ride the f32 group's existing
-    gather -- zero extra collectives, ``4 * meta_cols`` bytes per payload
-    copy, reported as ``meta_bytes_per_node_per_step``."""
+    node, payload and int8 scale rows apart (an int8 round moves two
+    buffers per dtype group).  ``meta_cols`` counts the piggybacked
+    per-node metadata columns (the gate column included): they ride the
+    f32 group's existing gather -- zero extra collectives, ``4 *
+    meta_cols`` bytes per payload copy, reported as
+    ``meta_bytes_per_node_per_step``."""
     r = topology.realization(step)
     n = topology.n
     gated = isinstance(r, Gated)
@@ -492,8 +634,13 @@ def gossip_spec(topology: Topology, step: int,
     if layout is not None:
         split = flatbuf.wire_bytes_split(layout, compression)
         meta_bytes = 4 * meta_cols * mult
+        # an int8 round moves the scale rows too: a second roll or gather
+        # per dtype group
+        quantized = (compression == "int8"
+                     and spec["kind"] in ("ppermute", "matching"))
         spec["dtype_groups"] = len(layout.groups)
-        spec["collectives_per_step"] = rounds * len(layout.groups)
+        spec["collectives_per_step"] = (
+            rounds * len(layout.groups) * (2 if quantized else 1))
         spec["payload_bytes_per_node_per_step"] = split["payload"] * mult
         spec["scale_bytes_per_node_per_step"] = split["scales"] * mult
         spec["meta_bytes_per_node_per_step"] = meta_bytes

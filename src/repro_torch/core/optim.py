@@ -23,14 +23,15 @@ The port of the JAX package's ``core/optim.py``.  Every optimizer is a
                        params, three f32 trees in one payload -- one flat
                        buffer, one combine per step.
 
-``dmsgd`` and ``dsgd`` take the runtime-valued gossip hooks, fed by
-``update(..., aux=...)``: ``loss_aware`` (AL-DSGD weights from the
-per-node losses), ``deadline`` (per-node straggler gating from
-``aux["alive"]``) and ``when=`` (a data-dependent whole-round skip).
-``compression`` waits for ROADMAP slice C item 8 and ``overlap`` for item
-10 (``NotImplementedError``); ``overlap`` is first checked by
-:func:`chain` as in the reference, so qg_dmsgd's overlap, or overlap with
-a runtime hook, is a ``ValueError`` there too.
+Every gossiping optimizer takes ``compression="int8"`` (the
+:func:`~repro_torch.core.transforms.quantize_int8` marker) and
+``overlap=True`` (the one-step-delayed pipeline), as in the reference;
+:func:`chain` refuses what the reference refuses (qg_dmsgd's overlap,
+int8 or overlap with a runtime hook) with a ``ValueError``.  ``dmsgd``
+and ``dsgd`` take the runtime-valued gossip hooks, fed by ``update(...,
+aux=...)``: ``loss_aware`` (AL-DSGD weights from the per-node losses),
+``deadline`` (per-node straggler gating from ``aux["alive"]``) and
+``when=`` (a data-dependent whole-round skip).
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ from .transforms import (
     chain,
     deadline_skip,
     gossip,
+    quantize_int8,
     quasi_global_momentum,
     scale_by_lr,
     trace_adam_moments,
@@ -66,23 +68,6 @@ __all__ = [
 ]
 
 
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} waits for ROADMAP slice C ({item}) of the PyTorch port")
-
-
-def _refuse_compression(compression, runtime: bool) -> None:
-    if compression is None:
-        return
-    if runtime:
-        # the reference's chain() refusal, ahead of the missing item
-        raise ValueError(
-            "int8 wire compression cannot combine with runtime-valued "
-            "gossip (loss_aware / deadline / when); the quantized combine "
-            "needs static weights -- drop one")
-    raise _later(f"compression={compression!r}", "item 8")
-
-
 def dmsgd(topology: Topology, beta: float = 0.9, *, momentum_dtype=None,
           compression: str | None = None, overlap: bool = False,
           loss_aware: bool | float = False, deadline: bool = False,
@@ -95,14 +80,13 @@ def dmsgd(topology: Topology, beta: float = 0.9, *, momentum_dtype=None,
     (nodes whose ``aux['alive']`` is False drop out of the round);
     ``when=`` (``ctx -> bool``) makes whole-round skips data-dependent,
     the schedule position riding optimizer state."""
-    _refuse_compression(compression,
-                        bool(loss_aware or deadline or when is not None))
     rule = None
     if loss_aware:
         rule = al_dsgd() if loss_aware is True else al_dsgd(pull=loss_aware)
     return chain(
         trace_momentum(beta, dtype=momentum_dtype),
         scale_by_lr("m"),
+        quantize_int8() if compression == "int8" else None,
         deadline_skip() if deadline else None,
         gossip(where=("m_next", "x_next"), overlap=overlap,
                weights_from=rule, when=when),
@@ -121,17 +105,19 @@ def dsgd(topology: Topology, *, momentum_dtype=None,
 
 
 def vanilla_dmsgd(topology: Topology, beta: float = 0.9, *,
-                  momentum_dtype=None, overlap: bool = False
-                  ) -> DecentralizedOptimizer:
+                  momentum_dtype=None, compression: str | None = None,
+                  overlap: bool = False) -> DecentralizedOptimizer:
     """Vanilla DmSGD: no momentum exchange."""
     return chain(
         trace_momentum(beta, dtype=momentum_dtype),
         scale_by_lr("m_next"),
+        quantize_int8() if compression == "int8" else None,
         gossip(where=("x_next",), overlap=overlap),
         topology=topology, name="vanilla_dmsgd", beta=beta)
 
 
 def qg_dmsgd(topology: Topology, beta: float = 0.9, *, momentum_dtype=None,
+             compression: str | None = None,
              overlap: bool = False) -> DecentralizedOptimizer:
     """QG-DmSGD: quasi-global momentum tracks the averaged trajectory.
 
@@ -142,6 +128,7 @@ def qg_dmsgd(topology: Topology, beta: float = 0.9, *, momentum_dtype=None,
     return chain(
         trace_momentum(beta, dtype=momentum_dtype, out="qg_dir"),
         scale_by_lr("qg_dir"),
+        quantize_int8() if compression == "int8" else None,
         gossip(where=("x_next",), overlap=overlap),
         quasi_global_momentum(beta),
         topology=topology, name="qg_dmsgd", beta=beta)
@@ -162,14 +149,15 @@ def parallel_msgd(n: int, beta: float = 0.9, *,
 
 def d_adamw(topology: Topology, b1: float = 0.9, b2: float = 0.999, *,
             eps: float = 1e-8, weight_decay: float = 0.0,
-            momentum_dtype=None, overlap: bool = False
-            ) -> DecentralizedOptimizer:
+            momentum_dtype=None, compression: str | None = None,
+            overlap: bool = False) -> DecentralizedOptimizer:
     """Decentralized AdamW: both Adam moments are gossiped together with
     the params.  The three f32 trees share one flat-buffer dtype group, so
     a one-peer round is still ONE roll (or gather) and one K1 combine."""
     return chain(
         trace_adam_moments(b1, b2, dtype=momentum_dtype),
         adam_descent(eps=eps, weight_decay=weight_decay),
+        quantize_int8() if compression == "int8" else None,
         gossip(where=("mu_next", "nu_next", "x_next"), overlap=overlap),
         topology=topology, name="d_adamw", beta=b1)
 
@@ -187,11 +175,11 @@ def make_optimizer(name: str, topology: Topology, beta: float = 0.9,
                    *, momentum_dtype=None, compression: str | None = None,
                    overlap: bool = False, loss_aware: bool | float = False,
                    deadline: bool = False) -> DecentralizedOptimizer:
-    """Name-keyed construction, with the JAX package's signature;
-    ``d_adamw`` takes ``beta`` as its ``b1``.  ``loss_aware=`` /
+    """Name-keyed construction, with the JAX package's signature and
+    refusals; ``d_adamw`` takes ``beta`` as its ``b1``.  ``loss_aware=`` /
     ``deadline=`` bind the runtime-valued gossip hooks, as in the
-    reference only for ``dmsgd`` and ``dsgd``.  ``overlap=True`` reaches
-    :func:`chain`, which checks the composition and refuses it."""
+    reference only for ``dmsgd`` and ``dsgd``; ``parallel_msgd`` has no
+    gossip payload (it ignores ``compression`` and refuses ``overlap``)."""
     runtime_kw = {}
     if loss_aware or deadline:
         if name not in ("dmsgd", "dsgd"):
@@ -199,14 +187,6 @@ def make_optimizer(name: str, topology: Topology, beta: float = 0.9,
                 f"loss_aware/deadline runtime gossip is wired for "
                 f"dmsgd/dsgd, not {name!r}")
         runtime_kw = {"loss_aware": loss_aware, "deadline": deadline}
-    if name == "dsgd":
-        return dsgd(topology, momentum_dtype=momentum_dtype,
-                    compression=compression, overlap=overlap, **runtime_kw)
-    if name == "dmsgd":
-        return dmsgd(topology, beta=beta, momentum_dtype=momentum_dtype,
-                     compression=compression, overlap=overlap, **runtime_kw)
-    if compression is not None:
-        raise _later(f"compression={compression!r}", "item 8")
     if name == "parallel_msgd":
         if overlap:
             raise ValueError(
@@ -214,12 +194,16 @@ def make_optimizer(name: str, topology: Topology, beta: float = 0.9,
                 "to overlap; pick a decentralized optimizer")
         return parallel_msgd(topology.n, beta=beta,
                              momentum_dtype=momentum_dtype)
+    if name == "dsgd":
+        return dsgd(topology, momentum_dtype=momentum_dtype,
+                    compression=compression, overlap=overlap, **runtime_kw)
     if name == "d_adamw":
         return d_adamw(topology, b1=beta, momentum_dtype=momentum_dtype,
-                       overlap=overlap)
+                       compression=compression, overlap=overlap)
     if name in OPTIMIZERS:
         return OPTIMIZERS[name](topology, beta=beta,
                                 momentum_dtype=momentum_dtype,
-                                overlap=overlap)
+                                compression=compression, overlap=overlap,
+                                **runtime_kw)
     raise KeyError(f"unknown optimizer {name!r}; options: "
                    f"{sorted(OPTIMIZERS) + ['parallel_msgd']}")

@@ -1,7 +1,6 @@
 """Composable decentralized-optimizer transforms over node-stacked trees.
 
-The port of the JAX package's ``core/transforms.py`` for synchronous,
-static-weight gossip.  Every quantity is a ``dict[str, Tensor]`` whose
+The port of the JAX package's ``core/transforms.py``.  Every quantity is a ``dict[str, Tensor]`` whose
 leaves carry a leading node axis of size ``n``; a *transform* reads and
 writes named tensors in a :class:`Context` and a :func:`chain` of
 transforms becomes a :class:`DecentralizedOptimizer`.
@@ -19,7 +18,8 @@ Transforms: :func:`trace_momentum` (``m_next = beta m + g`` in f32),
 tensors are partially averaged, as ONE tree -- DmSGD's ``(m_next,
 x_next)`` payload packs into one flat buffer per dtype),
 :func:`quasi_global_momentum` (QG-DmSGD), :func:`trace_adam_moments` and
-:func:`adam_descent` (AdamW), :func:`average_gradients` and the
+:func:`adam_descent` (AdamW), :func:`average_gradients`, the
+:func:`quantize_int8` marker (int8 gossip payloads on the wire) and the
 :func:`allreduce_warmup` combinator.
 
 The runtime gossip hooks: ``gossip(weights_from=al_dsgd(...))``
@@ -33,10 +33,14 @@ The gossip executor is injected: ``opt.update_with_mix(..., mix=...)``
 takes the realization-bound mixing callable, which
 :class:`repro_torch.core.plan.GossipPlan` resolves and caches; ``update``
 resolves it from a static Python-int step.  The arithmetic is out of
-place: each step allocates its new tensors.  Int8 compression (item 8)
-and the overlapped pipeline (item 10) are ROADMAP slice C: :func:`chain`
-validates an overlapped composition as the reference does, then refuses
-it.
+place: each step allocates its new tensors.
+
+``gossip(overlap=True)`` selects the one-step-delayed mix: the payload
+rides the optimizer state as packed buffers (``OptState.buf``) and is
+mixed at the top of the NEXT step
+(:meth:`DecentralizedOptimizer.update_pipelined`); on the card that round
+runs on a side CUDA stream while the step's backward runs
+(:meth:`repro_torch.core.plan.OverlapIO.start`).
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ __all__ = [
     "deadline_skip",
     "al_dsgd",
     "AdjacentLeaderPull",
+    "quantize_int8",
     "quasi_global_momentum",
     "trace_adam_moments",
     "adam_descent",
@@ -76,8 +81,9 @@ class OptState(NamedTuple):
     ``momentum`` holds the state slot's tree when the chain has one slot,
     else a dict ``{slot: tree}`` in declaration order (d_adamw's
     ``{"mu": ..., "nu": ...}``); ``count`` is the number of steps taken (a
-    Python int); ``buf`` is the overlap pipeline's in-flight payload
-    (item 10; always None here); ``sched_pos`` is the gossip schedule
+    Python int); ``buf`` is the overlap pipeline's in-flight payload: the
+    tuple of packed f32 buffers of the previous step's pre-mix payload
+    (None for synchronous chains and before the priming step); ``sched_pos`` is the gossip schedule
     position of a ``gossip(when=...)`` chain (a 0-d int32 tensor on the
     host, advanced only on communicating rounds), else None."""
 
@@ -180,9 +186,9 @@ def gossip(where: tuple = ("x_next",), every: int = 1,
     combine per step however many tensors are listed.  ``every=k``
     communicates only every k-th step; the off-steps realize as
     ``Identity`` and the schedule advances one realization per
-    communicating step.  ``overlap=True`` (one-step-delayed mixing) is
-    ROADMAP item 10: :func:`chain` checks the composition as the reference
-    does and then refuses it.
+    communicating step.  ``overlap=True`` selects the one-step-delayed mix:
+    the payload is packed into ``OptState.buf`` and mixed at the top of
+    the next step (:meth:`DecentralizedOptimizer.update_pipelined`).
 
     ``weights_from=`` binds a loss-aware weight rule (:func:`al_dsgd`): its
     per-node metadata row (loss, grad norm) rides the round's gather and
@@ -297,6 +303,16 @@ def al_dsgd(pull: float = 2.0, gn_weight: float = 0.0) -> AdjacentLeaderPull:
     return AdjacentLeaderPull(pull=pull, gn_weight=gn_weight)
 
 
+def quantize_int8() -> Transform:
+    """Declarative marker: gossip payloads are int8 on the wire (one f32
+    scale per node and JAX leaf; see :mod:`repro_torch.core.gossip`).
+    Its place in the chain is irrelevant; it applies to every gossip of
+    the optimizer.  Only Shifts and Matching rounds have a quantized wire
+    format: ``GossipPlan`` refuses topologies that realize ``Dense``, and
+    the all-reduce warm-up phase mixes in full precision."""
+    return Transform("quantize_int8", (), None, None, tag="int8")
+
+
 def average_gradients() -> Transform:
     """Exact global gradient averaging (the All-Reduce baseline): replaces
     ``g`` with its node-mean, broadcast back to every node."""
@@ -395,6 +411,12 @@ class DecentralizedOptimizer:
     warmup_steps: int = 0
 
     @property
+    def compression(self) -> str | None:
+        """``"int8"`` when the chain holds :func:`quantize_int8`."""
+        return "int8" if any(t.tag == "int8" for t in self.transforms) \
+            else None
+
+    @property
     def gossip_every(self) -> int:
         """Communication interval: k from ``gossip(where=..., every=k)``.
         All gossip transforms of one chain share one realization per step,
@@ -484,13 +506,12 @@ class DecentralizedOptimizer:
             return {names[0]: state.momentum}
         return dict(state.momentum)
 
-    def _state_of(self, slots: dict, count: int,
+    def _state_of(self, slots: dict, count: int, buf=None,
                   sched_pos=None) -> OptState:
         names = self.slot_names
         if len(names) == 1:
-            return OptState(slots[names[0]], count, None, sched_pos)
-        return OptState({k: slots[k] for k in names}, count, None,
-                        sched_pos)
+            return OptState(slots[names[0]], count, buf, sched_pos)
+        return OptState({k: slots[k] for k in names}, count, buf, sched_pos)
 
     def init(self, params: Tree) -> OptState:
         slots: dict = {}
@@ -501,7 +522,7 @@ class DecentralizedOptimizer:
                 slots.setdefault(k, v)
         sched = (schedule_mod.initial_position()
                  if self.scheduled_gossip else None)
-        return self._state_of(slots, 0, sched)
+        return self._state_of(slots, 0, None, sched)
 
     def update_with_mix(self, params: Tree, state: OptState, grads: Tree,
                         lr, mix: Callable[[Tree], Tree],
@@ -527,27 +548,135 @@ class DecentralizedOptimizer:
         sched = state.sched_pos
         if sched is not None:
             sched = schedule_mod.advance_position(sched, ctx.sched_gate)
-        return new_params, self._state_of(new_slots, state.count + 1, sched)
+        return new_params, self._state_of(new_slots, state.count + 1, None,
+                                          sched)
 
     def update(self, params: Tree, state: OptState, grads: Tree,
                step: int, lr, aux: dict | None = None
                ) -> tuple[Tree, OptState]:
         """One step; the gossip realization is resolved from the Python-int
         ``step`` (traced steps do not exist in this package; a ``when=``
-        chain's executor reads ``state.sched_pos`` instead)."""
+        chain's executor reads ``state.sched_pos`` instead).  An overlapped
+        chain takes :meth:`update_pipelined` with the step's
+        :class:`~repro_torch.core.plan.OverlapIO`."""
         from .plan import GossipPlan
-        mix = GossipPlan.for_optimizer(self).mix(int(step))
-        return self.update_with_mix(params, state, grads, lr, mix, aux=aux)
+        plan = GossipPlan.for_optimizer(self)
+        if self.overlap:
+            return self.update_pipelined(params, state, grads, lr,
+                                         plan.overlap_io(int(step)))
+        return self.update_with_mix(params, state, grads, lr,
+                                    plan.mix(int(step)), aux=aux)
+
+    # -- overlapped (delayed-mix) pipeline ------------------------------------
+
+    def _overlap_names(self) -> tuple:
+        """The (single) overlapped gossip transform's ``where`` tuple."""
+        return next(t for t in self.transforms if t.where).where
+
+    def payload_template(self, params: Tree, state: OptState) -> Tree:
+        """The in-flight payload's structure as f32 meta tensors (a bare
+        tree for one name, a tuple otherwise): what the packed
+        ``state.buf`` unpacks against.  The buffer is f32 whatever the
+        leaves' dtypes."""
+        slots = self._slots_of(state)
+
+        def f32_like(tree):
+            return {k: torch.empty(v.shape, dtype=torch.float32,
+                                   device="meta") for k, v in tree.items()}
+
+        parts = tuple(f32_like(params if w == "x_next" else slots[w[:-5]])
+                      for w in self._overlap_names())
+        return parts[0] if len(parts) == 1 else parts
+
+    def start_delayed(self, params: Tree, state: OptState, io):
+        """Start the delayed round of ``state.buf`` (None at a priming
+        step): on the card it runs on a side stream while the caller
+        computes the gradients; pass the result to
+        :meth:`update_pipelined` as ``pending``."""
+        if state.buf is None:
+            return None
+        return io.start(self.payload_template(params, state), state.buf)
+
+    def _land(self, mixed, params: Tree, slots: dict) -> tuple[Tree, dict]:
+        """The mixed payload cast onto the committed tensors it replaces
+        (``x_next`` -> params, ``<slot>_next`` -> that slot)."""
+        names = self._overlap_names()
+        vals = (mixed,) if len(names) == 1 else tuple(mixed)
+        slots = dict(slots)
+        for w, v in zip(names, vals):
+            ref = params if w == "x_next" else slots[w[:-5]]
+            cast = {k: v[k].to(ref[k].dtype) for k in ref}
+            if w == "x_next":
+                params = cast
+            else:
+                slots[w[:-5]] = cast
+        return params, slots
+
+    def update_pipelined(self, params: Tree, state: OptState, grads: Tree,
+                         lr, io, pending=None) -> tuple[Tree, OptState]:
+        """One overlapped step of the one-step-delayed-mix recursion.
+
+        ``io`` (:class:`repro_torch.core.plan.OverlapIO`) mixes the
+        in-flight ``state.buf`` with the PREVIOUS step's realization and
+        packs this step's payload as the new buffer.  ``grads`` were taken
+        at the PRE-mix params; the local transforms run on the mixed
+        iterates.  ``pending`` is :meth:`start_delayed`'s round, already
+        running (on the card, on a side stream): the local transforms wait
+        for it; without it the round runs here, inline.  With no buffer
+        (step 0, or a re-prime after a flushed checkpoint) the step is
+        local: no mix, only the new payload."""
+        slots = self._slots_of(state)
+        if state.buf is not None:
+            mixed = (pending.wait() if pending is not None else io.delayed(
+                self.payload_template(params, state), state.buf))
+            params_in, slots_in = self._land(mixed, params, slots)
+        else:
+            params_in, slots_in = params, slots
+        tensors = dict(slots_in)
+        tensors["x"] = params_in
+        tensors["g"] = grads
+        ctx = Context(tensors=tensors, lr=lr, count=state.count, mix=None)
+        for t in self.transforms:
+            if t.apply is not None and not t.where:   # the gossip waits
+                t.apply(ctx)
+        payload = tuple({k: _f32(v) for k, v in tensors[w].items()}
+                        for w in self._overlap_names())
+        buf = io.pack(payload[0] if len(payload) == 1 else payload)
+        new_params = {k: v.to(params[k].dtype)
+                      for k, v in tensors["x_next"].items()}
+        new_slots = {s: {k: v.to(slots[s][k].dtype)
+                         for k, v in tensors[s + "_next"].items()}
+                     for s in self.slot_names}
+        return new_params, self._state_of(new_slots, state.count + 1, buf)
+
+    def flush_pending(self, params: Tree, state: OptState, io
+                      ) -> tuple[Tree, OptState]:
+        """Apply the pending in-flight mix and clear the buffer: the
+        returned state (``buf=None``) holds what the synchronous recursion
+        would hold after the last completed step.  Pure: the live pipeline
+        can go on from the unflushed state (flush-on-save checkpoints,
+        logged metrics), or resume from the flushed one with a priming
+        step.  The caller waits for the round; on the card it runs on the
+        side stream all the same, so that its payload-sized temporaries
+        reuse the blocks the side stream's allocator caches for every
+        delayed round, instead of the main stream caching a second set."""
+        if state.buf is None:
+            return params, state
+        mixed = io.start(self.payload_template(params, state),
+                         state.buf).wait()
+        new_params, slots = self._land(mixed, params, self._slots_of(state))
+        return new_params, self._state_of(slots, state.count)
 
 
 def chain(*transforms, topology: Topology, name: str = "chain",
           beta: float = 0.0, warmup_steps: int = 0) -> DecentralizedOptimizer:
     """Compose transforms into a :class:`DecentralizedOptimizer`.
 
-    ``None`` entries are skipped.  An overlapped gossip is validated as in
-    the reference (``ValueError`` for a composition the pipeline cannot
-    run, e.g. qg_dmsgd's post-gossip EMA) and then refused: the pipeline
-    is ROADMAP item 10."""
+    ``None`` entries are skipped (an optional :func:`quantize_int8`).  An
+    overlapped gossip is validated as in the reference (``ValueError`` for
+    a composition the pipeline cannot run, e.g. qg_dmsgd's post-gossip
+    EMA), and int8 or the overlap with a runtime-valued hook is refused
+    with the reference's words."""
     ts = tuple(t for t in transforms if t is not None)
     if not ts:
         raise ValueError("chain() needs at least one transform")
@@ -565,12 +694,19 @@ def chain(*transforms, topology: Topology, name: str = "chain",
             f"chain {name!r} mixes gossip(when=...) predicates; all gossip "
             "transforms share one realization per step, so they must share "
             "one skip gate")
-    if opt.has_runtime_gossip and overlap:
-        raise ValueError(
-            f"chain {name!r} combines the overlap pipeline with "
-            "runtime-valued gossip (weights_from / when / deadline_skip); "
-            "the in-flight realization cannot depend on runtime values -- "
-            "drop one")
+    if opt.has_runtime_gossip:
+        if opt.compression:
+            raise ValueError(
+                f"chain {name!r} combines int8 wire compression with "
+                "runtime-valued gossip (weights_from / when / "
+                "deadline_skip); the quantized combine needs static "
+                "weights -- drop one")
+        if overlap:
+            raise ValueError(
+                f"chain {name!r} combines the overlap pipeline with "
+                "runtime-valued gossip (weights_from / when / "
+                "deadline_skip); the in-flight realization cannot depend "
+                "on runtime values -- drop one")
     deadline_idx = [i for i, t in enumerate(ts) if t.tag == "deadline"]
     if deadline_idx:
         gossip_idx = [i for i, t in enumerate(ts) if t.where]
@@ -579,10 +715,6 @@ def chain(*transforms, topology: Topology, name: str = "chain",
                 f"chain {name!r} places deadline_skip after (or without) "
                 "its gossip transform; the gate must be set before the "
                 "mix consumes it")
-    if overlap:
-        raise NotImplementedError(
-            "the overlapped (delayed-mix) pipeline waits for ROADMAP slice "
-            "C (item 10) of the PyTorch port")
     return opt
 
 

@@ -11,9 +11,16 @@ untraced step time, then for the traced window the host and device time
 per step, the device's idle share, the kernels that take the most device
 time, and two ranges: the optimizer update (momentum, descent and the
 gossip) and, inside it, the gossip (pack, roll or gather, K1, unpack); the
-per-node gradients are the rest of the step.
+per-node gradients are the rest of the step.  ``--compression int8``
+sends the payload as int8.  ``--overlap`` trains the one-step-delayed
+pipeline: the gossip range is then the delayed round (roll or gather, the
+combine, unpack), started on a side stream before the backward, and the
+untraced window also prints, from CUDA events on both streams, the
+delayed round's device time and how much of it ran while the gradients
+ran.
 
-  PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 3]
+  PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 3] \\
+      [--overlap] [--compression int8]
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from .. import configs
 from ..core import optim as optim_mod
 from ..core import topology as topo_mod
-from ..core.plan import GossipPlan
+from ..core.plan import GossipPlan, OverlapIO
 from ..data import SyntheticLM
 from ..device import resolve_device
 from ..models import model as M
@@ -40,15 +47,35 @@ GOSSIP = "gossip: pack, roll or gather, gossip_mix, unpack"
 
 
 class _TracedOptimizer:
-    """The optimizer with its update inside one profiler range (the train
-    step calls nothing else of it)."""
+    """The optimizer with its update inside one profiler range."""
 
     def __init__(self, opt):
         self.opt = opt
 
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
     def update_with_mix(self, *args, **kw):
         with record_function(UPDATE):
             return self.opt.update_with_mix(*args, **kw)
+
+    def update_pipelined(self, *args, **kw):
+        with record_function(UPDATE):
+            return self.opt.update_pipelined(*args, **kw)
+
+
+class _TracedIO:
+    """An OverlapIO whose delayed round runs inside the gossip range."""
+
+    def __init__(self, io):
+        self.io = io
+
+    def __getattr__(self, name):
+        return getattr(self.io, name)
+
+    def start(self, *args):
+        with record_function(GOSSIP):
+            return self.io.start(*args)
 
 
 def main(argv=None) -> None:
@@ -64,6 +91,8 @@ def main(argv=None) -> None:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--overlap", action="store_true")
+    ap.add_argument("--compression", default=None, choices=["int8"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
@@ -74,10 +103,16 @@ def main(argv=None) -> None:
                               n_layers=args.layers)
     n = args.nodes
     opt = optim_mod.make_optimizer(
-        args.optimizer, topo_mod.get_topology(args.topology, n), beta=0.9)
-    step_fn = steps_mod.make_train_step(cfg, _TracedOptimizer(opt))
+        args.optimizer, topo_mod.get_topology(args.topology, n), beta=0.9,
+        compression=args.compression, overlap=args.overlap)
+    timeline: list = []
+    step_fn = steps_mod.make_train_step(cfg, _TracedOptimizer(opt),
+                                        timeline=timeline)
 
     def traced_step(mix, *a):
+        if isinstance(mix, OverlapIO):
+            return step_fn(_TracedIO(mix), *a)
+
         def traced_mix(tree):
             with record_function(GOSSIP):
                 return mix(tree)
@@ -105,14 +140,23 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         print(f"warm-up step {k - 1}: {(time.perf_counter() - t0) * 1e3:.3f}"
               f" ms")
+    timeline.clear()
     t0 = time.perf_counter()              # the same window, untraced
     for _ in range(args.steps):
         step()
     torch.cuda.synchronize()
-    print(f"train step ({args.arch}, {args.optimizer} over "
+    what = (f"{args.optimizer}" + (" overlapped" if args.overlap else "")
+            + (" int8" if args.compression else ""))
+    print(f"train step ({args.arch}, {what} over "
           f"{args.topology}, {n} nodes x {args.batch} x {args.seq} tokens, "
           f"{args.layers} layers), untraced: host "
           f"{(time.perf_counter() - t0) * 1e3 / args.steps:.3f} ms/step")
+    for marks in timeline:
+        ms, under = steps_mod.overlap_ms(marks)
+        print(f"delayed round (side stream): {ms:.3f} ms device, of which "
+              f"{under:.3f} ms ({100 * under / ms:.1f} %) while the "
+              "gradients ran")
+    timeline.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()

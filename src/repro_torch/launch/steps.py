@@ -17,7 +17,7 @@ from ..models import model as M
 
 Tree = Any
 
-__all__ = ["train_loss_fn", "make_train_step"]
+__all__ = ["train_loss_fn", "make_train_step", "overlap_ms"]
 
 AUX_WEIGHT = 0.01     # the MoE aux loss's weight (zero aux for dense)
 
@@ -39,7 +39,7 @@ def train_loss_fn(params, cfg: M.ModelConfig, tokens):
 
 def make_train_step(cfg: M.ModelConfig,
                     opt: optim_mod.DecentralizedOptimizer,
-                    *, micro_batch: int | None = None):
+                    *, micro_batch: int | None = None, timeline=None):
     """Returns ``train_step(mix, params, opt_state, batch, lr)``.
 
     ``mix`` is the realization-bound gossip executor that
@@ -55,6 +55,17 @@ def make_train_step(cfg: M.ModelConfig,
     ``"alive"`` / ``"comm"`` flags (AL-DSGD weights, deadline gates,
     ``when=`` predicates).  Returns the new params, the new state, and the
     node-mean loss (a device scalar).
+
+    An overlapped optimizer (``opt.overlap``) takes the pipelined step:
+    ``mix`` is the step's :class:`~repro_torch.core.plan.OverlapIO`, and
+    BEFORE the per-node forward and backward the delayed round of
+    ``opt_state.buf`` starts (on the card on a side stream, so it runs
+    under the backward); ``opt.update_pipelined`` waits for it, then runs
+    the local transforms on the mixed iterates with the gradients taken
+    at the pre-mix params.  ``timeline``, a list, gets one ``(start,
+    delayed begin, delayed done, grads begin, grads end)`` tuple of CUDA
+    events a pipelined step with a round in flight on the card
+    (:func:`overlap_ms` reads them).
     """
 
     def loss_and_grads(p: dict, tokens):
@@ -81,6 +92,16 @@ def make_train_step(cfg: M.ModelConfig,
         first = next(iter(params.values()))
         tokens = batch["tokens"].to(first.device)
         n = first.shape[0]
+        marks = (timeline is not None and opt.overlap
+                 and opt_state.buf is not None and first.is_cuda)
+        if marks:
+            t0, g_begin, g_end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(3))
+            t0.record()
+        pending = (opt.start_delayed(params, opt_state, mix)
+                   if opt.overlap else None)
+        if marks:
+            g_begin.record()
         losses, grads = [], None
         for i in range(n):
             loss, g = per_node_grads({k: v[i] for k, v in params.items()},
@@ -92,6 +113,14 @@ def make_train_step(cfg: M.ModelConfig,
                 grads[k][i].copy_(v)
             losses.append(loss)
         losses = torch.stack(losses)
+        if marks:
+            g_end.record()
+            timeline.append((t0, pending.begin, pending.done, g_begin,
+                             g_end))
+        if opt.overlap:
+            new_params, new_state = opt.update_pipelined(
+                params, opt_state, grads, lr, mix, pending=pending)
+            return new_params, new_state, losses.mean()
         aux = None
         if opt.has_runtime_gossip:
             aux = {"loss": losses}
@@ -103,3 +132,14 @@ def make_train_step(cfg: M.ModelConfig,
         return new_params, new_state, losses.mean()
 
     return train_step
+
+
+def overlap_ms(marks) -> tuple[float, float]:
+    """(delayed round ms, ms of it that ran while the gradients ran) of
+    one ``timeline`` entry of :func:`make_train_step`, from its events
+    (synchronise first).  Times are taken from the ``start`` event, which
+    precedes both streams' work."""
+    t0, begin, done, g_begin, g_end = marks
+    b, d = t0.elapsed_time(begin), t0.elapsed_time(done)
+    gb, ge = t0.elapsed_time(g_begin), t0.elapsed_time(g_end)
+    return d - b, max(0.0, min(d, ge) - max(b, gb))

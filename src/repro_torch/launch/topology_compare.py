@@ -10,11 +10,12 @@ and prints the final MSEs and the ordering the paper predicts (Table 1):
 exponential graphs track parallel SGD closest.  The problem data are the
 reference's numpy draws; the minibatch indices come from a
 ``torch.Generator`` on the device seeded with the reference's seed.
-``--overlap`` waits for ROADMAP slice C item 10.
+``--overlap`` runs the one-step-delayed pipeline (not for the
+``parallel`` baseline); its curves read the flushed (mixed) iterates.
 
   PYTHONPATH=src python -m repro_torch.launch.topology_compare \\
       [--nodes 64] [--steps 3000] [--tops parallel,one_peer_exp,ring] \\
-      [--optimizer dmsgd] [--device cuda|cpu]
+      [--optimizer dmsgd] [--overlap] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -35,19 +36,24 @@ M_SAMPLES = 2000
 
 
 def run(topname, n, h, y, x_star, T, lr0, beta=0.8, seed=1,
-        optimizer="dmsgd") -> list:
+        optimizer="dmsgd", overlap=False) -> list:
     """``[(step, MSE)]`` every 25 steps of ``optimizer`` over ``topname``
-    (``"parallel"``: parallel momentum SGD)."""
+    (``"parallel"``: parallel momentum SGD); ``overlap`` pipelines the
+    gossip and measures the flushed iterates."""
     d = h.shape[-1]
     if topname == "parallel":
         opt = optim.parallel_msgd(n, beta=beta)
     else:
         opt = optim.make_optimizer(optimizer,
                                    topology.get_topology(topname, n),
-                                   beta=beta)
-    plan = GossipPlan.for_optimizer(
-        opt, fn=lambda mix, p, s, g, lr: opt.update_with_mix(p, s, g, lr,
-                                                             mix))
+                                   beta=beta, overlap=overlap)
+    if opt.overlap:
+        def step_fn(io, p, s, g, lr):
+            return opt.update_pipelined(p, s, g, lr, io)
+    else:
+        def step_fn(mix, p, s, g, lr):
+            return opt.update_with_mix(p, s, g, lr, mix)
+    plan = GossipPlan.for_optimizer(opt, fn=step_fn)
     draw_idx = index_stream(n, h.shape[1], h.device, seed)
     params = {"x": torch.zeros((n, d), device=h.device)}
     state = opt.init(params)
@@ -57,7 +63,9 @@ def run(topname, n, h, y, x_star, T, lr0, beta=0.8, seed=1,
         lr = lr0 * (0.5 ** (k // 1000))
         params, state = plan.step_fn(k)(params, state, g, lr)
         if k % 25 == 0:
-            curve.append((k, torch.mean(torch.sum((params["x"] - x_star)
+            # flush is pure: the mixed view, the in-flight buffer kept
+            ev, _ = plan.flush_step_fn(k + 1)(params, state)
+            curve.append((k, torch.mean(torch.sum((ev["x"] - x_star)
                                                   ** 2, -1))))
     return [(k, float(m)) for k, m in curve]
 
@@ -75,15 +83,13 @@ def main(argv=None) -> dict:
              "all-reduce baseline; base_k and ceca are the finite-time "
              "families")
     ap.add_argument("--overlap", action="store_true",
-                    help="one-step-delayed gossip (ROADMAP slice C item 10)")
+                    help="one-step-delayed (overlapped) gossip: the mix "
+                         "of step k's payload lands at step k+1; curves "
+                         "measure the flushed (mixed) iterates")
     ap.add_argument("--out", default="results/topology_compare.csv")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.overlap:
-        raise NotImplementedError(
-            "--overlap (the delayed-mix pipeline) waits for ROADMAP slice C "
-            "(item 10) of the PyTorch port")
     dev = resolve_device(args.device)
 
     # AdamW takes normalized steps: a much smaller peak rate than momentum
@@ -94,7 +100,8 @@ def main(argv=None) -> dict:
     tops = [t.strip() for t in args.tops.split(",") if t.strip()]
     curves = {t: run(t, args.nodes, h, y, x_star, args.steps,
                      lr0=0.2 if t == "parallel" else lr0,
-                     optimizer=args.optimizer)
+                     optimizer=args.optimizer,
+                     overlap=args.overlap and t != "parallel")
               for t in tops}
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

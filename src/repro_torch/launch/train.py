@@ -19,6 +19,9 @@ unless ``--full``; ``--layers N`` cuts the depth (full width, N layers).
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --nodes 8 --steps 12 --loss-aware --deadline-skip \\
       --straggler-prob 0.25
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --nodes 4 --steps 6 --overlap --compression int8 \\
+      --ckpt-dir /tmp/ck --ckpt-every 2 [--ckpt-flush]
 
 Every step's batch is sampled before the loop (``SyntheticLM.sample`` is
 host work that grows with the vocabulary), and each step is timed on the
@@ -31,9 +34,16 @@ misses step k's deadline when ``np.random.default_rng(2**20 +
 k).random(n)[i] < p``.  The reference draws the same flags from
 ``jax.random.uniform(jax.random.key(2**20 + k), (n,))``, a stream torch
 cannot reproduce, so the two drivers drop different nodes; parity tests
-put the same ``alive`` in both batches.  The overlapped pipeline
-(``--overlap``) is ROADMAP slice C item 10 and raises
-``NotImplementedError``.
+put the same ``alive`` in both batches.
+
+``--overlap`` trains the one-step-delayed pipeline (each step mixes the
+previous step's payload, on the card on a side stream under the
+backward); the logged consensus reads the flushed view, and the run ends
+with a flush.  Its checkpoints carry the in-flight buffer as
+``gossip_buf`` (in the reference's packing: ``convert.gossip_buf_to_jax``),
+so a resume is bit-identical, or with ``--ckpt-flush`` hold the flushed
+iterates and no buffer.  ``--compression int8`` sends the gossip payload
+as int8 (a flag the JAX driver lacks; its optimizers take it).
 """
 from __future__ import annotations
 
@@ -45,7 +55,7 @@ import numpy as np
 import torch
 
 from .. import checkpoint, configs
-from ..convert import train_state_to_jax
+from ..convert import gossip_buf_to_jax, train_state_to_jax
 from ..core import flatbuf
 from ..core import optim as optim_mod
 from ..core import schedule
@@ -56,28 +66,32 @@ from ..device import resolve_device
 from ..models import model as M
 from . import steps as steps_mod
 
-__all__ = ["build_trainer", "consensus_distance", "stack_nodes", "run",
-           "parse_args", "main"]
+__all__ = ["build_trainer", "consensus_distance", "stack_nodes", "prepare",
+           "run", "parse_args", "main"]
 
 def build_trainer(cfg, topology, optimizer_name: str, beta: float,
                   micro_batch=None, momentum_dtype=None, overlap=False,
-                  loss_aware=False, deadline=False):
-    """Returns (opt, step_for) where ``step_for(step)`` is the train-step
-    executable for that step's gossip realization (the plan rides along as
-    ``step_for.plan``).  All schedule handling lives in
+                  loss_aware=False, deadline=False, compression=None,
+                  timeline=None):
+    """Returns (opt, step_for) where ``step_for(step, prime=False)`` is the
+    train-step executable for that step's gossip realization (the plan
+    rides along as ``step_for.plan``).  All schedule handling lives in
     :class:`repro_torch.core.plan.GossipPlan`; this is optimizer + step
     function + plan wiring.  ``loss_aware`` / ``deadline`` bind the
     runtime gossip hooks (the step then reads ``batch["alive"]``);
-    ``overlap`` is ROADMAP slice C item 10: ``chain`` refuses it."""
+    ``overlap`` builds the pipelined trainer (``timeline``: see
+    :func:`~repro_torch.launch.steps.make_train_step`),
+    ``compression="int8"`` the int8 wire."""
     opt = optim_mod.make_optimizer(optimizer_name, topology, beta=beta,
                                    momentum_dtype=momentum_dtype,
-                                   overlap=overlap, loss_aware=loss_aware,
-                                   deadline=deadline)
-    step_fn = steps_mod.make_train_step(cfg, opt, micro_batch=micro_batch)
+                                   compression=compression, overlap=overlap,
+                                   loss_aware=loss_aware, deadline=deadline)
+    step_fn = steps_mod.make_train_step(cfg, opt, micro_batch=micro_batch,
+                                        timeline=timeline)
     plan = GossipPlan.for_optimizer(opt, fn=step_fn)
 
-    def step_for(step):
-        return plan.step_fn(step)
+    def step_for(step, **kw):
+        return plan.step_fn(step, **kw)
 
     step_for.plan = plan
     return opt, step_for
@@ -108,11 +122,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(args) -> dict:
-    """Train per ``args`` (the CLI's namespace).  Returns the history (one
-    entry per logged step: step, loss, consensus, lr, step_s), every
-    step's seconds, the final params and state, the config, the plan and
-    the per-step ``alive`` flags (None without ``--deadline-skip``)."""
+def prepare(args) -> dict:
+    """What a run of ``args`` starts from, built as :func:`run` builds it:
+    the config, the topology, the momentum dtype, the node-stacked
+    initial params, every step's batch and the learning-rate schedule.
+    References held against a run (the sequential delayed recursion of
+    ``--overlap``) start from the same."""
     if args.straggler_prob and not args.deadline_skip:
         raise ValueError("--straggler-prob simulates missed deadlines; "
                          "pair it with --deadline-skip")
@@ -123,18 +138,11 @@ def run(args) -> dict:
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     n = args.nodes
-    top = topo_mod.get_topology(args.topology, n)
     # momentum dtype comes from the arch's layout config (an explicit
     # argument, not a process-global knob)
     layout = configs.get_layout(args.arch)
     mom_dtype = {"bfloat16": torch.bfloat16,
                  "float32": torch.float32}.get(layout.get("momentum_dtype"))
-    opt, step_for = build_trainer(cfg, top, args.optimizer, args.beta,
-                                  args.micro_batch, momentum_dtype=mom_dtype,
-                                  overlap=args.overlap,
-                                  loss_aware=args.loss_aware,
-                                  deadline=args.deadline_skip)
-    plan = step_for.plan
 
     params = M.init(cfg, args.seed, device=device)
     stacked = stack_nodes(params, n)
@@ -145,7 +153,6 @@ def run(args) -> dict:
         stacked = {k: p + (0.01 * torch.randn(p.shape, generator=gen,
                                               device=device)).to(p.dtype)
                    for k, p in stacked.items()}
-    state = opt.init(stacked)
 
     data = SyntheticLM(cfg.vocab_size, n, hetero=args.hetero, seed=args.seed)
     lr_fn = schedule.warmup_step_decay(
@@ -160,6 +167,33 @@ def run(args) -> dict:
             batch["alive"] = torch.from_numpy(
                 np.random.default_rng(2**20 + step).random(n)
                 >= args.straggler_prob)
+    return {"device": device, "config": cfg,
+            "topology": topo_mod.get_topology(args.topology, n),
+            "momentum_dtype": mom_dtype, "params": stacked,
+            "batches": batches, "lr_fn": lr_fn}
+
+
+def run(args, timeline=None) -> dict:
+    """Train per ``args`` (the CLI's namespace).  Returns the history (one
+    entry per logged step: step, loss, consensus, lr, step_s), every
+    step's seconds, the final params and state (flushed under
+    ``--overlap``), the config, the plan and the per-step ``alive`` flags
+    (None without ``--deadline-skip``).  ``timeline`` (a list) collects
+    the pipelined steps' CUDA events (``steps.make_train_step``)."""
+    start = prepare(args)
+    device, cfg = start["device"], start["config"]
+    stacked, batches, lr_fn = (start["params"], start["batches"],
+                               start["lr_fn"])
+    opt, step_for = build_trainer(cfg, start["topology"], args.optimizer,
+                                  args.beta, args.micro_batch,
+                                  momentum_dtype=start["momentum_dtype"],
+                                  overlap=args.overlap,
+                                  loss_aware=args.loss_aware,
+                                  deadline=args.deadline_skip,
+                                  compression=args.compression,
+                                  timeline=timeline)
+    plan = step_for.plan
+    state = opt.init(stacked)
 
     history, step_s = [], []
     t0 = time.perf_counter()
@@ -171,8 +205,10 @@ def run(args) -> dict:
         _sync(device)
         step_s.append(time.perf_counter() - t)
         if step % args.log_every == 0 or step == args.steps - 1:
-            ev_params, _ = plan.flush_step_fn(step + 1)(stacked, state)
-            cd = consensus_distance(ev_params)
+            # the flushed view (pure; dropped at once: under --overlap it
+            # is a payload-sized buffer of its own)
+            cd = consensus_distance(
+                plan.flush_step_fn(step + 1)(stacked, state)[0])
             history.append(dict(step=step, loss=float(loss), consensus=cd,
                                 lr=lr, step_s=step_s[-1]))
             print(f"step {step:5d}  loss {float(loss):.4f}  "
@@ -180,8 +216,21 @@ def run(args) -> dict:
                   f"step {1e3 * step_s[-1]:.1f} ms  "
                   f"({time.perf_counter() - t0:.1f}s)", flush=True)
         if args.ckpt_dir and step and step % args.ckpt_every == 0:
-            checkpoint.save(args.ckpt_dir, step, train_state_to_jax(
-                stacked, state.momentum, cfg))
+            if args.overlap and args.ckpt_flush:
+                # flush-on-save: the mixed iterates, no buffer; a resume
+                # re-primes (step_for(k, prime=True))
+                fp, fs = plan.flush_step_fn(step + 1)(stacked, state)
+                payload = train_state_to_jax(fp, fs.momentum, cfg)
+            else:
+                # carry-buffer: the in-flight payload is saved with the
+                # state, so a resume is bit-identical to never stopping
+                payload = train_state_to_jax(stacked, state.momentum, cfg)
+                if state.buf is not None:
+                    payload["gossip_buf"] = gossip_buf_to_jax(
+                        state.buf, opt.payload_template(stacked, state), cfg)
+            checkpoint.save(args.ckpt_dir, step, payload)
+    if args.overlap:
+        stacked, state = plan.flush_step_fn(args.steps)(stacked, state)
     alive = ([b["alive"].tolist() for b in batches] if args.deadline_skip
              else None)
     return {"history": history, "step_s": step_s, "params": stacked,
@@ -189,8 +238,9 @@ def run(args) -> dict:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The CLI's flags (the JAX driver's, plus ``--layers`` and
-    ``--device``) parsed into the namespace :func:`run` takes."""
+    """The CLI's flags (the JAX driver's, plus ``--layers``,
+    ``--compression`` and ``--device``) parsed into the namespace
+    :func:`run` takes."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -204,7 +254,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "families (Takezawa 23 / cf. Ding 23)")
     ap.add_argument("--optimizer", default="dmsgd")
     ap.add_argument("--overlap", action="store_true",
-                    help="one-step-delayed gossip (ROADMAP slice C item 10)")
+                    help="one-step-delayed (overlapped) gossip: step t's "
+                         "payload is mixed at step t+1, on the card on a "
+                         "side stream under that step's backward")
+    ap.add_argument("--ckpt-flush", action="store_true",
+                    help="with --overlap: save the flushed iterates and no "
+                         "in-flight buffer (a resume re-primes) instead of "
+                         "carrying the buffer (a bit-identical resume)")
+    ap.add_argument("--compression", default=None, choices=["int8"],
+                    help="int8 gossip payloads on the wire (one f32 scale "
+                         "per node and JAX leaf)")
     ap.add_argument("--loss-aware", action="store_true",
                     help="AL-DSGD adjacent-leader weights: pull harder from "
                          "better-loss neighbours; the per-node losses ride "

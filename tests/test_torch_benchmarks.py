@@ -256,5 +256,11 @@ def test_topology_compare_writes_its_csv(tmp_path, capsys):
         "parallel", "one_peer_exp", "ring", "base_k"}
     assert all(np.isfinite(m) for c in curves.values() for _, m in c)
     assert f"wrote {out}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 10"):
-        topology_compare.main(["--device", "cpu", "--overlap"])
+    # --overlap (refused before the pipeline was ported): the delayed
+    # curves, read from the flushed iterates
+    ov = topology_compare.main([
+        "--device", "cpu", "--nodes", "8", "--steps", "60", "--tops",
+        "parallel,one_peer_exp", "--out", str(out), "--overlap"])
+    assert set(ov) == {"parallel", "one_peer_exp"}
+    assert ov["parallel"] == curves["parallel"]
+    assert all(np.isfinite(m) for c in ov.values() for _, m in c)

@@ -189,9 +189,16 @@ def test_aperiodic_stream_mixes_like_jax(kind, jax_interpret):
 
 
 def test_later_slices_raise():
-    _, tree = _pair(4)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        TG.mix_shifts(tree, 0.5, [(1, 0.5)], compression="int8")
+    """int8 (slice C item 8) now mixes, bit for bit the reference's int8
+    round; an unknown wire format is a ValueError; mesh= (slice F) still
+    raises."""
+    jt, tree = _pair(4)
+    got = TG.mix_shifts(tree, 0.5, [(1, 0.5)], compression="int8")
+    want = JG.mix_shifts(jt, 0.5, [(1, 0.5)], compression="int8")
+    for k in got:
+        np.testing.assert_array_equal(_f32(got[k]), _f32(want[k]))
+    with pytest.raises(ValueError, match="unknown compression"):
+        TG.mix_shifts(tree, 0.5, [(1, 0.5)], compression="fp8")
     with pytest.raises(NotImplementedError, match="slice F"):
         TG.mix_matching(tree, (1, 0, 3, 2), mesh=object())
 

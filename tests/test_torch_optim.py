@@ -229,16 +229,23 @@ def test_uniform_one_peer_plan_matches_jax():
 
 
 def test_make_optimizer_refuses_later_slices():
-    """int8 (item 8) and overlap (item 10) stay refused; the runtime hooks
-    (item 9) build, for dmsgd and dsgd only, as in the reference."""
+    """int8 (item 8) and overlap (item 10) build for every optimizer whose
+    reference takes them; the runtime hooks (item 9) build, for dmsgd and
+    dsgd only, as in the reference."""
     top = TT.one_peer_exponential(4)
     jtop = JT.one_peer_exponential(4)
-    for kw in ({"compression": "int8"}, {"overlap": True}):
-        with pytest.raises(NotImplementedError, match="slice C"):
-            TO.make_optimizer("dmsgd", top, **kw)
-    for name in ("d_adamw", "vanilla_dmsgd", "dsgd"):
-        with pytest.raises(NotImplementedError, match="slice C"):
-            TO.make_optimizer(name, top, overlap=True)
+    for name in ("dmsgd", "dsgd", "vanilla_dmsgd", "qg_dmsgd", "d_adamw"):
+        for mod, t in ((TO, top), (JO, jtop)):
+            opt = mod.make_optimizer(name, t, compression="int8")
+            assert opt.compression == "int8" and not opt.overlap
+    for name in ("d_adamw", "vanilla_dmsgd", "dsgd", "dmsgd"):
+        opt = TO.make_optimizer(name, top, overlap=True)
+        assert opt.overlap and opt.compression is None
+        assert opt.overlap == JO.make_optimizer(name, jtop,
+                                                overlap=True).overlap
+    # parallel_msgd has no payload: compression is ignored, as there
+    assert TO.make_optimizer("parallel_msgd", top,
+                             compression="int8").compression is None
     for name in ("dmsgd", "dsgd"):
         for kw in ({"loss_aware": True}, {"deadline": True},
                    {"loss_aware": True, "deadline": True}):

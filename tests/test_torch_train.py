@@ -192,8 +192,15 @@ def test_cli_on_cpu(capsys, tmp_path):
     lines = [ln for ln in out.splitlines() if ln.startswith("step ")]
     assert len(lines) == 3
     assert "on cpu: 4 nodes, one_peer_exp, dmsgd; 2 executables" in out
-    with pytest.raises(NotImplementedError, match="slice C"):
-        TTrain.main(["--device", "cpu", "--steps", "1", "--overlap"])
+    # --overlap (refused before the pipeline was ported) trains: a prime,
+    # the two one-peer realizations in flight, and one flush executable
+    # for each realization the logged steps drained
+    TTrain.main(["--device", "cpu", "--nodes", "4", "--steps", "3",
+                 "--batch", "1", "--seq", "16", "--log-every", "1",
+                 "--overlap"])
+    out = capsys.readouterr().out
+    assert len([ln for ln in out.splitlines() if ln.startswith("step ")]) == 3
+    assert "one_peer_exp, dmsgd; 5 executables for 2 gossip" in out
     with pytest.raises(ValueError, match="--deadline-skip"):
         TTrain.main(["--device", "cpu", "--steps", "1",
                      "--straggler-prob", "0.25"])
