@@ -15,7 +15,9 @@ runtime-valued gossip (deadline gating, loss-aware weights), runs
 data-dependent skips, prints the paper's figures from the card, and
 trains full-width qwen3-0.6b with int8 gossip payloads and with the
 overlapped (one-step-delayed) pipeline, its delayed round on a side
-stream.
+stream, and runs full-width granite-moe-3b-a800m (the moe family): its
+prefill and paged decode through the flash- and paged-attention kernels,
+serving, generate, and training with the capacity dispatch.
 
   python3 chip_smoke.py [--seed N]
 
@@ -40,7 +42,10 @@ Phases, in order; any failure exits non-zero before the result lines:
                  max-abs), at mamba2-1.3b's (1, 2048, 64, 64, 1, 128) with
                  the test draw of A and the model's A range, and a ragged
                  s = 1000, g = 2; at zamba2's (2, 2048, 64, 64, 1, 64) with
-                 the model's A; K2 also at zamba2's (2, 2048, 32, 32, 64)),
+                 the model's A; K2 also at zamba2's (2, 2048, 32, 32, 64)
+                 and at granite-moe's prefill bucket (4, 512, 24, 8, 64),
+                 G 3; K3 also at granite-moe's decode step, B 8 at 257-288
+                 tokens, H 24, Kv 8, D 64: G 3 in groups of 4 rows),
                  timed with CUDA events beside
                  its plain version, the one PyTorch call computing the same
                  function (where there is one), and its bound on the card,
@@ -139,12 +144,32 @@ Phases, in order; any failure exits non-zero before the result lines:
                  to its sequential recursion; (d) dsgd(overlap=True) over
                  one_peer_exp(8), 2^20 + 3 f32 a node, zero gradients: a
                  period and the flush reach the node mean within 1e-6
+ 12. moe      -- full-width granite-moe-3b-a800m (32 layers, 40 experts
+                 top-8, f32 params, random weights from --seed), counters
+                 zeroed before and read after each run: (a) forward_prefill
+                 of 2 x 64 tokens and 4 paged decode steps in f32
+                 activations (32 K2 and 4 x 32 K3 launches) against the
+                 same with the plain attention on the card, and the decode
+                 logits against a prefill over the prompt and the fed
+                 tokens (dropless), each within 2e-2 x max-abs; (b) phase
+                 5's serve on this model (K2 32 per prefill call, K3 32 per
+                 decode step); (c) phase 5's dense generate checks on this
+                 model (fast against loop prefill, f32; one timed bf16
+                 generate); (d) launch.train.run at full width cut to 2
+                 layers (the depth reckoned from phase 6's peak per
+                 parameter, printed with the measured peak), 4 nodes,
+                 dmsgd over one_peer_exp, 2 x 128 tokens a node, 6 steps,
+                 the capacity dispatch: K1 once a step, no K2/K3; then K1
+                 at that run's payload (4 x 352 M f32, (m, x) packed)
+                 against its plain version at 1e-5, timed in turns with
+                 torch.lerp; the phase's runtime
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -185,6 +210,7 @@ SSD_RAGGED = (1, 1000, 64, 64, 2, 128)  # chunk 128 halves to 8
 SSD_FORWARD = (2, 2048, 64, 64, 1, 128)  # one layer of phase 7's forward
 SSD_HYBRID = (2, 2048, 64, 64, 1, 64)    # one layer of phase 8's forward
 FLASH_HYBRID = (2, 2048, 32, 32, 64)     # phase 8's shared block: G 1, D 64
+FLASH_MOE = (4, 512, 24, 8, 64)          # phase 12's prefill bucket: G 3, D 64
 # mamba2-1.3b at full width: the K4 forward against the plain chunked one,
 # and decode against forward, relative to the logits' max-abs.  Both are
 # held in f32 activations: with random weights the 48-layer bf16 forward
@@ -315,7 +341,8 @@ def flash_phase(torch, dev):
     for name, shape, seed, cases, plain_iters in (
             ("main", FLASH_MAIN, 1, ((None, None), (128, 50.0)), 5),
             ("long", FLASH_LONG, 11, ((None, None), (1000, 30.0)), 2),
-            ("hybrid", FLASH_HYBRID, 13, ((None, None),), 2)):
+            ("hybrid", FLASH_HYBRID, 13, ((None, None),), 2),
+            ("moe", FLASH_MOE, 17, ((None, None), (100, 30.0)), 5)):
         B, S, H, Kv, D = shape
         q, k, v = _flash_inputs(torch, dev, shape, torch.bfloat16, seed)
         for window, cap in cases:
@@ -380,7 +407,7 @@ def flash_phase(torch, dev):
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
             "max_abs_err": max(errs), **main, "long": rows["long"],
-            "hybrid": rows["hybrid"],
+            "hybrid": rows["hybrid"], "moe": rows["moe"],
             "f32": {"ms": f32_ms, "max_abs_err": f32_err,
                     "bound_ms": f32_bound, "bound_by": f32_by}}
 
@@ -391,8 +418,10 @@ def paged_phase(torch, dev):
     errs, rows = [], {}
     for name, cases in (("ragged", ((None, None), (256, 30.0))),
                         ("serve", ((None, None), (100, 30.0))),
-                        ("long", ((None, None), (3000, 30.0)))):
+                        ("long", ((None, None), (3000, 30.0))),
+                        ("moe", ((None, None), (100, 30.0)))):
         q, pools, tab, lens, ln = TP.inputs(dev, name)
+        h, kv, d = TP.heads(name)
         kp, vp = pools[0]
         for window, cap in cases:
             got = ops.paged_attention(q, kp, vp, tab, lens, window=window,
@@ -406,8 +435,8 @@ def paged_phase(torch, dev):
             check(within(got, want, KERNEL_TOL),
                   f"paged_attention {name} window={window} cap={cap}: max "
                   f"abs err {errs[-1]} beyond {KERNEL_TOL}")
-            log(f"  paged_attention {name}: B={len(ln)} H={TP.H} Kv={TP.KV} "
-                f"D={TP.D} page={TP.PAGE} Pmax={tab.shape[1]} lengths "
+            log(f"  paged_attention {name}: B={len(ln)} H={h} Kv={kv} "
+                f"D={d} page={TP.PAGE} Pmax={tab.shape[1]} lengths "
                 f"{ln.tolist() if len(ln) <= 8 else len(ln)} bf16 "
                 f"window={window} cap={cap}: max abs err {errs[-1]:.3g}")
         plain_ms = time_ms(lambda: ref.paged_attention_ref(q, kp, vp, tab,
@@ -435,7 +464,8 @@ def paged_phase(torch, dev):
             "shape": f"serve decode: B={main['B']} H={TP.H} Kv={TP.KV} "
                      f"D={TP.D} page={TP.PAGE} Pmax={main['pmax']} "
                      f"{main['visible']} visible tokens bf16, cold pool",
-            "ragged": rows["ragged"], "long": rows["long"]}
+            "ragged": rows["ragged"], "long": rows["long"],
+            "moe": rows["moe"]}
 
 
 def gossip_phase(torch, dev):
@@ -599,16 +629,16 @@ def ssd_phase(torch, dev):
 # ---------------------------------------------------------------------------
 
 def _prefill_decode(torch, M, cfg, model, tokens, table, device, steps, ps,
-                    fed=None):
+                    fed=None, pool_dtype=None):
     """forward_prefill of ``tokens``, its k/v scattered into a fresh page
-    pool through ``table`` (as the engine does), then ``steps`` paged decode
-    steps.  Feeds ``fed`` tokens, or the run's own greedy picks when None.
-    Returns the last-position logits of every step (f32, on the CPU) and
-    the tokens fed."""
+    pool (bf16 unless ``pool_dtype``) through ``table`` (as the engine
+    does), then ``steps`` paged decode steps.  Feeds ``fed`` tokens, or the
+    run's own greedy picks when None.  Returns the last-position logits of
+    every step (f32, on the CPU) and the tokens fed."""
     B, P = tokens.shape
     pool = {n: torch.zeros(cfg.n_layers, cfg.n_kv_heads,
                            1 + int(table.max()), ps, cfg.head_dim,
-                           dtype=torch.bfloat16, device=device)
+                           dtype=pool_dtype or torch.bfloat16, device=device)
             for n in ("k", "v")}
     tab = table.to(device)
     pos = torch.arange(P, device=device)
@@ -1986,6 +2016,165 @@ def pipeline_phase(torch, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: moe, the granite-moe-3b-a800m main path
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_PATH = (2, 64, 4)        # (a): prompts, prompt length, decode steps
+# (d) the depth cut, reckoned from phase 6's peak before the run: 51.85 GB
+# for 4 nodes x 281 M parameters (qwen3-0.6b at 8 layers) is ~46 bytes a
+# node's parameter (x, m, g, the next x and m, the packed payload, its
+# received copy and the mixed output, all f32)
+TRAIN_BYTES_PER_PARAM = 51.85e9 / (4 * 281e6)
+MOE_TRAIN_ARGV = ["--arch", MOE_ARCH, "--full", "--layers", "2",
+                  "--nodes", "4", "--topology", "one_peer_exp",
+                  "--optimizer", "dmsgd", "--beta", "0.9", "--batch", "2",
+                  "--seq", "128", "--steps", "6", "--hetero", "0.5",
+                  "--log-every", "1", "--device", "cuda"]
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """The model's attention calls K2's and K3's plain versions on the card
+    (``ref.attention_ref``, ``ref.paged_attention_ref``) in place of their
+    wrappers, for the comparison runs only; no kernel launches."""
+    import types
+
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.paged_attention import ref as pa_ref
+    from repro_torch.models import attention as A
+    saved = A.flash_ops, A.paged_ops
+    A.flash_ops = types.SimpleNamespace(flash_attention=fa_ref.attention_ref)
+    A.paged_ops = types.SimpleNamespace(
+        paged_attention=lambda q, kp, vp, *a, **kw: pa_ref.paged_attention_ref(
+            q, kp.to(q.dtype), vp.to(q.dtype), *a, **kw))
+    try:
+        yield
+    finally:
+        A.flash_ops, A.paged_ops = saved
+
+
+def _moe_path(torch, dev, cfg, params, seed):
+    """(a) A forward_prefill of 2 x 64 tokens and 4 paged decode steps in
+    f32 activations through K2 and K3, against the same with the plain
+    attention, and the decode logits against a prefill over the prompt
+    and the fed tokens (dropless both), each within 2e-2 x max-abs."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import model as M
+    B, P, steps = MOE_PATH
+    ps = 16
+    f32_cfg = dataclasses.replace(cfg, activation_dtype=torch.float32)
+    n_per = -(-(P + steps) // ps)
+    rng = np.random.default_rng(seed + 2)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P)))
+    table = torch.from_numpy(
+        (1 + rng.permutation(B * n_per)).reshape(B, n_per).astype(np.int32))
+    counters = _counters()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        kern, fed = _prefill_decode(torch, M, f32_cfg, params, tokens, table,
+                                    dev, steps, ps, pool_dtype=torch.float32)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        with _plain_attention():
+            plain, _ = _prefill_decode(torch, M, f32_cfg, params, tokens,
+                                       table, dev, steps, ps, fed=fed,
+                                       pool_dtype=torch.float32)
+        torch.cuda.synchronize()
+        check({c.__name__: c.launches for c in counters} == launches,
+              "moe: the plain attention launched a kernel")
+        whole = torch.cat([tokens] + [f.cpu() for f in fed], 1).to(dev)
+        full, _ = M.forward_prefill(params, f32_cfg, whole)
+        full = full[:, P - 1:].float().cpu().transpose(0, 1)
+    want = {"gossip_mix": 0, "flash_attention": cfg.n_layers,
+            "paged_attention": cfg.n_layers * steps, "ssd_scan": 0}
+    check(launches == want, f"moe: the path launched {launches}, expected "
+          f"{want}")
+    check(bool(torch.isfinite(kern).all()) and tuple(kern.shape) == (
+        steps + 1, B, cfg.vocab_size), f"moe: logits {tuple(kern.shape)}")
+    err, scale = _rel_err(kern, plain)
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"  (a) prefill {B} x {P} + {steps} paged decode steps, f32: "
+        f"launches {launches}; K2/K3 vs plain attention max abs err "
+        f"{err:.5g}, logits max-abs {scale:.5g}; tolerance {MODEL_TOL} x "
+        f"max-abs = {MODEL_TOL * scale:.5g}; greedy agreement {agree:.3f}")
+    check(err <= MODEL_TOL * scale,
+          f"moe: K2/K3 and plain attention differ by {err} > "
+          f"{MODEL_TOL * scale}")
+    d_err, d_scale = _rel_err(kern, full)
+    log(f"  (a) decode logits vs a prefill over the prompt and the fed "
+        f"tokens (dropless both): max abs err {d_err:.5g}, max-abs "
+        f"{d_scale:.5g}; tolerance {MODEL_TOL * d_scale:.5g}")
+    check(d_err <= MODEL_TOL * d_scale,
+          f"moe: decode vs prefill differ by {d_err} > {MODEL_TOL * d_scale}")
+    return {"max_abs_err": err, "decode_err": d_err}
+
+
+def moe_phase(torch, dev, seed):
+    """Phase 12: full-width granite-moe-3b-a800m: (a) the path check, (b)
+    serving phase 5's trace, (c) the ring-cache generate, (d) training."""
+    from repro_torch import configs
+    from repro_torch.core import flatbuf
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg = configs.get_config(MOE_ARCH)
+    params = M.init(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    n = M.param_count(params)
+    log(f"  init {cfg.name} ({n / 1e6:.1f} M params, "
+        f"{M.active_param_count(params, cfg) / 1e6:.1f} M active: "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"of {cfg.head_dim}, kv {cfg.n_kv_heads} (G "
+        f"{cfg.n_heads // cfg.n_kv_heads}), {cfg.n_experts} experts of d_ff "
+        f"{cfg.d_ff}, top-{cfg.top_k}; f32 params, "
+        f"{4 * n / 1e9:.2f} GB) on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    path = _moe_path(torch, dev, cfg, params, seed)
+    log("  (b) serve: phase 5's trace")
+    launches, per_call = serve_phase(torch, dev, cfg, params, seed)
+    log("  (c) generate")
+    gen = dense_generate_phase(torch, dev, cfg, params, seed)
+    args = T.parse_args(MOE_TRAIN_ARGV + ["--seed", str(seed)])
+    per_layer = sum(p.numel() for p in params.layers[0].parameters())
+    per_node = n - (cfg.n_layers - args.layers) * per_layer
+    del params
+    torch.cuda.empty_cache()
+
+    reckoned = TRAIN_BYTES_PER_PARAM * args.nodes * per_node / 1e9
+    log(f"  (d) train: {MOE_ARCH} at full width, depth cut to {args.layers} "
+        f"layers: {per_node / 1e6:.1f} M params a node x {args.nodes} "
+        f"nodes x {TRAIN_BYTES_PER_PARAM:.1f} bytes (phase 6's peak per "
+        f"parameter) = {reckoned:.1f} GB reckoned; {args.topology}, "
+        f"{args.optimizer} beta {args.beta}, batch {args.batch} x "
+        f"{args.seq} tokens a node, {args.steps} steps, capacity dispatch")
+    res, train = _train_run(torch, T, args, "(d) moe train")
+    log(f"  (d) peak allocated {train['peak_gb']:.3f} GB against "
+        f"{reckoned:.1f} GB reckoned")
+    # K1 at the moe payload: (m_next, x_next) packed, one f32 group, and
+    # the partner's copy that the next step's one-peer round receives
+    _, bufs = flatbuf.pack((res["state"].momentum, res["params"]))
+    check(len(bufs) == 1, f"(d) moe train: {len(bufs)} payload groups")
+    buf = bufs[0]
+    shift = res["plan"].realization(args.steps).shifts[0][0]
+    del bufs, res
+    recv = torch.roll(buf, shift, 0)
+    train["payload"] = _k1_at_payload(torch, buf, recv, "the moe payload")
+    del buf, recv
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"  phase 12 took {secs:.1f} s")
+    return {"path": path, "launches": launches, "per_call": per_call,
+            "generate_launches": gen["generate_launches"], "train": train,
+            "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2090,12 +2279,27 @@ def main() -> int:
     log("phase 11: int8 wire compression and the overlapped (delayed-mix) "
         "pipeline")
     pipe = pipeline_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    log("phase 12: moe (the granite-moe-3b-a800m main path)")
+    moe = moe_phase(torch, dev, args.seed)
     for k in kernels:
         if k["name"] in ("ssd_scan", "flash_attention"):
             k["hybrid_launches"] = hybrid["launches"][k["name"]]
             k["hybrid_launches_per_call"] = hybrid["per_call"][k["name"]]
         if k["name"] == "flash_attention":
             k["generate_launches"] = dense_gen["generate_launches"]
+        if k["name"] in ("flash_attention", "paged_attention"):
+            # phase 12's serve, K2 once a layer per prefill call and K3
+            # once a layer per decode step
+            k["moe_launches"] = moe["launches"][k["name"]]
+            k["moe_calls"] = moe["per_call"][k["name"]]
+        if k["name"] == "flash_attention":
+            k["moe_generate_launches"] = moe["generate_launches"]
+        if k["name"] == "gossip_mix":
+            k["moe_train_launches"] = moe["train"]["launches"]
+            k.update({f"moe_payload_{key}": v
+                      for key, v in moe["train"]["payload"].items()})
         if k["name"] == "ssd_scan":
             k["launches"] = ssm["launches"]
             k["launches_per_call"] = k["launches"] // ssm["forward_calls"]
@@ -2109,7 +2313,8 @@ def main() -> int:
                       for key, v in fam["payload"].items()})
             k["max_abs_err"] = max(k["max_abs_err"],
                                    train["train_payload_max_abs_err"],
-                                   fam["payload"]["max_abs_err"])
+                                   fam["payload"]["max_abs_err"],
+                                   moe["train"]["payload"]["max_abs_err"])
             k["train_families_launches"] = fam["launches"]
             k["runtime_phase_launches"] = rt["launches"]
             # the delayed round of the overlap pipeline combines through K1

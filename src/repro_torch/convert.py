@@ -4,7 +4,8 @@
 already a numpy array (``jax.tree.map(np.asarray, params)`` on the JAX
 side) and returns a ``state_dict`` for :class:`repro_torch.models.model.Model`.
 It unstacks the leading layer axis of ``tree["layers"]`` into the per-layer
-modules; every other leaf (``embed``, ``final_norm``, the hybrid family's
+modules (the moe family's (L, E, d, f) experts into (E, d, f) per layer);
+every other leaf (``embed``, ``final_norm``, the hybrid family's
 ``shared_attn.*``) keeps its dotted name.  ``stacked_from_jax(tree, cfg)`` does the same for a node-stacked
 tree (params or momentum: a leading node axis, then the layer axis of the
 layer leaves), giving the train path's ``{name: (n, ...)}`` dict, and
@@ -66,9 +67,12 @@ def _flatten(tree: dict, prefix: str = ""):
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
-    """JAX params (numpy leaves) of a dense, ssm or hybrid config ->
-    ``Model`` state_dict (``layers.attn.wq`` stacked on L -> ``layers.{i}.attn.wq``;
-    ``layers.mixer.in_proj`` -> ``layers.{i}.mixer.in_proj``)."""
+    """JAX params (numpy leaves) of a dense, moe, ssm or hybrid config ->
+    ``Model`` state_dict (``layers.attn.wq`` stacked on L ->
+    ``layers.{i}.attn.wq``; ``layers.mixer.in_proj`` ->
+    ``layers.{i}.mixer.in_proj``; the moe experts ``layers.moe.w_gate``
+    (L, E, d, f) -> ``layers.{i}.moe.w_gate`` (E, d, f)), each leaf in its
+    own dtype (the moe router stays f32 under bf16 expert weights)."""
     _check_family(cfg)
     sd: dict[str, torch.Tensor] = {}
     for name, leaf in _flatten({k: v for k, v in tree.items()

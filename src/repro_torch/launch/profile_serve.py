@@ -1,14 +1,21 @@
 """Where the serving path's time goes on the card.
 
-Serves full-width qwen3-0.6b (random weights from ``--seed``) through
+Serves a full-width model of a paged family (``--arch``: qwen3-0.6b by
+default, or granite-moe-3b-a800m, whose decode step runs the dropless
+experts; random weights from ``--seed``) through
 :class:`repro_torch.serve.ServeEngine` and traces, with ``torch.profiler``,
 one bucketed prefill and a steady window of batched decode steps.  For
 each it prints the host time per call (each ends in the engine's copy of
 the logits to the host, which waits for the card), the device time per
 call summed over kernels, the device's idle share, and the kernels that
-take the most device time.
+take the most device time.  For a model with experts it also traces one
+layer's dropless mixture (``moe_apply``) at the decode step's shape: its
+launches and device time, and the share of the weights' casts to the
+activation dtype.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--steps 8]
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch granite-moe-3b-a800m
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from .. import configs
 from ..device import resolve_device
 from ..models import model as M
+from ..models.moe import moe_apply
 from ..serve import ServeEngine, pages_needed
 
 
@@ -45,8 +53,41 @@ def report(name: str, prof, wall_s: float, calls: int, top: int) -> None:
               f"{e.count / calls:6.1f}x  {e.key[:90]}")
 
 
+def moe_layer(cfg, params, batch: int, calls: int, dev) -> None:
+    """One layer's dropless mixture at the decode step's shape (``batch``
+    tokens of one position): launches and device ms per call over
+    ``calls`` traced calls, and the share of the weights' casts."""
+    h = torch.randn(batch, 1, cfg.d_model, device=dev).to(
+        cfg.activation_dtype)
+    layer = params.layers[0].moe
+
+    def call():
+        return moe_apply(layer, h, n_experts=cfg.n_experts,
+                         top_k=cfg.top_k, dropless=True)
+
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    report(f"moe_apply, one layer's dropless experts ({batch} tokens)",
+           prof, wall, calls, 8)
+    casts = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "bfloat16_copy" in e.key)
+    print(f"  of it the casts to {cfg.activation_dtype} (the three expert "
+          f"stacks and the output): "
+          f"{casts / 1e3 / calls:.4f} ms/call")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=256)
@@ -58,7 +99,7 @@ def main(argv=None) -> None:
     if dev.type != "cuda":
         raise SystemExit("profile_serve measures the card: run it on one")
 
-    cfg = configs.get_config("qwen3-0.6b")
+    cfg = configs.get_config(args.arch)
     params = M.init(cfg, args.seed, device=dev)
     max_seq = 2 * args.prompt + 4 * args.steps
     engine = ServeEngine(cfg, params, max_batch=args.batch, page_size=16,
@@ -94,6 +135,8 @@ def main(argv=None) -> None:
         wall = time.perf_counter() - t0
     report(f"decode step (batch {len(engine.sched.running)})", prof, wall,
             args.steps, args.top)
+    if cfg.n_experts:
+        moe_layer(cfg, params, len(engine.sched.running), args.steps, dev)
 
     tokens = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (1, args.prompt)), device=dev)

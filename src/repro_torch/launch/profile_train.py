@@ -5,7 +5,9 @@ cut (``--layers``, 8 by default: the 28-layer 4-node state does not fit
 in 80 GB) on ``--nodes`` stacked nodes with ``--optimizer`` (dmsgd) over
 ``--topology`` (the one-peer exponential graph), as ``chip_smoke.py``
 phase 6 does (phase 9: ``--arch mamba2-1.3b --layers 4 --optimizer
-d_adamw --topology random_match``), and traces a steady window of steps
+d_adamw --topology random_match``; phase 12: ``--arch
+granite-moe-3b-a800m --layers 2``, the experts by capacity dispatch),
+and traces a steady window of steps
 with ``torch.profiler``.  Prints the first steps' times (the warm-up), the
 untraced step time, then for the traced window the host and device time
 per step, the device's idle share, the kernels that take the most device

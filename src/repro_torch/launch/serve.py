@@ -10,8 +10,8 @@ statistics.  It serves the REDUCED config, as the JAX CLI does; the
 full-width path is driven by ``chip_smoke.py``.
 
 :func:`generate` is the reference's legacy one-batch loop over
-``models.model.decode_step``: the serving baseline of the dense family
-(a fast prefill, one ``forward_prefill`` through the flash-attention
+``models.model.decode_step``: the serving baseline of the dense and moe
+families (a fast prefill, one ``forward_prefill`` through the flash-attention
 kernel whose k/v fill a ring cache, then ``attn_decode`` per token), and
 the way the families the paged engine refuses are served (ssm and hybrid
 prefill and decode token by token over their SSM caches and, for hybrid,
@@ -30,6 +30,8 @@ families only):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch granite-moe-3b-a800m       # the experts dropless
 """
 from __future__ import annotations
 

@@ -8,6 +8,7 @@ node axis of size ``n``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -25,8 +26,13 @@ AUX_WEIGHT = 0.01     # the MoE aux loss's weight (zero aux for dense)
 def train_loss_fn(params, cfg: M.ModelConfig, tokens):
     """Next-token CE in f32 against ``roll(tokens, -1)`` -- the last
     position's label wraps to the first token, as in the reference -- plus
-    the (dense: zero) aux loss.  ``params`` is a ``Model`` or a
-    :func:`~repro_torch.models.model.params_view`."""
+    ``AUX_WEIGHT`` times the moe load-balance loss (zero for the other
+    families).  The experts train with the capacity dispatch: as in the
+    reference, ``moe_dropless`` is turned off for the loss (the dropless
+    mixture is the serving and eval path).  ``params`` is a ``Model`` or
+    a :func:`~repro_torch.models.model.params_view`."""
+    if cfg.n_experts and cfg.moe_dropless:
+        cfg = dataclasses.replace(cfg, moe_dropless=False)
     logits, aux = M.forward(params, cfg, tokens)
     labels = torch.roll(tokens, -1, 1).long()
     lo = logits.float()

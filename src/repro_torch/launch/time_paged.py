@@ -1,13 +1,17 @@
-"""Times K3 (``kernels/paged_attention``) on the card at three shapes, with
+"""Times K3 (``kernels/paged_attention``) on the card at four shapes, with
 the page pool cold as the serving path finds it.
 
-Shapes (bf16, qwen3-0.6b's heads: H 16, Kv 8, D 128, page 16):
+Shapes (bf16, page 16; qwen3-0.6b's heads H 16, Kv 8, D 128 but where
+named):
 
   ragged  8 sequences of random lengths up to 1,024 (one at 1,024, one a
           trash-padded row of length 1), Pmax 64: ``chip_smoke.py``'s
   serve   8 sequences of 257-288 tokens, Pmax 32: a decode step of the
           serve phase (256-token prompts, 32 new tokens)
   long    one sequence of 8,192 tokens, Pmax 512
+  moe     serve's lengths at granite-moe-3b-a800m's heads, H 24, Kv 8,
+          D 64: G 3, so each block's group of GT 4 query rows has one
+          idle row (phase 12's decode step)
 
 Each is timed from CUDA-graph replays (no host launch cost between calls)
 cycling over at least four copies of the pool, more than 50 MB together,
@@ -35,6 +39,12 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
 PEAK_F32_FLOPS = 67e12   # the kernel's f32 arithmetic, outside tensor cores
 COLD_BYTES = 60e6        # the pool copies together: beyond the 50 MB L2
 H, KV, D, PAGE = 16, 8, 128, 16
+SHAPES = ("ragged", "serve", "long", "moe")
+
+
+def heads(name: str) -> tuple[int, int, int]:
+    """(H, Kv, D) of shape ``name``."""
+    return (24, 8, 64) if name == "moe" else (H, KV, D)
 
 
 def lengths(name: str) -> tuple[np.ndarray, int]:
@@ -44,7 +54,7 @@ def lengths(name: str) -> tuple[np.ndarray, int]:
         ln = np.random.default_rng(2).integers(1, pmax * PAGE + 1, 8)
         ln[0], ln[-1] = pmax * PAGE, 1
         return ln, pmax
-    if name == "serve":
+    if name in ("serve", "moe"):
         return np.random.default_rng(3).integers(257, 289, 8), 32
     if name == "long":
         return np.array([8192]), 512
@@ -57,6 +67,7 @@ def inputs(dev, name: str, copies: int = 1, dtype=torch.bfloat16):
     the pool in a random order; a row of length 1 at the end of a ragged
     batch reads the trash page 0, as a padded bucket row does."""
     ln, pmax = lengths(name)
+    h, kv, d = heads(name)
     B = len(ln)
     per_seq = -(-ln // PAGE)
     trash_row = name == "ragged"
@@ -69,26 +80,29 @@ def inputs(dev, name: str, copies: int = 1, dtype=torch.bfloat16):
         table[b, :per_seq[b]] = order[at:at + per_seq[b]]
         at += per_seq[b]
     g = torch.Generator(device=dev).manual_seed(3)
-    q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
-    kp, vp = (torch.randn(KV, n_pages, PAGE, D, generator=g, device=dev)
+    q = torch.randn(B, h, d, generator=g, device=dev).to(dtype)
+    kp, vp = (torch.randn(kv, n_pages, PAGE, d, generator=g, device=dev)
               .to(dtype) for _ in range(2))
     pools = [(kp, vp)] + [(kp.clone(), vp.clone()) for _ in range(copies - 1)]
     return (q, pools, torch.from_numpy(table).to(dev),
             torch.from_numpy(ln.astype(np.int32)).to(dev), ln)
 
 
-def cost(ln: np.ndarray, pmax: int, elem: int = 2) -> tuple[int, int]:
+def cost(ln: np.ndarray, pmax: int, elem: int = 2,
+         hkd: tuple = (H, KV, D)) -> tuple[int, int]:
     """Operations and bytes one call needs: 4 H D flops per visible token
     (q.k and p.v for the G rows of each kv head); K and V of the visible
     tokens once, q and out, the page table and the lengths."""
+    h, kv, d = hkd
     visible, B = int(ln.sum()), len(ln)
-    return (4 * H * D * visible,
-            2 * visible * KV * D * elem + 2 * B * H * D * elem
+    return (4 * h * d * visible,
+            2 * visible * kv * d * elem + 2 * B * h * d * elem
             + 4 * (B * pmax + B))
 
 
-def bound_ms(ln: np.ndarray, pmax: int) -> tuple[float, str]:
-    flops, nbytes = cost(ln, pmax)
+def bound_ms(ln: np.ndarray, pmax: int,
+             hkd: tuple = (H, KV, D)) -> tuple[float, str]:
+    flops, nbytes = cost(ln, pmax, hkd=hkd)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
@@ -109,7 +123,8 @@ def _events_ms(fn, reps: int) -> float:
 def time_shape(dev, name: str) -> dict:
     """Graph-replay and eager ms per call at shape ``name``, cold pool."""
     ln, pmax = lengths(name)
-    copy_bytes = 2 * KV * (1 + int((-(-ln // PAGE)).sum())) * PAGE * D * 2
+    _, kv, d = hkd = heads(name)
+    copy_bytes = 2 * kv * (1 + int((-(-ln // PAGE)).sum())) * PAGE * d * 2
     copies = max(4, -(-int(COLD_BYTES) // copy_bytes))
     q, pools, table, lens, _ = inputs(dev, name, copies)
     calls = copies * max(1, 32 // copies)
@@ -129,9 +144,9 @@ def time_shape(dev, name: str) -> dict:
     graph_ms = _events_ms(graph.replay, 5) / calls
     del graph
     eager_ms = _events_ms(run_all, 3) / calls
-    b_ms, by = bound_ms(ln, pmax)
-    _, nbytes = cost(ln, pmax)
-    return {"shape": name, "B": len(ln), "pmax": pmax,
+    b_ms, by = bound_ms(ln, pmax, hkd)
+    _, nbytes = cost(ln, pmax, hkd=hkd)
+    return {"shape": name, "B": len(ln), "pmax": pmax, "heads": hkd,
             "visible": int(ln.sum()), "copies": copies,
             "pool_mb": copies * copy_bytes / 1e6, "ms": graph_ms,
             "eager_ms": eager_ms, "bound_ms": b_ms, "bound_by": by,
@@ -147,10 +162,11 @@ def main() -> None:
                          text=True).stdout.strip()
     print(f"{smi}; paged_attention from {ops.__file__}", flush=True)
     rows = []
-    for name in ("ragged", "serve", "long"):
+    for name in SHAPES:
         r = time_shape(dev, name)
         rows.append(r)
-        print(f"  {name}: B={r['B']} Pmax={r['pmax']} {r['visible']} "
+        print(f"  {name}: B={r['B']} (H, Kv, D)={r['heads']} "
+              f"Pmax={r['pmax']} {r['visible']} "
               f"visible tokens, {r['copies']} pool copies "
               f"({r['pool_mb']:.1f} MB): graph {r['ms']:.4f} ms "
               f"({r['gbps']:.1f} GB/s, {100 * r['bound_share']:.1f} % of "

@@ -2,7 +2,7 @@
 
 The port of the JAX package's ``launch/train.py``: DmSGD (or a variant:
 dsgd, vanilla_dmsgd, qg_dmsgd, parallel_msgd, d_adamw) over any topology
-(aperiodic ones too: random_match), for the dense, ssm and hybrid
+(aperiodic ones too: random_match), for the dense, moe, ssm and hybrid
 families, with the n nodes stacked on the leading axis of every tensor
 on one device.  Runs on the card by default
 (``--device cuda`` raises without one); ``--device cpu`` runs the plain

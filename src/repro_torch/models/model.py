@@ -1,10 +1,11 @@
-"""Decoder-only model composer (dense, ssm and hybrid families).
+"""Decoder-only model composer (dense, moe, ssm and hybrid families).
 
 Mirrors the JAX package's ``models/model.py``.  ``ModelConfig`` is the
 same dataclass with torch dtypes, so every arch config copies across; the
-model itself runs three families and raises ``NotImplementedError`` for
-the others (moe, vlm, audio), naming their ROADMAP items:
+model itself runs four families and raises ``NotImplementedError`` for
+the others (vlm, audio), naming their ROADMAP items:
   dense   -- [attn + mlp] x L      (llama / qwen / gemma / deepseek)
+  moe     -- [attn + moe_ffn] x L  (granite-moe, dbrx)
   ssm     -- [mamba2] x L          (mamba2; attention-free)
   hybrid  -- mamba2 x L with ONE shared attn + mlp block applied after
              every ``shared_attn_every`` mamba layers to concat(hidden,
@@ -12,15 +13,17 @@ the others (moe, vlm, audio), naming their ROADMAP items:
 
 Parameters live in an ``nn.Module`` whose names follow the JAX dict keys
 (``embed``, ``layers.{i}.attn.wq``, ``layers.{i}.ln1.scale``,
-``layers.{i}.mixer.in_proj``, ``shared_attn.in_proj``,
-``final_norm.scale``, ...) in the JAX layout; the layer ``scan`` of the
-reference becomes a Python loop over a ``ModuleList``, so each layer's
-window is a plain ``int | None``.
+``layers.{i}.mixer.in_proj``, ``layers.{i}.moe.w_gate``,
+``shared_attn.in_proj``, ``final_norm.scale``, ...) in the JAX layout;
+the layer ``scan`` of the reference becomes a Python loop over a
+``ModuleList``, so each layer's window is a plain ``int | None``.
 
 Entry points (the JAX signatures, with the module in place of the
 params pytree):
   init(cfg, seed, device)                             -> Model
   forward(params, cfg, tokens)                        -> logits, aux
+                                          (aux: the moe layers' summed
+                                           load-balance loss, else 0)
   forward_prefill(params, cfg, tokens)                -> logits, (k, v)
   decode_step_paged(params, cfg, token, pool, ...)    -> logits, pool
   init_cache(cfg, batch, cache_len, dtype, device)    -> cache
@@ -45,6 +48,12 @@ flash-attention kernel.  The ssm and hybrid ``forward`` read
 forward-only SSD-scan kernel (and, in the hybrid shared block, the
 flash-attention kernel), anything else the plain chunked scan and
 attention.
+
+The moe family's FFN is :func:`repro_torch.models.moe.moe_apply`:
+``forward`` and ``forward_prefill`` dispatch as ``cfg.moe_dropless`` says
+(the train loss turns it off for the capacity dispatch), and both decodes
+are always dropless, as the reference's, so a token's logits never depend
+on its co-batched requests.
 """
 from __future__ import annotations
 
@@ -59,17 +68,18 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from . import attention as attn
 from . import mamba2 as m2
+from .moe import MoE, moe_apply
 from .layers import MLP, RMSNorm, dense_init, mlp_apply, rms_norm, softcap
 
 __all__ = ["ModelConfig", "Model", "init", "forward", "forward_prefill",
            "decode_step_paged", "init_cache", "decode_step", "param_count",
-           "params_view", "SUPPORTED_FAMILIES", "PAGED_FAMILIES"]
+           "active_param_count", "params_view", "SUPPORTED_FAMILIES",
+           "PAGED_FAMILIES"]
 
 # families this package runs so far; the others are later slices of the
 # port, named by their ROADMAP items
-SUPPORTED_FAMILIES = ("dense", "ssm", "hybrid")
-_LATER = {"moe": "ROADMAP slice E item 11 and slice D item 16",
-          "audio": "ROADMAP slice E item 13 and slice D item 16",
+SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_LATER = {"audio": "ROADMAP slice E item 13 and slice D item 16",
           "vlm": "ROADMAP slice E item 13"}
 # families whose decode state is a uniform per-layer self-attention KV --
 # the ones the paged serving plane supports (the reference's list)
@@ -162,7 +172,15 @@ def _check_paged(cfg: ModelConfig) -> None:
 # Parameters
 # ---------------------------------------------------------------------------
 
+def _has_moe(cfg: ModelConfig) -> bool:
+    """Whether an [attn + ffn] layer holds experts (the reference's
+    condition, ``_dense_layer_init``)."""
+    return cfg.family == "moe" or bool(cfg.n_experts and cfg.top_k)
+
+
 class DenseLayer(nn.Module):
+    """[attn + mlp], or [attn + moe] where :func:`_has_moe`."""
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         dt = cfg.param_dtype
@@ -170,7 +188,10 @@ class DenseLayer(nn.Module):
         self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim, cfg.qk_norm, dt, device)
         self.ln2 = RMSNorm(cfg.d_model, dt, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+        if _has_moe(cfg):
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, dt, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
 
 class MambaLayer(nn.Module):
@@ -197,8 +218,8 @@ class SharedBlock(DenseLayer):
 
 
 class Model(nn.Module):
-    """The parameters of a dense, ssm or hybrid decoder, allocated but not
-    initialised (see :func:`init`, or ``load_state_dict`` of
+    """The parameters of a dense, moe, ssm or hybrid decoder, allocated but
+    not initialised (see :func:`init`, or ``load_state_dict`` of
     :func:`repro_torch.convert.params_from_jax`)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
@@ -211,7 +232,8 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(
                 cfg.d_model, cfg.vocab_size, dtype=dt, device=device))
-        layer = DenseLayer if cfg.family == "dense" else MambaLayer
+        layer = (DenseLayer if cfg.family in ("dense", "moe")
+                 else MambaLayer)
         self.layers = nn.ModuleList(layer(cfg, device)
                                     for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
@@ -223,9 +245,11 @@ class Model(nn.Module):
 def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device``, with the values of the reference's init (not its random
-    stream): truncated normals at fan_in^-0.5 (embed: d_model^-0.5; the
-    mamba conv_w: d_conv^-0.5; the hybrid ``shared_attn.in_proj``: fan_in
-    2 d_model), norm scales zero, and the mamba mixer's
+    stream): truncated normals at fan_in^-0.5, fan_in = ``shape[-2]`` (embed:
+    d_model^-0.5; the mamba conv_w: d_conv^-0.5; the hybrid
+    ``shared_attn.in_proj``: fan_in 2 d_model; the moe experts (E, d, f)
+    and (E, f, d): d and f; the moe router, always f32: d_model), norm
+    scales zero, and the mamba mixer's
     deterministic leaves A_log = log(linspace(1, 16, H)), dt_bias = 0,
     D = 1, conv_b = 0."""
     model = Model(cfg, device=device)
@@ -250,6 +274,21 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
 
 def param_count(params: Model) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+def active_param_count(params: Model, cfg: ModelConfig) -> int:
+    """MoE: count only top_k / n_experts of the layers' expert weights (for
+    MODEL_FLOPS), as the reference does on each layer-stacked leaf."""
+    total = param_count(params)
+    if not cfg.n_experts:
+        return total
+    inactive = 0
+    for name in ("w_gate", "w_up", "w_down"):
+        stacked = sum(p.numel() for n, p in params.named_parameters()
+                      if n.startswith("layers.")
+                      and n.endswith(f".moe.{name}"))
+        inactive += stacked * (cfg.n_experts - cfg.top_k) // cfg.n_experts
+    return total - inactive
 
 
 def params_view(flat: dict[str, torch.Tensor]):
@@ -285,11 +324,26 @@ def _effective_window(cfg: ModelConfig, layer: int) -> int | None:
     return cfg.window_for(layer % 2 == 0)
 
 
+def _ffn(cfg: ModelConfig, p: DenseLayer, h, dropless: bool, aux):
+    """The layer's FFN on the normed activations: the MLP, or the experts
+    (dispatched dropless or by capacity).  Returns (out, aux plus the
+    experts' load-balance loss); the MLP passes ``aux`` through."""
+    if _has_moe(cfg):
+        out, aux_l = moe_apply(p.moe, h, n_experts=cfg.n_experts,
+                               top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor,
+                               dropless=dropless)
+        return out, aux + aux_l
+    return mlp_apply(p.mlp, h, cfg.mlp_kind), aux
+
+
 def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
-                 prefill=False):
-    """One [attn + mlp] layer.  ``prefill`` (serving) runs the attention
-    kernel and also returns the layer's (k, v); otherwise (train/eval) the
-    plain attention, which autograd differentiates."""
+                 aux, prefill=False):
+    """One [attn + ffn] layer -> (x, aux plus the layer's load-balance loss,
+    kv).  With ``prefill`` (serving)
+    the attention kernel runs and kv is the layer's (k, v); otherwise
+    (train/eval) the plain attention, which autograd differentiates, and kv
+    is None.  The experts dispatch as ``cfg.moe_dropless`` says."""
     h = rms_norm(p.ln1.scale, x, cfg.norm_eps)
     out = attn.attn_apply(
         p.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -299,9 +353,9 @@ def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
         return_kv=prefill, kernel=prefill)
     h, kv = (out[0], out[1:]) if prefill else (out, None)
     x = x + h
-    h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
-    x = x + mlp_apply(p.mlp, h, cfg.mlp_kind)
-    return (x, kv) if prefill else x
+    h, aux = _ffn(cfg, p, rms_norm(p.ln2.scale, x, cfg.norm_eps),
+                  cfg.moe_dropless, aux)
+    return x + h, aux, kv
 
 
 def _mamba_block(cfg: ModelConfig, p: MambaLayer, x):
@@ -323,12 +377,13 @@ def _attn_kw(cfg: ModelConfig) -> dict:
 
 
 def _attn_mlp(cfg: ModelConfig, p: DenseLayer, x, attend):
-    """Pre-norm residual attention then MLP: ``attend`` maps the normed
+    """Pre-norm residual attention then FFN: ``attend`` maps the normed
     activations to the attention's output (a full sequence or one decode
-    token)."""
+    token).  The experts, where the layer has them, run dropless: the
+    decodes' and the shared block's path."""
     x = x + attend(rms_norm(p.ln1.scale, x, cfg.norm_eps))
     h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
-    return x + mlp_apply(p.mlp, h, cfg.mlp_kind)
+    return x + _ffn(cfg, p, h, dropless=True, aux=0.0)[0]
 
 
 def _shared_block(cfg: ModelConfig, p: SharedBlock, x, x0, attend):
@@ -360,9 +415,9 @@ def _default_positions(tokens):
 
 def forward(params: Model, cfg: ModelConfig, tokens, *, positions=None):
     """Train / eval forward.  tokens: (B, S) int.  Returns logits (B, S, V)
-    and a scalar aux loss (zero for the dense, ssm and hybrid families)."""
-    logits, _ = _forward(params, cfg, tokens, positions, prefill=False)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    and the f32 scalar aux loss: the moe layers' load-balance losses summed
+    (zero for the dense, ssm and hybrid families)."""
+    return _forward(params, cfg, tokens, positions, prefill=False)
 
 
 def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
@@ -382,20 +437,25 @@ def _forward(params, cfg, tokens, positions, prefill):
     if positions is None:
         positions = _default_positions(tokens)
     remat = cfg.remat and not prefill and torch.is_grad_enabled()
+
+    def run(block, *args):
+        return (checkpoint(block, *args, use_reentrant=False) if remat
+                else block(*args))
+
     every = cfg.shared_attn_every
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for i, layer in enumerate(params.layers):
         if prefill:
-            x, (k, v) = _dense_block(cfg, layer, x, positions, i,
-                                     prefill=True)
+            x, aux, (k, v) = _dense_block(cfg, layer, x, positions, i,
+                                          aux, prefill=True)
             ks.append(k)
             vs.append(v)
             continue
-        block, args = ((_dense_block, (cfg, layer, x, positions, i))
-                       if cfg.family == "dense" else
-                       (_mamba_block, (cfg, layer, x)))
-        x = (checkpoint(block, *args, use_reentrant=False) if remat
-             else block(*args))
+        if cfg.family in ("dense", "moe"):
+            x, aux, _ = run(_dense_block, cfg, layer, x, positions, i, aux)
+        else:
+            x = run(_mamba_block, cfg, layer, x)
         if cfg.family == "hybrid" and (i + 1) % every == 0:
             # after each group of `every` mamba layers (none after the
             # L % every tail); remat covers the mamba layers only, as the
@@ -409,7 +469,7 @@ def _forward(params, cfg, tokens, positions, prefill):
     logits = _lm_head(params, cfg, x)
     if prefill:
         return logits, (torch.stack(ks), torch.stack(vs))
-    return logits, None
+    return logits, aux
 
 
 def _lm_head(params: Model, cfg: ModelConfig, x):
@@ -432,7 +492,8 @@ def decode_step_paged(params: Model, cfg: ModelConfig, token, pool,
     OWN absolute position.  pool: ``{"k", "v"}`` shaped (L, Kv, n_pages,
     page_size, hd); page_table: (B, Pmax) int32.  The new k/v are written
     into ``pool`` in place; returns (logits, pool).  Uniform-attention
-    families only (:data:`PAGED_FAMILIES`).
+    families only (:data:`PAGED_FAMILIES`); the experts run dropless
+    whatever ``cfg.moe_dropless`` is.
     """
     _check_paged(cfg)
     x = _embed_tokens(params, cfg, token)
@@ -449,7 +510,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, *, device="cuda") -> dict:
     """Stacked decode caches, as the reference's ``init_cache``:
 
-    - dense: ``{"kv": KVCache}``, k and v (L, B, Kv, cache_len, hd);
+    - dense and moe: ``{"kv": KVCache}``, k and v (L, B, Kv, cache_len,
+      hd);
     - ssm: ``{"ssm": SSMCache}``, conv (L, B, d_conv-1, conv_dim) and
       state (L, B, H, P, N) in float32 (``cache_len`` is unused);
     - hybrid: both, the ``KVCache`` as ``"shared_kv"`` with one ring per
@@ -465,7 +527,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                                   cfg.head_dim, dtype, stack=(n,),
                                   device=device)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {"kv": kv(cfg.n_layers)}
     d_inner = cfg.ssm_expand * cfg.d_model
     conv_dim = d_inner + 2 * cfg.ssm_n_groups * cfg.d_state
@@ -498,12 +560,13 @@ def decode_step(params: Model, cfg: ModelConfig, token, cache: dict,
     """One-token decode.  token: (B, 1) int; idx: the token's absolute
     position (a Python int; the ssm family ignores it).  Returns (logits
     (B, 1, V), cache); the cache's tensors are updated in place, as
-    ``decode_step_paged`` updates its pool.  Dense layers attend over
-    their own ring (each with its static window); the hybrid shared
-    block's g-th application over ``shared_kv[g]``."""
+    ``decode_step_paged`` updates its pool.  Dense and moe layers attend
+    over their own ring (each with its static window; the experts always
+    dropless); the hybrid shared block's g-th application over
+    ``shared_kv[g]``."""
     _check_family(cfg)
     x = _embed_tokens(params, cfg, token)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         kv = cache["kv"]
         for i, p in enumerate(params.layers):
             x = _attn_mlp(cfg, p, x, lambda h: attn.attn_decode(

@@ -119,6 +119,16 @@ def test_flash_attention_kernel_serving_bucket(cuda):
     _flash_check(q, k, v, torch.bfloat16)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,cap", [(None, None), (100, 30.0)])
+def test_flash_attention_kernel_moe_prefill_bucket(cuda, window, cap,
+                                                   dtype):
+    """granite-moe-3b-a800m's prefill bucket, (4, 512, 24, 8, 64): G 3,
+    the odd-G path (two 64-row tiles of one head a block) at D 64."""
+    q, k, v = _qkv(4, 512, 512, 24, 8, 64, dtype, cuda, 24)
+    _flash_check(q, k, v, dtype, window=window, attn_cap=cap)
+
+
 def test_flash_attention_kernel_rejects(cuda):
     q = torch.zeros(1, 64, 2, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -209,6 +219,18 @@ def test_paged_attention_kernel_gqa_widths(cuda, G, D, dtype):
                                     cuda, seed=G + D)
     table[1] = 0                     # trash-padded row
     _paged_check(q, kp, vp, table, lens, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,cap", [(None, None), (100, 30.0)])
+def test_paged_attention_kernel_moe_decode(cuda, window, cap, dtype):
+    """granite-moe-3b-a800m's decode step: B 8 at 257-288 tokens, Pmax
+    32, H 24, Kv 8, D 64.  G 3 runs in groups of GT 4 rows, so every
+    block has a partial group (3 live rows of 4)."""
+    lengths = np.random.default_rng(3).integers(257, 289, 8).tolist()
+    q, kp, vp, table, lens = _pages(8, 24, 8, 64, 16, lengths, dtype, cuda,
+                                    seed=29)
+    _paged_check(q, kp, vp, table, lens, dtype, window=window, attn_cap=cap)
 
 
 @pytest.mark.parametrize("page_size", [1, 4, 8, 32, 256])

@@ -39,7 +39,8 @@ def _cfgs(arch):
     return jcfg, tcfg
 
 
-@pytest.fixture(scope="module", params=["qwen3-0.6b", "gemma2-27b"])
+@pytest.fixture(scope="module", params=["qwen3-0.6b", "gemma2-27b",
+                                        "granite-moe-3b-a800m"])
 def pair(request):
     jcfg, tcfg = _cfgs(request.param)
     jparams = JM.init(jcfg, jax.random.key(0))

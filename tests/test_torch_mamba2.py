@@ -367,8 +367,8 @@ def test_serving_entry_points_refuse_ssm_and_dense_decode_raises():
     """The refusals that remain: the paged serving entry points refuse the
     ssm and hybrid families (served by generate), and decode_step refuses
     the families not yet ported, naming their ROADMAP items.  (The dense
-    ring-cache decode this test once saw refused now runs:
-    tests/test_torch_generate.py.)"""
+    and moe ring-cache decodes this test once saw refused now run:
+    tests/test_torch_generate.py, tests/test_torch_moe.py.)"""
     tok = torch.zeros((1, 4), dtype=torch.long)
     from repro_torch.serve import ServeEngine
     for arch in ("mamba2-1.3b", "zamba2-1.2b"):
@@ -378,15 +378,15 @@ def test_serving_entry_points_refuse_ssm_and_dense_decode_raises():
             TM.forward_prefill(model, cfg, tok)
         with pytest.raises(NotImplementedError, match="paged"):
             ServeEngine(cfg, model, n_pages=8, device="cpu")
-    for arch, item in (("granite-moe-3b-a800m", "item 11"),
-                       ("musicgen-large", "item 13"),
+    for arch, item in (("musicgen-large", "item 13"),
                        ("llama-3.2-vision-90b", "item 13")):
         cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
         with pytest.raises(NotImplementedError, match=item):
             TM.decode_step(None, cfg, tok[:, :1], {}, 0)
         with pytest.raises(NotImplementedError, match=item):
             TM.init_cache(cfg, batch=1, cache_len=8, device="cpu")
-    dense = tconfigs.reduced_config(tconfigs.get_config("qwen3-0.6b"))
-    cache = TM.init_cache(dense, batch=1, cache_len=8, device="cpu")
-    assert tuple(cache["kv"].k.shape) == (dense.n_layers, 1,
-                                          dense.n_kv_heads, 8, dense.head_dim)
+    for arch in ("qwen3-0.6b", "granite-moe-3b-a800m"):
+        dense = tconfigs.reduced_config(tconfigs.get_config(arch))
+        cache = TM.init_cache(dense, batch=1, cache_len=8, device="cpu")
+        assert tuple(cache["kv"].k.shape) == (
+            dense.n_layers, 1, dense.n_kv_heads, 8, dense.head_dim)

@@ -145,6 +145,6 @@ def test_prefill_and_paged_decode_match_jax(jax_setup, act):
 
 
 def test_unsupported_family_raises():
-    cfg = tconfigs.reduced_config(tconfigs.get_config("granite-moe-3b-a800m"))
+    cfg = tconfigs.reduced_config(tconfigs.get_config("musicgen-large"))
     with pytest.raises(NotImplementedError):
         TM.init(cfg, 0, device="cpu")
