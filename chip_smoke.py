@@ -17,7 +17,12 @@ trains full-width qwen3-0.6b with int8 gossip payloads and with the
 overlapped (one-step-delayed) pipeline, its delayed round on a side
 stream, and runs full-width granite-moe-3b-a800m (the moe family): its
 prefill and paged decode through the flash- and paged-attention kernels,
-serving, generate, and training with the capacity dispatch.
+serving, generate, and training with the capacity dispatch, then
+full-width musicgen-large (the audio family, frames of 4 codes) through
+the same kernels, serving, generate and training, and
+llama-3.2-vision-90b (the vlm family) cut to one group at full width: its
+forward, decode and generate over image embeddings, and training at the
+reduced width.
 
   python3 chip_smoke.py [--seed N]
 
@@ -44,8 +49,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                  s = 1000, g = 2; at zamba2's (2, 2048, 64, 64, 1, 64) with
                  the model's A; K2 also at zamba2's (2, 2048, 32, 32, 64)
                  and at granite-moe's prefill bucket (4, 512, 24, 8, 64),
-                 G 3; K3 also at granite-moe's decode step, B 8 at 257-288
-                 tokens, H 24, Kv 8, D 64: G 3 in groups of 4 rows),
+                 G 3, and musicgen's (4, 512, 32, 32, 64), G 1, its
+                 kernel / sdpa printed beside zamba2's; K3 also at
+                 granite-moe's decode step, B 8 at 257-288 tokens, H 24,
+                 Kv 8, D 64: G 3 in groups of 4 rows, and at musicgen's,
+                 H 32, Kv 32, D 64: G 1, one row a group),
                  timed with CUDA events beside
                  its plain version, the one PyTorch call computing the same
                  function (where there is one), and its bound on the card,
@@ -163,6 +171,36 @@ Phases, in order; any failure exits non-zero before the result lines:
                  at that run's payload (4 x 352 M f32, (m, x) packed)
                  against its plain version at 1e-5, timed in turns with
                  torch.lerp; the phase's runtime
+ 13. audio    -- full-width musicgen-large (48 layers, MHA of 32 heads of
+                 64, 4 codebooks, f32 params, random weights from --seed),
+                 counters zeroed before and read after each run: (a)
+                 phase 12's path check on 2 x 64 x 4 tokens (48 K2 and
+                 4 x 48 K3 launches); (b) phase 5's serve with (P, 4)
+                 prompts, frames/s (a frame of 4 codes counts as one
+                 token; K2 48 per prefill call, K3 48 per decode step),
+                 then 4 requests at temperature 0.8, whose frames must
+                 not all repeat one code; (c) phase 5's generate checks
+                 on (4, 64, 4) prompts; (d) launch.train.run at full width
+                 cut to 4 layers (302 M a node, the peak reckoned first),
+                 4 nodes, dmsgd over one_peer_exp, 2 x 128 frames a node, 6
+                 steps: K1 once a step, no K2/K3; then K1 at that run's
+                 payload (4 x 604 M f32) against its plain version; (e)
+                 launch/profile_serve.py --arch musicgen-large
+ 14. vlm      -- llama-3.2-vision-90b at full width cut to one group (4
+                 self layers and 1 cross layer, 6.38 B f32 params, random
+                 weights from --seed, every gate 0.5), images (B, 1024,
+                 8192) from a seeded generator: (a) forward of 2 x 64
+                 tokens and the token-by-token decode against it, f32,
+                 2e-2 x max-abs, and the same forward with the gates at 0
+                 apart from it; (b) generate of 4 x 64 + 32 new with
+                 images, greedy, bf16 (tokens/s, ms a step, peak memory);
+                 no kernel runs in (a) or (b) (the reference's attention
+                 there is plain); (c) launch.train.run on the reduced
+                 config (6 layers, d 256, 16 image tokens drawn on the
+                 card), 4 nodes, 4 steps, K1 once a step (full width
+                 cannot train on one card: the embed and head alone are
+                 2.1 B a node)
+Every phase's runtime is printed after it.
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -211,6 +249,7 @@ SSD_FORWARD = (2, 2048, 64, 64, 1, 128)  # one layer of phase 7's forward
 SSD_HYBRID = (2, 2048, 64, 64, 1, 64)    # one layer of phase 8's forward
 FLASH_HYBRID = (2, 2048, 32, 32, 64)     # phase 8's shared block: G 1, D 64
 FLASH_MOE = (4, 512, 24, 8, 64)          # phase 12's prefill bucket: G 3, D 64
+FLASH_AUDIO = (4, 512, 32, 32, 64)       # phase 13's prefill bucket: G 1, D 64
 # mamba2-1.3b at full width: the K4 forward against the plain chunked one,
 # and decode against forward, relative to the logits' max-abs.  Both are
 # held in f32 activations: with random weights the 48-layer bf16 forward
@@ -238,6 +277,21 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+_PHASE = {"title": None, "t": 0.0}
+
+
+def phase(title: str | None) -> None:
+    """Log the runtime of the phase that ends here, then the next one's
+    ``title`` (None after the last)."""
+    now = time.perf_counter()
+    if _PHASE["title"]:
+        log(f"  ({_PHASE['title'].split(':')[0]} ran {now - _PHASE['t']:.1f}"
+            f" s)")
+    if title:
+        log(title)
+    _PHASE.update(title=title, t=now)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -342,7 +396,8 @@ def flash_phase(torch, dev):
             ("main", FLASH_MAIN, 1, ((None, None), (128, 50.0)), 5),
             ("long", FLASH_LONG, 11, ((None, None), (1000, 30.0)), 2),
             ("hybrid", FLASH_HYBRID, 13, ((None, None),), 2),
-            ("moe", FLASH_MOE, 17, ((None, None), (100, 30.0)), 5)):
+            ("moe", FLASH_MOE, 17, ((None, None), (100, 30.0)), 5),
+            ("audio", FLASH_AUDIO, 19, ((None, None), (100, 30.0)), 5)):
         B, S, H, Kv, D = shape
         q, k, v = _flash_inputs(torch, dev, shape, torch.bfloat16, seed)
         for window, cap in cases:
@@ -402,12 +457,18 @@ def flash_phase(torch, dev):
         f"{f32_err:.3g} (tolerance {FLASH_F32_TOL}); kernel {f32_ms:.4f} "
         f"ms, bound {f32_bound:.4f} ms ({f32_by}, f32 outside the tensor "
         f"cores)")
+    ratios = {n: rows[n]["ms"] / rows[n]["library_ms"]
+              for n in ("hybrid", "audio")}
+    log(f"  flash_attention at D 64, G 1: kernel / sdpa {ratios['audio']:.2f}"
+        f" at musicgen's {FLASH_AUDIO}, {ratios['hybrid']:.2f} at zamba2's "
+        f"{FLASH_HYBRID}")
     main = rows.pop("main")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
             "max_abs_err": max(errs), **main, "long": rows["long"],
             "hybrid": rows["hybrid"], "moe": rows["moe"],
+            "audio": rows["audio"],
             "f32": {"ms": f32_ms, "max_abs_err": f32_err,
                     "bound_ms": f32_bound, "bound_by": f32_by}}
 
@@ -419,7 +480,8 @@ def paged_phase(torch, dev):
     for name, cases in (("ragged", ((None, None), (256, 30.0))),
                         ("serve", ((None, None), (100, 30.0))),
                         ("long", ((None, None), (3000, 30.0))),
-                        ("moe", ((None, None), (100, 30.0)))):
+                        ("moe", ((None, None), (100, 30.0))),
+                        ("audio", ((None, None), (100, 30.0)))):
         q, pools, tab, lens, ln = TP.inputs(dev, name)
         h, kv, d = TP.heads(name)
         kp, vp = pools[0]
@@ -465,7 +527,7 @@ def paged_phase(torch, dev):
                      f"D={TP.D} page={TP.PAGE} Pmax={main['pmax']} "
                      f"{main['visible']} visible tokens bf16, cold pool",
             "ragged": rows["ragged"], "long": rows["long"],
-            "moe": rows["moe"]}
+            "moe": rows["moe"], "audio": rows["audio"]}
 
 
 def gossip_phase(torch, dev):
@@ -634,8 +696,9 @@ def _prefill_decode(torch, M, cfg, model, tokens, table, device, steps, ps,
     pool (bf16 unless ``pool_dtype``) through ``table`` (as the engine
     does), then ``steps`` paged decode steps.  Feeds ``fed`` tokens, or the
     run's own greedy picks when None.  Returns the last-position logits of
-    every step (f32, on the CPU) and the tokens fed."""
-    B, P = tokens.shape
+    every step (f32, on the CPU) and the tokens fed.  Audio tokens are
+    (B, P, K) frames, and their logits (B, K, V) a step."""
+    B, P = tokens.shape[:2]
     pool = {n: torch.zeros(cfg.n_layers, cfg.n_kv_heads,
                            1 + int(table.max()), ps, cfg.head_dim,
                            dtype=pool_dtype or torch.bfloat16, device=device)
@@ -703,6 +766,10 @@ def model_phase(torch, dev, cfg, params, seed):
 # ---------------------------------------------------------------------------
 
 def serve_phase(torch, dev, cfg, params, seed):
+    """Phase 5's trace through the engine (audio: (P, K) prompts, and a
+    frame of K codes counts as one token)."""
+    import numpy as np
+
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.launch import serve as S
@@ -711,7 +778,8 @@ def serve_phase(torch, dev, cfg, params, seed):
     # a burst (1000 requests/s): all 16 arrive within milliseconds, so the
     # engine runs at its max batch and tokens/s is its own throughput
     trace = S.poisson_trace(n_req, 1000.0, mean_prompt, max_new,
-                            cfg.vocab_size, seed)
+                            cfg.vocab_size, seed,
+                            n_codebooks=cfg.n_codebooks)
     longest = max(len(p) for _, p, _ in trace) + max_new
     check(longest <= max_seq, f"serve: a request needs {longest} > {max_seq}")
     n_pages = 1 + n_req * pages_needed(max_seq, ps)   # nothing is preempted
@@ -732,8 +800,9 @@ def serve_phase(torch, dev, cfg, params, seed):
           f"serve: {len(engine.finished)} of {n_req} requests finished")
     check(all(len(r.generated) == max_new for r in engine.finished),
           "serve: a request stopped short of max_new")
-    check(all(0 <= t < cfg.vocab_size for r in engine.finished
-              for t in r.generated), "serve: token out of vocab")
+    check(all(0 <= int(np.min(r.generated)) and
+              int(np.max(r.generated)) < cfg.vocab_size
+              for r in engine.finished), "serve: token out of vocab")
     check(st["preemptions"] == 0, f"serve: {st['preemptions']} preemptions")
     want = {"flash_attention": cfg.n_layers * st["prefill_calls"],
             "paged_attention": cfg.n_layers * st["decode_calls"]}
@@ -742,8 +811,9 @@ def serve_phase(torch, dev, cfg, params, seed):
         check(launches[name] == want[name],
               f"serve: {name} launched {launches[name]} times, expected "
               f"{want[name]} (n_layers x calls)")
-    log(f"  served {len(engine.finished)} requests, {new_tokens} new tokens "
-        f"in {wall:.3f} s: {new_tokens / wall:.1f} tokens/s; "
+    unit = "frames" if cfg.family == "audio" else "tokens"
+    log(f"  served {len(engine.finished)} requests, {new_tokens} new {unit} "
+        f"in {wall:.3f} s: {new_tokens / wall:.1f} {unit}/s; "
         f"{st['prefill_calls']} prefill calls, {st['decode_calls']} decode "
         f"steps, {st['steps']} engine steps")
     log(f"  latency: first-token p50 {lat['first_token_p50_s']:.4f} s "
@@ -763,7 +833,7 @@ def dense_generate_phase(torch, dev, cfg, params, seed):
     """The legacy ring-cache generate of the dense family: the fast prefill
     (one forward_prefill, K2 once per layer, its k/v ring-filled) against
     the token-by-token loop (no kernel), in f32 activations; then one
-    timed bf16 generate."""
+    timed bf16 generate.  Audio prompts are (B, P, K) frames."""
     import dataclasses
 
     import numpy as np
@@ -775,8 +845,9 @@ def dense_generate_phase(torch, dev, cfg, params, seed):
     Bg, Pg, new = DENSE_GEN
     f32_cfg = dataclasses.replace(cfg, activation_dtype=torch.float32)
     rng = np.random.default_rng(seed + 1)
+    frame = (cfg.n_codebooks,) if cfg.family == "audio" else ()
     prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (Bg, Pg))).to(dev)
+        0, cfg.vocab_size, (Bg, Pg) + frame)).to(dev)
     cache_len = Pg + new
     out, launches = {}, {}
     with torch.no_grad():
@@ -831,12 +902,13 @@ def dense_generate_phase(torch, dev, cfg, params, seed):
           pa_ops.paged_attention.launches == n0[1],
           f"generate: K2 launched {gen_launches} times (expected "
           f"{cfg.n_layers}), K3 {pa_ops.paged_attention.launches - n0[1]}")
-    check(tuple(toks.shape) == (Bg, Pg + new) and
+    check(tuple(toks.shape) == (Bg, Pg + new) + frame and
           torch.equal(toks[:, :Pg], prompts) and
           bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"generate: bad output {tuple(toks.shape)}")
-    log(f"  dense generate {Bg} prompts x {Pg} tokens + {new} new, greedy, "
-        f"bf16: {gen_s:.3f} s, {Bg * new / gen_s:.1f} new tokens/s, "
+    unit = "frames" if frame else "tokens"
+    log(f"  dense generate {Bg} prompts x {Pg} {unit} + {new} new, greedy, "
+        f"bf16: {gen_s:.3f} s, {Bg * new / gen_s:.1f} new {unit}/s, "
         f"{1e3 * gen_s / (new + 1):.3f} ms per step (one prefill, {new} "
         f"decode steps), peak allocated {peak_gb:.3f} GB; K2 launches "
         f"{gen_launches} (one prefill)")
@@ -2054,11 +2126,12 @@ def _plain_attention():
         A.flash_ops, A.paged_ops = saved
 
 
-def _moe_path(torch, dev, cfg, params, seed):
-    """(a) A forward_prefill of 2 x 64 tokens and 4 paged decode steps in
-    f32 activations through K2 and K3, against the same with the plain
-    attention, and the decode logits against a prefill over the prompt
-    and the fed tokens (dropless both), each within 2e-2 x max-abs."""
+def _paged_path(torch, dev, cfg, params, seed, what):
+    """(a) A forward_prefill of 2 x 64 tokens (audio: frames of K codes)
+    and 4 paged decode steps in f32 activations through K2 and K3,
+    against the same with the plain attention, and the decode logits
+    against a prefill over the prompt and the fed tokens (the experts
+    dropless both), each within 2e-2 x max-abs."""
     import dataclasses
 
     import numpy as np
@@ -2069,7 +2142,9 @@ def _moe_path(torch, dev, cfg, params, seed):
     f32_cfg = dataclasses.replace(cfg, activation_dtype=torch.float32)
     n_per = -(-(P + steps) // ps)
     rng = np.random.default_rng(seed + 2)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P)))
+    frame = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (B, P) + frame))
     table = torch.from_numpy(
         (1 + rng.permutation(B * n_per)).reshape(B, n_per).astype(np.int32))
     counters = _counters()
@@ -2087,16 +2162,17 @@ def _moe_path(torch, dev, cfg, params, seed):
                                        pool_dtype=torch.float32)
         torch.cuda.synchronize()
         check({c.__name__: c.launches for c in counters} == launches,
-              "moe: the plain attention launched a kernel")
+              f"{what}: the plain attention launched a kernel")
         whole = torch.cat([tokens] + [f.cpu() for f in fed], 1).to(dev)
         full, _ = M.forward_prefill(params, f32_cfg, whole)
         full = full[:, P - 1:].float().cpu().transpose(0, 1)
     want = {"gossip_mix": 0, "flash_attention": cfg.n_layers,
             "paged_attention": cfg.n_layers * steps, "ssd_scan": 0}
-    check(launches == want, f"moe: the path launched {launches}, expected "
-          f"{want}")
+    check(launches == want, f"{what}: the path launched {launches}, "
+          f"expected {want}")
     check(bool(torch.isfinite(kern).all()) and tuple(kern.shape) == (
-        steps + 1, B, cfg.vocab_size), f"moe: logits {tuple(kern.shape)}")
+        steps + 1, B) + frame + (cfg.vocab_size,),
+        f"{what}: logits {tuple(kern.shape)}")
     err, scale = _rel_err(kern, plain)
     agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
     log(f"  (a) prefill {B} x {P} + {steps} paged decode steps, f32: "
@@ -2104,22 +2180,54 @@ def _moe_path(torch, dev, cfg, params, seed):
         f"{err:.5g}, logits max-abs {scale:.5g}; tolerance {MODEL_TOL} x "
         f"max-abs = {MODEL_TOL * scale:.5g}; greedy agreement {agree:.3f}")
     check(err <= MODEL_TOL * scale,
-          f"moe: K2/K3 and plain attention differ by {err} > "
+          f"{what}: K2/K3 and plain attention differ by {err} > "
           f"{MODEL_TOL * scale}")
     d_err, d_scale = _rel_err(kern, full)
     log(f"  (a) decode logits vs a prefill over the prompt and the fed "
-        f"tokens (dropless both): max abs err {d_err:.5g}, max-abs "
-        f"{d_scale:.5g}; tolerance {MODEL_TOL * d_scale:.5g}")
+        f"tokens: max abs err {d_err:.5g}, max-abs {d_scale:.5g}; "
+        f"tolerance {MODEL_TOL * d_scale:.5g}")
     check(d_err <= MODEL_TOL * d_scale,
-          f"moe: decode vs prefill differ by {d_err} > {MODEL_TOL * d_scale}")
+          f"{what}: decode vs prefill differ by {d_err} > "
+          f"{MODEL_TOL * d_scale}")
     return {"max_abs_err": err, "decode_err": d_err}
+
+
+def _train_at_payload(torch, T, args, per_node, what, note):
+    """(d) ``launch.train.run`` of ``args`` at full width with its depth
+    cut, the peak memory reckoned first from phase 6's bytes a parameter
+    and printed beside the measured one (K1 once a step and no other
+    kernel: ``_train_run``); then K1 at the run's payload, (m_next,
+    x_next) packed in one f32 group, against the partner's copy the next
+    one-peer round receives (``_k1_at_payload``)."""
+    from repro_torch.core import flatbuf
+    reckoned = TRAIN_BYTES_PER_PARAM * args.nodes * per_node / 1e9
+    log(f"  (d) train: {args.arch} at full width, depth cut to "
+        f"{args.layers} layers: {per_node / 1e6:.1f} M params a node x "
+        f"{args.nodes} nodes x {TRAIN_BYTES_PER_PARAM:.1f} bytes (phase 6's "
+        f"peak per parameter) = {reckoned:.1f} GB reckoned; "
+        f"{args.topology}, {args.optimizer} beta {args.beta}, batch "
+        f"{args.batch} x {args.seq} tokens a node, {args.steps} steps, "
+        f"{note}")
+    res, train = _train_run(torch, T, args, f"(d) {what} train")
+    log(f"  (d) peak allocated {train['peak_gb']:.3f} GB against "
+        f"{reckoned:.1f} GB reckoned")
+    _, bufs = flatbuf.pack((res["state"].momentum, res["params"]))
+    check(len(bufs) == 1, f"(d) {what} train: {len(bufs)} payload groups")
+    buf = bufs[0]
+    shift = res["plan"].realization(args.steps).shifts[0][0]
+    del bufs, res
+    recv = torch.roll(buf, shift, 0)
+    train["payload"] = _k1_at_payload(torch, buf, recv,
+                                      f"the {what} payload")
+    del buf, recv
+    torch.cuda.empty_cache()
+    return train
 
 
 def moe_phase(torch, dev, seed):
     """Phase 12: full-width granite-moe-3b-a800m: (a) the path check, (b)
     serving phase 5's trace, (c) the ring-cache generate, (d) training."""
     from repro_torch import configs
-    from repro_torch.core import flatbuf
     from repro_torch.launch import train as T
     from repro_torch.models import model as M
     t0 = time.perf_counter()
@@ -2135,7 +2243,7 @@ def moe_phase(torch, dev, seed):
         f"{cfg.d_ff}, top-{cfg.top_k}; f32 params, "
         f"{4 * n / 1e9:.2f} GB) on the card in "
         f"{time.perf_counter() - t0:.2f} s")
-    path = _moe_path(torch, dev, cfg, params, seed)
+    path = _paged_path(torch, dev, cfg, params, seed, "moe")
     log("  (b) serve: phase 5's trace")
     launches, per_call = serve_phase(torch, dev, cfg, params, seed)
     log("  (c) generate")
@@ -2146,32 +2254,242 @@ def moe_phase(torch, dev, seed):
     del params
     torch.cuda.empty_cache()
 
-    reckoned = TRAIN_BYTES_PER_PARAM * args.nodes * per_node / 1e9
-    log(f"  (d) train: {MOE_ARCH} at full width, depth cut to {args.layers} "
-        f"layers: {per_node / 1e6:.1f} M params a node x {args.nodes} "
-        f"nodes x {TRAIN_BYTES_PER_PARAM:.1f} bytes (phase 6's peak per "
-        f"parameter) = {reckoned:.1f} GB reckoned; {args.topology}, "
-        f"{args.optimizer} beta {args.beta}, batch {args.batch} x "
-        f"{args.seq} tokens a node, {args.steps} steps, capacity dispatch")
-    res, train = _train_run(torch, T, args, "(d) moe train")
-    log(f"  (d) peak allocated {train['peak_gb']:.3f} GB against "
-        f"{reckoned:.1f} GB reckoned")
-    # K1 at the moe payload: (m_next, x_next) packed, one f32 group, and
-    # the partner's copy that the next step's one-peer round receives
-    _, bufs = flatbuf.pack((res["state"].momentum, res["params"]))
-    check(len(bufs) == 1, f"(d) moe train: {len(bufs)} payload groups")
-    buf = bufs[0]
-    shift = res["plan"].realization(args.steps).shifts[0][0]
-    del bufs, res
-    recv = torch.roll(buf, shift, 0)
-    train["payload"] = _k1_at_payload(torch, buf, recv, "the moe payload")
-    del buf, recv
-    torch.cuda.empty_cache()
+    train = _train_at_payload(torch, T, args, per_node, "moe",
+                              "capacity dispatch")
     secs = time.perf_counter() - t0
     log(f"  phase 12 took {secs:.1f} s")
     return {"path": path, "launches": launches, "per_call": per_call,
             "generate_launches": gen["generate_launches"], "train": train,
             "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: audio, the musicgen-large main path
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH = "musicgen-large"
+AUDIO_SAMPLED = 4            # (b) requests served at temperature 0.8
+AUDIO_TRAIN_ARGV = ["--arch", AUDIO_ARCH, "--full", "--layers", "4",
+                    "--nodes", "4", "--topology", "one_peer_exp",
+                    "--optimizer", "dmsgd", "--beta", "0.9", "--batch", "2",
+                    "--seq", "128", "--steps", "6", "--hetero", "0.5",
+                    "--log-every", "1", "--device", "cuda"]
+
+
+def _sampled_frames(torch, dev, cfg, params, seed):
+    """(b) 4 requests at temperature 0.8 through the engine: each frame's
+    K codes are K independent draws, so the codes of a frame are not all
+    equal in every frame."""
+    import numpy as np
+
+    from repro_torch.launch import serve as S
+    from repro_torch.serve import ServeEngine, pages_needed
+    max_seq = 256
+    trace = S.poisson_trace(AUDIO_SAMPLED, 1000.0, 64, 32, cfg.vocab_size,
+                            seed + 3, n_codebooks=cfg.n_codebooks)
+    engine = ServeEngine(cfg, params, n_pages=1 + AUDIO_SAMPLED *
+                         pages_needed(max_seq, 16), page_size=16,
+                         max_seq=max_seq, max_batch=8, temperature=0.8,
+                         seed=seed, device=dev)
+    S.serve_trace(engine, trace)
+    check(len(engine.finished) == AUDIO_SAMPLED,
+          f"audio: {len(engine.finished)} of {AUDIO_SAMPLED} sampled "
+          "requests finished")
+    frames = np.concatenate([np.stack(r.generated) for r in engine.finished])
+    mixed = int((frames != frames[:, :1]).any(1).sum())
+    check(frames.shape[1] == cfg.n_codebooks and mixed > 0,
+          f"audio: {frames.shape} sampled frames, {mixed} with differing "
+          "codes")
+    log(f"  (b) sampled at temperature 0.8: {AUDIO_SAMPLED} requests, "
+        f"{len(frames)} frames of {frames.shape[1]} codes, {mixed} with "
+        f"codes that differ within the frame")
+    return mixed / len(frames)
+
+
+def audio_phase(torch, dev, seed):
+    """Phase 13: full-width musicgen-large: (a) the path check, (b)
+    serving phase 5's trace with (P, 4) prompts, then sampled frames, (c)
+    the ring-cache generate, (d) training, (e) ``profile_serve``."""
+    from repro_torch import configs
+    from repro_torch.launch import profile_serve as PS
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg = configs.get_config(AUDIO_ARCH)
+    params = M.init(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    n = M.param_count(params)
+    log(f"  init {cfg.name} ({n:,} params: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, kv "
+        f"{cfg.n_kv_heads} (G {cfg.n_heads // cfg.n_kv_heads}), d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.n_codebooks} codebooks; "
+        f"f32 params, {4 * n / 1e9:.2f} GB) on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    path = _paged_path(torch, dev, cfg, params, seed, "audio")
+    log("  (b) serve: phase 5's trace, (P, 4) prompts, greedy")
+    launches, per_call = serve_phase(torch, dev, cfg, params, seed)
+    mixed = _sampled_frames(torch, dev, cfg, params, seed)
+    log("  (c) generate")
+    gen = dense_generate_phase(torch, dev, cfg, params, seed)
+    args = T.parse_args(AUDIO_TRAIN_ARGV + ["--seed", str(seed)])
+    per_layer = sum(p.numel() for p in params.layers[0].parameters())
+    per_node = n - (cfg.n_layers - args.layers) * per_layer
+    del params
+    torch.cuda.empty_cache()
+    train = _train_at_payload(torch, T, args, per_node, "audio",
+                              f"{cfg.n_codebooks}-code frames")
+    log("  (e) profile_serve --arch musicgen-large (the decode step's host "
+        "and device time, idle share and launches)")
+    PS.main(["--arch", AUDIO_ARCH, "--seed", str(seed)])
+    torch.cuda.empty_cache()
+    return {"path": path, "launches": launches, "per_call": per_call,
+            "generate_launches": gen["generate_launches"], "train": train,
+            "mixed_frames": mixed}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: vlm, llama-3.2-vision-90b cut to one group at full width
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_LAYERS = 5               # one group: 4 self layers, then 1 cross layer
+VLM_GATE = 0.5               # tanh(0.5): the cross-attention does work
+# (a) the gates at 0 must move the f32 logits by more than this x max-abs:
+# 100 times f32 rounding, far below what a working cross layer adds
+GATE_EFFECT = 1e-4
+VLM_FORWARD = (2, 64)        # (a): forward, and decode against it
+VLM_GEN = (4, 64, 32)        # (b): prompts, prompt length, new tokens
+VLM_TRAIN_ARGV = ["--arch", VLM_ARCH, "--nodes", "4",
+                  "--topology", "one_peer_exp", "--optimizer", "dmsgd",
+                  "--beta", "0.9", "--batch", "2", "--seq", "128",
+                  "--steps", "4", "--hetero", "0.5", "--log-every", "1",
+                  "--device", "cuda"]
+
+
+def vlm_phase(torch, dev, seed):
+    """Phase 14: (a) the forward and the token-by-token decode against it,
+    f32; (b) generate with images, bf16; (c) training, reduced width."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as S
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(VLM_ARCH),
+                              n_layers=VLM_LAYERS)
+    params = M.init(cfg, seed, device=dev)
+    with torch.no_grad():
+        for cross in params.cross_layers:
+            cross.xattn.gate.fill_(VLM_GATE)
+    torch.cuda.synchronize()
+    n = M.param_count(params)
+    img_shape = (cfg.n_image_tokens, cfg.d_model)
+    log(f"  init {cfg.name} cut to one group ({n:,} params: "
+        f"{len(params.layers)} self layers and {len(params.cross_layers)} "
+        f"cross layer, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, kv {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; f32 params, {4 * n / 1e9:.2f} GB; gates "
+        f"{VLM_GATE}) on the card in {time.perf_counter() - t0:.2f} s; "
+        f"images {img_shape} a row")
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+
+    B, P = VLM_FORWARD
+    f32_cfg = dataclasses.replace(cfg, activation_dtype=torch.float32)
+    rng = np.random.default_rng(seed + 4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))).to(dev)
+    img = T.image_embeds(seed, 0, (B,) + img_shape, dev)
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        full, _ = M.forward(params, f32_cfg, tokens, image_embeds=img)
+        full = full.float()
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t1
+        cache = M.init_cache(f32_cfg, B, P, dtype=torch.float32, device=dev)
+        t1 = time.perf_counter()
+        dec = torch.cat([M.decode_step(params, f32_cfg, tokens[:, t:t + 1],
+                                       cache, t, image_embeds=img)[0]
+                         for t in range(P)], 1).float()
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t1
+        for cross in params.cross_layers:
+            cross.xattn.gate.zero_()
+        ungated, _ = M.forward(params, f32_cfg, tokens, image_embeds=img)
+        for cross in params.cross_layers:
+            cross.xattn.gate.fill_(VLM_GATE)
+    check(bool(torch.isfinite(full).all()) and tuple(full.shape) == (
+        B, P, cfg.vocab_size), f"vlm: logits {tuple(full.shape)}")
+    err, scale = _rel_err(dec, full)
+    gate_diff = max_err(ungated, full)
+    log(f"  (a) forward {B} x {P} f32 {1e3 * fwd_s:.1f} ms; decode "
+        f"{P} steps {1e3 * dec_s:.1f} ms; decode vs forward max abs err "
+        f"{err:.5g}, logits max-abs {scale:.5g}; tolerance {MODEL_TOL} x "
+        f"max-abs = {MODEL_TOL * scale:.5g}; the forward with the gates at "
+        f"0 differs by {gate_diff:.5g}")
+    check(err <= MODEL_TOL * scale,
+          f"vlm: decode vs forward differ by {err} > {MODEL_TOL * scale}")
+    check(gate_diff > GATE_EFFECT * scale,
+          f"vlm: the cross layer changes the logits by only {gate_diff}")
+    del full, dec, ungated, cache
+
+    Bg, Pg, new = VLM_GEN
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                            (Bg, Pg))).to(dev)
+    imgs = T.image_embeds(seed, 1, (Bg,) + img_shape, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    toks = S.generate(cfg, params, prompts, max_new=new, cache_len=Pg + new,
+                      temperature=0.0, seed=seed, image_embeds=imgs,
+                      device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {c.__name__: c.launches for c in counters}
+    check(tuple(toks.shape) == (Bg, Pg + new) and
+          torch.equal(toks[:, :Pg], prompts) and
+          bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"vlm generate: bad output {tuple(toks.shape)}")
+    check(not any(launches.values()),
+          f"vlm: (a) and (b) launched {launches}; its attention is plain")
+    log(f"  (b) generate {Bg} prompts x {Pg} tokens + {new} new with "
+        f"images, greedy, bf16 (token-by-token prefill): {gen_s:.3f} s, "
+        f"{Bg * new / gen_s:.2f} new tokens/s, {1e3 * gen_s / (Pg + new):.3f}"
+        f" ms per decode step ({Pg + new} steps), peak allocated "
+        f"{peak_gb:.3f} GB; launches {launches}")
+    del params, prompts, imgs, toks
+    torch.cuda.empty_cache()
+
+    args = T.parse_args(VLM_TRAIN_ARGV + ["--seed", str(seed)])
+    full_cfg = configs.get_config(VLM_ARCH)
+    head = (1 + (not full_cfg.tie_embeddings)) * full_cfg.vocab_size * \
+        full_cfg.d_model
+    log(f"  (c) train: the reduced config (full width cannot train on one "
+        f"card: the untied {full_cfg.vocab_size:,} x {full_cfg.d_model:,} "
+        f"embed and head alone are {head / 1e9:.2f} B a node, "
+        f"{TRAIN_BYTES_PER_PARAM * args.nodes * head / 1e9:.0f} GB for "
+        f"{args.nodes} nodes at phase 6's {TRAIN_BYTES_PER_PARAM:.1f} bytes "
+        f"a parameter)")
+    batch = T.prepare(args)["batches"][0]["image_embeds"]
+    check(batch.is_cuda and tuple(batch.shape) == (
+        args.nodes, args.batch, 16, 256),
+        f"vlm train: images {tuple(batch.shape)} on {batch.device}")
+    del batch
+    res, train = _train_run(torch, T, args, "(c) vlm train, reduced")
+    rcfg = res["config"]
+    every = rcfg.cross_attn_every
+    log(f"  (c) {rcfg.n_layers} layers ({rcfg.n_layers // every} groups of "
+        f"{every - 1} self + 1 cross), d_model "
+        f"{rcfg.d_model}, {rcfg.n_image_tokens} image tokens drawn on the "
+        f"card each step")
+    del res
+    torch.cuda.empty_cache()
+    return {"generate_tokens_per_s": Bg * new / gen_s, "train": train,
+            "decode_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -2183,7 +2501,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     import torch
-    log("phase 1: device")
+    phase("phase 1: device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs on the card")
     smi = subprocess.run(
@@ -2200,7 +2518,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.models import model as M
 
-    log("phase 2: build")
+    phase("phase 2: build")
     t0 = time.perf_counter()
     secs = build.build()
     log(f"  built {list(secs)} in {time.perf_counter() - t0:.2f} s "
@@ -2232,12 +2550,12 @@ def main() -> int:
     check(len(tc) >= 2 and all(c["HGMMA"] > 0 for c in tc),
           f"ssd_scan: the tensor-core kernels hold no HGMMA: {ssd_sass}")
 
-    log("phase 3: kernels against their plain versions")
+    phase("phase 3: kernels against their plain versions")
     kernels = [flash_phase(torch, dev), paged_phase(torch, dev),
                gossip_phase(torch, dev), ssd_phase(torch, dev)]
     torch.cuda.empty_cache()
 
-    log("phase 4: full-width model, card against CPU")
+    phase("phase 4: full-width model, card against CPU")
     torch.set_num_threads(os.cpu_count() or 1)
     cfg = configs.get_config("qwen3-0.6b")
     t0 = time.perf_counter()
@@ -2248,41 +2566,49 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     model_phase(torch, dev, cfg, params, args.seed)
 
-    log("phase 5: serve (the serving main path)")
+    phase("phase 5: serve (the serving main path)")
     launches, per_call = serve_phase(torch, dev, cfg, params, args.seed)
     dense_gen = dense_generate_phase(torch, dev, cfg, params, args.seed)
     del params
     torch.cuda.empty_cache()
 
-    log("phase 6: train (the training main path)")
+    phase("phase 6: train (the training main path)")
     train = train_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
 
-    log("phase 7: ssm (the mamba2-1.3b main path)")
+    phase("phase 7: ssm (the mamba2-1.3b main path)")
     ssm = ssm_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
 
-    log("phase 8: hybrid (the zamba2-1.2b main path)")
+    phase("phase 8: hybrid (the zamba2-1.2b main path)")
     hybrid = hybrid_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
 
-    log("phase 9: train: ssm and hybrid, d_adamw / qg_dmsgd, aperiodic "
+    phase("phase 9: train: ssm and hybrid, d_adamw / qg_dmsgd, aperiodic "
         "gossip")
     fam = train_families_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
 
-    log("phase 10: runtime-valued gossip (stragglers, scheduled skips) and "
+    phase("phase 10: runtime-valued gossip (stragglers, scheduled skips) and "
         "the paper's figures")
     rt = runtime_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
 
-    log("phase 11: int8 wire compression and the overlapped (delayed-mix) "
+    phase("phase 11: int8 wire compression and the overlapped (delayed-mix) "
         "pipeline")
     pipe = pipeline_phase(torch, dev, args.seed)
     torch.cuda.empty_cache()
 
-    log("phase 12: moe (the granite-moe-3b-a800m main path)")
+    phase("phase 12: moe (the granite-moe-3b-a800m main path)")
     moe = moe_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    phase("phase 13: audio (the musicgen-large main path)")
+    audio = audio_phase(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+
+    phase("phase 14: vlm (llama-3.2-vision-90b, one group at full width)")
+    vlm = vlm_phase(torch, dev, args.seed)
     for k in kernels:
         if k["name"] in ("ssd_scan", "flash_attention"):
             k["hybrid_launches"] = hybrid["launches"][k["name"]]
@@ -2296,10 +2622,19 @@ def main() -> int:
             k["moe_calls"] = moe["per_call"][k["name"]]
         if k["name"] == "flash_attention":
             k["moe_generate_launches"] = moe["generate_launches"]
+            k["audio_generate_launches"] = audio["generate_launches"]
+        if k["name"] in ("flash_attention", "paged_attention"):
+            # phase 13's serve: K2 48 a prefill call, K3 48 a decode step
+            k["audio_launches"] = audio["launches"][k["name"]]
+            k["audio_calls"] = audio["per_call"][k["name"]]
         if k["name"] == "gossip_mix":
             k["moe_train_launches"] = moe["train"]["launches"]
             k.update({f"moe_payload_{key}": v
                       for key, v in moe["train"]["payload"].items()})
+            k["audio_train_launches"] = audio["train"]["launches"]
+            k.update({f"audio_payload_{key}": v
+                      for key, v in audio["train"]["payload"].items()})
+            k["vlm_train_launches"] = vlm["train"]["launches"]
         if k["name"] == "ssd_scan":
             k["launches"] = ssm["launches"]
             k["launches_per_call"] = k["launches"] // ssm["forward_calls"]
@@ -2314,7 +2649,8 @@ def main() -> int:
             k["max_abs_err"] = max(k["max_abs_err"],
                                    train["train_payload_max_abs_err"],
                                    fam["payload"]["max_abs_err"],
-                                   moe["train"]["payload"]["max_abs_err"])
+                                   moe["train"]["payload"]["max_abs_err"],
+                                   audio["train"]["payload"]["max_abs_err"])
             k["train_families_launches"] = fam["launches"]
             k["runtime_phase_launches"] = rt["launches"]
             # the delayed round of the overlap pipeline combines through K1
@@ -2329,6 +2665,7 @@ def main() -> int:
             k["launches_per_call"] = (k["launches"]
                                       // max(per_call[k["name"]], 1))
 
+    phase(None)
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -1,8 +1,7 @@
 """Architecture configs (one module per arch) + registry.
 
 A copy of the JAX package's registry.  The arch modules are plain data;
-the ``dense``, ``ssm`` and ``hybrid`` families run in this package so
-far, and the others raise ``NotImplementedError`` at init and serve time.
+every family runs in this package.
 """
 from __future__ import annotations
 

@@ -4,12 +4,17 @@
 already a numpy array (``jax.tree.map(np.asarray, params)`` on the JAX
 side) and returns a ``state_dict`` for :class:`repro_torch.models.model.Model`.
 It unstacks the leading layer axis of ``tree["layers"]`` into the per-layer
-modules (the moe family's (L, E, d, f) experts into (E, d, f) per layer);
+modules (the moe family's (L, E, d, f) experts into (E, d, f) per layer;
+the vlm family's doubly stacked (n_groups, n_self, ...) leaves into
+``layers.{g * n_self + j}``, and its (n_groups, ...) ``cross_layers``
+into ``cross_layers.{g}``, the (n_groups,) ``gate`` into 0-d gates);
 every other leaf (``embed``, ``final_norm``, the hybrid family's
-``shared_attn.*``) keeps its dotted name.  ``stacked_from_jax(tree, cfg)`` does the same for a node-stacked
-tree (params or momentum: a leading node axis, then the layer axis of the
-layer leaves), giving the train path's ``{name: (n, ...)}`` dict, and
-``stacked_to_jax`` is its inverse view, in numpy.  bf16 leaves
+``shared_attn.*``, the audio family's (K, V, d) embed and (K, d, V)
+heads) keeps its dotted name.  ``stacked_from_jax(tree, cfg)`` does the
+same for a node-stacked tree (params or momentum: a leading node axis,
+then the layer axis of the layer leaves), giving the train path's
+``{name: (n, ...)}`` dict, and ``stacked_to_jax`` is its inverse view, in
+numpy.  bf16 leaves
 (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects) cross as an
 int16 view reinterpreted with ``.view(torch.bfloat16)``: the same bits.
 
@@ -38,7 +43,7 @@ import torch
 from .checkpoint.ckpt import _flatten as _jax_items, _unflatten_like
 from .core import flatbuf
 from .core.transforms import OptState
-from .models.model import ModelConfig, _check_family
+from .models.model import ModelConfig, _check_family, _vlm_groups
 
 __all__ = ["params_from_jax", "stacked_from_jax", "stacked_to_jax",
            "stacked_to_nested", "stacked_from_nested",
@@ -66,25 +71,47 @@ def _flatten(tree: dict, prefix: str = ""):
             yield name, val
 
 
-def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
-    """JAX params (numpy leaves) of a dense, moe, ssm or hybrid config ->
-    ``Model`` state_dict (``layers.attn.wq`` stacked on L ->
-    ``layers.{i}.attn.wq``; ``layers.mixer.in_proj`` ->
-    ``layers.{i}.mixer.in_proj``; the moe experts ``layers.moe.w_gate``
-    (L, E, d, f) -> ``layers.{i}.moe.w_gate`` (E, d, f)), each leaf in its
-    own dtype (the moe router stays f32 under bf16 expert weights)."""
+def _stacks(cfg: ModelConfig) -> dict[str, tuple]:
+    """The layer-stacked subtrees of ``cfg``'s JAX params and their stack
+    axes: ``layers`` on (n_layers,), or for vlm (n_groups, n_self), and
+    the vlm ``cross_layers`` on (n_groups,)."""
     _check_family(cfg)
+    if cfg.family == "vlm":
+        n_groups, n_self = _vlm_groups(cfg)
+        return {"layers": (n_groups, n_self), "cross_layers": (n_groups,)}
+    return {"layers": (cfg.n_layers,)}
+
+
+def _unstack(out: dict, key: str, name: str, t: torch.Tensor,
+             lead: tuple, at: int) -> None:
+    """Put the layers of ``t``, stacked on ``lead`` from axis ``at`` (0,
+    or 1 behind a node axis), into ``out`` as ``{key}.{i}.{name}``,
+    numbered in row-major order of ``lead``."""
+    if tuple(t.shape[at:at + len(lead)]) != lead:
+        raise ValueError(f"{key}.{name}: shape {tuple(t.shape)} has no "
+                         f"{lead} stack at axis {at}")
+    flat = t.reshape(t.shape[:at] + (-1,) + t.shape[at + len(lead):])
+    for i in range(flat.shape[at]):
+        out[f"{key}.{i}.{name}"] = flat.select(at, i).clone()
+
+
+def params_from_jax(tree: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """JAX params (numpy leaves) of any family -> ``Model`` state_dict
+    (``layers.attn.wq`` stacked on L -> ``layers.{i}.attn.wq``;
+    ``layers.mixer.in_proj`` -> ``layers.{i}.mixer.in_proj``; the moe
+    experts ``layers.moe.w_gate`` (L, E, d, f) -> ``layers.{i}.moe.w_gate``
+    (E, d, f); vlm ``layers.attn.wq`` (n_groups, n_self, ...) ->
+    ``layers.{g * n_self + j}.attn.wq`` and ``cross_layers.xattn.gate``
+    (n_groups,) -> ``cross_layers.{g}.xattn.gate`` ()), each leaf in its
+    own dtype (the moe router stays f32 under bf16 expert weights)."""
+    stacks = _stacks(cfg)
     sd: dict[str, torch.Tensor] = {}
     for name, leaf in _flatten({k: v for k, v in tree.items()
-                                if k != "layers"}):
+                                if k not in stacks}):
         sd[name] = _tensor(leaf)
-    for name, leaf in _flatten(tree["layers"]):
-        stacked = _tensor(leaf)
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.{name}: leading axis "
-                             f"{stacked.shape[0]} != n_layers {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            sd[f"layers.{i}.{name}"] = stacked[i].clone()
+    for key, lead in stacks.items():
+        for name, leaf in _flatten(tree[key]):
+            _unstack(sd, key, name, _tensor(leaf), lead, 0)
     return sd
 
 
@@ -115,24 +142,23 @@ def _map(fn, tree: dict) -> dict:
 def stacked_from_nested(tree: dict, cfg: ModelConfig
                         ) -> dict[str, torch.Tensor]:
     """Node-stacked tree in the JAX layout, torch leaves (``(n, L, ...)``
-    under ``layers``) -> ``{name: (n, ...) tensor}`` named as ``Model``'s
-    parameters; dtype and device kept."""
-    _check_family(cfg)
-    out = dict(_flatten({k: v for k, v in tree.items() if k != "layers"}))
-    for name, stacked in _flatten(tree["layers"]):
-        if stacked.ndim < 2 or stacked.shape[1] != cfg.n_layers:
-            raise ValueError(f"layers.{name}: shape {tuple(stacked.shape)} "
-                             f"has no (n, n_layers={cfg.n_layers}) lead")
-        for i in range(cfg.n_layers):
-            out[f"layers.{i}.{name}"] = stacked[:, i].clone()
+    under ``layers``; vlm ``(n, n_groups, n_self, ...)`` there and ``(n,
+    n_groups, ...)`` under ``cross_layers``) -> ``{name: (n, ...) tensor}``
+    named as ``Model``'s parameters; dtype and device kept."""
+    stacks = _stacks(cfg)
+    out = dict(_flatten({k: v for k, v in tree.items() if k not in stacks}))
+    for key, lead in stacks.items():
+        for name, t in _flatten(tree[key]):
+            _unstack(out, key, name, t, lead, 1)
     return out
 
 
 def stacked_to_nested(stacked: dict[str, torch.Tensor],
                       cfg: ModelConfig) -> dict:
     """Inverse of :func:`stacked_from_nested`: the JAX nested layout, the
-    layer leaves stacked on axis 1 (``(n, L, ...)``), dtype and device
-    kept."""
+    layer leaves stacked on axis 1 (``(n, L, ...)``; vlm ``(n, n_groups,
+    n_self, ...)`` and ``(n, n_groups, ...)``), dtype and device kept."""
+    stacks = _stacks(cfg)
     tree: dict = {}
 
     def put(path, val):
@@ -144,14 +170,16 @@ def stacked_to_nested(stacked: dict[str, torch.Tensor],
     layer_leaves: dict = {}
     for name, t in stacked.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            layer_leaves.setdefault(".".join(parts[2:]), {})[int(parts[1])] = t
+        if parts[0] in stacks:
+            layer_leaves.setdefault((parts[0], ".".join(parts[2:])), {})[
+                int(parts[1])] = t.detach()
         else:
             put(parts, t.detach())
-    for name, per_layer in layer_leaves.items():
-        put(["layers"] + name.split("."),
-            torch.stack([per_layer[i].detach()
-                         for i in range(cfg.n_layers)], 1))
+    for (key, name), per_layer in layer_leaves.items():
+        lead = stacks[key]
+        t = torch.stack([per_layer[i] for i in range(len(per_layer))], 1)
+        put([key] + name.split("."),
+            t.reshape(t.shape[:1] + lead + t.shape[2:]))
     return tree
 
 

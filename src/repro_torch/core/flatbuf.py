@@ -134,7 +134,7 @@ def _pad_up(size: int, multiple: int) -> int:
     return max(-(-size // multiple) * multiple, multiple)
 
 
-_LAYER = re.compile(r"layers\.\d+\.(.+)")
+_LAYER = re.compile(r"((?:cross_)?layers)\.\d+\.(.+)")
 
 
 def _leaf_paths(tree: Tree, path: tuple = ()):
@@ -153,11 +153,13 @@ def _leaf_paths(tree: Tree, path: tuple = ()):
 def scale_group_key(path: tuple) -> tuple:
     """The scale group of the leaf at ``path``: a last key
     ``layers.<i>.<rest>`` becomes ``layers.<rest>`` (the JAX leaf that
-    stacks the layers), anything else is kept."""
+    stacks the layers -- for vlm both of its stack axes, as the port
+    numbers its self layers flat) and ``cross_layers.<g>.<rest>``
+    becomes ``cross_layers.<rest>``; anything else is kept."""
     if path and isinstance(path[-1], str):
         m = _LAYER.fullmatch(path[-1])
         if m:
-            return path[:-1] + ("layers." + m.group(1),)
+            return path[:-1] + (f"{m.group(1)}.{m.group(2)}",)
     return path
 
 

@@ -1,8 +1,9 @@
 """Where the serving path's time goes on the card.
 
 Serves a full-width model of a paged family (``--arch``: qwen3-0.6b by
-default, or granite-moe-3b-a800m, whose decode step runs the dropless
-experts; random weights from ``--seed``) through
+default, granite-moe-3b-a800m, whose decode step runs the dropless
+experts, or musicgen-large, whose tokens are frames of 4 codes; random
+weights from ``--seed``) through
 :class:`repro_torch.serve.ServeEngine` and traces, with ``torch.profiler``,
 one bucketed prefill and a steady window of batched decode steps.  For
 each it prints the host time per call (each ends in the engine's copy of
@@ -16,6 +17,8 @@ activation dtype.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve [--steps 8]
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \
       --arch granite-moe-3b-a800m
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+      --arch musicgen-large
 """
 from __future__ import annotations
 
@@ -107,9 +110,10 @@ def main(argv=None) -> None:
                          n_pages=1 + (args.batch + 1)
                          * pages_needed(max_seq, 16), device=dev)
     rng = np.random.default_rng(args.seed)
+    frame = (cfg.n_codebooks,) if cfg.family == "audio" else ()
 
     def submit():
-        engine.submit(rng.integers(0, cfg.vocab_size, args.prompt),
+        engine.submit(rng.integers(0, cfg.vocab_size, (args.prompt,) + frame),
                       max_new=max_seq - args.prompt)
 
     for _ in range(args.batch):           # warm up every bucket once
@@ -139,7 +143,8 @@ def main(argv=None) -> None:
         moe_layer(cfg, params, len(engine.sched.running), args.steps, dev)
 
     tokens = torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (1, args.prompt)), device=dev)
+        rng.integers(0, cfg.vocab_size, (1, args.prompt) + frame),
+        device=dev)
     with torch.no_grad():
         M.forward_prefill(params, cfg, tokens)            # warm
         torch.cuda.synchronize()

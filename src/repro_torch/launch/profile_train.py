@@ -6,7 +6,8 @@ in 80 GB) on ``--nodes`` stacked nodes with ``--optimizer`` (dmsgd) over
 ``--topology`` (the one-peer exponential graph), as ``chip_smoke.py``
 phase 6 does (phase 9: ``--arch mamba2-1.3b --layers 4 --optimizer
 d_adamw --topology random_match``; phase 12: ``--arch
-granite-moe-3b-a800m --layers 2``, the experts by capacity dispatch),
+granite-moe-3b-a800m --layers 2``, the experts by capacity dispatch;
+phase 13: ``--arch musicgen-large --layers 4``, 4-code frames),
 and traces a steady window of steps
 with ``torch.profiler``.  Prints the first steps' times (the warm-up), the
 untraced step time, then for the traced window the host and device time
@@ -126,9 +127,9 @@ def main(argv=None) -> None:
     state = opt.init(stacked)
     data = SyntheticLM(cfg.vocab_size, n, hetero=0.5, seed=args.seed)
     total = 3 + 2 * args.steps
-    batches = [{"tokens": torch.from_numpy(data.sample(k, args.batch,
-                                                       args.seq))}
-               for k in range(total)]
+    n_codebooks = cfg.n_codebooks if cfg.family == "audio" else 0
+    batches = [{"tokens": torch.from_numpy(data.sample(
+        k, args.batch, args.seq, n_codebooks))} for k in range(total)]
     k = 0
 
     def step():

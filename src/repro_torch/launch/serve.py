@@ -15,8 +15,11 @@ families (a fast prefill, one ``forward_prefill`` through the flash-attention
 kernel whose k/v fill a ring cache, then ``attn_decode`` per token), and
 the way the families the paged engine refuses are served (ssm and hybrid
 prefill and decode token by token over their SSM caches and, for hybrid,
-the shared block's rings).  It adds no CLI (the JAX ``main`` serves paged
-families only):
+the shared block's rings; vlm token by token over its self layers'
+rings, with ``image_embeds`` handed to every step).  The audio family's
+prompts are (B, P, K) frames, in ``generate`` as in the engine (``main
+--arch musicgen-large``).  ``generate`` adds no CLI (the JAX ``main``
+serves paged families only):
 
   >>> from repro_torch import configs
   >>> from repro_torch.launch.serve import generate
@@ -32,6 +35,8 @@ families only):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch granite-moe-3b-a800m       # the experts dropless
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch musicgen-large --temperature 0.8   # K draws a frame
 """
 from __future__ import annotations
 
@@ -150,20 +155,23 @@ def _ring_fill(k_all, v_all, cache_len: int, dtype) -> KVCache:
 
 
 def prefill_cache(cfg, params, prompts, *, cache_len: int = 128,
-                  mode: str = "auto"):
-    """The prompt's decode state: ``(logits (B, 1, V) at its last token,
-    cache)``, with an f32 cache as the reference's ``generate`` keeps.
+                  mode: str = "auto", image_embeds=None):
+    """The prompt's decode state: ``(logits (B, 1, V) at its last token
+    (audio: (B, 1, K, V)), cache)``, with an f32 cache as the reference's
+    ``generate`` keeps.  prompts: (B, P) (audio: (B, P, K)).
 
     mode "auto" takes the fast path for the uniform-attention families
-    (:data:`models.model.PAGED_FAMILIES`): one ``forward_prefill``, which
-    runs the flash-attention kernel once per layer, and its k/v
-    ring-filled (:func:`_ring_fill`).  "loop", and every other family,
-    feeds the prompt token by token through ``decode_step``."""
+    (:data:`models.model.PAGED_FAMILIES`) when no ``image_embeds`` are
+    given: one ``forward_prefill``, which runs the flash-attention kernel
+    once per layer, and its k/v ring-filled (:func:`_ring_fill`).
+    "loop", and every other family, feeds the prompt token by token
+    through ``decode_step`` (with ``image_embeds``, as the reference)."""
     if mode not in ("auto", "loop"):
         raise ValueError(f"prefill mode {mode!r}: 'auto' or 'loop'")
     device = params.embed.device
     toks = torch.as_tensor(prompts, device=device).long()
-    if mode == "auto" and cfg.family in M.PAGED_FAMILIES:
+    if (mode == "auto" and cfg.family in M.PAGED_FAMILIES
+            and image_embeds is None):
         logits, (k, v) = M.forward_prefill(params, cfg, toks)
         return logits[:, -1:], {"kv": _ring_fill(k, v, cache_len,
                                                  torch.float32)}
@@ -171,36 +179,44 @@ def prefill_cache(cfg, params, prompts, *, cache_len: int = 128,
                          dtype=torch.float32, device=device)
     for t in range(toks.shape[1]):
         logits, cache = M.decode_step(params, cfg, toks[:, t:t + 1], cache,
-                                      t)
+                                      t, image_embeds=image_embeds)
     return logits, cache
 
 
 def generate(cfg, params, prompts, *, max_new: int = 32,
              cache_len: int = 128, temperature: float = 1.0, seed: int = 0,
-             prefill: str = "auto", device="cuda") -> torch.Tensor:
-    """prompts: (B, P) int.  Returns (B, P + max_new) on ``device``.
+             image_embeds=None, prefill: str = "auto",
+             device="cuda") -> torch.Tensor:
+    """prompts: (B, P) int (audio: (B, P, K)).  Returns (B, P + max_new)
+    (audio: (B, P + max_new, K)) on ``device``.
 
     The reference's legacy one-batch serving loop: :func:`prefill_cache`
-    (fast for the uniform-attention families unless ``prefill="loop"``,
-    token by token otherwise), then ``max_new`` tokens are sampled
-    (``sample_tokens``, with a ``torch.Generator`` seeded from ``seed``)
-    and fed back through ``decode_step``.
+    (fast for the uniform-attention families unless ``prefill="loop"`` or
+    ``image_embeds`` are given, token by token otherwise), then
+    ``max_new`` tokens are sampled (``sample_tokens``, with a
+    ``torch.Generator`` seeded from ``seed``) and fed back through
+    ``decode_step``.  ``image_embeds`` (B, T, d), the vlm family's, go to
+    every decode step.
     """
     device = resolve_device(device)
     if params.embed.device.type != device.type:
         raise ValueError(f"params live on {params.embed.device}, generate "
                          f"runs on {device}")
     toks = torch.as_tensor(prompts, device=device).long()
+    if image_embeds is not None:
+        image_embeds = torch.as_tensor(image_embeds, device=device)
     plen = toks.shape[1]
     gen = torch.Generator(device=device).manual_seed(seed)
     out = [toks]
     with torch.no_grad():
         logits, cache = prefill_cache(cfg, params, toks,
-                                      cache_len=cache_len, mode=prefill)
+                                      cache_len=cache_len, mode=prefill,
+                                      image_embeds=image_embeds)
         for t in range(plen, plen + max_new):
             cur = sample_tokens(logits[:, -1], temperature, gen)
             out.append(cur)
-            logits, cache = M.decode_step(params, cfg, cur, cache, t)
+            logits, cache = M.decode_step(params, cfg, cur, cache, t,
+                                          image_embeds=image_embeds)
     return torch.cat(out, dim=1)
 
 

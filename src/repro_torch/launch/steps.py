@@ -23,17 +23,19 @@ __all__ = ["train_loss_fn", "make_train_step", "overlap_ms"]
 AUX_WEIGHT = 0.01     # the MoE aux loss's weight (zero aux for dense)
 
 
-def train_loss_fn(params, cfg: M.ModelConfig, tokens):
+def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None):
     """Next-token CE in f32 against ``roll(tokens, -1)`` -- the last
     position's label wraps to the first token, as in the reference -- plus
     ``AUX_WEIGHT`` times the moe load-balance loss (zero for the other
-    families).  The experts train with the capacity dispatch: as in the
+    families).  Audio tokens (B, S, K) give (B, S, K, V) logits, and the
+    mean runs over B S K.  The vlm family's ``image_embeds`` (B, T, d) go
+    to the forward.  The experts train with the capacity dispatch: as in the
     reference, ``moe_dropless`` is turned off for the loss (the dropless
     mixture is the serving and eval path).  ``params`` is a ``Model`` or
     a :func:`~repro_torch.models.model.params_view`."""
     if cfg.n_experts and cfg.moe_dropless:
         cfg = dataclasses.replace(cfg, moe_dropless=False)
-    logits, aux = M.forward(params, cfg, tokens)
+    logits, aux = M.forward(params, cfg, tokens, image_embeds=image_embeds)
     labels = torch.roll(tokens, -1, 1).long()
     lo = logits.float()
     mx = lo.amax(-1, keepdim=True).detach()
@@ -53,12 +55,14 @@ def make_train_step(cfg: M.ModelConfig,
     Gradients are computed per node in a loop over the node axis -- one
     node's activations alive at a time, where the reference vmaps -- each
     node's slice of the stacked parameters bound by name with
-    :func:`~repro_torch.models.model.params_view`, with optional
-    micro-batch accumulation in f32; then ``opt.update_with_mix`` partially
-    averages.  ``batch["tokens"]`` (n, B, S) may lie on the CPU; it is
-    moved to the parameters' device.  When the optimizer has runtime
-    gossip hooks, ``aux`` carries the per-node losses and the batch's
-    ``"alive"`` / ``"comm"`` flags (AL-DSGD weights, deadline gates,
+    :func:`~repro_torch.models.model.params_view`, with optional micro-batch
+    accumulation in f32; then ``opt.update_with_mix`` partially averages.
+    ``batch["tokens"]`` (n, B, S) (audio: (n, B, S, K)) may lie on the CPU;
+    it is moved to the parameters' device, as is the vlm family's
+    ``batch["image_embeds"]`` (n, B, T, d), split per node and, with
+    ``micro_batch``, per micro-batch as the tokens are.  When the optimizer
+    has runtime gossip hooks, ``aux`` carries the per-node losses and the
+    batch's ``"alive"`` / ``"comm"`` flags (AL-DSGD weights, deadline gates,
     ``when=`` predicates).  Returns the new params, the new state, and the
     node-mean loss (a device scalar).
 
@@ -74,22 +78,28 @@ def make_train_step(cfg: M.ModelConfig,
     (:func:`overlap_ms` reads them).
     """
 
-    def loss_and_grads(p: dict, tokens):
+    def loss_and_grads(p: dict, tokens, img):
         leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-        loss = train_loss_fn(M.params_view(leaves), cfg, tokens)
+        loss = train_loss_fn(M.params_view(leaves), cfg, tokens, img)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 
-    def per_node_grads(p: dict, tokens):
+    def per_node_grads(p: dict, tokens, img):
         if micro_batch is None or micro_batch >= tokens.shape[0]:
-            return loss_and_grads(p, tokens)
+            return loss_and_grads(p, tokens, img)
         nm = tokens.shape[0] // micro_batch
-        toks = tokens.reshape((nm, micro_batch) + tokens.shape[1:])
+
+        def split(t):
+            return (None if t is None
+                    else t.reshape((nm, micro_batch) + t.shape[1:]))
+
+        toks, imgs = split(tokens), split(img)
         acc_loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
         acc_g = {k: torch.zeros(v.shape, dtype=torch.float32,
                                 device=v.device) for k, v in p.items()}
-        for tok in toks:
-            loss, g = loss_and_grads(p, tok)
+        for m, tok in enumerate(toks):
+            loss, g = loss_and_grads(p, tok,
+                                     None if imgs is None else imgs[m])
             acc_g = {k: acc_g[k] + g[k].float() / nm for k in acc_g}
             acc_loss = acc_loss + loss / nm
         return acc_loss, acc_g
@@ -97,6 +107,9 @@ def make_train_step(cfg: M.ModelConfig,
     def train_step(mix, params: Tree, opt_state, batch: dict, lr):
         first = next(iter(params.values()))
         tokens = batch["tokens"].to(first.device)
+        images = batch.get("image_embeds")
+        if images is not None:
+            images = images.to(first.device)
         n = first.shape[0]
         marks = (timeline is not None and opt.overlap
                  and opt_state.buf is not None and first.is_cuda)
@@ -111,7 +124,8 @@ def make_train_step(cfg: M.ModelConfig,
         losses, grads = [], None
         for i in range(n):
             loss, g = per_node_grads({k: v[i] for k, v in params.items()},
-                                     tokens[i])
+                                     tokens[i],
+                                     None if images is None else images[i])
             if grads is None:        # written node by node, never stacked
                 grads = {k: v.new_empty((n,) + tuple(v.shape))
                          for k, v in g.items()}

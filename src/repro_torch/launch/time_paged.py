@@ -1,4 +1,4 @@
-"""Times K3 (``kernels/paged_attention``) on the card at four shapes, with
+"""Times K3 (``kernels/paged_attention``) on the card at five shapes, with
 the page pool cold as the serving path finds it.
 
 Shapes (bf16, page 16; qwen3-0.6b's heads H 16, Kv 8, D 128 but where
@@ -12,6 +12,8 @@ named):
   moe     serve's lengths at granite-moe-3b-a800m's heads, H 24, Kv 8,
           D 64: G 3, so each block's group of GT 4 query rows has one
           idle row (phase 12's decode step)
+  audio   serve's lengths at musicgen-large's heads, H 32, Kv 32, D 64:
+          G 1, so each group is one query row (phase 13's decode step)
 
 Each is timed from CUDA-graph replays (no host launch cost between calls)
 cycling over at least four copies of the pool, more than 50 MB together,
@@ -39,12 +41,13 @@ PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
 PEAK_F32_FLOPS = 67e12   # the kernel's f32 arithmetic, outside tensor cores
 COLD_BYTES = 60e6        # the pool copies together: beyond the 50 MB L2
 H, KV, D, PAGE = 16, 8, 128, 16
-SHAPES = ("ragged", "serve", "long", "moe")
+SHAPES = ("ragged", "serve", "long", "moe", "audio")
+_HEADS = {"moe": (24, 8, 64), "audio": (32, 32, 64)}
 
 
 def heads(name: str) -> tuple[int, int, int]:
     """(H, Kv, D) of shape ``name``."""
-    return (24, 8, 64) if name == "moe" else (H, KV, D)
+    return _HEADS.get(name, (H, KV, D))
 
 
 def lengths(name: str) -> tuple[np.ndarray, int]:
@@ -54,7 +57,7 @@ def lengths(name: str) -> tuple[np.ndarray, int]:
         ln = np.random.default_rng(2).integers(1, pmax * PAGE + 1, 8)
         ln[0], ln[-1] = pmax * PAGE, 1
         return ln, pmax
-    if name in ("serve", "moe"):
+    if name in ("serve", "moe", "audio"):
         return np.random.default_rng(3).integers(257, 289, 8), 32
     if name == "long":
         return np.array([8192]), 512

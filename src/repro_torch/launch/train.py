@@ -2,9 +2,9 @@
 
 The port of the JAX package's ``launch/train.py``: DmSGD (or a variant:
 dsgd, vanilla_dmsgd, qg_dmsgd, parallel_msgd, d_adamw) over any topology
-(aperiodic ones too: random_match), for the dense, moe, ssm and hybrid
-families, with the n nodes stacked on the leading axis of every tensor
-on one device.  Runs on the card by default
+(aperiodic ones too: random_match), for every family of the reference
+(dense, moe, ssm, hybrid, vlm, audio), with the n nodes stacked on the
+leading axis of every tensor on one device.  Runs on the card by default
 (``--device cuda`` raises without one); ``--device cpu`` runs the plain
 PyTorch path.  As in the reference, the CLI trains the REDUCED config
 unless ``--full``; ``--layers N`` cuts the depth (full width, N layers).
@@ -25,7 +25,13 @@ unless ``--full``; ``--layers N`` cuts the depth (full width, N layers).
 
 Every step's batch is sampled before the loop (``SyntheticLM.sample`` is
 host work that grows with the vocabulary), and each step is timed on the
-host clock up to a device synchronisation.  ``--ckpt-dir`` saves
+host clock up to a device synchronisation.  The audio family's batch
+holds ``n_codebooks`` token streams (n, B, S, K), as the reference's; the
+vlm family's also holds ``image_embeds`` (n, B, n_image_tokens, d_model),
+standard normal f32 drawn on ``--device`` from a ``torch.Generator``
+seeded from (``--seed``, step) -- the reference draws them from
+``jax.random.key(step)``, a stream torch cannot reproduce, so parity
+tests put the same images in both batches.  ``--ckpt-dir`` saves
 ``{"params", "momentum"}`` every ``--ckpt-every`` steps after step 0, in
 the JAX driver's format and layout (:mod:`repro_torch.checkpoint`).
 ``--loss-aware`` binds AL-DSGD weights and ``--deadline-skip`` per-node
@@ -66,8 +72,8 @@ from ..device import resolve_device
 from ..models import model as M
 from . import steps as steps_mod
 
-__all__ = ["build_trainer", "consensus_distance", "stack_nodes", "prepare",
-           "run", "parse_args", "main"]
+__all__ = ["build_trainer", "consensus_distance", "stack_nodes",
+           "image_embeds", "prepare", "run", "parse_args", "main"]
 
 def build_trainer(cfg, topology, optimizer_name: str, beta: float,
                   micro_batch=None, momentum_dtype=None, overlap=False,
@@ -117,6 +123,15 @@ def stack_nodes(params: M.Model, n: int) -> dict:
             for k, p in params.named_parameters()}
 
 
+def image_embeds(seed: int, step: int, shape, device) -> torch.Tensor:
+    """Step ``step``'s stand-in image embeddings: standard normal f32 of
+    ``shape`` from a ``torch.Generator`` on ``device`` seeded from
+    (``seed``, ``step``)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1)[0]
+    gen = torch.Generator(device=device).manual_seed(int(state))
+    return torch.randn(shape, generator=gen, device=device)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -157,9 +172,15 @@ def prepare(args) -> dict:
     data = SyntheticLM(cfg.vocab_size, n, hetero=args.hetero, seed=args.seed)
     lr_fn = schedule.warmup_step_decay(
         args.lr, args.warmup, [int(args.steps * 0.6), int(args.steps * 0.85)])
+    n_codebooks = cfg.n_codebooks if cfg.family == "audio" else 0
     batches = [{"tokens": torch.from_numpy(
-        data.sample(step, args.batch, args.seq))}
+        data.sample(step, args.batch, args.seq, n_codebooks))}
         for step in range(args.steps)]
+    if cfg.family == "vlm":
+        for step, batch in enumerate(batches):
+            batch["image_embeds"] = image_embeds(
+                args.seed, step, (n, args.batch, cfg.n_image_tokens,
+                                  cfg.d_model), device)
     if args.deadline_skip:
         # simulated stragglers: each node misses the round's deadline with
         # probability p; the gossip drops it per node (both directions)

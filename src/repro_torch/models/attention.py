@@ -1,5 +1,6 @@
-"""Self-attention: GQA, qk-norm, soft-capping, sliding windows, and the
-one-token decodes over a ring-buffer KV cache and over a paged KV pool.
+"""Self-attention: GQA, qk-norm, soft-capping, sliding windows, the
+one-token decodes over a ring-buffer KV cache and over a paged KV pool,
+and the vlm family's gated cross-attention.
 
 Mirrors the JAX package's ``models/attention.py``.  The full-sequence path
 (:func:`attn_apply`) runs the flash-attention kernel in serving prefill
@@ -12,8 +13,10 @@ the JAX train path takes the same plain attention (its default
 ring-cache decode (:func:`attn_decode`: the legacy ``generate`` and the
 hybrid shared block) is plain PyTorch, as the reference's is.  Each
 kernel's ``ops`` wrapper dispatches on the tensors' device, so a CPU run
-takes the plain versions with no switch here.  Weights are cast to the
-activation dtype on use, as in the reference.
+takes the plain versions with no switch here.  The cross-attention
+(:func:`cross_attn_apply`) is plain PyTorch through :func:`_sdpa`, as the
+reference's is ``jnp``.  Weights are cast to the activation dtype on use,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.paged_attention import ops as paged_ops
 from .layers import RMSNorm, rms_norm, rope
 
-__all__ = ["Attention", "attn_apply", "attn_decode", "attn_decode_paged",
-           "KVCache", "init_kv_cache", "NEG_INF"]
+__all__ = ["Attention", "CrossAttention", "attn_apply", "attn_decode",
+           "attn_decode_paged", "cross_attn_apply", "KVCache",
+           "init_kv_cache", "NEG_INF"]
 
 # finite fill for masked scores (never -inf): fully-masked and padded rows
 # then give the same finite numbers as the reference
@@ -77,6 +81,18 @@ class Attention(nn.Module):
         if qk_norm:
             self.q_norm = RMSNorm(head_dim, dtype, device)
             self.k_norm = RMSNorm(head_dim, dtype, device)
+
+
+class CrossAttention(Attention):
+    """llama-3.2-vision's gated cross-attention: an :class:`Attention`
+    with qk-norm, plus the 0-d ``gate`` (zero at init, so a fresh cross
+    layer adds nothing: ``tanh(0) = 0``)."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                 dtype=torch.float32, device=None):
+        super().__init__(d_model, n_heads, n_kv, head_dim, True, dtype,
+                         device)
+        self.gate = nn.Parameter(torch.zeros((), dtype=dtype, device=device))
 
 
 def _project_qkv(p: Attention, x, n_heads, n_kv, head_dim, qk_norm,
@@ -225,3 +241,25 @@ def attn_decode_paged(p: Attention, x, k_pages, v_pages, page_table,
                                     lengths, window=window, attn_cap=attn_cap)
     y = (out.reshape(B, n_heads * head_dim) @ p.wo.to(x.dtype))[:, None]
     return y, k_pages, v_pages
+
+
+def cross_attn_apply(p: CrossAttention, x, kv_src, *, n_heads, n_kv,
+                     head_dim):
+    """Cross-attention: queries from x (B, S, d), keys and values from
+    ``kv_src`` (B, T, d), the image embeddings, cast to x's dtype.
+    qk-norm, no RoPE, no causality (an all-true mask through
+    :func:`_sdpa`); the output is scaled by ``tanh(gate)``, taken in f32
+    and cast to the activation dtype, as the reference does."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    T = kv_src.shape[1]
+    src = kv_src.to(dt)
+    q = (x @ p.wq.to(dt)).reshape(B, S, n_heads, head_dim)
+    k = (src @ p.wk.to(dt)).reshape(B, T, n_kv, head_dim)
+    v = (src @ p.wv.to(dt)).reshape(B, T, n_kv, head_dim)
+    q = rms_norm(p.q_norm.scale, q)
+    k = rms_norm(p.k_norm.scale, k)
+    mask = torch.ones((B, 1, S, T), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask)
+    y = out.reshape(B, S, n_heads * head_dim) @ p.wo.to(dt)
+    return torch.tanh(p.gate.float()).to(dt) * y

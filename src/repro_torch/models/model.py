@@ -1,48 +1,62 @@
-"""Decoder-only model composer (dense, moe, ssm and hybrid families).
+"""Decoder-only model composer: the six families of the JAX package.
 
 Mirrors the JAX package's ``models/model.py``.  ``ModelConfig`` is the
-same dataclass with torch dtypes, so every arch config copies across; the
-model itself runs four families and raises ``NotImplementedError`` for
-the others (vlm, audio), naming their ROADMAP items:
+same dataclass with torch dtypes, so every arch config copies across:
   dense   -- [attn + mlp] x L      (llama / qwen / gemma / deepseek)
   moe     -- [attn + moe_ffn] x L  (granite-moe, dbrx)
   ssm     -- [mamba2] x L          (mamba2; attention-free)
   hybrid  -- mamba2 x L with ONE shared attn + mlp block applied after
              every ``shared_attn_every`` mamba layers to concat(hidden,
              embedding) through ``in_proj``                      (zamba2)
+  vlm     -- n_groups x ([attn + mlp] x n_self, then one gated
+             cross-attention layer over the image embeddings), with
+             n_self = cross_attn_every - 1       (llama-3.2-vision)
+  audio   -- dense over the sum of K codebook embeddings, K lm heads
+                                                               (musicgen)
 
 Parameters live in an ``nn.Module`` whose names follow the JAX dict keys
 (``embed``, ``layers.{i}.attn.wq``, ``layers.{i}.ln1.scale``,
 ``layers.{i}.mixer.in_proj``, ``layers.{i}.moe.w_gate``,
-``shared_attn.in_proj``, ``final_norm.scale``, ...) in the JAX layout;
+``shared_attn.in_proj``, ``cross_layers.{g}.xattn.gate``,
+``final_norm.scale``, ...) in the JAX layout;
 the layer ``scan`` of the reference becomes a Python loop over a
-``ModuleList``, so each layer's window is a plain ``int | None``.
+``ModuleList``, so each layer's window is a plain ``int | None``.  The
+vlm family's doubly stacked ``layers`` leaves, (n_groups, n_self, ...) in
+the reference, are numbered flat: JAX ``layers[g, j]`` is the port's
+``layers.{g * n_self + j}``, and JAX ``cross_layers[g]`` is
+``cross_layers.{g}`` (its 0-d ``gate`` a 0-d parameter).  The audio
+family's ``embed`` is (K, V, d) and its ``lm_head`` (K, d, V), as the
+reference's; its tokens are (..., K) and its logits (..., K, V).
 
 Entry points (the JAX signatures, with the module in place of the
 params pytree):
   init(cfg, seed, device)                             -> Model
-  forward(params, cfg, tokens)                        -> logits, aux
+  forward(params, cfg, tokens, image_embeds=None)     -> logits, aux
                                           (aux: the moe layers' summed
                                            load-balance loss, else 0)
   forward_prefill(params, cfg, tokens)                -> logits, (k, v)
   decode_step_paged(params, cfg, token, pool, ...)    -> logits, pool
   init_cache(cfg, batch, cache_len, dtype, device)    -> cache
-  decode_step(params, cfg, token, cache, idx)         -> logits, cache
+  decode_step(params, cfg, token, cache, idx,
+              image_embeds=None)                      -> logits, cache
 
 The paged serving entry points take the uniform-attention families
 (:data:`PAGED_FAMILIES`) only, as the reference's do.  ``init_cache`` and
 ``decode_step`` are the legacy one-batch decode that
 ``launch.serve.generate`` loops: a ring-buffer KV cache per layer for
-dense, an SSM cache per layer for ssm, and for hybrid both an SSM cache
-per mamba layer and one ring KV cache per application of the shared
-block.
+dense, moe and audio (vlm: per self layer, stacked (n_groups, n_self),
+the cross-attention recomputed from the images every step, as the
+reference's), an SSM cache per layer for ssm, and for hybrid both an SSM
+cache per mamba layer and one ring KV cache per application of the
+shared block.
 
 ``params`` may also be :func:`params_view` of a flat ``{name: tensor}``
 dict -- how the train step runs one node's slice of the node-stacked
 parameters.  ``forward`` (train and eval) takes the plain attention with a
 gradient and, when ``cfg.remat``, recomputes each layer (hybrid: each
-mamba layer) in backward (``torch.utils.checkpoint``, as the reference's
-``jax.checkpoint``); ``forward_prefill`` (serving) takes the forward-only
+mamba layer; vlm: each self layer) in backward (``torch.utils.checkpoint``,
+as the reference's ``jax.checkpoint``); ``forward_prefill`` (serving)
+takes the forward-only
 flash-attention kernel.  The ssm and hybrid ``forward`` read
 ``cfg.attention_impl`` as the reference does: "pallas" runs the
 forward-only SSD-scan kernel (and, in the hybrid shared block, the
@@ -76,11 +90,12 @@ __all__ = ["ModelConfig", "Model", "init", "forward", "forward_prefill",
            "active_param_count", "params_view", "SUPPORTED_FAMILIES",
            "PAGED_FAMILIES"]
 
-# families this package runs so far; the others are later slices of the
-# port, named by their ROADMAP items
-SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_LATER = {"audio": "ROADMAP slice E item 13 and slice D item 16",
-          "vlm": "ROADMAP slice E item 13"}
+# the families this package runs: every family of the reference
+SUPPORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# families still to port, by ROADMAP item: none
+_LATER: dict[str, str] = {}
+# families whose layers are all [attn + ffn] (vlm adds cross layers)
+_ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 # families whose decode state is a uniform per-layer self-attention KV --
 # the ones the paged serving plane supports (the reference's list)
 PAGED_FAMILIES = ("dense", "moe", "audio")
@@ -156,8 +171,15 @@ class ModelConfig:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in SUPPORTED_FAMILIES:
         raise NotImplementedError(
-            f"the PyTorch port runs {SUPPORTED_FAMILIES} so far, not "
+            f"the PyTorch port runs {SUPPORTED_FAMILIES}, not "
             f"{cfg.family} ({_LATER.get(cfg.family, 'unknown family')})")
+
+
+def _vlm_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(n_groups, n_self) of the vlm family: n_self self layers then one
+    cross layer, n_groups times (a remainder of n_layers is dropped, as
+    in the reference)."""
+    return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
 
 
 def _check_paged(cfg: ModelConfig) -> None:
@@ -217,9 +239,24 @@ class SharedBlock(DenseLayer):
             device=device))
 
 
+class CrossLayer(nn.Module):
+    """The vlm family's cross layer: [gated cross-attention + mlp] (the
+    reference's ``_cross_layer_init``)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dt = cfg.param_dtype
+        self.ln1 = RMSNorm(cfg.d_model, dt, device)
+        self.xattn = attn.CrossAttention(cfg.d_model, cfg.n_heads,
+                                         cfg.n_kv_heads, cfg.head_dim, dt,
+                                         device)
+        self.ln2 = RMSNorm(cfg.d_model, dt, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+
 class Model(nn.Module):
-    """The parameters of a dense, moe, ssm or hybrid decoder, allocated but
-    not initialised (see :func:`init`, or ``load_state_dict`` of
+    """The parameters of a decoder of any family, allocated but not
+    initialised (see :func:`init`, or ``load_state_dict`` of
     :func:`repro_torch.convert.params_from_jax`)."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda"):
@@ -227,15 +264,28 @@ class Model(nn.Module):
         _check_family(cfg)
         device = resolve_device(device)
         dt = cfg.param_dtype
-        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model,
-                                              dtype=dt, device=device))
-        if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(torch.empty(
-                cfg.d_model, cfg.vocab_size, dtype=dt, device=device))
-        layer = (DenseLayer if cfg.family in ("dense", "moe")
-                 else MambaLayer)
+        V, d = cfg.vocab_size, cfg.d_model
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=device))
+
+        if cfg.family == "audio":        # K embeddings and K heads, untied
+            self.embed = param(cfg.n_codebooks, V, d)
+            self.lm_head = param(cfg.n_codebooks, d, V)
+        else:
+            self.embed = param(V, d)
+            if not cfg.tie_embeddings:
+                self.lm_head = param(d, V)
+        n_layers = cfg.n_layers
+        if cfg.family == "vlm":
+            n_groups, n_self = _vlm_groups(cfg)
+            n_layers = n_groups * n_self
+        layer = DenseLayer if cfg.family in _ATTN_FAMILIES else MambaLayer
         self.layers = nn.ModuleList(layer(cfg, device)
-                                    for _ in range(cfg.n_layers))
+                                    for _ in range(n_layers))
+        if cfg.family == "vlm":
+            self.cross_layers = nn.ModuleList(CrossLayer(cfg, device)
+                                              for _ in range(n_groups))
         if cfg.family == "hybrid":
             self.shared_attn = SharedBlock(cfg, device)
         self.final_norm = RMSNorm(cfg.d_model, dt, device)
@@ -248,8 +298,9 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     stream): truncated normals at fan_in^-0.5, fan_in = ``shape[-2]`` (embed:
     d_model^-0.5; the mamba conv_w: d_conv^-0.5; the hybrid
     ``shared_attn.in_proj``: fan_in 2 d_model; the moe experts (E, d, f)
-    and (E, f, d): d and f; the moe router, always f32: d_model), norm
-    scales zero, and the mamba mixer's
+    and (E, f, d): d and f; the moe router, always f32: d_model; the
+    audio heads (K, d, V): d), norm scales zero, the vlm cross layers'
+    0-d ``gate`` zero, and the mamba mixer's
     deterministic leaves A_log = log(linspace(1, 16, H)), dt_bias = 0,
     D = 1, conv_b = 0."""
     model = Model(cfg, device=device)
@@ -257,7 +308,7 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, w in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("scale", "dt_bias", "conv_b"):
+        if leaf in ("scale", "dt_bias", "conv_b", "gate"):
             w.zero_()
         elif leaf == "D":
             w.fill_(1.0)
@@ -337,6 +388,17 @@ def _ffn(cfg: ModelConfig, p: DenseLayer, h, dropless: bool, aux):
     return mlp_apply(p.mlp, h, cfg.mlp_kind), aux
 
 
+def _cross_block(cfg: ModelConfig, p: CrossLayer, x, img):
+    """One vlm cross layer: pre-norm residual gated cross-attention over
+    the image embeddings ``img`` (in the activation dtype), then the
+    MLP."""
+    h = rms_norm(p.ln1.scale, x, cfg.norm_eps)
+    x = x + attn.cross_attn_apply(p.xattn, h, img, n_heads=cfg.n_heads,
+                                  n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim)
+    h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
+    return x + mlp_apply(p.mlp, h, cfg.mlp_kind)
+
+
 def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
                  aux, prefill=False):
     """One [attn + ffn] layer -> (x, aux plus the layer's load-balance loss,
@@ -395,13 +457,21 @@ def _shared_block(cfg: ModelConfig, p: SharedBlock, x, x0, attend):
 
 
 def _embed_tokens(params: Model, cfg: ModelConfig, tokens):
-    """tokens: (B, S) int -> activations (B, S, d).  Gathers, then casts to
-    the activation dtype (the same bits as the reference's cast-then-
-    gather), then, for the families the reference scales (not ssm), applies
-    the gemma-style sqrt(d_model) scale, rounded to the activation dtype as
-    the reference does for qwen3 too."""
+    """tokens: (B, S) int (audio: (B, S, K)) -> activations (B, S, d).
+    Gathers, then casts to the activation dtype (the same bits as the
+    reference's cast-then-gather); audio sums the K codebooks' embeddings
+    from left to right in the activation dtype, each add rounded as the
+    reference's Python ``sum``.  Then, for the families the reference
+    scales (not ssm), applies the gemma-style sqrt(d_model) scale, rounded
+    to the activation dtype as the reference does for qwen3 too."""
     adt = cfg.activation_dtype
-    x = params.embed[tokens.long()].to(adt)
+    tokens = tokens.long()
+    if cfg.family == "audio":
+        x = params.embed[0][tokens[..., 0]].to(adt)
+        for k in range(1, cfg.n_codebooks):
+            x = x + params.embed[k][tokens[..., k]].to(adt)
+    else:
+        x = params.embed[tokens].to(adt)
     if cfg.family in ("dense", "moe", "vlm", "audio"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt, device=x.device)
     return x
@@ -413,25 +483,35 @@ def _default_positions(tokens):
                         device=tokens.device).expand(B, S)
 
 
-def forward(params: Model, cfg: ModelConfig, tokens, *, positions=None):
-    """Train / eval forward.  tokens: (B, S) int.  Returns logits (B, S, V)
-    and the f32 scalar aux loss: the moe layers' load-balance losses summed
-    (zero for the dense, ssm and hybrid families)."""
-    return _forward(params, cfg, tokens, positions, prefill=False)
+def forward(params: Model, cfg: ModelConfig, tokens, *, image_embeds=None,
+            positions=None):
+    """Train / eval forward.  tokens: (B, S) int (audio: (B, S, K)).
+    Returns logits (B, S, V) (audio: (B, S, K, V)) and the f32 scalar aux
+    loss: the moe layers' load-balance losses summed (zero for the other
+    families).  The vlm family needs ``image_embeds`` (B, T, d); the
+    others ignore it, as in the reference."""
+    return _forward(params, cfg, tokens, positions, prefill=False,
+                    image_embeds=image_embeds)
 
 
 def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
                     positions=None):
     """Full-sequence serving prefill: one forward pass that ALSO returns
-    the per-layer decode KV.  Returns ``(logits, (k, v))`` with k, v shaped
-    (L, B, S, Kv, hd) -- the rotated/normed tensors the page pool stores.
-    Uniform-attention families only (:data:`PAGED_FAMILIES`)."""
+    the per-layer decode KV.  tokens: (B, S) (audio: (B, S, K)).  Returns
+    ``(logits, (k, v))`` with k, v shaped (L, B, S, Kv, hd) -- the
+    rotated/normed tensors the page pool stores.  Uniform-attention
+    families only (:data:`PAGED_FAMILIES`)."""
     _check_paged(cfg)
     return _forward(params, cfg, tokens, positions, prefill=True)
 
 
-def _forward(params, cfg, tokens, positions, prefill):
+def _forward(params, cfg, tokens, positions, prefill, image_embeds=None):
     _check_family(cfg)
+    if cfg.family == "vlm":
+        if image_embeds is None:
+            raise ValueError("the vlm family needs image_embeds")
+        img = image_embeds.to(cfg.activation_dtype)
+        n_self = _vlm_groups(cfg)[1]
     x = _embed_tokens(params, cfg, tokens)
     x0 = x                     # hybrid: the shared block's embedding input
     if positions is None:
@@ -452,10 +532,14 @@ def _forward(params, cfg, tokens, positions, prefill):
             ks.append(k)
             vs.append(v)
             continue
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in _ATTN_FAMILIES:
             x, aux, _ = run(_dense_block, cfg, layer, x, positions, i, aux)
         else:
             x = run(_mamba_block, cfg, layer, x)
+        if cfg.family == "vlm" and (i + 1) % n_self == 0:
+            # the group's cross layer; remat covers the self layers only,
+            # as the reference's _maybe_remat(inner)
+            x = _cross_block(cfg, params.cross_layers[i // n_self], x, img)
         if cfg.family == "hybrid" and (i + 1) % every == 0:
             # after each group of `every` mamba layers (none after the
             # L % every tail); remat covers the mamba layers only, as the
@@ -473,6 +557,11 @@ def _forward(params, cfg, tokens, positions, prefill):
 
 
 def _lm_head(params: Model, cfg: ModelConfig, x):
+    """Logits in the activation dtype: audio's K heads
+    (``bsd,kdv->bskv``, no softcap, never tied, as the reference's), else
+    the tied or untied head, soft-capped."""
+    if cfg.family == "audio":
+        return torch.einsum("bsd,kdv->bskv", x, params.lm_head.to(x.dtype))
     if cfg.tie_embeddings:
         logits = x @ params.embed.to(x.dtype).T
     else:
@@ -488,12 +577,12 @@ def decode_step_paged(params: Model, cfg: ModelConfig, token, pool,
                       page_table, positions, *, page_size: int):
     """One-token decode over a PAGED KV pool (continuous batching).
 
-    token: (B, 1) int; positions: (B,) int32 -- each sequence decodes at its
-    OWN absolute position.  pool: ``{"k", "v"}`` shaped (L, Kv, n_pages,
-    page_size, hd); page_table: (B, Pmax) int32.  The new k/v are written
-    into ``pool`` in place; returns (logits, pool).  Uniform-attention
-    families only (:data:`PAGED_FAMILIES`); the experts run dropless
-    whatever ``cfg.moe_dropless`` is.
+    token: (B, 1) int (audio: (B, 1, K)); positions: (B,) int32 -- each
+    sequence decodes at its OWN absolute position.  pool: ``{"k", "v"}``
+    shaped (L, Kv, n_pages, page_size, hd); page_table: (B, Pmax) int32.  The
+    new k/v are written into ``pool`` in place; returns (logits, pool).
+    Uniform-attention families only (:data:`PAGED_FAMILIES`); the experts
+    run dropless whatever ``cfg.moe_dropless`` is.
     """
     _check_paged(cfg)
     x = _embed_tokens(params, cfg, token)
@@ -510,8 +599,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, *, device="cuda") -> dict:
     """Stacked decode caches, as the reference's ``init_cache``:
 
-    - dense and moe: ``{"kv": KVCache}``, k and v (L, B, Kv, cache_len,
-      hd);
+    - dense, moe and audio: ``{"kv": KVCache}``, k and v (L, B, Kv,
+      cache_len, hd);
+    - vlm: ``{"kv": KVCache}`` of the self layers, (n_groups, n_self, B,
+      Kv, cache_len, hd) (the cross layers keep no cache);
     - ssm: ``{"ssm": SSMCache}``, conv (L, B, d_conv-1, conv_dim) and
       state (L, B, H, P, N) in float32 (``cache_len`` is unused);
     - hybrid: both, the ``KVCache`` as ``"shared_kv"`` with one ring per
@@ -522,13 +613,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     _check_family(cfg)
     device = resolve_device(device)
 
-    def kv(n):
+    def kv(*stack):
         return attn.init_kv_cache(batch, cfg.n_kv_heads, cache_len,
-                                  cfg.head_dim, dtype, stack=(n,),
+                                  cfg.head_dim, dtype, stack=stack,
                                   device=device)
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "audio"):
         return {"kv": kv(cfg.n_layers)}
+    if cfg.family == "vlm":
+        return {"kv": kv(*_vlm_groups(cfg))}
     d_inner = cfg.ssm_expand * cfg.d_model
     conv_dim = d_inner + 2 * cfg.ssm_n_groups * cfg.d_state
     nh = d_inner // cfg.ssm_head_dim
@@ -556,22 +649,34 @@ def _mamba_decode(cfg: ModelConfig, p: MambaLayer, x, conv, state):
 
 
 def decode_step(params: Model, cfg: ModelConfig, token, cache: dict,
-                idx: int):
-    """One-token decode.  token: (B, 1) int; idx: the token's absolute
-    position (a Python int; the ssm family ignores it).  Returns (logits
-    (B, 1, V), cache); the cache's tensors are updated in place, as
-    ``decode_step_paged`` updates its pool.  Dense and moe layers attend
-    over their own ring (each with its static window; the experts always
-    dropless); the hybrid shared block's g-th application over
-    ``shared_kv[g]``."""
+                idx: int, *, image_embeds=None):
+    """One-token decode.  token: (B, 1) int (audio: (B, 1, K)); idx: the
+    token's absolute position (a Python int; the ssm family ignores it).
+    Returns (logits (B, 1, V) (audio: (B, 1, K, V)), cache); the cache's
+    tensors are updated in place, as ``decode_step_paged`` updates its
+    pool.  Dense, moe and audio layers attend over their own ring (each
+    with its static window; the experts always dropless); vlm self layer
+    ``g * n_self + j`` over ``kv[g, j]``, and each group's cross layer
+    attends to ``image_embeds`` (B, T, d), recomputed every step; the
+    hybrid shared block's g-th application over ``shared_kv[g]``."""
     _check_family(cfg)
+    n_self = 0
+    if cfg.family == "vlm":
+        if image_embeds is None:
+            raise ValueError("the vlm family needs image_embeds")
+        img = image_embeds.to(cfg.activation_dtype)
+        n_self = _vlm_groups(cfg)[1]
     x = _embed_tokens(params, cfg, token)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in _ATTN_FAMILIES:
         kv = cache["kv"]
         for i, p in enumerate(params.layers):
+            at = divmod(i, n_self) if n_self else i
             x = _attn_mlp(cfg, p, x, lambda h: attn.attn_decode(
-                p.attn, h, attn.KVCache(kv.k[i], kv.v[i]), idx,
+                p.attn, h, attn.KVCache(kv.k[at], kv.v[at]), idx,
                 window=_effective_window(cfg, i), **_attn_kw(cfg))[0])
+            if n_self and (i + 1) % n_self == 0:
+                x = _cross_block(cfg, params.cross_layers[i // n_self], x,
+                                 img)
     else:
         x0 = x                 # hybrid: this token's embedding
         conv, state = cache["ssm"]

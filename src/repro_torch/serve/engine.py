@@ -19,6 +19,10 @@ Sampling is per-request: ``temperature=0`` is greedy argmax of the f32
 logits on the host; otherwise a ``torch.Generator`` seeded from (seed,
 rid, n_generated) draws the token, so a request's stream does not depend
 on how it was co-batched (it cannot reproduce the JAX ``fold_in`` stream).
+The audio family's tokens are frames of K codes: prompts (P, K), token
+buffers (Bb, Lb, K) and (Bb, 1, K), and one frame sampled per step, the
+argmax of each codebook's logits or K independent draws, one per
+codebook row.
 """
 from __future__ import annotations
 
@@ -136,17 +140,29 @@ class ServeEngine:
 
     # -- sampling ----------------------------------------------------------
 
-    def _sample(self, logits_row: np.ndarray, req: Request) -> int:
-        """logits_row: (V,) f32.  Greedy at temperature 0; otherwise one
-        draw from a generator seeded by (seed, rid, step)."""
+    def _sample(self, logits_row: np.ndarray, req: Request):
+        """logits_row: (V,) f32 -- audio: (K, V).  Greedy at temperature
+        0; otherwise a draw from a generator seeded by (seed, rid, step),
+        for audio K independent draws, one per codebook row.  Returns an
+        int (audio: a (K,) int32 array)."""
         if self.temperature == 0.0:
-            return int(np.argmax(logits_row))
-        state = np.random.SeedSequence(
-            [self.seed, req.rid, len(req.generated)]).generate_state(1)[0]
-        gen = torch.Generator().manual_seed(int(state))
-        probs = torch.softmax(torch.from_numpy(logits_row) / self.temperature,
-                              dim=-1)
-        return int(torch.multinomial(probs, 1, generator=gen))
+            tok = np.argmax(logits_row, axis=-1)
+        else:
+            state = np.random.SeedSequence(
+                [self.seed, req.rid, len(req.generated)]).generate_state(1)[0]
+            gen = torch.Generator().manual_seed(int(state))
+            probs = torch.softmax(
+                torch.from_numpy(logits_row) / self.temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=gen)[..., 0].numpy()
+        if self.cfg.family == "audio":
+            return tok.astype(np.int32)
+        return int(tok)
+
+    def _token_shape(self, *lead) -> tuple:
+        """A token buffer's shape: ``lead``, and K for audio frames."""
+        if self.cfg.family == "audio":
+            return lead + (self.cfg.n_codebooks,)
+        return lead
 
     # -- step loop ---------------------------------------------------------
 
@@ -157,7 +173,7 @@ class ServeEngine:
         toks = [r.prefill_tokens() for r in reqs]
         Bb = _bucket(len(reqs))
         Lb = _bucket(max(t.shape[0] for t in toks), lo=self.page_size)
-        tokens = np.zeros((Bb, Lb), np.int32)
+        tokens = np.zeros(self._token_shape(Bb, Lb), np.int32)
         page_idx = np.full((Bb, Lb), TRASH_PAGE, np.int64)
         slot_idx = np.broadcast_to(
             np.arange(Lb, dtype=np.int64) % self.page_size, (Bb, Lb)).copy()
@@ -185,7 +201,7 @@ class ServeEngine:
 
     def _run_decode(self, reqs: list[Request], now: float) -> None:
         Bb = _bucket(len(reqs))
-        tokens = np.zeros((Bb, 1), np.int32)
+        tokens = np.zeros(self._token_shape(Bb, 1), np.int32)
         positions = np.zeros((Bb,), np.int32)
         page_table = np.full((Bb, self.pmax), TRASH_PAGE, np.int32)
         for i, r in enumerate(reqs):

@@ -129,6 +129,16 @@ def test_flash_attention_kernel_moe_prefill_bucket(cuda, window, cap,
     _flash_check(q, k, v, dtype, window=window, attn_cap=cap)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,cap", [(None, None), (100, 30.0)])
+def test_flash_attention_kernel_audio_prefill_bucket(cuda, window, cap,
+                                                     dtype):
+    """musicgen-large's prefill bucket, (4, 512, 32, 32, 64): MHA (G 1)
+    at D 64, 32 kv heads."""
+    q, k, v = _qkv(4, 512, 512, 32, 32, 64, dtype, cuda, 32)
+    _flash_check(q, k, v, dtype, window=window, attn_cap=cap)
+
+
 def test_flash_attention_kernel_rejects(cuda):
     q = torch.zeros(1, 64, 2, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -230,6 +240,19 @@ def test_paged_attention_kernel_moe_decode(cuda, window, cap, dtype):
     lengths = np.random.default_rng(3).integers(257, 289, 8).tolist()
     q, kp, vp, table, lens = _pages(8, 24, 8, 64, 16, lengths, dtype, cuda,
                                     seed=29)
+    _paged_check(q, kp, vp, table, lens, dtype, window=window, attn_cap=cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,cap", [(None, None), (100, 30.0)])
+def test_paged_attention_kernel_audio_decode(cuda, window, cap, dtype):
+    """musicgen-large's decode step at ragged lengths: H 32, Kv 32, D 64
+    (G 1, so GT 1: one query row a group), a long row beside short ones
+    and a trash-padded last row."""
+    lengths = [288, 1, 257, 40, 1000, 129, 16, 1]
+    q, kp, vp, table, lens = _pages(8, 32, 32, 64, 16, lengths, dtype, cuda,
+                                    seed=31)
+    table[-1] = 0
     _paged_check(q, kp, vp, table, lens, dtype, window=window, attn_cap=cap)
 
 

@@ -365,10 +365,12 @@ def test_sample_tokens_shapes():
 
 def test_serving_entry_points_refuse_ssm_and_dense_decode_raises():
     """The refusals that remain: the paged serving entry points refuse the
-    ssm and hybrid families (served by generate), and decode_step refuses
-    the families not yet ported, naming their ROADMAP items.  (The dense
-    and moe ring-cache decodes this test once saw refused now run:
-    tests/test_torch_generate.py, tests/test_torch_moe.py.)"""
+    ssm and hybrid families (served by generate).  Every family now builds
+    a ring cache and decodes: the dense and moe ring-cache decodes
+    (tests/test_torch_generate.py, tests/test_torch_moe.py) and, since
+    the audio and vlm families were ported, musicgen's (B, 1, K) frames
+    and llama-3.2-vision's step over its images, which this test once saw
+    refused (tests/test_torch_audio.py, tests/test_torch_vlm.py)."""
     tok = torch.zeros((1, 4), dtype=torch.long)
     from repro_torch.serve import ServeEngine
     for arch in ("mamba2-1.3b", "zamba2-1.2b"):
@@ -378,13 +380,23 @@ def test_serving_entry_points_refuse_ssm_and_dense_decode_raises():
             TM.forward_prefill(model, cfg, tok)
         with pytest.raises(NotImplementedError, match="paged"):
             ServeEngine(cfg, model, n_pages=8, device="cpu")
-    for arch, item in (("musicgen-large", "item 13"),
-                       ("llama-3.2-vision-90b", "item 13")):
+    for arch in ("musicgen-large", "llama-3.2-vision-90b"):
         cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
-        with pytest.raises(NotImplementedError, match=item):
-            TM.decode_step(None, cfg, tok[:, :1], {}, 0)
-        with pytest.raises(NotImplementedError, match=item):
-            TM.init_cache(cfg, batch=1, cache_len=8, device="cpu")
+        model = TM.init(cfg, 0, device="cpu")
+        cache = TM.init_cache(cfg, batch=1, cache_len=8, device="cpu")
+        audio = cfg.family == "audio"
+        token = tok[:, :1, None].expand(1, 1, cfg.n_codebooks) if audio \
+            else tok[:, :1]
+        img = None if audio else torch.zeros(1, cfg.n_image_tokens,
+                                             cfg.d_model)
+        with torch.no_grad():
+            logits, cache = TM.decode_step(model, cfg, token, cache, 0,
+                                           image_embeds=img)
+        want = (1, 1) + ((cfg.n_codebooks,) if audio else ()) + (
+            cfg.vocab_size,)
+        assert tuple(logits.shape) == want
+        assert torch.isfinite(logits.float()).all()
+        assert float(cache["kv"].k.abs().max()) > 0
     for arch in ("qwen3-0.6b", "granite-moe-3b-a800m"):
         dense = tconfigs.reduced_config(tconfigs.get_config(arch))
         cache = TM.init_cache(dense, batch=1, cache_len=8, device="cpu")

@@ -145,6 +145,11 @@ def test_prefill_and_paged_decode_match_jax(jax_setup, act):
 
 
 def test_unsupported_family_raises():
-    cfg = tconfigs.reduced_config(tconfigs.get_config("musicgen-large"))
-    with pytest.raises(NotImplementedError):
+    """Every family of the reference runs; one it does not have raises."""
+    cfg = dataclasses.replace(
+        tconfigs.reduced_config(tconfigs.get_config("musicgen-large")),
+        family="encdec")
+    assert set(TM.SUPPORTED_FAMILIES) == {
+        "dense", "moe", "ssm", "hybrid", "vlm", "audio"} and not TM._LATER
+    with pytest.raises(NotImplementedError, match="unknown family"):
         TM.init(cfg, 0, device="cpu")
