@@ -1,4 +1,4 @@
-"""Times K3 (``kernels/paged_attention``) on the card at five shapes, with
+"""Times K3 (``kernels/paged_attention``) on the card at ten shapes, with
 the page pool cold as the serving path finds it.
 
 Shapes (bf16, page 16; qwen3-0.6b's heads H 16, Kv 8, D 128 but where
@@ -14,12 +14,26 @@ named):
           idle row (phase 12's decode step)
   audio   serve's lengths at musicgen-large's heads, H 32, Kv 32, D 64:
           G 1, so each group is one query row (phase 13's decode step)
+  gemma2, granite34b, deepseek, dbrx
+          serve's lengths at the heads of gemma2-27b (H 32, Kv 16: G 2;
+          window 4096 and soft-cap 50, as its local layers call it),
+          granite-34b (H 48, Kv 1: G 48, six groups of GT 8 rows over one
+          kv head), deepseek-67b (H 64, Kv 8: G 8) and dbrx-132b (H 48,
+          Kv 8: G 6, two of each group's 8 rows idle), all D 128
+          (``chip_smoke.py`` phase 15's decode steps)
+  gemma2_long
+          one 6,148-token sequence at gemma2-27b's heads, window 4096 and
+          soft-cap 50: the window starts 2,052 tokens into the sequence
+          (phase 15 (c))
 
 Each is timed from CUDA-graph replays (no host launch cost between calls)
 cycling over at least four copies of the pool, more than 50 MB together,
 so that no call finds its pages in the 50 MB L2; the eager time through
-the Python wrapper is printed beside it.  The bound is bytes: the K and V
-of the visible tokens once, q, out, the page table and lengths.
+the Python wrapper is printed beside it.  The bound is the larger of the
+bytes -- the K and V of the visible tokens once (those inside the window,
+where there is one), q, out, the page table and lengths -- and the
+operations on them at the card's peak rate for their type, bf16 on the
+tensor cores (bytes set it at every shape).
 
   PYTHONPATH=src python3 src/repro_torch/launch/time_paged.py
 
@@ -38,16 +52,29 @@ import torch
 from repro_torch.kernels.paged_attention import ops
 
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
-PEAK_F32_FLOPS = 67e12   # the kernel's f32 arithmetic, outside tensor cores
+PEAK_BF16_FLOPS = 989e12  # the inputs' type, bf16, on the tensor cores
 COLD_BYTES = 60e6        # the pool copies together: beyond the 50 MB L2
 H, KV, D, PAGE = 16, 8, 128, 16
-SHAPES = ("ragged", "serve", "long", "moe", "audio")
-_HEADS = {"moe": (24, 8, 64), "audio": (32, 32, 64)}
+SHAPES = ("ragged", "serve", "long", "moe", "audio", "gemma2", "granite34b",
+          "deepseek", "dbrx", "gemma2_long")
+_HEADS = {"moe": (24, 8, 64), "audio": (32, 32, 64),
+          "gemma2": (32, 16, 128), "gemma2_long": (32, 16, 128),
+          "granite34b": (48, 1, 128), "deepseek": (64, 8, 128),
+          "dbrx": (48, 8, 128)}
+# (window, soft-cap) a shape is called with, where not (None, None)
+_MASKS = {"gemma2": (4096, 50.0), "gemma2_long": (4096, 50.0)}
+_SERVE_LIKE = ("serve", "moe", "audio", "gemma2", "granite34b", "deepseek",
+               "dbrx")
 
 
 def heads(name: str) -> tuple[int, int, int]:
     """(H, Kv, D) of shape ``name``."""
     return _HEADS.get(name, (H, KV, D))
+
+
+def mask(name: str) -> tuple[int | None, float | None]:
+    """(window, soft-cap) of shape ``name``."""
+    return _MASKS.get(name, (None, None))
 
 
 def lengths(name: str) -> tuple[np.ndarray, int]:
@@ -57,10 +84,12 @@ def lengths(name: str) -> tuple[np.ndarray, int]:
         ln = np.random.default_rng(2).integers(1, pmax * PAGE + 1, 8)
         ln[0], ln[-1] = pmax * PAGE, 1
         return ln, pmax
-    if name in ("serve", "moe", "audio"):
+    if name in _SERVE_LIKE:
         return np.random.default_rng(3).integers(257, 289, 8), 32
     if name == "long":
         return np.array([8192]), 512
+    if name == "gemma2_long":
+        return np.array([6148]), -(-6148 // PAGE)
     raise ValueError(name)
 
 
@@ -91,22 +120,28 @@ def inputs(dev, name: str, copies: int = 1, dtype=torch.bfloat16):
             torch.from_numpy(ln.astype(np.int32)).to(dev), ln)
 
 
+def visible_tokens(ln: np.ndarray, window: int | None = None) -> int:
+    """Tokens the decode queries see: each sequence's last ``window``."""
+    return int((ln if window is None else np.minimum(ln, window)).sum())
+
+
 def cost(ln: np.ndarray, pmax: int, elem: int = 2,
-         hkd: tuple = (H, KV, D)) -> tuple[int, int]:
+         hkd: tuple = (H, KV, D), window: int | None = None
+         ) -> tuple[int, int]:
     """Operations and bytes one call needs: 4 H D flops per visible token
     (q.k and p.v for the G rows of each kv head); K and V of the visible
     tokens once, q and out, the page table and the lengths."""
     h, kv, d = hkd
-    visible, B = int(ln.sum()), len(ln)
+    visible, B = visible_tokens(ln, window), len(ln)
     return (4 * h * d * visible,
             2 * visible * kv * d * elem + 2 * B * h * d * elem
             + 4 * (B * pmax + B))
 
 
-def bound_ms(ln: np.ndarray, pmax: int,
-             hkd: tuple = (H, KV, D)) -> tuple[float, str]:
-    flops, nbytes = cost(ln, pmax, hkd=hkd)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(ln: np.ndarray, pmax: int, hkd: tuple = (H, KV, D),
+             window: int | None = None) -> tuple[float, str]:
+    flops, nbytes = cost(ln, pmax, hkd=hkd, window=window)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -131,10 +166,12 @@ def time_shape(dev, name: str) -> dict:
     copies = max(4, -(-int(COLD_BYTES) // copy_bytes))
     q, pools, table, lens, _ = inputs(dev, name, copies)
     calls = copies * max(1, 32 // copies)
+    window, cap = mask(name)
 
     def run_all():
         for kp, vp in pools * (calls // copies):
-            ops.paged_attention(q, kp, vp, table, lens)
+            ops.paged_attention(q, kp, vp, table, lens, window=window,
+                                attn_cap=cap)
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -147,10 +184,11 @@ def time_shape(dev, name: str) -> dict:
     graph_ms = _events_ms(graph.replay, 5) / calls
     del graph
     eager_ms = _events_ms(run_all, 3) / calls
-    b_ms, by = bound_ms(ln, pmax, hkd)
-    _, nbytes = cost(ln, pmax, hkd=hkd)
+    b_ms, by = bound_ms(ln, pmax, hkd, window)
+    _, nbytes = cost(ln, pmax, hkd=hkd, window=window)
     return {"shape": name, "B": len(ln), "pmax": pmax, "heads": hkd,
-            "visible": int(ln.sum()), "copies": copies,
+            "window": window, "cap": cap,
+            "visible": visible_tokens(ln, window), "copies": copies,
             "pool_mb": copies * copy_bytes / 1e6, "ms": graph_ms,
             "eager_ms": eager_ms, "bound_ms": b_ms, "bound_by": by,
             "gbps": nbytes / graph_ms / 1e6, "bound_share": b_ms / graph_ms}
@@ -169,6 +207,7 @@ def main() -> None:
         r = time_shape(dev, name)
         rows.append(r)
         print(f"  {name}: B={r['B']} (H, Kv, D)={r['heads']} "
+              f"window={r['window']} cap={r['cap']} "
               f"Pmax={r['pmax']} {r['visible']} "
               f"visible tokens, {r['copies']} pool copies "
               f"({r['pool_mb']:.1f} MB): graph {r['ms']:.4f} ms "

@@ -12,7 +12,13 @@ and ``launch/topology_compare``, on the CPU at small sizes.
   (tests/test_kernels.py:16).  The JAX side runs the reference's own loop
   bodies with those draws; the full-size orderings are chip_smoke.py's.
 * ``run.py``'s CSV header and its refusals, and ``topology_compare`` on
-  a tiny grid.  Torch is pinned to one thread."""
+  a tiny grid.
+* The serving benchmark: the port's ``check_serve_regression.compare``
+  gives the reference's messages on the same records, and ``bench_serve
+  --quick --device cpu`` writes the reference's JSON schema, which the
+  reference's checker accepts.
+Torch is pinned to one thread."""
+import json
 import math
 import os
 import sys
@@ -28,9 +34,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from benchmarks import bench_consensus as jbc
 from benchmarks import bench_spectral_gap as jbs, bench_transient as jbt
+from benchmarks import check_serve_regression as jcsr
 from repro.core import optim as JO, spectral as JSp, topology as JT
 from repro_torch.benchmarks import bench_consensus as tbc
 from repro_torch.benchmarks import bench_hetero as tbh
+from repro_torch.benchmarks import bench_serve as tbsv
+from repro_torch.benchmarks import check_serve_regression as tcsr
 from repro_torch.benchmarks import bench_spectral_gap as tbs
 from repro_torch.benchmarks import bench_transient as tbt
 from repro_torch.benchmarks import run as trun
@@ -264,3 +273,58 @@ def test_topology_compare_writes_its_csv(tmp_path, capsys):
     assert set(ov) == {"parallel", "one_peer_exp"}
     assert ov["parallel"] == curves["parallel"]
     assert all(np.isfinite(m) for c in ov.values() for _, m in c)
+
+
+# ---------------------------------------------------------------------------
+# the serving benchmark and its gate
+# ---------------------------------------------------------------------------
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _serve_record(tps=100.0, p50=0.1, peak=1000, dense=4000):
+    lat = {f: p50 for f in tcsr.LATENCY_FIELDS}
+    return {"engine": {"tokens_per_s": tps, "peak_kv_bytes": peak,
+                       "compile_cache": {"entries": 3, "hits": 9,
+                                         "misses": 3, "evictions": 0},
+                       **lat},
+            "baseline": {"tokens_per_s": 50.0, "dense_kv_bytes": dense,
+                         **lat},
+            "speedup": tps / 50.0}
+
+
+@pytest.mark.parametrize("new,n_fails", [
+    (_serve_record(), 0),
+    (_serve_record(tps=70.0), 1),             # a 30 % throughput drop
+    (_serve_record(p50=float("nan")), 8),     # every latency NaN, both sides
+    (_serve_record(peak=4000), 1),            # paged KV at the dense size
+], ids=["pass", "throughput_drop", "nan_latency", "paged_kv_at_dense"])
+def test_check_serve_regression_matches_reference(new, n_fails, capsys):
+    base = _serve_record()
+    got = tcsr.compare(base, new)
+    out = capsys.readouterr().out
+    want = jcsr.compare(base, new)
+    assert got == want and out == capsys.readouterr().out
+    assert len(got) == n_fails
+
+
+def test_bench_serve_quick_writes_the_reference_schema(tmp_path, capsys):
+    out = tmp_path / "bs.json"
+    tbsv.main(["--quick", "--device", "cpu", "--out", str(out)])
+    with open(out) as f:
+        written = json.load(f)
+    with open(os.path.join(_ROOT, "BENCH_serve.json")) as f:
+        committed = json.load(f)
+
+    def keys(d):
+        return {k: keys(v) if isinstance(v, dict) else None
+                for k, v in d.items()}
+
+    assert keys(written) == keys(committed)
+    assert written["config"] == committed["config"]
+    eng, base = written["engine"], written["baseline"]
+    assert eng["new_tokens"] == base["new_tokens"] == 12 * 8
+    assert eng["preemptions"] == 0 and eng["peak_kv_bytes"] > 0
+    assert jcsr.compare(written, written) == []
+    assert tcsr.compare(written, written) == []
+    assert "continuous batching speedup" in capsys.readouterr().out
