@@ -25,7 +25,10 @@ forward, decode and generate over image embeddings, and training at the
 reduced width, then the four configs no other phase runs (gemma2-27b,
 granite-34b, deepseek-67b, dbrx-132b) at full width through the paged
 serving path, and the serving benchmark (bench_serve --quick) with its
-structural gates.
+structural gates, then the kernel and communication benchmarks
+(bench_kernels, bench_comm --quick with its wire-bytes gate) and the
+paper's LM-scale experiment (train_lm at the 100m preset, one-peer and
+static exponential graphs on 8 nodes).
 
   python3 chip_smoke.py [--seed N]
 
@@ -239,6 +242,30 @@ Phases, in order; any failure exits non-zero before the result lines:
                  engine / baseline speedup are printed, not gated (the
                  quick trace is bound by its arrivals, on the card as on
                  a CPU, and the reduced model's steps by the host)
+ 17. benches  -- (a) repro_torch.benchmarks.bench_kernels on the card: K2
+                 f32 at (1, 512, 4, 2, 64), K4 at (1, 512, 4, 64, 1, 64)
+                 chunk 128, K1 at 2^20 f32, each allclose to its plain
+                 version (2e-4, 2e-3, 1e-5) and launched exactly as often
+                 as the suite called its wrapper; kernel us (CUDA-graph
+                 replays, in turns with sdpa for K2 and torch.lerp for
+                 K1) beside the bound, the library call's and the plain
+                 version's us;
+                 (b) bench_comm --quick into a temporary file:
+                 check_comm_regression.compare against the committed
+                 BENCH_comm_h100.json, the wire bytes equal to the
+                 reference's BENCH_comm.json once its 8,192-element padding
+                 is taken out (port x 1,007,616 == reference x 1,000,000;
+                 runtime metadata bytes, collectives, rounds, kinds and
+                 wire multipliers equal), every us_per_mix real, K1
+                 launched by every Shifts and Matching row's timed mixes;
+                 the overlap pair and its speedup printed, not gated (the
+                 step is host-bound on one card); (c) launch.train_lm
+                 train_one at the 100m preset (128,995,584 parameters a
+                 node), 8 nodes, 20 steps over one_peer_exp and then
+                 static_exp: every loss finite, the last below step 0's,
+                 K1 once a step and no other kernel, 3 and 1 executables
+                 (one per distinct realization), peak memory beside the
+                 reckoned peak
 Every phase's runtime is printed after it.
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -258,11 +285,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published peaks of one H100 SXM (dense, no sparsity) at its 700 W limit
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12       # outside the tensor cores
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES = 3.35e12
+# published peaks of one H100 SXM (dense, no sparsity) at its 700 W limit,
+# and the bound they give: repro_torch.benchmarks.common (torch only)
+from repro_torch.benchmarks.bench_kernels import (  # noqa: E402
+    flash_cost, ssd_cost)
+from repro_torch.benchmarks.common import (  # noqa: E402
+    PEAK_F32_FLOPS, PEAK_TF32_FLOPS, bound_us, time_graph_us, time_turns)
 KERNEL_TOL = 2e-2            # tests/test_kernels.py:15, bf16
 FLASH_F32_TOL = 2e-4         # tests/test_kernels.py:15, f32
 FLASH_MAIN = (4, 512, 16, 8, 128)   # (B, S, H, Kv, D): the serving prefill
@@ -369,43 +397,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_graph_ms(fn, iters: int = 20) -> float:
-    """Mean device milliseconds per call of ``fn``, replayed from one CUDA
-    graph of ``iters`` calls: no host launch cost between them, so a call
-    shorter than its Python wrapper's host time is timed by the device."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    ms = time_ms(graph.replay, iters=5, warmup=1) / iters
-    del graph
-    return ms
-
-
-def time_turns(fns: dict, rounds: int = 4, timer=time_ms) -> dict:
-    """Median of ``rounds`` timings of each function, taken in turns (a b,
-    b a, ...) so that a drift of the card's clock falls on both."""
-    times = {name: [] for name in fns}
-    for r in range(rounds):
-        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            times[name].append(timer(fns[name]))
-    return {name: sorted(t)[len(t) // 2] for name, t in times.items()}
-
-
-def bound(flops: float, nbytes: float,
-          peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def _short(function: str) -> str:
     """A demangled kernel name without its namespace and arguments."""
     return function.replace("(anonymous namespace)::", "").split("(")[0]
@@ -429,18 +420,6 @@ def _flash_inputs(torch, dev, shape, dtype, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(s, generator=g, device=dev).to(dtype)
             for s in ((B, S, H, D), (B, S, Kv, D), (B, S, Kv, D))]
-
-
-def _flash_cost(shape, elem_bytes: int,
-                window: int | None = None) -> tuple[int, int]:
-    """Operations and bytes of one causal call: the visible (row, col)
-    pairs (row i sees min(i + 1, window) columns), two products of D
-    each; q, k, v read once and out written once."""
-    B, S, H, Kv, D = shape
-    w = S if window is None else min(window, S)
-    pairs = w * (w + 1) // 2 + (S - w) * w
-    return 4 * B * H * D * pairs, elem_bytes * (2 * B * S * H * D
-                                                + 2 * B * S * Kv * D)
 
 
 def _flex_attention(torch, dev, shape, window: int | None, cap: float):
@@ -526,14 +505,16 @@ def flash_phase(torch, dev):
         t = time_turns({
             "kernel": lambda: ops.flash_attention(q, k, v, window=tw,
                                                   attn_cap=tc),
-            "library": library}, rounds=2, timer=time_graph_ms)
+            "library": library}, rounds=2,
+            timer=lambda f: time_graph_us(f) / 1e3)
         eager_ms = time_ms(lambda: ops.flash_attention(q, k, v, window=tw,
                                                        attn_cap=tc))
         plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, window=tw,
                                                      attn_cap=tc),
                            iters=plain_iters, warmup=1)
-        flops, nbytes = _flash_cost(shape, 2, tw)
-        bound_ms, bound_by = bound(flops, nbytes)
+        flops, nbytes = flash_cost(shape, 2, tw)
+        bound_ms, bound_by = bound_us(flops, nbytes)
+        bound_ms /= 1e3
         rows[name] = {"ms": t["kernel"], "plain_ms": plain_ms,
                       "library_ms": t["library"], "library": lib_name,
                       "bound_ms": bound_ms, "bound_by": bound_by,
@@ -563,7 +544,8 @@ def flash_phase(torch, dev):
           f"flash_attention f32: max abs err {f32_err} beyond "
           f"{FLASH_F32_TOL}")
     f32_ms = time_ms(lambda: ops.flash_attention(q, k, v))
-    f32_bound, f32_by = bound(*_flash_cost(FLASH_MAIN, 4), PEAK_F32_FLOPS)
+    f32_bound, f32_by = bound_us(*flash_cost(FLASH_MAIN, 4), PEAK_F32_FLOPS)
+    f32_bound /= 1e3
     log(f"  flash_attention {FLASH_MAIN} f32 (FMA branch): max abs err "
         f"{f32_err:.3g} (tolerance {FLASH_F32_TOL}); kernel {f32_ms:.4f} "
         f"ms, bound {f32_bound:.4f} ms ({f32_by}, f32 outside the tensor "
@@ -680,12 +662,13 @@ def gossip_phase(torch, dev):
     x, r = (torch.randn(big, generator=g, device=dev) for _ in range(2))
     t = time_turns({
         "kernel": lambda: ops.gossip_mix(x, [r], w_self=0.5, ws=(0.5,)),
-        "lerp": lambda: torch.lerp(x, r, 0.5)})
+        "lerp": lambda: torch.lerp(x, r, 0.5)}, timer=time_ms)
     ms, library_ms = t["kernel"], t["lerp"]
     plain_ms = time_ms(lambda: ref.gossip_mix_ref(x, [r], 0.5, (0.5,)),
                        iters=10)
     n = x.numel()
-    bound_ms, bound_by = bound(3 * n, 3 * 4 * n, PEAK_F32_FLOPS)
+    bound_ms, bound_by = bound_us(3 * n, 3 * 4 * n, PEAK_F32_FLOPS)
+    bound_ms /= 1e3
     log(f"  gossip_mix {big} f32 degree 1: kernel {ms:.4f} ms "
         f"({3 * 4 * n / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f} % of "
         f"the bound), lerp {library_ms:.4f} ms ({100 * bound_ms / library_ms:.1f}"
@@ -749,24 +732,20 @@ def ssd_phase(torch, dev):
         x, dt, A, B, C = _ssd_inputs(torch, dev, shape, 6, True)
         b, s, h, p, g, n = shape
         L = ops.chunk_len(s, 128)
-        ms = time_graph_ms(lambda: ops.ssd_scan(x, dt, A, B, C), iters=10)
+        ms = time_graph_us(lambda: ops.ssd_scan(x, dt, A, B, C),
+                           calls=10) / 1e3
         eager_ms = time_ms(lambda: ops.ssd_scan(x, dt, A, B, C))
         nc, pairs = s // L, L * (L + 1) // 2
-        # per (b, h, chunk): the causal half of M (dt x), C H_in and the
-        # chunk state B^T (w x); the causal half of C B^T once per (b, g,
-        # chunk), as the kernel shares it across a group's heads (per head
-        # as the reference computes it: flops_per_head); then the state
-        # pass
-        flops = (b * h * nc * (2 * pairs * p + 4 * L * n * p + 2 * p * n)
-                 + b * g * nc * 2 * pairs * n)
+        flops, nbytes = ssd_cost(shape, 128)
+        # C B^T per head, as the reference computes it
         flops_per_head = flops + (h - g) * b * nc * 2 * pairs * n
-        nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
-                      + b * h * p * n)
         # 3xTF32: three TF32 products for every f32 one
-        bound_ms, bound_by = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
-        per_head_ms = bound(3 * flops_per_head, nbytes, PEAK_TF32_FLOPS)[0]
-        f32_ms = bound(flops, nbytes, PEAK_F32_FLOPS)[0]
-        tf32_ms = bound(flops, nbytes, PEAK_TF32_FLOPS)[0]
+        bound_ms, bound_by = bound_us(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        bound_ms /= 1e3
+        per_head_ms = bound_us(3 * flops_per_head, nbytes,
+                               PEAK_TF32_FLOPS)[0] / 1e3
+        f32_ms = bound_us(flops, nbytes, PEAK_F32_FLOPS)[0] / 1e3
+        tf32_ms = bound_us(flops, nbytes, PEAK_TF32_FLOPS)[0] / 1e3
         row = {"ms": ms, "eager_ms": eager_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bound_per_head_scores_ms": per_head_ms,
                "bound_f32_fma_ms": f32_ms,
@@ -1145,7 +1124,8 @@ def _k1_at_payload(torch, buf, recv, what):
     plain_ms = time_ms(lambda: ref.gossip_mix_ref(buf, [recv], 0.5, (0.5,)),
                        iters=3, warmup=1)
     n = buf.numel()
-    bound_ms, bound_by = bound(3 * n, 3 * 4 * n, PEAK_F32_FLOPS)
+    bound_ms, bound_by = bound_us(3 * n, 3 * 4 * n, PEAK_F32_FLOPS)
+    bound_ms /= 1e3
     ms, lerp_ms = t["kernel"], t["lerp"]
     log(f"  K1 at {what} {tuple(buf.shape)} f32 ({n / 2**31:.3f} x 2^31 "
         f"elements): max abs err {err:.3g} (tolerance {tol}); kernel "
@@ -2848,6 +2828,231 @@ def bench_serve_phase(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: bench_kernels, bench_comm --quick and train_lm (100m)
+# ---------------------------------------------------------------------------
+
+BENCH_COMM_BASELINE = ROOT / "BENCH_comm_h100.json"
+BENCH_COMM_REFERENCE = ROOT / "BENCH_comm.json"
+# elements a node of bench_comm's 1M-f32 tree: the port pads its flat
+# buffers to 8 elements, the reference to its TPU kernel's 8 x 1024 tile
+COMM_PORT_ELEMS, COMM_REF_ELEMS = 1_000_000, 1_007_616
+# the bench_kernels row -> the kernel wrapper it calls
+BENCH_KERNELS = {"kernel_flash_attention": "flash_attention",
+                 "kernel_ssd_scan": "ssd_scan",
+                 "kernel_gossip_mix": "gossip_mix"}
+LM_PRESET, LM_NODES, LM_STEPS = "100m", 8, 20
+LM_TOPS = {"one_peer_exp": 3, "static_exp": 1}   # executables expected
+# train_lm's other arguments: the reference's CLI defaults
+LM_KW = dict(batch=2, seq=128, lr0=0.3, hetero=0.3)
+
+
+def _zeroed_counters(torch):
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    return counters
+
+
+def _bench_kernels(torch):
+    """(a): the suite with the counters zeroed before and read after."""
+    from repro_torch.benchmarks import bench_kernels as BK
+    counters = _zeroed_counters(torch)
+    rows = BK.run("cuda")
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    want = {"paged_attention": 0}
+    want.update({BENCH_KERNELS[r["name"]]: r["kernel_calls"] for r in rows})
+    for r in rows:
+        check(r["allclose"], f"bench_kernels {r['name']}: not allclose to "
+              f"its plain version at {BK.TOL[r['name']]}")
+        lib = ("no library call" if r["library_us"] is None else
+               f"library {r['library_us']:.2f} us (kernel / library "
+               f"{r['us'] / r['library_us']:.3f})")
+        log(f"  {r['name']}: kernel {r['us']:.2f} us (CUDA-graph replays), "
+            f"bound {r['bound_us']:.3f} us ({r['bound_by']}; "
+            f"{100 * r['bound_share']:.1f} % of it), {lib}, plain "
+            f"{r['plain_us']:.1f} us; {r['kernel_calls']} wrapper calls")
+    log(f"  bench_kernels launches {launches}")
+    check(launches == want, f"bench_kernels: launches {launches}, the "
+          f"suite called the wrappers {want} times")
+    return {r["name"]: r for r in rows}, launches
+
+
+def _scaled(port, ref) -> bool:
+    return port * COMM_REF_ELEMS == ref * COMM_PORT_ELEMS
+
+
+def _comm_against_reference(new, ref) -> list:
+    """The padding-adjusted equality of the wire accounting with the
+    reference's record; returns the rows that differ."""
+    bad = []
+    for g, w in zip(new["rows"], ref["rows"], strict=True):
+        same = all(g[k] == w[k] for k in ("topology", "kind", "rounds",
+                                          "wire_multiplier",
+                                          "collectives_per_step"))
+        if not (same and _scaled(g["bytes_per_iter"], w["bytes_per_iter"])):
+            bad.append(("rows", g["topology"]))
+    for g, w in zip(new["two_axis"]["rows"], ref["two_axis"]["rows"],
+                    strict=True):
+        same = all(g[k] == w[k] for k in ("topology", "kind", "fsdp",
+                                          "collectives_per_step"))
+        if not (same and all(_scaled(g[k], w[k]) for k in (
+                "bytes_per_iter_per_node", "bytes_per_iter_per_shard"))):
+            bad.append(("two_axis", g["topology"]))
+    for g, w in zip(new["runtime"]["rows"], ref["runtime"]["rows"],
+                    strict=True):
+        same = all(g[k] == w[k] for k in ("topology", "kind", "meta_cols",
+                                          "collectives_per_step",
+                                          "meta_bytes_per_iter"))
+        if not (same and _scaled(g["bytes_per_iter"] - g[
+                "meta_bytes_per_iter"], w["bytes_per_iter"]
+                - w["meta_bytes_per_iter"])):
+            bad.append(("runtime", g["topology"]))
+    return bad
+
+
+def _bench_comm(torch):
+    """(b): bench_comm --quick into a temporary file, its K1 launches
+    counted per table row by wrapping the module's ``mix_us``."""
+    import tempfile
+
+    from repro_torch.benchmarks import bench_comm as BC
+    from repro_torch.benchmarks import check_comm_regression as CCR
+    from repro_torch.kernels.gossip_mix import ops as gm_ops
+    for path in (BENCH_COMM_BASELINE, BENCH_COMM_REFERENCE):
+        check(path.exists(), f"bench_comm: no {path.name} in the checkout")
+    with open(BENCH_COMM_BASELINE) as f:
+        baseline = json.load(f)
+    with open(BENCH_COMM_REFERENCE) as f:
+        reference = json.load(f)
+    per_row, mix_us = [], BC.mix_us
+
+    def counted(top, tree):
+        before = gm_ops.gossip_mix.launches
+        us = mix_us(top, tree)
+        per_row.append(gm_ops.gossip_mix.launches - before)
+        return us
+
+    counters = _zeroed_counters(torch)
+    BC.mix_us = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "BENCH_comm.new.json")
+            BC.main(["--quick", "--out", path])
+            with open(path) as f:
+                new = json.load(f)
+    finally:
+        BC.mix_us = mix_us
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    fails = CCR.compare(baseline, new)
+    # the timings must be real numbers; the speedup is not gated here
+    fails += CCR.report_timings(baseline, new, min_overlap_speedup=0.0)
+    check(not fails, f"bench_comm against {BENCH_COMM_BASELINE.name}: "
+          f"{fails}")
+    bad = _comm_against_reference(new, reference)
+    check(not bad, f"bench_comm: wire accounting differs from "
+          f"{BENCH_COMM_REFERENCE.name} beyond its padding: {bad}")
+    mixes = BC.MIX_ITERS + BC.MIX_WARMUP
+    want = [mixes if r["kind"] in ("ppermute", "matching") else 0
+            for r in new["rows"]]
+    log(f"  K1 launches per table row {dict(zip(BC.TABLE_TOPOLOGIES, per_row))}"
+        f" ({mixes} mixes a row; dense rows combine by einsum)")
+    check(per_row == want, f"bench_comm: K1 launches per row {per_row}, "
+          f"expected {want}")
+    for r in new["rows"]:
+        log(f"  comm_{r['topology']}: {r['us_per_mix']:.1f} us a mix, "
+            f"bytes_per_iter {r['bytes_per_iter']} (reference "
+            f"{next(w['bytes_per_iter'] for w in reference['rows'] if w['topology'] == r['topology'])})")
+    ov = new["overlap"]
+    log(f"  overlap ({ov['nodes']} nodes, {ov['steps']} steps): sync "
+        f"{ov['ms_per_step_sync']:.3f} ms, pipelined "
+        f"{ov['ms_per_step_overlap']:.3f} ms a step, speedup "
+        f"{ov['speedup']:.3f}x (committed "
+        f"{baseline['overlap']['speedup']:.3f}x); informational on one "
+        f"card, not gated: the step is host-bound")
+    log(f"  bench_comm launches {launches}; wire bytes = the reference's x "
+        f"{COMM_PORT_ELEMS:,} / {COMM_REF_ELEMS:,} in every row")
+    check(launches["gossip_mix"] >= sum(want) and all(
+        launches[k] == 0 for k in launches if k != "gossip_mix"),
+          f"bench_comm: launches {launches}")
+    return {"record": new, "launches": launches, "per_row": per_row}
+
+
+def _reckon_lm(n_params: int, degree: int) -> float:
+    """Peak GB of a train_lm step: phase 6's measured bytes a
+    node-parameter (one received payload), and two payload copies (m, x)
+    more for every further shift of the round."""
+    node_params = LM_NODES * n_params
+    return (TRAIN_BYTES_PER_PARAM * node_params
+            + (degree - 1) * 2 * 4 * node_params) / 1e9
+
+
+def _train_lm(torch, seed):
+    """(c): train_one at the 100m preset over each of LM_TOPS."""
+    from repro_torch.core import topology as topo_mod
+    from repro_torch.launch import train_lm as TL
+    cfg = TL.make_cfg(LM_PRESET)
+    n_params = TL.param_count(cfg)
+    out = {}
+    for top, executables in LM_TOPS.items():
+        degree = topo_mod.get_topology(top, LM_NODES).max_degree
+        reckoned = _reckon_lm(n_params, degree)
+        counters = _zeroed_counters(torch)
+        t0 = time.perf_counter()
+        r = TL.train_one(cfg, top, nodes=LM_NODES, steps=LM_STEPS,
+                         seed=seed, device="cuda", **LM_KW)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        losses = r["losses"]
+        peak = r["peak_bytes"] / 1e9
+        step_ms = 1e3 * sorted(r["step_s"][1:])[len(r["step_s"][1:]) // 2]
+        tokens = LM_NODES * LM_KW["batch"] * LM_KW["seq"]
+        log(f"  train_lm {LM_PRESET} ({n_params:,} parameters a node) "
+            f"{top}, {LM_NODES} nodes: losses "
+            f"{[round(v, 4) for v in losses]}")
+        log(f"  train_lm {top}: median step {step_ms:.1f} ms = "
+            f"{tokens / step_ms * 1e3:.0f} tokens/s; peak allocated "
+            f"{peak:.3f} GB (reckoned {reckoned:.1f}); {r['num_compiled']} "
+            f"executables for {r['distinct']} distinct realizations; "
+            f"launches {launches}; {secs:.1f} s")
+        check(all(abs(v) < float("inf") for v in losses),
+              f"train_lm {top}: losses {losses}")
+        check(losses[-1] < losses[0], f"train_lm {top}: the loss did not "
+              f"fall in {LM_STEPS} steps: {losses[0]} -> {losses[-1]}")
+        want = {"gossip_mix": LM_STEPS, "flash_attention": 0,
+                "paged_attention": 0, "ssd_scan": 0}
+        check(launches == want, f"train_lm {top}: launches {launches}, "
+              f"expected {want} (one f32 payload group a step)")
+        check(r["num_compiled"] == r["distinct"] == executables,
+              f"train_lm {top}: {r['num_compiled']} executables for "
+              f"{r['distinct']} distinct realizations, expected "
+              f"{executables}")
+        out[top] = {"launches": launches["gossip_mix"], "step_ms": step_ms,
+                    "peak_gb": peak, "reckoned_gb": reckoned,
+                    "first_loss": losses[0], "last_loss": losses[-1]}
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def benches_phase(torch, dev, seed):
+    log("  (a) bench_kernels")
+    kern, kern_launches = _bench_kernels(torch)
+    torch.cuda.empty_cache()
+    log("  (b) bench_comm --quick and its gates")
+    comm = _bench_comm(torch)
+    torch.cuda.empty_cache()
+    log(f"  (c) train_lm --preset {LM_PRESET} --nodes {LM_NODES}, "
+        f"{LM_STEPS} steps")
+    lm = _train_lm(torch, seed)
+    return {"kernels": kern, "kernel_launches": kern_launches,
+            "comm": comm, "lm": lm}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2972,6 +3177,10 @@ def main() -> int:
 
     phase("phase 16: bench_serve --quick and its gate")
     bench = bench_serve_phase(torch, dev)
+    torch.cuda.empty_cache()
+
+    phase("phase 17: bench_kernels, bench_comm --quick and train_lm (100m)")
+    benches = benches_phase(torch, dev, args.seed)
     for k in kernels:
         if k["name"] in ("ssd_scan", "flash_attention"):
             k["hybrid_launches"] = hybrid["launches"][k["name"]]
@@ -3004,6 +3213,20 @@ def main() -> int:
             k.update({f"audio_payload_{key}": v
                       for key, v in audio["train"]["payload"].items()})
             k["vlm_train_launches"] = vlm["train"]["launches"]
+        if k["name"] in BENCH_KERNELS.values():
+            # phase 17 (a): the suite's calls of the wrapper
+            row = next(r for n, r in benches["kernels"].items()
+                       if BENCH_KERNELS[n] == k["name"])
+            k["bench_kernels_launches"] = benches["kernel_launches"][
+                k["name"]]
+            k["bench_kernels"] = {key: row[key] for key in (
+                "us", "plain_us", "bound_us", "bound_by", "bound_share",
+                "library_us")}
+        if k["name"] == "gossip_mix":
+            k["bench_comm_launches"] = benches["comm"]["launches"][
+                "gossip_mix"]
+            k["train_lm_launches"] = {t: r["launches"]
+                                      for t, r in benches["lm"].items()}
         if k["name"] == "ssd_scan":
             k["launches"] = ssm["launches"]
             k["launches_per_call"] = k["launches"] // ssm["forward_calls"]

@@ -1,4 +1,5 @@
-"""Benchmark harness: one module per figure of the paper.
+"""Benchmark harness: one module per table or figure of the paper, and
+the kernels.
 
 Prints ``name,us_per_call,derived`` CSV, as the JAX package's
 ``benchmarks/run.py``:
@@ -7,12 +8,15 @@ Prints ``name,us_per_call,derived`` CSV, as the JAX package's
   consensus     Fig. 4 / 10 / 11  (Lemma 1, Remarks 4-5)  host math
   transient     Fig. 1 / Fig. 13  (transient iterations)  DmSGD on --device
   hetero        eq. 3 / 4         (b^2 vs topology; stragglers)  --device
+  comm          Table 1 / 7 / 8   (per-iteration communication; the flat
+                                   engine against per-leaf)  --device
+  kernels       each hand-written kernel against its plain version
+                                                          --device
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--only a,b] \\
       [--device cuda|cpu]
 
-``comm``, ``kernels`` and ``roofline`` are not ported yet (ROADMAP items
-21, 20 and 23) and raise.
+``roofline`` is not ported yet (ROADMAP item 23) and raises.
 """
 from __future__ import annotations
 
@@ -22,8 +26,8 @@ import time
 import traceback
 
 from ..device import resolve_device
-from . import bench_consensus, bench_hetero, bench_spectral_gap
-from . import bench_transient
+from . import bench_comm, bench_consensus, bench_hetero, bench_kernels
+from . import bench_spectral_gap, bench_transient
 
 __all__ = ["SUITES", "LATER", "run_suites", "main"]
 
@@ -32,8 +36,10 @@ SUITES = {
     "consensus": lambda device: bench_consensus.run(),
     "transient": lambda device: bench_transient.run(device=device),
     "hetero": lambda device: bench_hetero.run(device=device),
+    "comm": lambda device: bench_comm.run(device=device),
+    "kernels": lambda device: bench_kernels.run(device),
 }
-LATER = {"kernels": "item 20", "comm": "item 21", "roofline": "item 23"}
+LATER = {"roofline": "item 23"}
 
 
 def run_suites(names, device="cuda") -> tuple[dict, list]:

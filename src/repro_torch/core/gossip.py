@@ -9,7 +9,8 @@ count.  One lowering per realization-IR node:
 
 * ``Shifts``   -> :func:`mix_shifts`: ``torch.roll(buf, s, 0)`` per shift
   (node i receives from (i - s) mod n, ``jnp.roll``'s sign) and one
-  weighted combine per dtype group.
+  weighted combine per dtype group.  :func:`mix_shifts_per_leaf` is the
+  historical one-roll-per-leaf path the benchmarks compare it with.
 * ``Matching`` -> :func:`mix_matching`: one gather of the partner rows and
   one combine; fixed points keep their value bit-exactly.
 * ``Dense``    -> :func:`mix_dense`: one ``einsum('ij,jb->ib')`` in f32.
@@ -74,9 +75,9 @@ from .topology import (AperiodicScheduleError, Dense, Gated, Identity,
 
 Tree = Any
 
-__all__ = ["mix_dense", "mix_shifts", "mix_matching", "mix_realization",
-           "mix", "mix_switch", "mix_scheduled", "pack_payload",
-           "delayed_mix", "gossip_spec", "set_kernel_mode",
+__all__ = ["mix_dense", "mix_shifts", "mix_shifts_per_leaf", "mix_matching",
+           "mix_realization", "mix", "mix_switch", "mix_scheduled",
+           "pack_payload", "delayed_mix", "gossip_spec", "set_kernel_mode",
            "AperiodicScheduleError"]
 
 # "auto": the tensors' device picks (CUDA -> the kernel, CPU -> plain);
@@ -395,6 +396,42 @@ def mix_shifts(tree: Tree, self_weight: float,
     layout, bufs = flatbuf.pack(tree)
     return flatbuf.unpack(layout, _shifts_bufs(layout, bufs, self_weight,
                                                shifts, compression))
+
+
+def mix_shifts_per_leaf(tree: Tree, self_weight: float,
+                        shifts: list[tuple[int, float]],
+                        compression: str | None = None) -> Tree:
+    """The historical path: one ``torch.roll`` PER LEAF per shift, in
+    plain torch (no kernel) -- what ``benchmarks/bench_comm`` holds the
+    flat engine against.
+
+    Each leaf is accumulated in f32 in :func:`mix_shifts`'s order (the
+    self term, then ``+= w * roll`` per shift) and cast back.  Under int8
+    each leaf has one scale per node over all its other axes (``max|x| /
+    127 + 1e-30``), as the reference's per-leaf path.  So this is bit for
+    bit :func:`mix_shifts` wherever the flat path's scale groups are the
+    tree's leaves; a layer-stacked model's per-layer leaves share one
+    scale group in the flat path (:func:`flatbuf.scale_group_key`) and get
+    a scale each here, so under int8 the two part on such trees."""
+    _check_compression(compression)
+
+    def _leaf(x):
+        if compression is None:
+            return gm_ref.gossip_mix_ref(
+                x, [torch.roll(x, s, 0) for s, _ in shifts], self_weight,
+                tuple(w for _, w in shifts))
+        x32 = x.float()
+        scale = (x32.abs().amax(dim=tuple(range(1, x.ndim)), keepdim=True)
+                 / 127.0 + 1e-30)
+        q = torch.round(x32 / scale).to(torch.int8)
+        acc = (self_weight * x32) if self_weight else None
+        for s, w in shifts:
+            r = torch.roll(q, s, 0).float() * torch.roll(scale, s, 0) * w
+            acc = r if acc is None else acc + r
+        return acc.to(x.dtype)
+
+    leaves, treedef = flatbuf.tree_flatten(tree)
+    return flatbuf.tree_unflatten(treedef, [_leaf(x) for x in leaves])
 
 
 def mix_matching(tree: Tree, partner: tuple, w_self: float = 0.5,

@@ -49,10 +49,9 @@ import subprocess
 import numpy as np
 import torch
 
+from repro_torch.benchmarks.common import PEAK_BF16_FLOPS, bound_us
 from repro_torch.kernels.paged_attention import ops
 
-PEAK_BYTES = 3.35e12     # H100 SXM HBM3, bytes/s
-PEAK_BF16_FLOPS = 989e12  # the inputs' type, bf16, on the tensor cores
 COLD_BYTES = 60e6        # the pool copies together: beyond the 50 MB L2
 H, KV, D, PAGE = 16, 8, 128, 16
 SHAPES = ("ragged", "serve", "long", "moe", "audio", "gemma2", "granite34b",
@@ -138,14 +137,6 @@ def cost(ln: np.ndarray, pmax: int, elem: int = 2,
             + 4 * (B * pmax + B))
 
 
-def bound_ms(ln: np.ndarray, pmax: int, hkd: tuple = (H, KV, D),
-             window: int | None = None) -> tuple[float, str]:
-    flops, nbytes = cost(ln, pmax, hkd=hkd, window=window)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                       else "bytes")
-
-
 def _events_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -184,8 +175,9 @@ def time_shape(dev, name: str) -> dict:
     graph_ms = _events_ms(graph.replay, 5) / calls
     del graph
     eager_ms = _events_ms(run_all, 3) / calls
-    b_ms, by = bound_ms(ln, pmax, hkd, window)
-    _, nbytes = cost(ln, pmax, hkd=hkd, window=window)
+    flops, nbytes = cost(ln, pmax, hkd=hkd, window=window)
+    b_us, by = bound_us(flops, nbytes, PEAK_BF16_FLOPS)
+    b_ms = b_us / 1e3
     return {"shape": name, "B": len(ln), "pmax": pmax, "heads": hkd,
             "window": window, "cap": cap,
             "visible": visible_tokens(ln, window), "copies": copies,

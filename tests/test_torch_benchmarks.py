@@ -11,8 +11,8 @@ and ``launch/topology_compare``, on the CPU at small sizes.
   indices, gradient noise) injected into the port agree within f32 2e-4
   (tests/test_kernels.py:16).  The JAX side runs the reference's own loop
   bodies with those draws; the full-size orderings are chip_smoke.py's.
-* ``run.py``'s CSV header and its refusals, and ``topology_compare`` on
-  a tiny grid.
+* ``run.py``'s CSV header and its refusal (``roofline``, ROADMAP item
+  23), and ``topology_compare`` on a tiny grid.
 * The serving benchmark: the port's ``check_serve_regression.compare``
   gives the reference's messages on the same records, and ``bench_serve
   --quick --device cpu`` writes the reference's JSON schema, which the
@@ -242,10 +242,10 @@ def test_run_prints_csv_and_refuses_unported_suites(capsys, tmp_path):
     assert out[0] == "name,us_per_call,derived"
     assert out[1].startswith("spectral_gap_fig3,")
     assert all(len(ln.split(",", 2)) == 3 for ln in out)
-    for suite, item in (("kernels", "item 20"), ("comm", "item 21"),
-                        ("roofline", "item 23")):
-        with pytest.raises(NotImplementedError, match=item):
-            trun.main(["--only", suite, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 23"):
+        trun.main(["--only", "roofline", "--device", "cpu"])
+    assert set(trun.LATER) == {"roofline"}
+    assert {"kernels", "comm"} <= set(trun.SUITES)
     with pytest.raises(KeyError):
         trun.run_suites(["figure_99"], "cpu")
     merge = tmp_path / "hetero.json"

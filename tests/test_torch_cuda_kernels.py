@@ -139,6 +139,13 @@ def test_flash_attention_kernel_audio_prefill_bucket(cuda, window, cap,
     _flash_check(q, k, v, dtype, window=window, attn_cap=cap)
 
 
+def test_flash_attention_kernel_bench_kernels_shape(cuda):
+    """``bench_kernels``' row, (1, 512, 4, 2, 64) causal f32: the f32 FMA
+    branch at D 64, G 2, held at the reference's 2e-4."""
+    q, k, v = _qkv(1, 512, 512, 4, 2, 64, torch.float32, cuda, 64)
+    _flash_check(q, k, v, torch.float32)
+
+
 def test_flash_attention_kernel_rejects(cuda):
     q = torch.zeros(1, 64, 2, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
