@@ -28,7 +28,9 @@ serving path, and the serving benchmark (bench_serve --quick) with its
 structural gates, then the kernel and communication benchmarks
 (bench_kernels, bench_comm --quick with its wire-bytes gate) and the
 paper's LM-scale experiment (train_lm at the 100m preset, one-peer and
-static exponential graphs on 8 nodes).
+static exponential graphs on 8 nodes), and the gossip across processes:
+the shard-native engine on a mesh of ranks sharing the card, and phase
+6's training with one rank a node.
 
   python3 chip_smoke.py [--seed N]
 
@@ -266,6 +268,34 @@ Phases, in order; any failure exits non-zero before the result lines:
                  K1 once a step and no other kernel, 3 and 1 executables
                  (one per distinct realization), peak memory beside the
                  reckoned peak
+ 18. mesh     -- multi-process gossip (ROADMAP item 18) on the one card:
+                 (a) 8 spawned ranks as a (node 4, fsdp 2) mesh, every
+                 rank on cuda:0 over a gloo group whose buffers are
+                 staged through pinned host memory ("gloo-host"): the
+                 reference test's {w, b, h} tree and then DmSGD's (m, x)
+                 payload of full-width qwen3-0.6b cut to 2 layers (specs
+                 from sharding.gossip_payload_spec_fn) through one-peer
+                 Shifts, a Matching with fixed points, int8, grid Dense,
+                 full averaging (the small tree also the hypercube, static
+                 exponential, int8 Matching, the runtime rounds, the
+                 delayed halves and the gathered path): each rank's
+                 block against its slice of the single-process global
+                 path on the card with K1's plain version as its combine
+                 (so each rank's K1 is held against the plain version on
+                 the same inputs), bit for bit but Dense (1e-5 f32, 1e-2
+                 bf16), the qwen3 blocks handed to this process through
+                 CUDA IPC; the wire log against gossip_spec; K1 launched
+                 per rank once per dtype group a static round; each
+                 round's ms and its share staging through the host;
+                 (b) 4 ranks as a (node 4) mesh train phase 6's cell, one
+                 rank per node, every step's loss and the final params
+                 and momentum held against phase 6's single-process run
+                 repeated here with the plain combine (2e-4 of max-abs,
+                 f32 params; bit for bit
+                 reported), median step ms and peak memory per rank, K1
+                 6 a rank; (c) on one card asking for NCCL raises (two
+                 ranks on cuda:0); with >= 4 cards (a)'s tree also runs
+                 over NCCL, one card a rank, else one line says why not
 Every phase's runtime is printed after it.
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -3054,6 +3084,151 @@ def benches_phase(torch, dev, seed):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 18: multi-process gossip (ROADMAP item 18)
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (4, 2)                      # (node, fsdp): 8 ranks
+MESH_PAYLOAD = ("qwen3-0.6b", 2)         # full width, cut to 2 layers
+MESH_DENSE_TOL = 1e-5                    # tests/test_shard_native.py:364
+
+
+def _mesh_engine(res, seed, shape):
+    """(a)'s small tree on a world of ranks: every block against the
+    global path on the card, the wire logs, K1 a static round."""
+    from repro_torch.launch import mesh_check as MC
+    fails = MC.check(res, seed, "cuda", shape)
+    wire = res[0]["wire"]
+    check(not fails, f"mesh ({wire}): {len(fails)} blocks or logs off: "
+          f"{fails[:4]}")
+    check(all(r["wire"] == wire for r in res), "mesh: ranks on other wires")
+    delayed = all(all(r["delayed"].values()) for r in res)
+    check(delayed, "mesh: a delayed pair differs from its round")
+    k1 = [sum(rec["k1"] for rec in r["rounds"].values()) for r in res]
+    r0 = res[0]["rounds"]
+    for name, rec in r0.items():
+        log(f"  {wire} {name}: rank 0 {rec['ms']:.3f} ms, wire "
+            f"{ {k: (v['ops'], v['bytes']) for k, v in rec['log'].items()} }"
+            f", K1 {rec['k1']}")
+    log(f"  {wire}: {len(res)} ranks {dict(zip(('node', 'fsdp'), shape))}: "
+        f"every block equal to the plain-combine global path's slice "
+        f"(dense within "
+        f"{MESH_DENSE_TOL}), delayed halves bit for bit, wire logs equal "
+        f"to gossip_spec; K1 per rank {k1}")
+    return {"wire": wire, "k1_per_rank": k1,
+            "round_ms": {n: rec["ms"] for n, rec in r0.items()}}
+
+
+def mesh_phase(torch, dev, seed):
+    from repro_torch.core import gossip
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import mesh_check as MC
+    from repro_torch.launch import train as T
+    out = {}
+    cards = torch.cuda.device_count()
+
+    # (a) the engine on one world: the small tree, then the qwen3 payload
+    t0 = time.perf_counter()
+    arch, layers = MESH_PAYLOAD
+    res, comps = MC.payload_world(arch, layers, seed, MESH_SHAPE,
+                                  engine=True)
+    out["engine"] = _mesh_engine([r["engine"] for r in res], seed,
+                                 MESH_SHAPE)
+    world = len(res)
+    for name, rows in comps.items():
+        exact = name not in ("grid", "full")
+        for rank, (equal, err, close) in rows.items():
+            check(equal if exact else close,
+                  f"mesh payload {name} rank {rank}: bit equal {equal}, "
+                  f"max abs diff {err}")
+        r0 = res[0]["rounds"][name]
+        log(f"  {arch} x {layers} layers (m, x) {name}: rank 0 "
+            f"{r0['ms']:.1f} ms, of which wire {r0['wire_ms']:.1f} ms, "
+            f"staging through the host {r0['stage_ms']:.1f} ms "
+            f"({100 * r0['stage_ms'] / r0['ms']:.1f} %); wire "
+            f"{ {k: (v['ops'], v['bytes']) for k, v in r0['log'].items()} }"
+            f"; K1 per rank {[r['rounds'][name]['k1'] for r in res]}; max "
+            f"abs diff to the global path {max(e for _, e, _ in rows.values())}"
+            + ("" if exact else f" (tolerance {MESH_DENSE_TOL})"))
+        want_k1 = 1 if name in ("shifts", "matching") else 0
+        check(all(r["rounds"][name]["k1"] == want_k1 for r in res),
+              f"mesh payload {name}: K1 {[r['rounds'][name]['k1'] for r in res]}"
+              f", expected {want_k1} a rank")
+    log(f"  (a) {world} ranks, the payload {res[0]['local_elems'] / 1e6:.1f} "
+        f"M f32 a rank; {time.perf_counter() - t0:.1f} s with the spawn")
+    out["payload"] = {
+        "k1_per_rank": [sum(rec["k1"] for rec in r["rounds"].values())
+                        for r in res],
+        "rounds": {n: {k: res[0]["rounds"][n][k] for k in
+                       ("ms", "wire_ms", "stage_ms")} for n in comps}}
+
+    # (b) training: phase 6's cell, single process, then one rank a node
+    t0 = time.perf_counter()
+    argv = TRAIN_ARGV + ["--seed", str(seed)]
+    args = T.parse_args(argv)
+    start = T.prepare(args)
+    # the ranks train on the tokens sampled here (host work that grows
+    # with the vocabulary), each its own node's
+    tokens = [b["tokens"].numpy() for b in start["batches"]]
+    # the combine's plain version: the ranks' K1 is held against it
+    with gossip.kernel_mode("off"):
+        ref = T.run(args, start=start)
+    ref_losses = [h["loss"] for h in ref["history"]]
+    reference = (ref["state"].momentum, ref["params"])
+    del ref, start
+    torch.cuda.empty_cache()
+    res, comps = MC.train_world(argv, reference, tokens)
+    del reference
+    torch.cuda.empty_cache()
+    for r in res:
+        losses = [h["loss"] for h in r["history"]]
+        check(len(losses) == len(ref_losses) and all(
+            abs(a - b) <= TRAIN_TOL * abs(b) for a, b in
+            zip(losses, ref_losses)),
+            f"mesh train rank {r['rank']}: losses {losses} vs {ref_losses}")
+        check(r["k1"] == args.steps, f"mesh train rank {r['rank']}: K1 "
+              f"{r['k1']}, expected {args.steps}")
+    bits = []
+    for rank, (equal, err, scale) in sorted(comps.items()):
+        check(err <= TRAIN_TOL * scale, f"mesh train rank {rank}: (m, x) "
+              f"max abs diff {err} beyond {TRAIN_TOL} x {scale}")
+        bits.append(equal)
+    step_ms = [1e3 * sorted(r["step_s"][1:])[len(r["step_s"][1:]) // 2]
+               for r in res]
+    log(f"  (b) train on a (node {args.nodes}) mesh, {res[0]['wire']}: "
+        f"losses {[round(h['loss'], 5) for h in res[0]['history']]} "
+        f"(single process {[round(v, 5) for v in ref_losses]}); final "
+        f"(m, x) per rank max abs diff "
+        f"{[comps[k][1] for k in sorted(comps)]} (tolerance {TRAIN_TOL} x "
+        f"max-abs), bit for bit {bits}; median step ms per rank "
+        f"{[round(v, 3) for v in step_ms]}; peak GB per rank "
+        f"{[round(r['peak_gb'], 3) for r in res]}; K1 per rank "
+        f"{[r['k1'] for r in res]}; wire per rank 0 "
+        f"{ {k: (v['ops'], round(v['s'], 3), round(v['stage_s'], 3)) for k, v in res[0]['log'].items()} }"
+        f" (ops, s, staging s); {time.perf_counter() - t0:.1f} s")
+    out["train"] = {"k1_per_rank": [r["k1"] for r in res],
+                    "step_ms_per_rank": step_ms,
+                    "peak_gb_per_rank": [r["peak_gb"] for r in res],
+                    "bit_equal": bits}
+
+    # (c) NCCL: refused on one card; one card a rank where there are 4+
+    msgs = mesh_mod.spawn(MC.nccl_refusal_rank, 2, (2,), timeout=120)
+    check(all(m and "one card per rank" in m for m in msgs),
+          f"mesh: NCCL with two ranks on cuda:0 did not raise: {msgs}")
+    log(f"  (c) NCCL with 2 ranks on cuda:0 raises: {msgs[0][:90]}...")
+    if cards >= 4:
+        shape = (4, 2) if cards >= 8 else (4, 1)
+        res = mesh_mod.spawn(MC.engine_rank, shape[0] * shape[1],
+                             (shape, ("node", "fsdp"), "cuda", "nccl", seed),
+                             timeout=300)
+        out["nccl"] = _mesh_engine(res, seed, shape)
+    else:
+        log(f"  (c) the NCCL leg did not run: {cards} card(s) visible, it "
+            "needs one card a rank (4 or more)")
+        out["nccl"] = None
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3256,6 +3431,18 @@ def main() -> int:
             k["launches"] = launches[k["name"]]
             k["launches_per_call"] = (k["launches"]
                                       // max(per_call[k["name"]], 1))
+
+    torch.cuda.empty_cache()
+    phase("phase 18: multi-process gossip (a mesh of ranks on the card)")
+    mesh = mesh_phase(torch, dev, args.seed)
+    for k in kernels:
+        if k["name"] == "gossip_mix":
+            k["mesh_k1_launches"] = {
+                "engine_per_rank": mesh["engine"]["k1_per_rank"],
+                "payload_per_rank": mesh["payload"]["k1_per_rank"],
+                "train_per_rank": mesh["train"]["k1_per_rank"],
+                "nccl_per_rank": (mesh["nccl"]["k1_per_rank"]
+                                  if mesh["nccl"] else None)}
 
     phase(None)
     log(f"done in {time.perf_counter() - t_start:.1f} s")

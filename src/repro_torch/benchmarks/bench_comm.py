@@ -24,9 +24,16 @@ kernel on Shifts and Matching rounds, unpack; an ``einsum`` on Dense).
 :func:`~repro_torch.core.gossip.mix_shifts_per_leaf`, the historical
 one-roll-per-leaf path, on a 97-leaf transformer-shaped tree at 8 nodes;
 on one card every roll is a device copy, not a collective, so
-``permutes_per_step`` counts rolls (or gathers) launched.  The reference's
-two-axis ``node x fsdp`` engine comparison needs the multi-process engine
-(ROADMAP slice F, item 18) and raises.
+``permutes_per_step`` counts rolls (or gathers) launched.
+:func:`engine_compare_two_axis` is the reference's shard-native against
+global engine on a ``node x fsdp`` mesh, here a world of 8 spawned ranks
+(:func:`repro_torch.launch.mesh.spawn`; on the card all of them on it,
+over gloo staged through host memory): each rank's block of the 97-leaf
+tree, every leaf sharded ``("node", "fsdp")``, mixed shard-natively (one
+permute per dtype group) or by the global path (the payload gathered
+over the mesh, mixed, the block kept: what GSPMD's reshard does for the
+reference).  Where the reference prints HLO collective counts, its rows
+carry the mesh's wire log: ops and bytes a rank sends per kind.
 
 :func:`overlap_rows` times the overlapped (one-step-delayed) DmSGD
 pipeline against synchronous gossip on one card, with the reference's
@@ -53,7 +60,6 @@ import argparse
 import json
 import math
 import os
-import sys
 import time
 
 import torch
@@ -249,15 +255,75 @@ def engine_compare_spmd(nn: int = 8, device="cuda") -> list[dict]:
     return rows
 
 
-TWO_AXIS_WAIT = ("the two-axis (node x fsdp) engine comparison needs the "
-                 "shard-native multi-process engine: ROADMAP slice F, "
-                 "item 18, of the PyTorch port")
+def _two_axis_rank(rank: int, nodes: int, fsdp: int, device: str,
+                   iters: int) -> list[dict]:
+    """One rank of :func:`engine_compare_two_axis`: both engines on its
+    block, timed (each rank its own calls; the collectives keep them in
+    step), one call of each logged; rank 0's rows are the result."""
+    from ..launch import mesh as mesh_mod
+    from ..launch import sharding
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    mesh = mesh_mod.make_mesh((nodes, fsdp), ("node", "fsdp"),
+                              backend="gloo", device=dev)
+    full = _transformer_like_tree(nodes, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for blk in full.values():
+        for t in (blk.values() if isinstance(blk, dict) else [blk]):
+            t.normal_(generator=gen)
+    specs = {k: ({kk: ("node", "fsdp") for kk in v} if isinstance(v, dict)
+                 else ("node", "fsdp")) for k, v in full.items()}
+    local = sharding.map_specs(lambda x, _: x.contiguous(),
+                               sharding.local_shard(full, specs, mesh), specs)
+    del full
+    n_leaves = len(flatbuf.tree_flatten(local)[0])
+    top = topology.get_topology("one_peer_exp", nodes)
+    r0 = top.realization(0)
+    native = GossipPlan(top, mesh=mesh).mix(0)
+
+    def global_fn(t):
+        whole = sharding.gather(t, specs, mesh)
+        mixed = gossip.mix_shifts(whole, r0.self_w, list(r0.shifts))
+        return sharding.local_shard(mixed, specs, mesh)
+
+    outs, rows = {}, []
+    for tag, fn in (("shardnative", native), ("global", global_fn)):
+        us = time_fn(lambda f=fn: f(local), iters=iters)
+        mesh.log.reset()
+        outs[tag] = fn(local)
+        counts, sent = mesh.log.counts(), mesh.log.bytes()
+        wire_s, stage_s = mesh.log.seconds()
+        rows.append(dict(
+            name=f"comm_engine2ax_one_peer_exp_{tag}", us=us,
+            derived=f"nodes={nodes};fsdp={fsdp};leaves={n_leaves};"
+                    f"wire={mesh.wire};collectives={counts};"
+                    f"coll_bytes_per_rank={sum(sent.values())};"
+                    f"wire_ms={1e3 * wire_s:.3f};"
+                    f"stage_ms={1e3 * stage_s:.3f}"))
+    a, b = (flatbuf.tree_flatten(outs[t])[0] for t in ("shardnative",
+                                                        "global"))
+    equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    rows[0]["derived"] += f";equal_to_global={equal}"
+    return rows
 
 
-def engine_compare_two_axis(nodes: int = 4, fsdp: int = 2) -> None:
-    """The reference's shard-native vs global packed engine on a (node x
-    fsdp) mesh: waits for the multi-process engine."""
-    raise NotImplementedError(TWO_AXIS_WAIT)
+def engine_compare_two_axis(nodes: int = 4, fsdp: int = 2, device="cuda",
+                            iters: int = 5) -> list[dict]:
+    """Shard-native vs global packed engine on a (node x fsdp) world of
+    ``nodes * fsdp`` spawned ranks, every leaf of the 97-leaf tree sharded
+    ``("node", "fsdp")``: the global path gathers the payload around the
+    round, the shard-native one moves each rank's block once.  Emits rank
+    0's rows (µs a round, the wire log's collectives and bytes, whether
+    the two engines agree bit for bit) and returns them."""
+    from ..launch import mesh as mesh_mod
+    resolve_device(device)
+    rows = mesh_mod.spawn(_two_axis_rank, nodes * fsdp,
+                          (nodes, fsdp, str(device), iters),
+                          threads=1 if str(device) == "cpu" else None)[0]
+    for r in rows:
+        emit(r["name"], r["us"], r["derived"])
+    return rows
 
 
 def overlap_rows(nodes: int = 4, param_elems: int = 6_000_000,
@@ -320,15 +386,14 @@ def overlap_rows(nodes: int = 4, param_elems: int = 6_000_000,
 
 def run(n: int = 16, device="cuda") -> None:
     """The table's CSV rows, then the flat vs per-leaf engine comparison
-    at 8 nodes; the two-axis comparison is skipped with a note."""
+    at 8 nodes and the two-axis (node 4 x fsdp 2) one."""
     for r in comm_table(n, device=device):
         emit(f"comm_{r['topology']}", r["us_per_mix"],
              f"degree={r['degree']};kind={r['kind']};rounds={r['rounds']};"
              f"bytes_per_iter={r['bytes_per_iter']};gap={r['gap']:.4f};"
              f"transient~{r['transient']:.3g}")
     engine_compare_spmd(device=device)
-    print(f"comm_engine2ax skipped: {TWO_AXIS_WAIT}", file=sys.stderr,
-          flush=True)
+    engine_compare_two_axis(device=device)
 
 
 def run_quick(out_path: str = NEW_RECORD, n: int = 16, *,
@@ -368,9 +433,11 @@ def run_quick(out_path: str = NEW_RECORD, n: int = 16, *,
 
 
 def run_two_axis(out_path: str = NEW_RECORD, device="cuda") -> dict:
-    """The ``--two-axis`` mode: overlap vs sync wall time, merged into
-    ``out_path`` so the record carries it.  On one card it is
-    :func:`overlap_rows` (no fsdp axis)."""
+    """The ``--two-axis`` mode: overlap vs sync wall time (on one card
+    :func:`overlap_rows`, no fsdp axis) and the two-axis engine
+    comparison's rows (``engine_two_axis``), merged into ``out_path`` so
+    the record carries them."""
+    eng = engine_compare_two_axis(device=device)
     ov = overlap_rows(device=device)
     emit("comm_overlap_sync", 1e3 * ov["ms_per_step_sync"],
          f"nodes={ov['nodes']};fsdp={ov['fsdp']};"
@@ -383,6 +450,7 @@ def run_two_axis(out_path: str = NEW_RECORD, device="cuda") -> dict:
         with open(out_path) as f:
             rec = json.load(f)
     rec["overlap"] = ov
+    rec["engine_two_axis"] = eng
     with open(out_path, "w") as f:
         json.dump(rec, f, indent=1)
     print(f"overlap {ov['speedup']:.2f}x over sync "
@@ -398,7 +466,8 @@ def main(argv=None) -> None:
                     help="write the JSON record (structural rows, timings, "
                          "the overlap pair) to --out")
     ap.add_argument("--two-axis", action="store_true",
-                    help="time overlap vs sync and merge it into --out")
+                    help="time overlap vs sync and the two-axis engine "
+                         "comparison, and merge them into --out")
     ap.add_argument("--out", default=NEW_RECORD,
                     help="the record to write (the reference's default, "
                          "BENCH_comm.json, is its own committed record)")

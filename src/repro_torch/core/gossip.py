@@ -1,14 +1,15 @@
-"""Partial averaging (gossip) over the node axis: the single-process path.
+"""Partial averaging (gossip) over the node axis.
 
-The port of the JAX package's ``core/gossip.py`` without a mesh.  Every
+The port of the JAX package's ``core/gossip.py``.  Without a mesh every
 quantity is a tree (``dict[str, Tensor]``, or a tuple/list of such dicts)
 whose leaves carry a leading node axis of size ``n``; each mix first packs
 the tree into one ``(n, B)`` buffer per dtype
 (:mod:`repro_torch.core.flatbuf`), so its cost does not depend on the leaf
 count.  One lowering per realization-IR node:
 
-* ``Shifts``   -> :func:`mix_shifts`: ``torch.roll(buf, s, 0)`` per shift
-  (node i receives from (i - s) mod n, ``jnp.roll``'s sign) and one
+* ``Shifts``   -> :func:`mix_shifts`: one gather of rows per shift,
+  ``torch.roll(buf, s, 0)``'s permutation (node i receives from
+  (i - s) mod n, ``jnp.roll``'s sign), and one
   weighted combine per dtype group.  :func:`mix_shifts_per_leaf` is the
   historical one-roll-per-leaf path the benchmarks compare it with.
 * ``Matching`` -> :func:`mix_matching`: one gather of the partner rows and
@@ -57,11 +58,42 @@ package has no traced step, so it takes an int or a 0-d tensor and mixes
 with realization ``step % period``, refusing aperiodic schedules as the
 reference does.
 
-Not here yet: the shard-native multi-process engine (``mesh=``, ROADMAP
-slice F), which raises ``NotImplementedError`` naming its slice.
+**Shard-native path** (``mesh=``, a live
+:class:`~repro_torch.launch.mesh.Mesh` whose node axis has one rank per
+node): every rank passes ITS block of the payload -- a leading node axis
+of 1, inner dims cut by the specs (``launch.sharding.local_shard``) --
+and gets its block of the mixed payload back.  Each rank packs its
+leaves with ``pad_multiple=1``, so the wire moves exactly the local
+shard's bytes, and the reference's lowering runs on the mesh's wire
+(:meth:`Mesh.permute`, ``psum``, ``pmax``): one explicit-pairs permute
+per shift per dtype group for Shifts and Matching rounds, then K1 on the
+local buffers (a CUDA buffer launches the kernel, a CPU one takes the
+plain version, as in one process); under int8 the payload and its scale
+rows are each permuted, the scales being the per-group max over the
+rank's local slices completed by a ``pmax`` over the inner axes; a Dense
+round with uniform rows is one ``psum`` per dtype group, any other
+concrete ``W`` one permute per nonzero circulant distance class, each
+weighted by the receiving node's own entry (a tensor ``W`` keeps the
+global ``einsum``); runtime rounds piggyback their metadata on the f32
+group's permute and act on each rank's own row.  It is bit for bit the
+global path for Shifts, Matching and int8 (fixed points included), and
+within rounding for Dense (another summation order).  Where the mesh's
+node extent is not the node count -- a rank holds ``L > 1`` nodes -- the
+global path runs as the reference's does under GSPMD: the ranks' node
+blocks are gathered over the node axis (an all-gather of the payload),
+mixed, and each rank keeps its rows.  The reference's ``specs=`` map
+global arrays to the blocks at ``shard_map``'s boundary; here each rank
+already holds its block (``sharding.local_shard(tree, specs, mesh)``), so
+the engine takes no specs.
+
+The single-process path and the mesh path run one body: a static round
+is :func:`_round_bufs` over a wire -- the mesh, or :data:`_ROWS`, whose
+permute gathers the rows of a buffer that holds every node -- and a
+runtime round is :func:`_runtime_round` over the same two.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import numpy as np
@@ -78,7 +110,7 @@ Tree = Any
 __all__ = ["mix_dense", "mix_shifts", "mix_shifts_per_leaf", "mix_matching",
            "mix_realization", "mix", "mix_switch", "mix_scheduled",
            "pack_payload", "delayed_mix", "gossip_spec", "set_kernel_mode",
-           "AperiodicScheduleError"]
+           "kernel_mode", "AperiodicScheduleError"]
 
 # "auto": the tensors' device picks (CUDA -> the kernel, CPU -> plain);
 # "off": the plain combine everywhere
@@ -93,11 +125,16 @@ def set_kernel_mode(mode: str) -> None:
     _KERNEL_MODE = mode
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the shard-native multi-process engine) waits for "
-            "ROADMAP slice F of the PyTorch port")
+@contextlib.contextmanager
+def kernel_mode(mode: str):
+    """:func:`set_kernel_mode` for the block, the previous mode restored
+    on exit."""
+    prev = _KERNEL_MODE
+    set_kernel_mode(mode)
+    try:
+        yield
+    finally:
+        set_kernel_mode(prev)
 
 
 def _check_compression(compression) -> None:
@@ -114,17 +151,94 @@ def _combine(x, recvs, w_self: float, ws: tuple):
     return gm_ops.gossip_mix(x, recvs, w_self=float(w_self), ws=ws)
 
 
-def mix_dense(tree: Tree, W, *, mesh=None) -> Tree:
-    """x_i <- sum_j W[i, j] x_j over the leading node axis of every leaf:
-    one ``einsum('ij,jb->ib')`` in f32 per dtype group."""
-    _refuse_mesh(mesh)
-    layout, bufs = flatbuf.pack(tree)
+def _einsum_bufs(bufs, W) -> list:
     out = []
     for b in bufs:
         Wt = (W if isinstance(W, torch.Tensor) else np.asarray(W))
         Wt = torch.as_tensor(Wt, dtype=torch.float32, device=b.device)
         out.append(torch.einsum("ij,jb->ib", Wt, b.float()).to(b.dtype))
-    return flatbuf.unpack(layout, out)
+    return out
+
+
+def mix_dense(tree: Tree, W, *, mesh=None,
+              axis_name: str = "node") -> Tree:
+    """x_i <- sum_j W[i, j] x_j over the leading node axis of every leaf:
+    one ``einsum('ij,jb->ib')`` in f32 per dtype group.
+
+    On a mesh with one rank per node and a concrete (numpy) ``W``, the
+    shard-native round (:func:`_local_dense`): one ``psum`` per dtype
+    group for uniform rows, else one permute per nonzero circulant
+    distance class.  A tensor ``W`` (the time-varying dense executable's
+    argument) keeps the global einsum, through the gathered fallback."""
+    if mesh is None:
+        layout, bufs = flatbuf.pack(tree)
+        return flatbuf.unpack(layout, _einsum_bufs(bufs, W))
+    n, L = _mesh_nodes(tree, mesh, axis_name)
+    if tuple(np.shape(W)) != (n, n):
+        raise ValueError(f"W of shape {tuple(np.shape(W))} for {n} nodes")
+    if L == 1 and not isinstance(W, torch.Tensor):
+        layout = flatbuf.layout_of(tree, pad_multiple=1)
+        layout, bufs = flatbuf.pack(tree, layout)
+        return flatbuf.unpack(layout, _local_dense(
+            bufs, np.asarray(W, np.float64), mesh, axis_name))
+    return _gathered_bufs(tree, mesh, axis_name,
+                          lambda layout, bufs: _einsum_bufs(bufs, W))
+
+
+# ---------------------------------------------------------------------------
+# Wires: the mesh, or the rows of one process's buffers
+# ---------------------------------------------------------------------------
+
+class _Rows:
+    """The single-process wire: a buffer holds every node's row, and a
+    permute over send pairs ``(src, dst)`` is one gather of rows (row
+    ``dst`` takes row ``src``), as the mesh's permute moves rank ``src``'s
+    block to rank ``dst``."""
+
+    def permute(self, buf: torch.Tensor, pairs, axis_name=None):
+        idx = list(range(buf.shape[0]))
+        for src, dst in pairs:
+            idx[dst] = src
+        return buf.index_select(0, torch.as_tensor(idx, dtype=torch.long,
+                                                   device=buf.device))
+
+
+_ROWS = _Rows()
+
+
+def _mesh_nodes(tree: Tree, mesh, axis_name: str) -> tuple[int, int]:
+    """(n, L): the node count of a payload whose rank blocks hold ``L``
+    nodes each over the mesh's node axis."""
+    if axis_name not in mesh.axis_names:
+        raise ValueError(f"mesh {mesh.axis_names} has no {axis_name!r} axis")
+    leaves, _ = flatbuf.tree_flatten(tree)
+    L = int(leaves[0].shape[0])
+    return L * mesh.axis_size(axis_name), L
+
+
+def _node_count(tree: Tree, mesh, axis_name: str) -> int:
+    if mesh is None:
+        return int(flatbuf.tree_flatten(tree)[0][0].shape[0])
+    return _mesh_nodes(tree, mesh, axis_name)[0]
+
+
+def _scale_reduce(mesh, axis_name: str):
+    """The int8 scales' ``pmax`` over the mesh's inner axes (None without
+    a mesh, or on a mesh with only a node axis)."""
+    if mesh is None:
+        return None
+    inner = tuple(a for a in mesh.axis_names if a != axis_name)
+    return (lambda m: mesh.pmax(m, inner)) if inner else None
+
+
+def _shift_pairs(n: int, shift: int) -> list:
+    """Send pairs of a circulant +shift: node i sends to (i + s) mod n, so
+    node i receives from (i - s) mod n -- ``torch.roll(x, s, 0)``."""
+    return [(i, (i + shift) % n) for i in range(n)]
+
+
+def _matching_pairs(partner: tuple) -> list:
+    return [(src, dst) for dst, src in enumerate(partner)]
 
 
 # ---------------------------------------------------------------------------
@@ -136,13 +250,13 @@ def mix_dense(tree: Tree, W, *, mesh=None) -> Tree:
 # (``edge_weight=``) or a straggler gate (``node_gate=``).  It gathers
 # exactly the rows the static round gathers (a gated-off edge still moves
 # its bytes) and combines in plain f32 torch with weights that are
-# tensors.  Metadata rides the f32 dtype group's gather, cast to that
+# tensors.  Metadata rides the f32 dtype group's permute, cast to that
 # group's dtype (group 0's when the payload has no f32 group): the
 # receiver reads its sender's (loss, grad-norm, alive) row from the rows
-# the round moves anyway.  The reference concatenates the columns onto
-# the buffer before its permute; in one process that only moves data, so
-# gathering the (n, M) meta rows with the payload's index gives the same
-# bits without a second payload-sized copy.
+# the round moves anyway.  On a mesh the columns are concatenated onto
+# the buffer before its permute, as the reference does; in one process
+# that only moves data, so the (n, M) meta rows are gathered with the
+# payload's index: the same bits without a second payload-sized copy.
 #
 # ``edge_weight(own_meta, recv_meta, base_w) -> w`` gives the RECEIVING
 # node's weight for that edge.  Under gating or edge_weight the self
@@ -184,23 +298,18 @@ def _wcol(w, device):
     return w[:, None] if w.ndim == 1 else w
 
 
-def _runtime_combine(bufs: list, layout: flatbuf.FlatLayout, permute,
-                     base_ws: list, self_w, meta_mat, n_user: int,
-                     has_gate: bool, edge_weight, keep) -> list:
+def _runtime_combine(bufs: list, recv, recv_meta: list, base_ws: list,
+                     self_w, meta_mat, n_user: int, has_gate: bool,
+                     edge_weight, keep) -> list:
     """Weighted combine with runtime weights / piggybacked metadata.
 
-    ``permute(arr, d)`` returns edge ``d``'s received rows (a roll or a
-    gather, the static round's primitive).  ``keep`` is an optional (n, 1)
-    mask of rows that keep their value bit-exactly (matching fixed
-    points)."""
+    ``recv(j, d)`` returns group ``j``'s buffer as received over edge
+    ``d`` (a roll, a gather, or the mesh's permute); ``recv_meta[d]`` the
+    (rows, M) f32 metadata received over edge ``d`` (None without
+    metadata).  ``keep`` is an optional (rows, 1) mask of rows that keep
+    their value bit-exactly (matching fixed points)."""
     D = len(base_ws)
     dev = bufs[0].device
-    gi = _f32_group_index(layout)
-    recv_meta: list = [None] * D
-    if meta_mat is not None:
-        wire = meta_mat.to(bufs[gi].dtype)
-        for d in range(D):
-            recv_meta[d] = permute(wire, d).to(torch.float32)
     own_user = meta_mat[:, :n_user] if n_user else None
     own_alive = meta_mat[:, -1] > 0.5 if has_gate else None
     eff = []
@@ -223,13 +332,13 @@ def _runtime_combine(bufs: list, layout: flatbuf.FlatLayout, permute,
     else:
         self_col = _wcol(self_w, dev)
     outs = []
-    for buf in bufs:
+    for j, buf in enumerate(bufs):
         x32 = buf.to(torch.float32)
         acc = self_col * x32
         for d in range(D):
-            # a fresh gathered f32 buffer, scaled in place: one extra
+            # a fresh received f32 buffer, scaled in place: one extra
             # payload-sized tensor at a time
-            r = permute(buf, d).to(torch.float32)
+            r = recv(j, d).to(torch.float32)
             acc.add_(r.mul_(_wcol(eff[d], dev)))
             del r
         if keep is not None:
@@ -238,19 +347,72 @@ def _runtime_combine(bufs: list, layout: flatbuf.FlatLayout, permute,
     return outs
 
 
-def _runtime_mix(tree: Tree, *, permute, base_ws: list, self_w, meta,
-                 node_gate, edge_weight, fixed_mask, mesh) -> Tree:
-    """Runtime-valued Shifts/Matching round on the global path.
-    ``permute(arr, d)`` is edge ``d``'s wire primitive; ``base_ws[d]`` its
-    base weight (float, 0-d or per-node tensor; ``edge_weight`` may
-    override)."""
-    _refuse_mesh(mesh)
-    layout, bufs = flatbuf.pack(tree)
+def _own_rows(x, rows: slice, n: int):
+    """A per-node value on the wire's rows: a tensor or array of length
+    ``n`` (the whole node axis) is cut to ``rows``; anything else (a
+    scalar, or already the rank's own row) is kept."""
+    if x is None or np.ndim(x) == 0 or n == 1 or len(x) != n:
+        return x
+    return x[rows]
+
+
+def _permute_meta(wire, buf, meta_mat, pairs, axis_name: str) -> tuple:
+    """The metadata's ride on ``buf``'s permute: (the received ``buf``, or
+    None where only the metadata moved, and the received (rows, M) f32
+    metadata)."""
+    wired = meta_mat.to(buf.dtype)
+    if wire is _ROWS:
+        return None, wire.permute(wired, pairs).to(torch.float32)
+    width = buf.shape[1]
+    r = wire.permute(torch.cat([buf, wired], 1), pairs, axis_name)
+    return r[:, :width], r[:, width:].to(torch.float32)
+
+
+def _runtime_round(tree: Tree, *, rounds: list, base_ws: list, self_w,
+                   meta, node_gate, edge_weight, fixed_mask, mesh,
+                   axis_name: str) -> Tree:
+    """A runtime-valued Shifts/Matching round: ``rounds[d]`` are edge
+    ``d``'s send pairs, ``base_ws[d]`` its base weight (float, 0-d or
+    per-node tensor; ``edge_weight`` may override).  Without a mesh the
+    buffers hold every node and the wire is :data:`_ROWS`; on a mesh (one
+    rank per node) each rank packs its block and the combine acts on its
+    own row."""
+    n = _node_count(tree, mesh, axis_name)
+    if mesh is None:
+        wire, rows = _ROWS, slice(None)
+        layout, bufs = flatbuf.pack(tree)
+    else:
+        if _mesh_nodes(tree, mesh, axis_name)[1] != 1:
+            raise NotImplementedError(
+                "runtime-valued rounds on a mesh with several nodes per "
+                "rank (the gathered global path) wait for ROADMAP item 18b")
+        wire, i = mesh, mesh.axis_index(axis_name)
+        rows = slice(i, i + 1)
+        layout, bufs = flatbuf.pack(tree,
+                                    flatbuf.layout_of(tree, pad_multiple=1))
     dev = bufs[0].device
-    meta_mat, n_user, has_gate = _assemble_meta(meta, node_gate, dev)
-    keep = (None if fixed_mask is None
-            else torch.as_tensor(fixed_mask, device=dev)[:, None])
-    outs = _runtime_combine(bufs, layout, permute, base_ws, self_w,
+    own = lambda x: _own_rows(x, rows, n)  # noqa: E731
+    meta_mat, n_user, has_gate = _assemble_meta(own(meta), own(node_gate),
+                                                dev)
+    base_ws = [own(w) for w in base_ws]
+    keep = None
+    if fixed_mask is not None and fixed_mask[rows].any():
+        keep = torch.as_tensor(fixed_mask[rows], device=dev)[:, None]
+    gi = _f32_group_index(layout)
+    D = len(rounds)
+    recv_meta, recv_f32 = [None] * D, [None] * D
+    if meta_mat is not None:
+        for d in range(D):
+            recv_f32[d], recv_meta[d] = _permute_meta(
+                wire, bufs[gi], meta_mat, rounds[d], axis_name)
+
+    def recv(j, d):
+        if j == gi and recv_f32[d] is not None:
+            r, recv_f32[d] = recv_f32[d], None
+            return r
+        return wire.permute(bufs[j], rounds[d], axis_name)
+
+    outs = _runtime_combine(bufs, recv, recv_meta, base_ws, own(self_w),
                             meta_mat, n_user, has_gate, edge_weight, keep)
     return flatbuf.unpack(layout, outs)
 
@@ -277,15 +439,20 @@ def _refuse_runtime_compression(compression) -> None:
 # Static rounds on packed buffers: the K1 combine, or the int8 wire
 # ---------------------------------------------------------------------------
 
-def _scale_columns(buf: torch.Tensor, g: flatbuf.GroupLayout) -> torch.Tensor:
+def _scale_columns(buf: torch.Tensor, g: flatbuf.GroupLayout,
+                   reduce=None) -> torch.Tensor:
     """(n, G + 1) f32 int8 scales of one packed group: ``max|x| / 127 +
     1e-30`` per (node, scale group) -- a JAX leaf's layers are one column
-    range -- then a column of 1.0 for the padding."""
+    range -- then a column of 1.0 for the padding.  On a mesh each rank
+    holds its local slices of a group: ``reduce`` (a ``pmax`` over the
+    inner axes) completes the group's max before the division."""
     cols = []
     for a, b in g.scale_ranges:
         lo, hi = torch.aminmax(buf[:, a:b], dim=1)
         cols.append(torch.maximum(lo.float().abs(), hi.float().abs()))
     m = torch.stack(cols, 1)
+    if reduce is not None:
+        m = reduce(m)
     return torch.cat([m / 127.0 + 1e-30, torch.ones_like(m[:, :1])], 1)
 
 
@@ -315,87 +482,167 @@ def _add_dequantized(acc, rq: torch.Tensor, rs: torch.Tensor,
     return acc
 
 
-def _shifts_bufs(layout: flatbuf.FlatLayout, bufs, self_weight: float,
-                 shifts, compression) -> list:
-    """A static Shifts round on packed buffers: one roll per shift, then
-    K1 (or, under int8, the quantized wire and the f32 combine)."""
+def _round_bufs(layout: flatbuf.FlatLayout, bufs, wire, axis_name: str,
+                rounds: list, self_w: float, compression, keep,
+                matching: bool, reduce=None) -> list:
+    """One static Shifts or Matching round on packed buffers over ``wire``
+    (the mesh, or :data:`_ROWS`): ``rounds`` is ``[(send pairs, weight),
+    ...]``, one permute each per dtype group, then K1 -- or the int8
+    wire: the payload and its scale rows permuted, the scales completed
+    by ``reduce`` (a ``pmax`` over a mesh's inner axes), the receiver
+    dequantizing and combining in f32.  ``keep`` (a bool array over the
+    buffers' rows, or None) marks matching fixed points, which keep their
+    full-precision buffer bit for bit; ``matching`` starts the int8 sum
+    with the self term even at a self weight of 0."""
     _check_compression(compression)
+    ws = tuple(w for _, w in rounds)
+    rows = None if keep is None else np.flatnonzero(keep).tolist()
     out = []
     for g, buf in zip(layout.groups, bufs):
         if compression is None:
-            recvs = [torch.roll(buf, s, 0) for s, _ in shifts]
-            out.append(_combine(buf, recvs, self_weight,
-                                tuple(w for _, w in shifts)))
-            continue
-        sc = _scale_columns(buf, g)
-        q = _quantize(buf, g, sc)
-        acc = (self_weight * buf.float()) if self_weight else None
-        for s, w in shifts:
-            # the int8 buffer and its scale rows over the wire
-            acc = _add_dequantized(acc, torch.roll(q, s, 0),
-                                   torch.roll(sc, s, 0), g, float(w))
-        del q
-        out.append(acc.to(buf.dtype))
-    return out
-
-
-def _matching_bufs(layout: flatbuf.FlatLayout, bufs, partner: tuple,
-                   w_self: float, compression) -> list:
-    """A static Matching round on packed buffers: one gather of the
-    partner rows, then K1 (or the int8 wire); fixed points keep their
-    full-precision buffer bit for bit."""
-    _check_compression(compression)
-    fixed = np.fromiter((j == i for i, j in enumerate(partner)),
-                        dtype=bool, count=len(partner))
-    out = []
-    for g, buf in zip(layout.groups, bufs):
-        idx = torch.as_tensor(partner, dtype=torch.long, device=buf.device)
-        if compression is None:
-            o = _combine(buf, [buf.index_select(0, idx)], w_self,
-                         (1.0 - w_self,))
-            if fixed.any():
-                keep = torch.as_tensor(fixed, device=buf.device)[:, None]
-                o = torch.where(keep, buf, o)
+            recvs = [wire.permute(buf, pairs, axis_name)
+                     for pairs, _ in rounds]
+            o = _combine(buf, recvs, self_w, ws)
+            del recvs
+            if rows:
+                o = torch.where(torch.as_tensor(keep, device=buf.device)
+                                [:, None], buf, o)
             out.append(o)
             continue
-        sc = _scale_columns(buf, g)
+        sc = _scale_columns(buf, g, reduce)
         q = _quantize(buf, g, sc)
         x32 = buf.float()
-        acc = _add_dequantized(w_self * x32, q.index_select(0, idx),
-                               sc.index_select(0, idx), g, 1.0 - w_self)
+        acc = (self_w * x32) if (self_w or matching) else None
+        for pairs, w in rounds:
+            acc = _add_dequantized(acc, wire.permute(q, pairs, axis_name),
+                                   wire.permute(sc, pairs, axis_name), g,
+                                   float(w))
         del q
-        if fixed.any():
+        if rows:
             # in place: no second payload-sized tensor
-            rows = np.flatnonzero(fixed).tolist()
             acc[rows] = x32[rows]
         out.append(acc.to(buf.dtype))
     return out
 
 
+def _static_bufs(layout, bufs, wire, n: int, *, shifts=None, partner=None,
+                 self_w: float, compression, rows=slice(None),
+                 axis_name: str = "node", reduce=None) -> list:
+    """A static Shifts (``shifts``) or Matching (``partner``) round of
+    ``n`` nodes on packed buffers holding the nodes ``rows``."""
+    if shifts is not None:
+        return _round_bufs(layout, bufs, wire, axis_name,
+                           [(_shift_pairs(n, s), w) for s, w in shifts],
+                           self_w, compression, None, False, reduce)
+    fixed = np.fromiter((j == i for i, j in enumerate(partner)), dtype=bool,
+                        count=n)[rows]
+    return _round_bufs(layout, bufs, wire, axis_name,
+                       [(_matching_pairs(partner), 1.0 - self_w)], self_w,
+                       compression, fixed if fixed.any() else None, True,
+                       reduce)
+
+
+# ---------------------------------------------------------------------------
+# Shard-native engine: each rank's block, the mesh's wire
+# ---------------------------------------------------------------------------
+
+def _local_dense(bufs, W: np.ndarray, mesh, axis_name: str) -> list:
+    """One dense round on a rank's packed block.  Uniform-row ``W`` (exact
+    averaging, the all-reduce warm-up) is ONE ``psum`` per dtype group;
+    any other ``W`` is the self term plus one explicit-pairs permute per
+    nonzero circulant distance class ``s`` (``W[i, (i - s) % n] != 0``
+    for some ``i``), each received buffer weighted by the receiving node's
+    own entry."""
+    n = W.shape[0]
+    i = mesh.axis_index(axis_name)
+    out = []
+    if np.allclose(W, W[0:1, :]):
+        row = torch.as_tensor(W[0], dtype=torch.float32)
+        for buf in bufs:
+            o = mesh.psum(row[i].to(buf.device) * buf.float(), axis_name)
+            out.append(o.to(buf.dtype))
+        return out
+    diag = torch.as_tensor(np.ascontiguousarray(np.diagonal(W)),
+                           dtype=torch.float32)
+    shifts = []
+    for s in range(1, n):
+        col = np.array([W[j, (j - s) % n] for j in range(n)])
+        if np.any(col):
+            shifts.append((s, torch.as_tensor(col, dtype=torch.float32)))
+    for buf in bufs:
+        acc = diag[i].to(buf.device) * buf.float()
+        for s, col in shifts:
+            recv = mesh.permute(buf, _shift_pairs(n, s), axis_name)
+            acc = acc + col[i].to(buf.device) * recv.float()
+        out.append(acc.to(buf.dtype))
+    return out
+
+
+def _gathered_bufs(tree: Tree, mesh, axis_name: str, fn) -> Tree:
+    """The global path on a mesh whose ranks hold several nodes each: the
+    rank blocks' packed buffers gathered over the node axis (an all-gather
+    of the payload, what GSPMD does for the reference's global path),
+    ``fn(layout, bufs)`` on the (n, B) buffers, this rank's rows kept."""
+    n, L = _mesh_nodes(tree, mesh, axis_name)
+    layout, bufs = flatbuf.pack(tree)
+    full = [mesh.all_gather(b, axis_name) for b in bufs]
+    i = mesh.axis_index(axis_name)
+    out = [o[i * L:(i + 1) * L] for o in fn(layout, full)]
+    return flatbuf.unpack(layout, out)
+
+
+def _static(tree: Tree, mesh, axis_name: str, *, shifts=None,
+            partner=None, self_w: float, compression) -> Tree:
+    """A static Shifts (``shifts``) or Matching (``partner``) round of
+    ``tree``: in one process, shard-natively on a mesh with one rank per
+    node, else through the gathered global path."""
+    n = _node_count(tree, mesh, axis_name)
+    if partner is not None and len(partner) != n:
+        raise ValueError(f"a matching of {len(partner)} nodes on {n}")
+    kw = dict(shifts=shifts, partner=partner, self_w=self_w,
+              compression=compression, axis_name=axis_name,
+              reduce=_scale_reduce(mesh, axis_name))
+    if mesh is None:
+        layout, bufs = flatbuf.pack(tree)
+        return flatbuf.unpack(layout, _static_bufs(layout, bufs, _ROWS, n,
+                                                   **kw))
+    if not _shard_native(mesh, axis_name, tree):
+        return _gathered_bufs(tree, mesh, axis_name, lambda lay, b: (
+            _static_bufs(lay, b, _ROWS, n, **kw)))
+    i = mesh.axis_index(axis_name)
+    layout = flatbuf.layout_of(tree, pad_multiple=1)
+    layout, bufs = flatbuf.pack(tree, layout)
+    return flatbuf.unpack(layout, _static_bufs(
+        layout, bufs, mesh, n, rows=slice(i, i + 1), **kw))
+
+
 def mix_shifts(tree: Tree, self_weight: float,
                shifts: list[tuple[int, float]],
-               compression: str | None = None, *, mesh=None, meta=None,
+               compression: str | None = None, *, mesh=None,
+               axis_name: str = "node", meta=None,
                edge_weight=None, node_gate=None) -> Tree:
     """x_i <- self_weight * x_i + sum_d w_d * x_{(i - s_d) mod n}.
 
     Each (s_d, w_d) descriptor means node i *sends* its buffer to node
-    (i + s_d) mod n: one ``torch.roll`` of each packed buffer per shift,
-    then the weighted combine.  Runtime-valued rounds (tensor weights,
-    ``meta=``/``edge_weight=``/``node_gate=``) roll the same buffers and
+    (i + s_d) mod n: one gather of each packed buffer's rows per shift
+    (``torch.roll``'s permutation), then the weighted combine -- or, with
+    ``mesh=``, one permute of each rank's packed block per shift (see the
+    module docstring).
+    Runtime-valued rounds (tensor weights,
+    ``meta=``/``edge_weight=``/``node_gate=``) move the same buffers and
     take the plain f32 combine; ``compression`` is refused there."""
     ws_list = [w for _, w in shifts]
     if _is_runtime_round(self_weight, ws_list, meta, edge_weight,
                          node_gate):
         _refuse_runtime_compression(compression)
-        return _runtime_mix(
-            tree, permute=lambda arr, d: torch.roll(arr, shifts[d][0], 0),
+        n = _node_count(tree, mesh, axis_name)
+        return _runtime_round(
+            tree, rounds=[_shift_pairs(n, s) for s, _ in shifts],
             base_ws=ws_list, self_w=self_weight,
             meta=meta, node_gate=node_gate, edge_weight=edge_weight,
-            fixed_mask=None, mesh=mesh)
-    _refuse_mesh(mesh)
-    layout, bufs = flatbuf.pack(tree)
-    return flatbuf.unpack(layout, _shifts_bufs(layout, bufs, self_weight,
-                                               shifts, compression))
+            fixed_mask=None, mesh=mesh, axis_name=axis_name)
+    return _static(tree, mesh, axis_name, shifts=list(shifts),
+                   self_w=self_weight, compression=compression)
 
 
 def mix_shifts_per_leaf(tree: Tree, self_weight: float,
@@ -435,22 +682,24 @@ def mix_shifts_per_leaf(tree: Tree, self_weight: float,
 
 
 def mix_matching(tree: Tree, partner: tuple, w_self: float = 0.5,
-                 compression: str | None = None, mesh=None, *, meta=None,
+                 compression: str | None = None, mesh=None,
+                 axis_name: str = "node", *, meta=None,
                  edge_weight=None, node_gate=None) -> Tree:
     """Pairwise gossip: x_i <- w_self * x_i + (1 - w_self) * x_{partner[i]}.
 
     ``partner`` is an involution; fixed points keep their value EXACTLY
-    (bit-for-bit, enforced with a mask).  Runtime-valued rounds (tensor
-    ``w_self``, ``meta=``/``edge_weight=``/``node_gate=``) gather the
-    same rows and take the plain f32 combine; under a per-node gate a pair
-    averages only when BOTH endpoints are alive."""
+    (bit-for-bit, enforced with a mask).  One gather of the partner rows,
+    or with ``mesh=`` one explicit-pairs permute of each rank's block per
+    dtype group.  Runtime-valued rounds (tensor ``w_self``,
+    ``meta=``/``edge_weight=``/``node_gate=``) move the same rows and take
+    the plain f32 combine; under a per-node gate a pair averages only when
+    BOTH endpoints are alive."""
     n = len(partner)
     fixed = np.fromiter((j == i for i, j in enumerate(partner)),
                         dtype=bool, count=n)
     if _is_runtime_round(w_self, (), meta, edge_weight, node_gate):
         _refuse_runtime_compression(compression)
         dev = flatbuf.tree_flatten(tree)[0][0].device
-        idx = torch.as_tensor(partner, dtype=torch.long, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
         base = (torch.tensor(0.5, **f32) if w_self is None
                 else 1.0 - torch.as_tensor(w_self, **f32))
@@ -459,21 +708,20 @@ def mix_matching(tree: Tree, partner: tuple, w_self: float = 0.5,
         # the row bit-exact)
         base = torch.where(torch.as_tensor(fixed, device=dev),
                            torch.zeros((), **f32), base.broadcast_to((n,)))
-        return _runtime_mix(
-            tree, permute=lambda arr, d: arr.index_select(0, idx),
-            base_ws=[base],
+        return _runtime_round(
+            tree, rounds=[_matching_pairs(partner)], base_ws=[base],
             self_w=None if (node_gate is not None or edge_weight is not None
                             or w_self is None) else w_self,
             meta=meta, node_gate=node_gate, edge_weight=edge_weight,
-            fixed_mask=fixed if fixed.any() else None, mesh=mesh)
-    _refuse_mesh(mesh)
-    layout, bufs = flatbuf.pack(tree)
-    return flatbuf.unpack(layout, _matching_bufs(layout, bufs, partner,
-                                                 w_self, compression))
+            fixed_mask=fixed if fixed.any() else None, mesh=mesh,
+            axis_name=axis_name)
+    return _static(tree, mesh, axis_name, partner=tuple(partner),
+                   self_w=w_self, compression=compression)
 
 
 def mix_realization(tree: Tree, realization, *,
-                    compression: str | None = None, mesh=None, meta=None,
+                    compression: str | None = None, mesh=None,
+                    axis_name: str = "node", meta=None,
                     edge_weight=None, node_gate=None) -> Tree:
     """Lower one realization-IR node onto its path.
 
@@ -481,6 +729,7 @@ def mix_realization(tree: Tree, realization, *,
     Shifts/Matching rounds; a :class:`Gated` node realizes its inner round
     or Identity from its gate -- the wire is always issued, only the
     combine is gated."""
+    kw = dict(mesh=mesh, axis_name=axis_name)
     if isinstance(realization, Identity):
         return tree
     if isinstance(realization, Gated):
@@ -488,8 +737,8 @@ def mix_realization(tree: Tree, realization, *,
         if getattr(gate, "ndim", 0) == 0:
             # whole-round gate: run the round, select the result
             mixed = mix_realization(
-                tree, realization.inner, compression=compression, mesh=mesh,
-                meta=meta, edge_weight=edge_weight, node_gate=node_gate)
+                tree, realization.inner, compression=compression, meta=meta,
+                edge_weight=edge_weight, node_gate=node_gate, **kw)
             return _select(gate, mixed, tree)
         if node_gate is not None:
             raise ValueError("Gated realization with an explicit node_gate=;"
@@ -499,16 +748,16 @@ def mix_realization(tree: Tree, realization, *,
                 "per-node gating of a Dense round is not supported; gate "
                 "Shifts/Matching rounds (or use a scalar whole-round gate)")
         return mix_realization(
-            tree, realization.inner, compression=compression, mesh=mesh,
-            meta=meta, edge_weight=edge_weight, node_gate=gate)
+            tree, realization.inner, compression=compression, meta=meta,
+            edge_weight=edge_weight, node_gate=gate, **kw)
     if isinstance(realization, Shifts):
         return mix_shifts(tree, realization.self_w, list(realization.shifts),
-                          compression, mesh=mesh, meta=meta,
-                          edge_weight=edge_weight, node_gate=node_gate)
+                          compression, meta=meta, edge_weight=edge_weight,
+                          node_gate=node_gate, **kw)
     if isinstance(realization, Matching):
         return mix_matching(tree, realization.partner, realization.w_self,
-                            compression, mesh, meta=meta,
-                            edge_weight=edge_weight, node_gate=node_gate)
+                            compression, meta=meta, edge_weight=edge_weight,
+                            node_gate=node_gate, **kw)
     if isinstance(realization, Dense):
         if compression is not None:
             raise ValueError(
@@ -518,7 +767,7 @@ def mix_realization(tree: Tree, realization, *,
             raise ValueError(
                 "metadata piggyback / loss-aware weights / gating need a "
                 "permute wire (Shifts or Matching); Dense rounds all-gather")
-        return mix_dense(tree, realization.W, mesh=mesh)
+        return mix_dense(tree, realization.W, **kw)
     raise TypeError(f"not a realization IR node: {realization!r}")
 
 
@@ -551,7 +800,6 @@ def mix_switch(tree: Tree, topology: Topology, step, mesh=None) -> Tree:
     realization map over a period and raise
     :class:`~repro_torch.core.topology.AperiodicScheduleError`; they take
     the static-step path (:func:`mix`, or ``GossipPlan``)."""
-    _refuse_mesh(mesh)
     if not topology.schedule.is_periodic:
         raise AperiodicScheduleError(
             f"mix_switch needs a periodic schedule, but {topology.name!r} "
@@ -559,19 +807,19 @@ def mix_switch(tree: Tree, topology: Topology, step, mesh=None) -> Tree:
             "the static-step path (GossipPlan builds one executable per "
             "realization)")
     k = int(step.item()) if isinstance(step, torch.Tensor) else int(step)
-    return mix(tree, topology, k % topology.schedule.period)
+    return mix(tree, topology, k % topology.schedule.period, mesh=mesh)
 
 
 def mix_scheduled(tree: Tree, topology: Topology, pos, gate=None, *,
-                  compression: str | None = None, mesh=None, meta=None,
-                  edge_weight=None, node_gate=None) -> Tree:
+                  compression: str | None = None, mesh=None,
+                  meta=None, edge_weight=None, node_gate=None) -> Tree:
     """Mix with realization ``pos % period``, where ``pos`` is the schedule
     position held in optimizer state (a 0-d int tensor, advanced only on
     rounds that communicate: ``schedule.advance_position``).  ``pos`` is
     read on the host once (one scalar sync) and only that realization
     runs.  An optional scalar ``gate`` selects between the mixed result
     and the unmixed tree AFTER the round, so a gated-off round still
-    gathers and combines (as the reference still issues its permute).
+    moves and combines (as the reference still issues its permute).
 
     Exactness: since ``pos`` only advances on communicating rounds, a
     finite-time family (one_peer_exp / base_k / ceca) averages exactly
@@ -591,37 +839,67 @@ def mix_scheduled(tree: Tree, topology: Topology, pos, gate=None, *,
     return _select(gate, mixed, tree)
 
 
-def pack_payload(tree: Tree, *, mesh=None) -> tuple:
+def _shard_native(mesh, axis_name: str, tree: Tree) -> bool:
+    """The mesh path runs when the mesh's node extent is the node count:
+    each rank's block holds one node."""
+    return mesh is not None and _mesh_nodes(tree, mesh, axis_name)[1] == 1
+
+
+def pack_payload(tree: Tree, *, mesh=None,
+                 axis_name: str = "node") -> tuple:
     """SEND half of the overlapped pipeline: ``tree`` packed into its wire
-    buffers (one ``(n, B)`` buffer per dtype group), not mixed."""
-    _refuse_mesh(mesh)
+    buffers (one buffer per dtype group), not mixed.  On a mesh with one
+    rank per node each rank packs its block with ``pad_multiple=1``, the
+    granularity the synchronous mesh round packs at."""
+    if _shard_native(mesh, axis_name, tree):
+        return tuple(flatbuf.pack(
+            tree, flatbuf.layout_of(tree, pad_multiple=1))[1])
     return tuple(flatbuf.pack(tree)[1])
 
 
 def delayed_mix(template: Tree, bufs, realization, *,
-                compression: str | None = None, mesh=None) -> Tree:
+                compression: str | None = None, mesh=None,
+                axis_name: str = "node") -> Tree:
     """COMBINE half of the overlapped pipeline: apply ``realization`` to
     the packed buffers of :func:`pack_payload` and unpack them to
     ``template``'s structure (tensors, meta ones too: only shapes and
-    dtypes are read).  Every realization kind is taken: ``Identity`` just
-    unpacks; a static Shifts or Matching round rolls or gathers and
-    combines the buffers as they are (no second pack); any other round
-    mixes the unpacked tree.  Each is bit for bit what
-    :func:`mix_realization` gives the unpacked tree."""
-    _refuse_mesh(mesh)
-    layout = flatbuf.layout_of(template)
+    dtypes are read; on a mesh the rank's block).  Every realization kind
+    is taken: ``Identity`` just unpacks; a static Shifts or Matching round
+    rolls, gathers or permutes and combines the buffers as they are (no
+    second pack); a Dense round on a mesh runs the shard-native dense
+    round; any other round mixes the unpacked tree.  Each is bit for bit
+    what :func:`mix_realization` gives the unpacked tree."""
+    native = _shard_native(mesh, axis_name, template)
+    layout = flatbuf.layout_of(template, pad_multiple=1 if native else
+                               flatbuf.PAD_MULTIPLE)
     bufs = list(bufs)
     r = realization
     if isinstance(r, Identity):
         return flatbuf.unpack(layout, bufs)
-    if isinstance(r, Shifts) and not r.traced:
-        return flatbuf.unpack(layout, _shifts_bufs(
-            layout, bufs, r.self_w, list(r.shifts), compression))
-    if isinstance(r, Matching) and not r.traced:
-        return flatbuf.unpack(layout, _matching_bufs(
-            layout, bufs, r.partner, r.w_self, compression))
+    static = isinstance(r, (Shifts, Matching)) and not r.traced
+    if static and (native or mesh is None):
+        n = _node_count(template, mesh, axis_name)
+        wire, rows = _ROWS, slice(None)
+        if native:
+            i = mesh.axis_index(axis_name)
+            wire, rows = mesh, slice(i, i + 1)
+        kw = (dict(shifts=list(r.shifts), self_w=r.self_w)
+              if isinstance(r, Shifts) else
+              dict(partner=tuple(r.partner), self_w=r.w_self))
+        return flatbuf.unpack(layout, _static_bufs(
+            layout, bufs, wire, n, compression=compression, rows=rows,
+            axis_name=axis_name, reduce=_scale_reduce(mesh, axis_name),
+            **kw))
+    if native and isinstance(r, Dense) and not isinstance(r.W, torch.Tensor):
+        if compression is not None:
+            raise ValueError(
+                f"compression={compression!r} has no dense-matrix wire "
+                f"format; only Shifts/Matching realizations quantize")
+        return flatbuf.unpack(layout, _local_dense(
+            bufs, np.asarray(r.W, np.float64), mesh, axis_name))
     return mix_realization(flatbuf.unpack(layout, bufs), r,
-                           compression=compression)
+                           compression=compression, mesh=mesh,
+                           axis_name=axis_name)
 
 
 def gossip_spec(topology: Topology, step: int,

@@ -37,6 +37,16 @@ PyTorch runs eagerly, so an "executable" is the bound step function
 reaches every Shifts and Matching round; a topology that realizes
 ``Dense`` refuses it, and the warm-up rounds mix in full precision.
 
+``mesh`` (a live :class:`~repro_torch.launch.mesh.Mesh` whose ``node``
+axis has one rank per node) sends every round -- the warm-up, Dense,
+runtime and delayed ones too -- through the shard-native engine of
+:mod:`repro_torch.core.gossip`: each rank's executables mix its block of
+the payload over the mesh's wire (each rank's block is cut by
+``launch.sharding.local_shard``; the engine reads no specs).  The keys,
+and so
+``num_compiled`` and the cache counters, are the same with and without
+a mesh.
+
 **Overlap plans** (``overlap=True``, from ``gossip(..., overlap=True)``
 optimizers) bind the one-step-delayed step instead: ``mix``/``step_fn(k)``
 hand the step an :class:`OverlapIO` whose ``delayed`` half applies the
@@ -106,20 +116,24 @@ class OverlapIO:
 
     realization: Any            # in-flight IR node (None at the prime step)
     compression: str | None = None
+    mesh: Any = None
+    axis_name: str = "node"
 
     @property
     def prime(self) -> bool:
         return self.realization is None
 
     def pack(self, payload: Tree) -> tuple:
-        return gossip.pack_payload(payload)
+        return gossip.pack_payload(payload, mesh=self.mesh,
+                                   axis_name=self.axis_name)
 
     def delayed(self, template: Tree, bufs) -> Tree:
         """The delayed round, inline on the current stream."""
         if self.prime:
             raise ValueError("priming step has no in-flight payload to mix")
         return gossip.delayed_mix(template, bufs, self.realization,
-                                  compression=self.compression)
+                                  compression=self.compression,
+                                  mesh=self.mesh, axis_name=self.axis_name)
 
     def start(self, template: Tree, bufs) -> InFlight:
         """Start :meth:`delayed`: on CUDA buffers on the card's side
@@ -153,12 +167,14 @@ class GossipPlan:
     ``fn(mix, *args)`` is the function bound per realization.
     ``warmup_steps``, ``compression``, ``every``, ``overlap`` and
     ``scheduled`` normally come from the optimizer (see
-    :meth:`for_optimizer`); ``max_compiles`` bounds the cache."""
+    :meth:`for_optimizer`); ``max_compiles`` bounds the cache.  ``mesh``
+    selects the shard-native engine (module docstring)."""
 
     topology: Topology
     warmup_steps: int = 0
     compression: str | None = None
     fn: Callable | None = None
+    mesh: Any = None
     every: int = 1
     max_compiles: int = 256
     # the one-step-delayed pipeline: ``step_fn(t)`` binds an OverlapIO
@@ -222,18 +238,20 @@ class GossipPlan:
                     f"{self.topology.schedule!r}")
 
     @classmethod
-    def for_optimizer(cls, opt, fn: Callable | None = None) -> "GossipPlan":
+    def for_optimizer(cls, opt, fn: Callable | None = None,
+                      mesh=None) -> "GossipPlan":
         """Plan matching a chain-built optimizer's topology, warm-up phase,
         wire compression, communication interval, data-dependent schedule
         (``gossip(when=...)`` -> ``scheduled=True``) and overlap pipeline
-        (its flush bound to the optimizer's ``flush_pending``)."""
+        (its flush bound to the optimizer's ``flush_pending``), on
+        ``mesh`` when given."""
         overlap = bool(opt.overlap)
         flush_fn = None
         if overlap:
             def flush_fn(io, params, state):
                 return opt.flush_pending(params, state, io)
         return cls(opt.topology, warmup_steps=opt.warmup_steps,
-                   compression=opt.compression, fn=fn,
+                   compression=opt.compression, fn=fn, mesh=mesh,
                    every=opt.gossip_every, overlap=overlap,
                    flush_fn=flush_fn,
                    scheduled=bool(getattr(opt, "scheduled_gossip", False)))
@@ -294,17 +312,18 @@ class GossipPlan:
         if self.overlap:
             return self.overlap_io(step)
         k = int(step)
+        mesh = self.mesh
         if self.warmup_steps and k < self.warmup_steps:
             top_full = full_averaging(self.topology.n)
-            return lambda t: gossip.mix(t, top_full, 0)
+            return lambda t: gossip.mix(t, top_full, 0, mesh=mesh)
         comp = self.compression
         if self.scheduled:
             top = self.topology
             return lambda t, pos, gate=None, **kw: gossip.mix_scheduled(
-                t, top, pos, gate, compression=comp, **kw)
+                t, top, pos, gate, compression=comp, mesh=mesh, **kw)
         r = self.realization(k)
         return lambda t, **kw: gossip.mix_realization(
-            t, r, compression=comp, **kw)
+            t, r, compression=comp, mesh=mesh, **kw)
 
     def overlap_io(self, step: int) -> OverlapIO:
         """The :class:`OverlapIO` of pipelined step ``step``: its delayed
@@ -313,10 +332,11 @@ class GossipPlan:
         warm-up round is full averaging, never compressed."""
         k = int(step) - 1
         if k < 0:
-            return OverlapIO(None)
+            return OverlapIO(None, None, self.mesh)
         if self.warmup_steps and k < self.warmup_steps:
-            return OverlapIO(full_averaging(self.topology.n).realization(0))
-        return OverlapIO(self.realization(k), self.compression)
+            return OverlapIO(full_averaging(self.topology.n).realization(0),
+                             None, self.mesh)
+        return OverlapIO(self.realization(k), self.compression, self.mesh)
 
     def step_fn(self, step: int, *, prime: bool = False) -> Callable:
         """The executable for ``step``'s realization: the same realization
@@ -332,14 +352,16 @@ class GossipPlan:
         fn = self._require_fn()
         if self.overlap:
             if prime or int(step) == 0:
-                key, io = ("overlap", "prime"), OverlapIO(None)
+                key, io = ("overlap", "prime"), self.overlap_io(0)
             else:
                 key, io = self.realization_key(step), self.overlap_io(step)
             return self._cache.get(key, lambda: functools.partial(fn, io))
         key = self.realization_key(step)
         if key == ("dense",):
+            mesh = self.mesh
             shared = self._cache.get(key, lambda: (
-                lambda W, *a: fn(lambda t: gossip.mix_dense(t, W), *a)))
+                lambda W, *a: fn(lambda t: gossip.mix_dense(
+                    t, W, mesh=mesh), *a)))
             W = self.realization(int(step)).dense(self.topology.n)
             return lambda *a: shared(W, *a)
         k = int(step)
@@ -347,12 +369,12 @@ class GossipPlan:
                 and not self.scheduled:
             r = self.realization(k)
             if r.traced:
-                comp = self.compression
+                comp, mesh = self.compression, self.mesh
                 shared = self._cache.get(key, lambda: (
                     lambda wvals, *a: fn(
                         lambda t, **kw: gossip.mix_realization(
                             t, r.with_weights(wvals), compression=comp,
-                            **kw), *a)))
+                            mesh=mesh, **kw), *a)))
                 wvals = r.weight_values()
                 return lambda *a: shared(wvals, *a)
         mix = self.mix(step)

@@ -1,0 +1,479 @@
+"""Logical meshes on ``torch.distributed``: the port of the JAX package's
+``launch/mesh.py``, plus the wire the shard-native gossip engine runs on.
+
+A :class:`Mesh` is the port's counterpart of ``jax.sharding.Mesh``: an
+int array of global ranks (``devices``) with ``axis_names`` -- for
+example ``("node", "fsdp")`` or ``("node", "fsdp", "model")`` -- this
+rank's coordinates, and one ``torch.distributed`` group per line of each
+axis (the ranks that differ only in that axis).  Every rank creates every
+group, in the same order, as ``dist.new_group`` requires.  The sharding
+rules (:mod:`repro_torch.launch.sharding`) read only ``axis_names`` and
+``devices.shape``, so an *abstract* mesh -- no process group, as
+:func:`make_production_mesh` returns -- serves them too.
+
+The wire primitives are the engine's counterparts of ``lax.ppermute``,
+``lax.psum``, ``lax.pmax`` and ``lax.axis_index``: :meth:`Mesh.permute`
+(explicit ``(src, dst)`` pairs in axis coordinates, one
+``dist.batch_isend_irecv``), :meth:`Mesh.psum`, :meth:`Mesh.pmax`,
+:meth:`Mesh.axis_index`, and :meth:`Mesh.all_gather` (the global path's
+gather, and ``sharding.gather``).  Each op is recorded in the mesh's
+:class:`WireLog` -- ops, bytes this rank sends, seconds, and the seconds
+spent staging through the host -- the port's counterpart of the HLO
+collective counts the reference's tests read.
+
+The backend is explicit (:func:`make_mesh`): ``"nccl"`` moves device
+buffers and needs one card per rank (NCCL refuses two ranks on one card,
+"Duplicate GPU detected"), so the mesh raises when ranks share a card
+rather than switching backends; ``"gloo"`` moves CPU tensors, and when
+the buffers live on a card each one is copied to pinned host memory,
+sent, received there and copied back (``mesh.wire == "gloo-host"``).
+The packing, the combine kernel and the unpacking stay on the card; only
+the transport goes through the host.
+
+:func:`spawn` runs a function on a world of spawned processes (one rank
+each, a ``file://`` store), the way the tests, ``chip_smoke.py`` and
+``benchmarks/bench_comm.py`` start their worlds.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue as queue_mod
+import socket
+import tempfile
+import time
+import traceback
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..benchmarks import common
+
+__all__ = ["Mesh", "WireLog", "HW", "make_mesh", "abstract_mesh",
+           "make_production_mesh", "to_logical_mesh", "init_world",
+           "spawn"]
+
+# Per card, for item 23's roofline: the H100 peaks of
+# benchmarks/common.py (one source), the card they are the published
+# numbers of, and its memory and NVLink rate
+HW = {
+    "card": "NVIDIA H100 80GB HBM3 (SXM)",
+    "power_limit_w": 700.0,
+    "peak_flops_bf16": common.PEAK_BF16_FLOPS,   # FLOP/s, dense
+    "peak_flops_tf32": common.PEAK_TF32_FLOPS,
+    "peak_flops_f32": common.PEAK_F32_FLOPS,     # outside the tensor cores
+    "hbm_bw": common.PEAK_BYTES,                 # B/s
+    "nvlink_bw": 450e9,                          # B/s one way, 18 links
+    "hbm_bytes": 80e9,
+}
+
+
+@dataclasses.dataclass
+class WireLog:
+    """What this rank's mesh ops moved since the last :meth:`reset`: per
+    kind (``permute``, ``psum``, ``pmax``, ``all_gather``) the ops, the
+    bytes this rank sent (a permute to itself sends none), the seconds of
+    the op, and of those the seconds spent copying through pinned host
+    memory (the ``gloo-host`` wire)."""
+
+    kinds: dict = dataclasses.field(default_factory=dict)
+
+    def add(self, kind: str, nbytes: int, seconds: float,
+            stage_s: float) -> None:
+        k = self.kinds.setdefault(kind, {"ops": 0, "bytes": 0, "s": 0.0,
+                                         "stage_s": 0.0})
+        k["ops"] += 1
+        k["bytes"] += int(nbytes)
+        k["s"] += seconds
+        k["stage_s"] += stage_s
+
+    def reset(self) -> None:
+        self.kinds = {}
+
+    def counts(self) -> dict:
+        """``{kind: ops}``: the engine's collective counts."""
+        return {k: v["ops"] for k, v in self.kinds.items()}
+
+    def bytes(self) -> dict:
+        """``{kind: bytes sent}``."""
+        return {k: v["bytes"] for k, v in self.kinds.items()}
+
+    def seconds(self) -> tuple[float, float]:
+        """(seconds in every op, of which staging through the host)."""
+        return (sum(v["s"] for v in self.kinds.values()),
+                sum(v["stage_s"] for v in self.kinds.values()))
+
+    def snapshot(self) -> dict:
+        return {k: dict(v) for k, v in self.kinds.items()}
+
+
+class Mesh:
+    """Global ranks on named axes; live when it holds process groups.
+
+    ``devices`` is the int array of global ranks (its name and shape as
+    ``jax.sharding.Mesh.devices``), ``axis_names`` one name per axis.  A
+    live mesh also has ``rank``, ``coords`` (this rank's index on each
+    axis), ``groups`` (this rank's line of each axis), ``backend``,
+    ``device`` and ``log``."""
+
+    def __init__(self, devices, axis_names, *, groups=None, backend=None,
+                 device=None, rank=None):
+        self.devices = np.asarray(devices)
+        self.axis_names = tuple(axis_names)
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"{self.devices.ndim}-d rank array for axes "
+                             f"{self.axis_names}")
+        self.groups = groups
+        self.backend = backend
+        self.device = None if device is None else torch.device(device)
+        self.rank = rank
+        self.coords = None
+        if rank is not None:
+            where = np.argwhere(self.devices == rank)
+            if len(where) != 1:
+                raise ValueError(f"rank {rank} is not on the mesh once")
+            self.coords = dict(zip(self.axis_names, map(int, where[0])))
+        self.log = WireLog()
+
+    # -- shape --------------------------------------------------------------
+
+    @property
+    def shape(self) -> dict:
+        """``{axis: extent}`` in axis order (``dict(jax_mesh.shape)``)."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def live(self) -> bool:
+        return self.groups is not None
+
+    @property
+    def wire(self) -> str | None:
+        """``"nccl"``, ``"gloo-host"`` (gloo, device buffers staged through
+        pinned host memory), ``"gloo"`` (CPU buffers), or None (abstract)."""
+        if not self.live:
+            return None
+        if self.backend == "gloo" and self.device.type == "cuda":
+            return "gloo-host"
+        return self.backend
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (``lax.axis_index``)."""
+        self._need_live()
+        return self.coords[axis]
+
+    def line(self, axis: str) -> list:
+        """Global ranks of this rank's line of ``axis``, in axis order."""
+        self._need_live()
+        idx = tuple(slice(None) if a == axis else self.coords[a]
+                    for a in self.axis_names)
+        return [int(r) for r in self.devices[idx]]
+
+    def __repr__(self) -> str:
+        wire = f", wire={self.wire}, rank={self.rank}" if self.live else ""
+        return f"Mesh({self.shape}{wire})"
+
+    # -- wire ---------------------------------------------------------------
+
+    def _need_live(self) -> None:
+        if not self.live:
+            raise ValueError(f"{self!r} is abstract: it has no process "
+                             "groups (make_mesh builds a live one)")
+
+    def _staged(self, x: torch.Tensor) -> bool:
+        return self.wire == "gloo-host" and x.device.type == "cuda"
+
+    def _to_wire(self, x: torch.Tensor):
+        """``(tensor the backend sends, staging seconds)``."""
+        if not self._staged(x):
+            return x.contiguous(), 0.0
+        t = time.perf_counter()
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        return host, time.perf_counter() - t
+
+    def _wire_empty(self, like: torch.Tensor) -> torch.Tensor:
+        if self._staged(like):
+            return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+        return torch.empty_like(like, memory_format=torch.contiguous_format)
+
+    def _from_wire(self, w: torch.Tensor, like: torch.Tensor):
+        """``(w on like's device, staging seconds)``."""
+        if not self._staged(like):
+            return w, 0.0
+        t = time.perf_counter()
+        out = w.to(like.device)
+        torch.cuda.synchronize(like.device)
+        return out, time.perf_counter() - t
+
+    def permute(self, buf: torch.Tensor, pairs, axis: str) -> torch.Tensor:
+        """``lax.ppermute`` over ``axis``: ``pairs`` are ``(src, dst)`` axis
+        coordinates, each source and each destination at most once; this
+        rank receives its source's ``buf`` (zeros when nothing is sent to
+        it; its own ``buf``, copied, for a pair ``(i, i)``).  One
+        ``dist.batch_isend_irecv`` on the axis's line."""
+        self._need_live()
+        t0 = time.perf_counter()
+        me = self.coords[axis]
+        dst = [d for s, d in pairs if s == me]
+        src = [s for s, d in pairs if d == me]
+        if len(dst) > 1 or len(src) > 1:
+            raise ValueError(f"pairs {pairs} send or receive twice at {me}")
+        line = self.line(axis)
+        send_to = dst[0] if dst and dst[0] != me else None
+        recv_from = src[0] if src and src[0] != me else None
+        stage = 0.0
+        ops, out_w = [], None
+        if send_to is not None:
+            wbuf, stage = self._to_wire(buf)
+            ops.append(dist.P2POp(dist.isend, wbuf, line[send_to],
+                                  group=self.groups[axis]))
+        if recv_from is not None:
+            out_w = self._wire_empty(buf)
+            ops.append(dist.P2POp(dist.irecv, out_w, line[recv_from],
+                                  group=self.groups[axis]))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if recv_from is not None:
+            out, s = self._from_wire(out_w, buf)
+            stage += s
+        elif src:                      # a pair (i, i): a copy, no wire
+            out = buf.clone()
+        else:
+            out = torch.zeros_like(buf)
+        if out.device.type == "cuda" and self.wire == "nccl":
+            torch.cuda.synchronize(out.device)
+        self.log.add("permute", buf.nbytes if send_to is not None else 0,
+                     time.perf_counter() - t0, stage)
+        return out
+
+    def _reduce(self, kind: str, x: torch.Tensor, axis: str, op):
+        t0 = time.perf_counter()
+        w, stage = self._to_wire(x)
+        if w is x:
+            w = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(w, op=op, group=self.groups[axis])
+        out, s = self._from_wire(w, x)
+        if out.device.type == "cuda" and self.wire == "nccl":
+            torch.cuda.synchronize(out.device)
+        self.log.add(kind, x.nbytes, time.perf_counter() - t0, stage + s)
+        return out
+
+    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``lax.psum`` over ``axis`` (one all-reduce on the line)."""
+        self._need_live()
+        return self._reduce("psum", x, axis, dist.ReduceOp.SUM)
+
+    def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """``lax.pmax`` over ``axes`` (a name or a tuple): one all-reduce
+        per axis of extent above 1 (a max is exact in any order)."""
+        self._need_live()
+        for a in ((axes,) if isinstance(axes, str) else tuple(axes)):
+            if self.shape[a] > 1:
+                x = self._reduce("pmax", x, a, dist.ReduceOp.MAX)
+        return x
+
+    def all_gather(self, x: torch.Tensor, axis: str,
+                   dim: int = 0) -> torch.Tensor:
+        """The line's blocks of ``x`` concatenated on ``dim`` in axis
+        order."""
+        self._need_live()
+        t0 = time.perf_counter()
+        w, stage = self._to_wire(x)
+        parts = [torch.empty_like(w) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, w, group=self.groups[axis])
+        full = torch.cat(parts, dim)
+        out, s = self._from_wire(full, x)
+        self.log.add("all_gather", x.nbytes, time.perf_counter() - t0,
+                     stage + s)
+        return out
+
+
+def abstract_mesh(shape, axis_names) -> Mesh:
+    """A mesh of ``prod(shape)`` ranks with no process groups, for the
+    sharding rules and the dry run."""
+    return Mesh(np.arange(int(np.prod(shape))).reshape(shape), axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's layouts as an abstract mesh: one pod (16, 16) on
+    ``("data", "model")``, two pods (2, 16, 16) on ``("pod", "data",
+    "model")``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return abstract_mesh(shape, axes)
+
+
+def to_logical_mesh(mesh: Mesh, nodes: int, fsdp: int,
+                    model: int | None = None) -> Mesh:
+    """Reshape a mesh's ranks into ``("node", "fsdp", "model")``, row-major
+    over its axes (the reference's rule): ``model`` defaults to the last
+    axis's extent, and ``nodes * fsdp * model`` must be the rank count.
+    A live mesh gives a live one (every rank must call, as it makes new
+    groups); an abstract one an abstract one."""
+    devs = mesh.devices
+    total = devs.size
+    if model is None:
+        model = devs.shape[-1]
+    if nodes * fsdp * model != total:
+        raise ValueError(
+            f"nodes*fsdp*model ({nodes}*{fsdp}*{model}) != {total} devices")
+    ranks = devs.reshape(nodes, fsdp, model)
+    axes = ("node", "fsdp", "model")
+    if not mesh.live:
+        return Mesh(ranks, axes)
+    return _live_mesh(ranks, axes, mesh.backend, mesh.device)
+
+
+def init_world(rank: int, world: int, init_method: str) -> None:
+    """Join a world of ``world`` ranks through ``init_method`` (a
+    ``file://`` path or ``tcp://localhost:<port>``).  The default group
+    is gloo: it carries the mesh's set-up; each mesh makes its own groups
+    on its backend."""
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world)
+
+
+def _live_mesh(ranks: np.ndarray, axes: tuple, backend: str,
+               device) -> Mesh:
+    me = dist.get_rank()
+    groups = {}
+    for ax_i, axis in enumerate(axes):
+        lines = np.moveaxis(ranks, ax_i, -1).reshape(-1, ranks.shape[ax_i])
+        for line in lines:
+            g = dist.new_group([int(r) for r in line], backend=backend)
+            if me in line:
+                groups[axis] = g
+    return Mesh(ranks, axes, groups=groups, backend=backend, device=device,
+                rank=me)
+
+
+def make_mesh(shape, axes, *, backend: str | None = None,
+              device="cpu") -> Mesh:
+    """A live mesh over the current world (``init_world`` first): ranks
+    ``0 .. prod(shape) - 1`` row-major on ``axes``.
+
+    ``backend`` defaults to ``"nccl"`` for a CUDA ``device`` and
+    ``"gloo"`` for the CPU.  ``"nccl"`` raises when two ranks would share
+    a card (NCCL cannot run them); ``"gloo"`` with a CUDA device stages
+    every buffer through pinned host memory (``mesh.wire ==
+    "gloo-host"``).  Nothing switches backend by itself."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"unknown backend {backend!r}: nccl or gloo")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("backend 'nccl' moves CUDA buffers; give a cuda "
+                         "device, or use backend 'gloo'")
+    world = dist.get_world_size()
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh {tuple(shape)} needs {int(np.prod(shape))} "
+                         f"ranks; the world has {world}")
+    if backend == "nccl":
+        cards = [None] * world
+        dist.all_gather_object(cards, (socket.gethostname(), device.index))
+        if len(set(cards)) < world:
+            shared = sorted({c for c in cards if cards.count(c) > 1})
+            raise ValueError(
+                f"backend 'nccl' needs one card per rank: {world} ranks "
+                f"share {len(set(cards))} card(s) ({shared}); NCCL refuses "
+                "two ranks on one card ('Duplicate GPU detected'). Use "
+                "backend='gloo' (staged through host memory) on one card")
+    ranks = np.arange(world).reshape(tuple(shape))
+    return _live_mesh(ranks, tuple(axes), backend, device)
+
+
+# ---------------------------------------------------------------------------
+# Spawned worlds
+# ---------------------------------------------------------------------------
+
+def _entry(rank: int, world: int, init_method: str, fn: Callable,
+           args: tuple, threads: int | None, results) -> None:
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        init_world(rank, world, init_method)
+        out = fn(rank, *args)
+        results.put((rank, True, out))
+    except BaseException:               # reported to the parent, re-raised
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn: Callable, world: int, args: tuple = (), *,
+          store_dir: str | None = None, timeout: float = 600.0,
+          threads: int | None = None) -> list:
+    """Run ``fn(rank, *args)`` on ``world`` spawned processes that have
+    joined one world (:func:`init_world` through a ``file://`` store in
+    ``store_dir``, a fresh temporary directory by default) and return the
+    ``world`` results in rank order.  ``fn`` must be importable by name
+    (a module-level function) and its results picklable.  A rank that
+    raises fails the call with its traceback; every process is stopped
+    before this returns.  ``threads`` sets each rank's torch thread
+    count (CPU worlds: ``world`` ranks on a few cores)."""
+    import torch.multiprocessing as mp
+
+    own = store_dir is None
+    store_dir = tempfile.mkdtemp() if own else store_dir
+    store = os.path.join(store_dir, f"store-{os.getpid()}-{time.time_ns()}")
+    env_set = False
+    if "GLOO_SOCKET_IFNAME" not in os.environ and \
+            os.path.exists("/sys/class/net/lo"):
+        # one host: the loopback device, whatever the host name resolves to
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+        env_set = True
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_entry, args=(r, world, f"file://{store}",
+                                              fn, args, threads, results))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        out: dict[int, Any] = {}
+        deadline = time.monotonic() + timeout
+        while len(out) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"world of {world}: {len(out)} ranks "
+                                   f"answered within {timeout} s")
+            try:
+                rank, ok, val = results.get(timeout=min(left, 5.0))
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(f"a rank exited with {dead[0]} "
+                                       "before answering")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{val}")
+            out[rank] = val
+        for p in procs:
+            p.join(timeout=60)
+        return [out[r] for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        if env_set:
+            del os.environ["GLOO_SOCKET_IFNAME"]
+        if own:
+            for f in os.listdir(store_dir):
+                os.remove(os.path.join(store_dir, f))
+            os.rmdir(store_dir)

@@ -1,0 +1,735 @@
+"""The shard-native gossip engine on a world of ranks, held against the
+single-process global path.
+
+A (node 4, fsdp 2) world of 8 spawned ranks (:func:`repro_torch.launch.
+mesh.spawn`) mixes the reference test's ``{w, b, h}`` tree (``w`` and
+``h`` sharded over fsdp, ``b`` replicated; ``h`` in bf16) through every
+realization kind -- one-peer Shifts, the one-peer hypercube Matching, a
+Matching with fixed points, static exponential Shifts, int8 Shifts and
+Matching, grid Dense, full averaging -- plus the delayed halves
+(``pack_payload`` then ``delayed_mix``), the runtime rounds (a per-node
+``Gated`` round, ``meta=`` with loss-aware edge weights, ``node_gate=``)
+and the gathered global path of a mesh with two nodes per rank.  Each
+rank returns its block of every output, its wire log and its K1
+launches; :func:`check` holds each block against its slice of the global
+path (:mod:`repro_torch.core.gossip` without a mesh, its combine the
+plain version, so that on the card each rank's K1 output is held against
+the plain version on the same inputs) and each wire log against
+``gossip_spec``'s accounting.
+
+:func:`payload_world` does the same for a large payload on the card --
+DmSGD's ``(m, x)`` of a model config, its specs from
+``sharding.gossip_payload_spec_fn`` -- where the ranks' blocks are too
+large to return: the parent holds the whole payload and its global
+result, each rank hands its output to the parent through CUDA IPC, and
+the two are compared there, one round at a time.
+
+  PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..core import flatbuf, gossip, topology as T
+from ..kernels.gossip_mix import ops as gm_ops
+from . import mesh as mesh_mod
+from . import sharding
+
+__all__ = ["NODES", "FSDP", "WBH_SPECS", "wbh_tree", "static_rounds",
+           "engine_rank", "check", "payload_tree", "payload_world", "main"]
+
+NODES, FSDP = 4, 2
+WBH_SPECS = {"w": ("node", "fsdp"), "b": ("node",), "h": ("node", "fsdp")}
+# the reference test's tolerances for the dense rounds (another
+# summation order), by dtype
+DENSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+DELAYED = ("shifts", "matching", "identity", "grid", "matching_int8")
+
+
+def wbh_tree(nodes: int = NODES, seed: int = 0) -> dict:
+    """The reference test's tree as numpy f32 (``h`` is cast to bf16 by
+    :func:`torch_tree`): w (n, 16, 8), b (n, 6), h (n, 8, 4)."""
+    rng = np.random.default_rng(seed)
+    return {"w": rng.standard_normal((nodes, 16, 8)).astype(np.float32),
+            "b": rng.standard_normal((nodes, 6)).astype(np.float32),
+            "h": rng.standard_normal((nodes, 8, 4)).astype(np.float32)}
+
+
+def torch_tree(tree: dict, device="cpu") -> dict:
+    out = {k: torch.from_numpy(v).to(device) for k, v in tree.items()}
+    out["h"] = out["h"].to(torch.bfloat16)
+    return out
+
+
+def fixed_matching(n: int) -> T.Matching:
+    """Nodes 0 and 1 paired, every other node a fixed point."""
+    return T.Matching((1, 0) + tuple(range(2, n)))
+
+
+def static_rounds(n: int) -> list:
+    """(name, realization, compression) of every static round the world
+    runs at ``n`` nodes."""
+    one_peer = T.one_peer_exponential(n).realization(0)
+    m = fixed_matching(n)
+    return [("shifts", one_peer, None),
+            ("hypercube", T.one_peer_hypercube(n).realization(0), None),
+            ("matching", m, None),
+            ("static_exp", T.static_exponential(n).realization(0), None),
+            ("shifts_int8", one_peer, "int8"),
+            ("matching_int8", m, "int8"),
+            ("grid", T.grid_2d(n).realization(0), None),
+            ("full", T.full_averaging(n).realization(0), None)]
+
+
+def runtime_inputs(n: int, seed: int = 1) -> dict:
+    """The runtime rounds' per-node values: alive flags, a loss column."""
+    rng = np.random.default_rng(seed)
+    alive = np.ones(n, bool)
+    alive[1] = False
+    return {"alive": alive,
+            "loss": rng.uniform(1.0, 3.0, n).astype(np.float32)}
+
+
+def edge_weight_torch(own, recv, w):
+    """Loss-aware weights: a neighbour with the lower loss pulls harder."""
+    return torch.as_tensor(w, dtype=torch.float32) * torch.where(
+        recv[:, 0] < own[:, 0], 1.5, 0.5)
+
+
+def runtime_rounds(n: int, inputs: dict, rows: slice, device) -> list:
+    """(name, callable(tree, **mesh_kw)) of the runtime rounds; per-node
+    values are the ``rows`` given (a rank's own)."""
+    alive = torch.from_numpy(inputs["alive"][rows]).to(device)
+    loss = torch.from_numpy(inputs["loss"][rows]).to(device)
+    one_peer = T.one_peer_exponential(n).realization(0)
+    m = T.one_peer_hypercube(n).realization(0)
+    return [
+        ("gated", lambda t, **kw: gossip.mix_realization(
+            t, T.Gated(one_peer, alive), **kw)),
+        ("meta", lambda t, **kw: gossip.mix_shifts(
+            t, 0.5, list(one_peer.shifts), meta=loss,
+            edge_weight=edge_weight_torch, **kw)),
+        ("node_gate", lambda t, **kw: gossip.mix_matching(
+            t, m.partner, 0.5, node_gate=alive, **kw)),
+    ]
+
+
+@contextlib.contextmanager
+def one_rank_mesh(store_dir, axes: tuple = ("node",)):
+    """A live mesh of one rank in this process (a world of 1 through a
+    ``file://`` store in ``store_dir``), torn down on exit: every axis of
+    extent 1, so a tree of ``n`` nodes takes the gathered global path."""
+    import os
+
+    import torch.distributed as dist
+    mesh_mod.init_world(0, 1, "file://" + os.path.join(
+        str(store_dir), f"one-rank-{os.getpid()}-{time.time_ns()}"))
+    try:
+        yield mesh_mod.make_mesh((1,) * len(axes), axes, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def _np(tree) -> dict:
+    return {k: v.detach().float().cpu().numpy() for k, v in tree.items()}
+
+
+def _bit_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def engine_rank(rank: int, shape: tuple, axes: tuple, device: str,
+                backend: str | None, seed: int = 0) -> dict:
+    """One rank's share of the world: its blocks of every round's output
+    (numpy f32), its wire log and K1 launches a round, and whether each
+    delayed pair was bit for bit the synchronous round."""
+    if torch.device(device).type == "cuda":
+        # gloo: every rank on the one card; nccl: one card a rank
+        card = rank % torch.cuda.device_count() if backend == "nccl" else 0
+        torch.cuda.set_device(card)
+        device = f"cuda:{card}"
+    mesh = mesh_mod.make_mesh(shape, axes, backend=backend, device=device)
+    n = mesh.axis_size("node")
+    full = torch_tree(wbh_tree(n, seed), device)
+    local = sharding.local_shard(full, WBH_SPECS, mesh)
+    local = {k: v.contiguous() for k, v in local.items()}
+    out: dict = {"rank": rank, "coords": dict(mesh.coords),
+                 "wire": mesh.wire, "rounds": {}, "delayed": {}}
+
+    def record(name, fn):
+        mesh.log.reset()
+        k1 = gm_ops.gossip_mix.launches
+        cuda = torch.device(device).type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        out["rounds"][name] = {"out": _np(got), "log": mesh.log.snapshot(),
+                               "k1": gm_ops.gossip_mix.launches - k1,
+                               "ms": ms}
+        return got
+
+    realizations = {}
+    for name, r, comp in static_rounds(n):
+        realizations[name] = (r, comp)
+        record(name, lambda r=r, comp=comp: gossip.mix_realization(
+            local, r, compression=comp, mesh=mesh))
+    realizations["identity"] = (T.Identity(), None)
+    for name in DELAYED:
+        r, comp = realizations[name]
+        sync = gossip.mix_realization(local, r, compression=comp, mesh=mesh)
+        mesh.log.reset()
+        bufs = gossip.pack_payload(local, mesh=mesh)
+        got = gossip.delayed_mix(local, bufs, r, compression=comp, mesh=mesh)
+        out["delayed"][name] = _bit_equal(got, sync)
+    i = mesh.axis_index("node")
+    for name, fn in runtime_rounds(n, runtime_inputs(n), slice(i, i + 1),
+                                   device):
+        record(name, lambda fn=fn: fn(local, mesh=mesh))
+
+    # the gathered global path: two nodes a rank, 2n nodes
+    n2 = 2 * n
+    full2 = torch_tree(wbh_tree(n2, seed + 1), device)
+    block = {k: v[2 * i:2 * i + 2] for k, v in full2.items()}
+    local2 = sharding.local_shard(block, {k: (None,) + s[1:] for k, s in
+                                          WBH_SPECS.items()}, mesh)
+    one_peer8 = T.one_peer_exponential(n2).realization(0)
+    for name, r, comp in (("gathered_shifts", one_peer8, None),
+                          ("gathered_int8", one_peer8, "int8"),
+                          ("gathered_grid", T.grid_2d(n2).realization(0),
+                           None)):
+        record(name, lambda r=r, comp=comp: gossip.mix_realization(
+            local2, r, compression=comp, mesh=mesh))
+    return out
+
+
+def nccl_refusal_rank(rank: int, world: int) -> str | None:
+    """Ask for an NCCL mesh with every rank on ``cuda:0``: the message of
+    the ValueError ``make_mesh`` raises (None if it does not)."""
+    torch.cuda.set_device(0)
+    try:
+        mesh_mod.make_mesh((world,), ("node",), backend="nccl",
+                           device="cuda:0")
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _global(full: dict, name: str, n: int, device) -> dict:
+    """The global path's output of round ``name`` on the whole tree, its
+    combine the plain version: on the card each rank's K1 is held against
+    it on the same inputs."""
+    with gossip.kernel_mode("off"):
+        return _global_round(full, name, n, device)
+
+
+def _global_round(full: dict, name: str, n: int, device) -> dict:
+    rounds = {nm: (r, c) for nm, r, c in static_rounds(n)}
+    if name in rounds:
+        r, comp = rounds[name]
+        return gossip.mix_realization(full, r, compression=comp)
+    if name.startswith("gathered_"):
+        n2 = n
+        one_peer = T.one_peer_exponential(n2).realization(0)
+        r, comp = {"gathered_shifts": (one_peer, None),
+                   "gathered_int8": (one_peer, "int8"),
+                   "gathered_grid": (T.grid_2d(n2).realization(0), None)}[
+                       name]
+        return gossip.mix_realization(full, r, compression=comp)
+    fn = dict(runtime_rounds(n, runtime_inputs(n), slice(None), device))[name]
+    return fn(full)
+
+
+def _dense(name: str) -> bool:
+    return name in ("grid", "full", "gathered_grid")
+
+
+def expected_blocks(name: str, n: int, seed: int, coords: dict,
+                    device="cpu", fsdp: int = FSDP) -> dict:
+    """Rank ``coords``' block of the global path's output of ``name``."""
+    gathered = name.startswith("gathered_")
+    nn = 2 * n if gathered else n
+    full = torch_tree(wbh_tree(nn, seed + (1 if gathered else 0)), device)
+    got = _global(full, name, nn, device)
+    if gathered:
+        i = coords["node"]
+        got = {k: v[2 * i:2 * i + 2] for k, v in got.items()}
+        specs = {k: (None,) + s[1:] for k, s in WBH_SPECS.items()}
+    else:
+        specs = WBH_SPECS
+    mesh = mesh_mod.abstract_mesh((n, fsdp), ("node", "fsdp"))
+    return _np(sharding.local_shard(got, specs, mesh, coords))
+
+
+def wire_expectation(name: str, n: int, fsdp: int = FSDP) -> dict:
+    """What one rank's wire log must hold for a static round on the
+    (node n, fsdp) world: ``gossip_spec``'s accounting on the local
+    layout (``pad_multiple=1``): permutes and bytes, psums for exact
+    averaging, never an all-gather."""
+    rounds = {nm: (r, c) for nm, r, c in static_rounds(n)}
+    r, comp = rounds[name]
+    local = {k: torch.zeros((1,) + tuple(v.shape[1:]))
+             for k, v in torch_tree(wbh_tree(1)).items()}
+    local["w"] = torch.zeros(1, 16 // fsdp, 8)
+    local["h"] = torch.zeros(1, 8 // fsdp, 4, dtype=torch.bfloat16)
+    layout = flatbuf.layout_of(local, pad_multiple=1)
+    top = T.Topology(name, n, realizations=(r,))
+    spec = gossip.gossip_spec(top, 0, layout=layout, compression=comp)
+    groups = len(layout.groups)
+    if isinstance(r, T.Dense):
+        W = np.asarray(r.W)
+        if np.allclose(W, W[0:1]):
+            return {"counts": {"psum": groups}, "bytes": None}
+        classes = sum(1 for s in range(1, n) if any(
+            W[j, (j - s) % n] for j in range(n)))
+        return {"counts": {"permute": classes * groups}, "bytes": None}
+    counts = {"permute": spec["collectives_per_step"]}
+    if comp == "int8" and fsdp > 1:
+        counts["pmax"] = groups
+    return {"counts": counts, "bytes": spec["bytes_per_node_per_step"]}
+
+
+def check(results: list, seed: int = 0, device="cpu",
+          shape: tuple = (NODES, FSDP)) -> list:
+    """Every rank's blocks against the global path (bit for bit, dense
+    rounds within ``DENSE_TOL``), the delayed halves, the K1 launches (one
+    per dtype group a static round) and the static rounds' wire logs.
+    Returns the failures (empty when all hold)."""
+    fails = []
+    n, fsdp = shape
+    for res in results:
+        coords = res["coords"]
+        for name, rec in res["rounds"].items():
+            want = expected_blocks(name, n, seed, coords, device, fsdp)
+            for k, w in want.items():
+                g = rec["out"][k]
+                if _dense(name):
+                    tol = DENSE_TOL[torch.bfloat16 if k == "h"
+                                    else torch.float32]
+                    if not np.allclose(g, w, rtol=tol, atol=tol * 1e-1):
+                        fails.append(f"rank {res['rank']} {name}.{k}: max "
+                                     f"diff {np.abs(g - w).max()}")
+                elif not np.array_equal(g, w):
+                    fails.append(f"rank {res['rank']} {name}.{k} not bit "
+                                 f"equal (max diff {np.abs(g - w).max()})")
+            if name in dict((nm, 0) for nm, _, _ in static_rounds(n)):
+                exp = wire_expectation(name, n, fsdp)
+                counts = {k: v["ops"] for k, v in rec["log"].items()}
+                if counts != exp["counts"]:
+                    fails.append(f"rank {res['rank']} {name}: wire {counts}"
+                                 f", expected {exp['counts']}")
+                sent = rec["log"].get("permute", {}).get("bytes", 0)
+                paired = coords["node"] in (0, 1) or \
+                    not name.startswith("matching")
+                if exp["bytes"] is not None and paired and \
+                        sent != exp["bytes"]:
+                    fails.append(f"rank {res['rank']} {name}: sent {sent} "
+                                 f"bytes, expected {exp['bytes']}")
+                k1 = 0 if (name.endswith("int8") or _dense(name)
+                           or device == "cpu") else 2
+                if rec["k1"] != k1:
+                    fails.append(f"rank {res['rank']} {name}: {rec['k1']} "
+                                 f"K1 launches, expected {k1}")
+        for name, ok in res["delayed"].items():
+            if not ok:
+                fails.append(f"rank {res['rank']} delayed {name} differs "
+                             "from the synchronous round")
+    return fails
+
+
+# ---------------------------------------------------------------------------
+# A large payload on the card, compared in the parent through CUDA IPC
+# ---------------------------------------------------------------------------
+
+PAYLOAD_ROUNDS = ("shifts", "matching", "shifts_int8", "grid", "full")
+
+
+def payload_tree(cfg, n: int, seed: int, device) -> tuple:
+    """DmSGD's ``(m, x)`` payload of ``cfg`` over ``n`` nodes in f32, one
+    seeded normal draw a leaf on ``device`` (momentum scaled by 1e-2)."""
+    shapes = {k: tuple(v.shape[1:])
+              for k, v in payload_tree_shapes(cfg, 1)[0].items()}
+    parts = []
+    for half, scale in enumerate((1e-2, 1.0)):
+        part = {}
+        for j, (k, shp) in enumerate(shapes.items()):
+            gen = torch.Generator(device=device).manual_seed(
+                seed * 100_003 + half * 10_007 + j)
+            part[k] = torch.randn((n,) + shp, generator=gen,
+                                  device=device).mul_(scale)
+        parts.append(part)
+    return tuple(parts)
+
+
+def _payload_realizations(n: int) -> dict:
+    one_peer = T.one_peer_exponential(n).realization(0)
+    return {"shifts": (one_peer, None),
+            "matching": (fixed_matching(n), None),
+            "shifts_int8": (one_peer, "int8"),
+            "grid": (T.grid_2d(n).realization(0), None),
+            "full": (T.full_averaging(n).realization(0), None)}
+
+
+def _packed(tree) -> torch.Tensor:
+    bufs = flatbuf.pack(tree, flatbuf.layout_of(tree, pad_multiple=1))[1]
+    assert len(bufs) == 1
+    return bufs[0]
+
+
+def payload_rank(rank: int, shape: tuple, axes: tuple, seed: int, outq,
+                 goq, device: str = "cuda", engine: bool = False) -> dict:
+    """A rank of :func:`payload_world`: with ``engine``, first
+    :func:`engine_rank`'s rounds (one spawn serves both); then its block
+    of the payload (views of the parent's whole payload, through
+    ``goq``, copied), each round on the mesh, the output handed to the
+    parent (CUDA IPC) and held until the parent is done with it."""
+    small = (engine_rank(rank, shape, axes, device, "gloo", seed)
+             if engine else None)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    mesh = mesh_mod.make_mesh(shape, axes, backend="gloo", device=device)
+    n = mesh.axis_size("node")
+    views = goq.get()
+    local = tuple({k: v.clone(memory_format=torch.contiguous_format)
+                   for k, v in part.items()} for part in views)
+    del views
+    if cuda:
+        torch.cuda.synchronize()
+    rows = {}
+    for name, (r, comp) in _payload_realizations(n).items():
+        mesh.log.reset()
+        k1 = gm_ops.gossip_mix.launches
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = gossip.mix_realization(local, r, compression=comp, mesh=mesh)
+        if cuda:
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        packed = _packed(got)
+        del got
+        if cuda:                 # the round's buffers, before the handoff
+            torch.cuda.empty_cache()
+        wire_s, stage_s = mesh.log.seconds()
+        rows[name] = {"ms": ms, "wire_ms": 1e3 * wire_s,
+                      "stage_ms": 1e3 * stage_s,
+                      "k1": gm_ops.gossip_mix.launches - k1,
+                      "log": mesh.log.snapshot()}
+        outq.put((rank, name, packed))
+        if goq.get() == "stop":
+            raise RuntimeError("the parent stopped comparing")
+        del packed
+        if cuda:
+            torch.cuda.empty_cache()
+    return {"rank": rank, "coords": dict(mesh.coords), "wire": mesh.wire,
+            "rounds": rows, "engine": small,
+            "local_elems": sum(v.numel() for p in local for v in p.values())}
+
+
+def payload_specs(cfg, n: int, mesh) -> tuple:
+    shapes = payload_tree_shapes(cfg, n)
+    return sharding.gossip_payload_spec_fn(mesh, cfg=cfg)(shapes)
+
+
+def payload_tree_shapes(cfg, n: int) -> tuple:
+    """``(m, x)`` of meta tensors at the payload's global shapes (the
+    model's parameters, never touched on the CPU, give the names)."""
+    from ..models import model as M
+    part = {k: torch.empty((n,) + tuple(p.shape), device="meta")
+            for k, p in M.Model(cfg, device="cpu").named_parameters()}
+    return (part, dict(part))
+
+
+def _payload_config(arch: str, layers: int):
+    import dataclasses
+
+    from .. import configs
+    cfg = configs.get_config(arch)
+    if layers is None:                       # the reduced config
+        return configs.reduced_config(cfg)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def payload_world(arch: str, layers: int | None, seed: int = 0,
+                  shape: tuple = (NODES, FSDP),
+                  axes: tuple = ("node", "fsdp"), timeout: float = 600.0,
+                  device: str = "cuda", engine: bool = False,
+                  store_dir: str | None = None):
+    """The ``(m, x)`` payload of ``arch`` cut to ``layers`` on a world of
+    ``prod(shape)`` ranks sharing the card (gloo, staged through host
+    memory), each round's blocks compared in this process with the
+    global path's: bit for bit for Shifts, Matching and int8, within
+    1e-5 for Dense (f32).  ``layers=None`` takes the reduced config, and
+    ``device="cpu"`` runs the same exchange on the CPU (shared memory in
+    place of CUDA IPC); ``engine`` runs :func:`engine_rank` first on the
+    same ranks (its results under ``"engine"``); ``store_dir`` is the
+    world's store's directory (:func:`~repro_torch.launch.mesh.spawn`).
+    Returns (rank results, comparisons)."""
+    import torch.multiprocessing as mp
+
+    cfg = _payload_config(arch, layers)
+    cuda = torch.device(device).type == "cuda"
+    n = shape[0]
+    world = int(np.prod(shape))
+    abstract = mesh_mod.abstract_mesh(shape, axes)
+    specs = payload_specs(cfg, n, abstract)
+    full = payload_tree(cfg, n, seed, device)
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    goqs = [ctx.Queue() for _ in range(world)]
+    coords = [dict(zip(axes, map(int, np.argwhere(abstract.devices == r)[0])))
+              for r in range(world)]
+    for r, q in enumerate(goqs):      # each rank's block, as views
+        q.put(sharding.local_shard(full, specs, abstract, coords[r]))
+    comps: dict = {}
+    errors: list = []
+
+    def compare():
+        # the ranks' round first, then the global path: their peaks and
+        # this process's do not meet on the card
+        try:
+            for name, (r, comp) in _payload_realizations(n).items():
+                got = {}
+                for _ in range(world):
+                    rank, got_name, out = outq.get(timeout=timeout)
+                    assert got_name == name, (got_name, name)
+                    got[rank] = out
+                # the plain combine: each rank's K1 against its plain
+                # version on the same inputs
+                with gossip.kernel_mode("off"):
+                    want = gossip.mix_realization(full, r, compression=comp)
+                rows = {}
+                for rank in range(world):
+                    exp = _packed(sharding.local_shard(want, specs, abstract,
+                                                       coords[rank]))
+                    g = got.pop(rank)
+                    rows[rank] = (torch.equal(g, exp),
+                                  float((g - exp).abs().max()),
+                                  torch.allclose(g, exp, rtol=1e-5,
+                                                 atol=1e-6))
+                    del g, exp
+                comps[name] = rows
+                del want
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                for q in goqs:
+                    q.put(name)
+        except BaseException as e:          # re-raised by the caller
+            errors.append(e)
+            for q in goqs:
+                q.put("stop")
+
+    th = threading.Thread(target=compare, daemon=True)
+    th.start()
+    try:
+        res = mesh_mod.spawn(_payload_entry, world,
+                             (shape, axes, seed, outq, goqs,
+                              device, engine), timeout=timeout,
+                             threads=None if cuda else 1,
+                             store_dir=store_dir)
+    finally:
+        th.join(timeout=60)
+    if errors:
+        raise errors[0]
+    return res, comps
+
+
+def _payload_entry(rank, shape, axes, seed, outq, goqs,
+                   device, engine):
+    return payload_rank(rank, shape, axes, seed, outq,
+                        goqs[rank], device, engine)
+
+
+# ---------------------------------------------------------------------------
+# Training on a node mesh: one rank per node
+# ---------------------------------------------------------------------------
+
+def f32_start(args, tokens=None, node=None):
+    """``launch.train.prepare(args, tokens, node)`` with f32
+    activations."""
+    import dataclasses
+
+    from . import train as train_mod
+    start = train_mod.prepare(args, tokens, node)
+    start["config"] = dataclasses.replace(start["config"],
+                                          activation_dtype=torch.float32)
+    return start
+
+
+def train_rank(rank: int, argv: list, outq=None, goq=None,
+               f32: bool = False, tokens=None) -> dict:
+    """A rank of a training world: ``launch.train.run(args, mesh=...)`` on
+    a ``("node",)`` mesh of ``--nodes`` ranks (gloo; on the card every
+    rank on ``cuda:0``, staged through host memory).  Returns the
+    history, the step seconds, the peak memory and the K1 launches; the
+    final params and momentum come back as numpy (``outq`` None) or,
+    packed on the card, through ``outq`` (CUDA IPC), held until ``goq``
+    says the parent is done with them.  ``f32``: f32 activations
+    (:func:`f32_start`); ``tokens``: the batches' tokens, as the parent
+    sampled them (``launch.train.prepare``)."""
+    from . import train as train_mod
+    args = train_mod.parse_args(argv)
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_mod.make_mesh((args.nodes,), ("node",), backend="gloo",
+                              device=args.device)
+    k1 = gm_ops.gossip_mix.launches
+    node = mesh.axis_index("node")
+    res = train_mod.run(args, mesh=mesh,
+                        start=(f32_start(args, tokens, node) if f32 else
+                               train_mod.prepare(args, tokens, node)))
+    out = {"rank": rank, "wire": mesh.wire, "history": res["history"],
+           "step_s": res["step_s"], "k1": gm_ops.gossip_mix.launches - k1,
+           "num_compiled": res["plan"].num_compiled,
+           "log": mesh.log.snapshot()}
+    x, m = res["params"], res["state"].momentum
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.synchronize()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if outq is None:
+        out["params"], out["momentum"] = _np(x), _np(m)
+        return out
+    del res
+    packed = _packed((m, x))
+    del x, m
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.empty_cache()
+    outq.put((rank, "train", packed))
+    if goq.get() == "stop":
+        raise RuntimeError("the parent stopped comparing")
+    del packed
+    return out
+
+
+ROUNDTRIP_SPECS = {"w": ("node", "fsdp"), "b": (("node", "fsdp"),),
+                   "h": ("node", None, "fsdp")}
+
+
+def roundtrip_tree(seed: int = 3) -> dict:
+    """A tree for ``local_shard`` / ``gather`` on a (node 2, fsdp 2) mesh:
+    a dim on both axes at once (``b``), a replicated middle dim (``h``)."""
+    rng = np.random.default_rng(seed)
+    return {"w": torch.from_numpy(rng.standard_normal((2, 16, 8))
+                                  .astype(np.float32)),
+            "b": torch.from_numpy(rng.standard_normal((8, 6))
+                                  .astype(np.float32)),
+            "h": torch.from_numpy(rng.standard_normal((2, 8, 4))
+                                  .astype(np.float32)).to(torch.bfloat16)}
+
+
+def world_rank(rank: int, argv: list) -> dict:
+    """A rank of a 4-rank CPU world: ``local_shard`` / ``gather`` round
+    trips on a (node 2, fsdp 2) mesh, ``to_logical_mesh`` of a live mesh,
+    then :func:`train_rank` in f32 on a (node 4) mesh."""
+    m = mesh_mod.make_mesh((2, 2), ("node", "fsdp"), device="cpu")
+    full = roundtrip_tree()
+    local = sharding.local_shard(full, ROUNDTRIP_SPECS, m)
+    back = sharding.gather(local, ROUNDTRIP_SPECS, m)
+    flat = mesh_mod.make_mesh((4,), ("data",), device="cpu")
+    logical = mesh_mod.to_logical_mesh(flat, nodes=2, fsdp=2, model=1)
+    total = logical.psum(torch.tensor([float(rank)]), "node")
+    return {"coords": dict(m.coords),
+            "shapes": {k: tuple(v.shape) for k, v in local.items()},
+            "local": _np(local), "roundtrip": _bit_equal(back, full),
+            "logical": (logical.shape, dict(logical.coords),
+                        float(total[0]), logical.wire),
+            "train": train_rank(rank, argv, f32=True)}
+
+
+def _train_entry(rank, argv, outq, goqs, tokens):
+    return train_rank(rank, argv, outq, goqs[rank], tokens=tokens)
+
+
+def train_world(argv: list, reference: tuple, tokens=None,
+                timeout: float = 900.0):
+    """``argv``'s run on a node mesh of ``--nodes`` ranks sharing the card,
+    each rank's final ``(momentum, params)`` compared in this process
+    with ``reference`` (the single-process run's final ``(momentum,
+    params)``, on the card): max abs difference and bit equality per
+    rank.  ``tokens``: every step's tokens as ``launch.train.prepare``
+    sampled them for the reference (None: each rank samples).  Returns
+    (rank results, comparisons)."""
+    import torch.multiprocessing as mp
+
+    from . import train as train_mod
+    nodes = train_mod.parse_args(argv).nodes
+    ctx = mp.get_context("spawn")
+    outq = ctx.Queue()
+    goqs = [ctx.Queue() for _ in range(nodes)]
+    comps: dict = {}
+    errors: list = []
+
+    def compare():
+        try:
+            for _ in range(nodes):
+                rank, _, got = outq.get(timeout=timeout)
+                want = _packed(tuple({k: v[rank:rank + 1] for k, v in
+                                      part.items()} for part in reference))
+                comps[rank] = (torch.equal(got, want),
+                               float((got - want).abs().max()),
+                               float(want.abs().max()))
+                del got, want
+            for q in goqs:
+                q.put("done")
+        except BaseException as e:          # re-raised by the caller
+            errors.append(e)
+            for q in goqs:
+                q.put("stop")
+
+    th = threading.Thread(target=compare, daemon=True)
+    th.start()
+    try:
+        res = mesh_mod.spawn(_train_entry, nodes, (argv, outq, goqs, tokens),
+                             timeout=timeout)
+    finally:
+        th.join(timeout=60)
+    if errors:
+        raise errors[0]
+    return res, comps
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (every rank on the card, gloo staged "
+                         "through host memory) or cpu")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
+    ap.add_argument("--fsdp", type=int, default=FSDP,
+                    help="the fsdp extent (4 nodes x fsdp ranks; NCCL needs "
+                         "that many cards)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs a card; use --device cpu")
+    shape = (NODES, args.fsdp)
+    t0 = time.perf_counter()
+    res = mesh_mod.spawn(engine_rank, NODES * args.fsdp,
+                         (shape, ("node", "fsdp"), args.device,
+                          args.backend, args.seed),
+                         threads=1 if args.device == "cpu" else None)
+    fails = check(res, args.seed, args.device, shape)
+    for name, rec in res[0]["rounds"].items():
+        print(f"{name}: rank 0 wire {rec['log']} K1 {rec['k1']} "
+              f"{rec['ms']:.3f} ms")
+    print(f"{len(res)} ranks ({res[0]['wire']}), "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + ("all blocks match the global path" if not fails
+             else f"{len(fails)} failures: {fails[:5]}"))
+    if fails:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

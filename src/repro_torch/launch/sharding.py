@@ -1,0 +1,380 @@
+"""Sharding rules mapping parameter and cache trees onto the logical mesh
+("node", "fsdp", "model"): the port of the JAX package's
+``launch/sharding.py``.
+
+A spec is a tuple with one entry per dim: an axis name, a tuple of axis
+names, or None (replicated).  The rules are the reference's, rule for
+rule: Megatron-style tensor-parallel placements per parameter name with
+divisibility guards, the expert-stacked branch, the generic fallback and,
+for node-stacked training leaves, the ZeRO-style fsdp placement of
+leaves that would otherwise replicate.  Training trees carry a leading
+``node`` axis; serving trees do not.
+
+The port's trees hold one leaf per layer (``layers.{i}.attn.wq``), where
+the reference stacks the layers on an axis (``layers.attn.wq`` (n, L, d,
+h)).  So each port leaf's spec is its JAX leaf's -- the JAX shape
+rebuilt with the stack axes :mod:`repro_torch.convert` knows (``(L,)``,
+or for vlm ``(n_groups, n_self)`` and ``(n_groups,)``) -- with the stack
+axes dropped.  The rules read the JAX leaf's whole shape: its size, and
+which dims divide the mesh.  Where the reference shards a stack axis
+itself, the port's per-layer leaf has no such axis and is replicated over
+that mesh axis, keeping the reference's placement of its other dims.
+That happens in the expert-stacked branch, which takes every ``w_gate``
+/ ``w_up`` / ``w_down`` with three or more dims past the node axis --
+the dense MLP's (n, L, d, f) too, with E = L -- and shards E over
+``model`` when it divides the model extent: a dense layer's ``w_gate``
+is then ("node", fsdp-or-None, None) in the port, replicated over
+``model``.  Without ``cfg`` the stack is read off the tree (``layers``
+indices 0 .. L-1 give (L,)); the vlm family's doubly stacked layers need
+``cfg``.
+
+In eager PyTorch a rank holds its block of each leaf, so
+:func:`local_shard` (a rank's block, as views) and :func:`gather` (the
+blocks back into the whole leaf, over the mesh) take the place of
+``named``.  The gossip's numbers do not depend on the specs: they decide
+only which bytes each rank holds and moves.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any
+
+import numpy as np
+import torch
+
+from .mesh import Mesh
+
+Tree = Any
+
+__all__ = ["param_specs", "batch_spec", "cache_specs", "axis_size",
+           "gossip_payload_spec_fn", "local_shard", "gather", "map_specs"]
+
+
+def axis_size(mesh: Mesh, name: str) -> int:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))[name]
+
+
+def _fits(dim: int, size: int) -> bool:
+    return size > 0 and dim % size == 0
+
+
+# Trailing-dims rules per leaf name: preferred axes per dim, tried with
+# divisibility checks
+_TRAILING_RULES: dict[str, tuple] = {
+    # attention
+    "wq": ("fsdp", "model"),
+    "wk": ("fsdp", "model"),
+    "wv": ("fsdp", "model"),
+    "wo": ("model", "fsdp"),
+    # mlp
+    "w_gate": ("fsdp", "model"),
+    "w_up": ("fsdp", "model"),
+    "w_down": ("model", "fsdp"),
+    # mamba2
+    "in_proj": ("fsdp", "model"),
+    "out_proj": ("model", "fsdp"),
+    "conv_w": (None, "model"),
+    "conv_b": ("model",),
+}
+
+_MOE_LEAVES = {"w_gate", "w_up", "w_down"}
+
+
+def _spec_for_shape(name: str, shape: tuple, mesh: Mesh, *,
+                    node_axis: bool) -> tuple:
+    """The reference's ``_spec_for_leaf`` on a leaf's (JAX) shape."""
+    ndim = len(shape)
+    size = int(np.prod(shape, dtype=np.int64))
+    # axes the mesh lacks count as size 0: _fits never matches them
+    have = dict(zip(mesh.axis_names, mesh.devices.shape))
+    sizes = {a: have.get(a, 0) for a in ("fsdp", "model")}
+    lead = 1 if node_axis else 0
+
+    def guard(dim_len, ax):
+        return ax if (ax in sizes and _fits(dim_len, sizes[ax])) else None
+
+    def with_lead(trailing):
+        n_stack = ndim - lead - len(trailing)
+        assert n_stack >= 0, (shape, trailing)
+        return (("node",) if lead else ()) + (None,) * n_stack \
+            + tuple(trailing)
+
+    rank = ndim - lead
+    if name == "embed":
+        # (V, d), or (K, V, d) for audio
+        if rank == 2:
+            spec = (guard(shape[-2], "model"), guard(shape[-1], "fsdp"))
+            if spec[0] is None:
+                spec = (None, guard(shape[-1], "model"))
+        else:
+            spec = (None, guard(shape[-2], "model"), guard(shape[-1], "fsdp"))
+            if spec[1] is None:
+                spec = (None, None, guard(shape[-1], "model"))
+        return with_lead(spec)
+    if name == "lm_head":
+        if rank == 2:
+            spec = (guard(shape[-2], "fsdp"), guard(shape[-1], "model"))
+            if spec[1] is None:
+                spec = (guard(shape[-2], "model"), None)
+        else:
+            spec = (None, guard(shape[-2], "fsdp"), guard(shape[-1], "model"))
+            if spec[2] is None:
+                spec = (None, guard(shape[-2], "model"), None)
+        return with_lead(spec)
+    if name in _MOE_LEAVES and rank >= 3:
+        # expert-stacked (..., E, a, b): expert-parallel over model when E
+        # divides, else tensor-parallel on the ff dim
+        E, a, b = shape[-3], shape[-2], shape[-1]
+        if _fits(E, sizes["model"]):
+            spec = ("model", guard(a, "fsdp"), None)
+        elif name == "w_down":
+            spec = (None, guard(a, "model"), guard(b, "fsdp"))
+        else:
+            spec = (None, guard(a, "fsdp"), guard(b, "model"))
+        return with_lead(spec)
+    if name == "router":
+        return with_lead((None, None))
+
+    rule = _TRAILING_RULES.get(name)
+    if rule is not None and rank >= len(rule):
+        return with_lead(tuple(
+            guard(shape[-len(rule) + i], ax) if ax else None
+            for i, ax in enumerate(rule)))
+
+    # generic fallback: shard the biggest divisible dims
+    if rank >= 2 and size >= 1 << 16:
+        dims = list(range(ndim - rank, ndim))
+        order = sorted(dims, key=lambda i: -shape[i])
+        spec = [None] * rank
+        used = []
+        for ax in ("model", "fsdp"):
+            for i in order:
+                si = i - (ndim - rank)
+                if spec[si] is None and _fits(shape[i], sizes[ax]) \
+                        and si not in used:
+                    spec[si] = ax
+                    used.append(si)
+                    break
+        return with_lead(tuple(spec))
+    if node_axis and rank >= 1:
+        # node-stacked leaves that would replicate (norm scales, biases)
+        # shard their largest divisible dim over fsdp (ZeRO-style)
+        dims = list(range(ndim - rank, ndim))
+        for i in sorted(dims, key=lambda i: -shape[i]):
+            if shape[i] > 1 and _fits(shape[i], sizes["fsdp"]):
+                spec = [None] * rank
+                spec[i - (ndim - rank)] = "fsdp"
+                return with_lead(tuple(spec))
+    return with_lead((None,) * rank)
+
+
+_LAYER = re.compile(r"((?:cross_)?layers)\.(\d+)\.(.+)")
+
+
+def _stacks_of(names, cfg) -> dict:
+    """Stack axes per stacked key: ``cfg``'s (``convert``'s), else
+    ``layers`` -> (number of layers in the tree,)."""
+    if cfg is not None:
+        from ..convert import _stacks
+        return _stacks(cfg)
+    found: dict = {}
+    for name in names:
+        m = _LAYER.fullmatch(name)
+        if m:
+            found.setdefault(m.group(1), set()).add(int(m.group(2)))
+    if "cross_layers" in found:
+        raise ValueError("a vlm tree (cross_layers) is doubly stacked: "
+                         "pass cfg= to read its stack axes")
+    return {k: (len(v),) for k, v in found.items()}
+
+
+def _leaf_spec(name: str, shape: tuple, stacks: dict, mesh: Mesh, *,
+               node_axis: bool) -> tuple:
+    """A port leaf's spec: its JAX leaf's with the stack axes dropped."""
+    lead = 1 if node_axis else 0
+    m = _LAYER.fullmatch(name)
+    if m is None:
+        return _spec_for_shape(name.split(".")[-1], tuple(shape), mesh,
+                               node_axis=node_axis)
+    stack = tuple(stacks[m.group(1)])
+    jshape = tuple(shape[:lead]) + stack + tuple(shape[lead:])
+    spec = _spec_for_shape(m.group(3).split(".")[-1], jshape, mesh,
+                           node_axis=node_axis)
+    return spec[:lead] + spec[lead + len(stack):]
+
+
+def map_specs(fn, tree: Tree, specs: Tree) -> Tree:
+    """``fn(leaf, spec)`` over a dict/tuple/list tree and its spec tree
+    (a spec is a tuple of axis names or None, so spec trees stop at
+    tuples of those)."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, torch.Size):
+        vals = [map_specs(fn, v, s) for v, s in zip(tree, specs)]
+        if hasattr(tree, "_fields"):          # a NamedTuple of leaves
+            return type(tree)(*vals)
+        return type(tree)(vals)
+    return fn(tree, specs)
+
+
+def _params_specs(tree: Tree, stacks: dict, mesh: Mesh, node_axis: bool,
+                  fsdp_params: bool, prefix: str = "") -> Tree:
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_params_specs(t, stacks, mesh, node_axis,
+                                        fsdp_params) for t in tree)
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _params_specs(v, stacks, mesh, node_axis, fsdp_params,
+                                   f"{prefix}{k}.")
+            continue
+        spec = _leaf_spec(prefix + k, tuple(v.shape), stacks, mesh,
+                          node_axis=node_axis)
+        if not fsdp_params:
+            spec = tuple(None if s == "fsdp" else s for s in spec)
+        out[k] = spec
+    return out
+
+
+def _names(tree: Tree, prefix: str = ""):
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            yield from _names(t)
+        return
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _names(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k
+
+
+def param_specs(params: Tree, mesh: Mesh, *, cfg=None, node_axis: bool = True,
+                fsdp_params: bool = True) -> Tree:
+    """The spec tree of a port parameter tree (``{name: tensor}``, or a
+    tuple/list of such: a gossip payload); only shapes are read.
+
+    node_axis: training replicas carry a leading node axis.
+    fsdp_params: if False, drop the fsdp axis (pure tensor parallel)."""
+    stacks = _stacks_of(_names(params), cfg)
+    return _params_specs(params, stacks, mesh, node_axis, fsdp_params)
+
+
+def batch_spec(mesh: Mesh, *, node_axis: bool = True,
+               batch_dim_size: int = 0) -> tuple:
+    """Tokens / labels: (node, batch, ...) or (batch, ...) for serving."""
+    fs = axis_size(mesh, "fsdp")
+    nd = axis_size(mesh, "node")
+    if node_axis:
+        inner = "fsdp" if (batch_dim_size == 0 or _fits(batch_dim_size, fs)) \
+            else None
+        return ("node", inner)
+    if batch_dim_size and _fits(batch_dim_size, nd * fs):
+        return (("node", "fsdp"),)
+    if batch_dim_size and _fits(batch_dim_size, nd):
+        return ("node",)
+    return (None,)
+
+
+def cache_specs(cache: Tree, mesh: Mesh, batch: int) -> Tree:
+    """Decode caches (``models.model.init_cache``'s, stacked as the
+    reference's: (L, B, heads, T, hd), conv (L, B, w, C), state (L, B, H,
+    P, N)): batch over ("node", "fsdp") when divisible, then the heads or
+    state dim (or head_dim) over ``model``."""
+    nd, fs, md = (axis_size(mesh, a) for a in ("node", "fsdp", "model"))
+
+    def bspec():
+        if _fits(batch, nd * fs):
+            return ("node", "fsdp")
+        if _fits(batch, nd):
+            return "node"
+        return None
+
+    def one(leaf):
+        shape = tuple(leaf.shape)
+        spec = [None] * len(shape)
+        bdim = next((i for i, s in enumerate(shape) if s == batch and i > 0),
+                    None)
+        if bdim is not None:
+            spec[bdim] = bspec()
+        for i in [2] + list(range(len(shape) - 1, 2, -1)):
+            if 0 <= i < len(shape) and i != bdim and spec[i] is None \
+                    and _fits(shape[i], md) and shape[i] >= md:
+                spec[i] = "model"
+                break
+        return tuple(spec)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            vals = [walk(v) for v in t]
+            return type(t)(*vals) if hasattr(t, "_fields") else type(t)(vals)
+        return one(t)
+
+    return walk(cache)
+
+
+def gossip_payload_spec_fn(mesh: Mesh, *, cfg=None,
+                           fsdp_params: bool = True):
+    """``payload -> spec tree`` with :func:`param_specs`' rules for a
+    node-stacked gossip payload (a tree, or DmSGD's ``(m, x)`` tuple) at
+    its GLOBAL shapes: the specs a train step's payload is sharded by, so
+    each rank's block (:func:`local_shard`) is what the shard-native
+    engine packs and permutes.  Axes the mesh lacks are never emitted."""
+    if "node" not in mesh.axis_names:
+        raise ValueError(
+            f"gossip_payload_spec_fn needs a 'node' mesh axis; got "
+            f"{mesh.axis_names}")
+
+    def spec_fn(payload: Tree) -> Tree:
+        return param_specs(payload, mesh, cfg=cfg, node_axis=True,
+                           fsdp_params=fsdp_params)
+
+    return spec_fn
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def local_shard(tree: Tree, specs: Tree, mesh: Mesh,
+                coords: dict | None = None) -> Tree:
+    """This rank's block of every leaf (``coords``: another rank's, e.g.
+    ``{"node": 1, "fsdp": 0}``): each dim cut evenly over its spec's
+    axes, a tuple of axes row-major.  Views, no copy."""
+    coords = mesh.coords if coords is None else coords
+    sizes = mesh.shape
+
+    def one(x, spec):
+        for d, entry in enumerate(spec):
+            axes = _axes(entry)
+            if not axes:
+                continue
+            parts = int(np.prod([sizes[a] for a in axes]))
+            idx = 0
+            for a in axes:
+                idx = idx * sizes[a] + coords[a]
+            if x.shape[d] % parts:
+                raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
+                                 f"split {parts} ways ({entry})")
+            step = x.shape[d] // parts
+            x = x.narrow(d, idx * step, step)
+        return x
+
+    return map_specs(one, tree, specs)
+
+
+def gather(tree: Tree, specs: Tree, mesh: Mesh) -> Tree:
+    """Inverse of :func:`local_shard`: every rank's blocks concatenated
+    back into the whole leaves, on every rank (one all-gather per sharded
+    axis of each leaf)."""
+
+    def one(x, spec):
+        for d in reversed(range(len(spec))):
+            for a in reversed(_axes(spec[d])):
+                x = mesh.all_gather(x, a, dim=d)
+        return x
+
+    return map_specs(one, tree, specs)

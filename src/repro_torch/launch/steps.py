@@ -60,7 +60,10 @@ def make_train_step(cfg: M.ModelConfig,
     ``batch["tokens"]`` (n, B, S) (audio: (n, B, S, K)) may lie on the CPU;
     it is moved to the parameters' device, as is the vlm family's
     ``batch["image_embeds"]`` (n, B, T, d), split per node and, with
-    ``micro_batch``, per micro-batch as the tokens are.  When the optimizer
+    ``micro_batch``, per micro-batch as the tokens are.  On a mesh (a
+    plan built with ``mesh=``, one rank a node) the step takes the rank's
+    block -- a node axis of 1 -- so the loop runs once and the gossip
+    executor moves the payload over the mesh.  When the optimizer
     has runtime gossip hooks, ``aux`` carries the per-node losses and the
     batch's ``"alive"`` / ``"comm"`` flags (AL-DSGD weights, deadline gates,
     ``when=`` predicates).  Returns the new params, the new state, and the

@@ -42,6 +42,20 @@ k).random(n)[i] < p``.  The reference draws the same flags from
 cannot reproduce, so the two drivers drop different nodes; parity tests
 put the same ``alive`` in both batches.
 
+``run(args, mesh=mesh)`` trains on a live
+:class:`~repro_torch.launch.mesh.Mesh` with only a ``"node"`` axis, one
+rank per node (a world of ``--nodes`` ranks, every rank calling ``run``
+with the same ``args``): each rank trains its own node -- its row of the
+params and batches, which ``prepare(args, node=i)`` builds without
+keeping any other node's, so the step's node loop runs once -- and the
+gossip runs shard-natively over the mesh's wire.
+The logged loss and consensus are reduced across the ranks, so rank 0
+(the only one that prints) prints what the single-process run prints.
+The reference gets fsdp/model-sharded training from GSPMD; the port has
+no sharded forward, so a mesh with an fsdp or model extent above 1, the
+overlapped trainer, ``parallel_msgd`` (whose gradient average reads the
+node axis) and checkpoints on a mesh raise, naming ROADMAP item 18b.
+
 ``--overlap`` trains the one-step-delayed pipeline (each step mixes the
 previous step's payload, on the card on a side stream under the
 backward); the logged consensus reads the flushed view, and the run ends
@@ -73,12 +87,41 @@ from ..models import model as M
 from . import steps as steps_mod
 
 __all__ = ["build_trainer", "consensus_distance", "stack_nodes",
-           "image_embeds", "prepare", "run", "parse_args", "main"]
+           "image_embeds", "prepare", "run", "parse_args", "main",
+           "check_mesh"]
+
+WAITS = "ROADMAP item 18b (sharded training on a mesh)"
+
+
+def check_mesh(mesh, n: int, *, overlap: bool = False,
+               optimizer_name: str | None = None,
+               ckpt: bool = False) -> None:
+    """Refuse what training on ``mesh`` cannot run yet: the mesh must
+    have a ``node`` axis of ``n`` ranks and no other axis above 1."""
+    if "node" not in mesh.axis_names or mesh.axis_size("node") != n:
+        raise ValueError(f"training {n} nodes needs a mesh with a 'node' "
+                         f"axis of {n}; got {mesh.shape}")
+    inner = {a: s for a, s in mesh.shape.items() if a != "node" and s > 1}
+    if inner:
+        raise NotImplementedError(
+            f"training on a mesh with {inner}: the port has no "
+            f"fsdp/model-sharded forward (the reference's is GSPMD's); "
+            f"{WAITS}")
+    if overlap:
+        raise NotImplementedError(
+            f"the overlapped trainer on a mesh waits for {WAITS}")
+    if optimizer_name == "parallel_msgd":
+        raise NotImplementedError(
+            "parallel_msgd averages the gradients over the node axis, "
+            f"which a rank's block does not hold; {WAITS}")
+    if ckpt:
+        raise NotImplementedError(
+            f"checkpoints of a run on a mesh wait for {WAITS}")
 
 def build_trainer(cfg, topology, optimizer_name: str, beta: float,
                   micro_batch=None, momentum_dtype=None, overlap=False,
                   loss_aware=False, deadline=False, compression=None,
-                  timeline=None):
+                  timeline=None, mesh=None):
     """Returns (opt, step_for) where ``step_for(step, prime=False)`` is the
     train-step executable for that step's gossip realization (the plan
     rides along as ``step_for.plan``).  All schedule handling lives in
@@ -87,14 +130,19 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     runtime gossip hooks (the step then reads ``batch["alive"]``);
     ``overlap`` builds the pipelined trainer (``timeline``: see
     :func:`~repro_torch.launch.steps.make_train_step`),
-    ``compression="int8"`` the int8 wire."""
+    ``compression="int8"`` the int8 wire.  ``mesh`` (one rank per node,
+    :func:`check_mesh`) runs every gossip round shard-natively, the step
+    taking each rank's block."""
+    if mesh is not None:
+        check_mesh(mesh, topology.n, overlap=overlap,
+                   optimizer_name=optimizer_name)
     opt = optim_mod.make_optimizer(optimizer_name, topology, beta=beta,
                                    momentum_dtype=momentum_dtype,
                                    compression=compression, overlap=overlap,
                                    loss_aware=loss_aware, deadline=deadline)
     step_fn = steps_mod.make_train_step(cfg, opt, micro_batch=micro_batch,
                                         timeline=timeline)
-    plan = GossipPlan.for_optimizer(opt, fn=step_fn)
+    plan = GossipPlan.for_optimizer(opt, fn=step_fn, mesh=mesh)
 
     def step_for(step, **kw):
         return plan.step_fn(step, **kw)
@@ -103,15 +151,23 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     return opt, step_for
 
 
-def consensus_distance(params) -> float:
+def consensus_distance(params, mesh=None) -> float:
     """||x_i - x_bar|| aggregated over the tree (the paper's consensus
     metric): one reduction over the packed flat buffers and a single host
-    sync (padding columns are zeros on every node, so they add 0)."""
+    sync (padding columns are zeros on every node, so they add 0).  On a
+    mesh each rank holds its node's block: the mean is a ``psum`` over
+    the node axis, and so is the sum of squares."""
     _, bufs = flatbuf.pack(params)
     total = torch.zeros((), dtype=torch.float32, device=bufs[0].device)
     for buf in bufs:
         b32 = buf.float()
-        total += torch.sum(torch.square(b32 - b32.mean(0, keepdim=True)))
+        if mesh is None:
+            mean = b32.mean(0, keepdim=True)
+        else:
+            mean = mesh.psum(b32, "node") / mesh.axis_size("node")
+        total += torch.sum(torch.square(b32 - mean))
+    if mesh is not None:
+        total = mesh.psum(total.reshape(1), "node")[0]
     return float(torch.sqrt(total))
 
 
@@ -137,12 +193,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def prepare(args) -> dict:
+def prepare(args, tokens=None, node: int | None = None) -> dict:
     """What a run of ``args`` starts from, built as :func:`run` builds it:
     the config, the topology, the momentum dtype, the node-stacked
     initial params, every step's batch and the learning-rate schedule.
     References held against a run (the sequential delayed recursion of
-    ``--overlap``) start from the same."""
+    ``--overlap``) start from the same.  ``tokens`` is every step's token
+    array as an earlier ``prepare(args)`` sampled them (the host sampling
+    grows with the vocabulary: a world of ranks samples once).  ``node``
+    keeps only that node's row of the params and of every per-node batch
+    entry (a node axis of 1, the values the whole run gives it): a rank
+    of a mesh then holds its own node and no other's."""
     if args.straggler_prob and not args.deadline_skip:
         raise ValueError("--straggler-prob simulates missed deadlines; "
                          "pair it with --deadline-skip")
@@ -161,21 +222,31 @@ def prepare(args) -> dict:
 
     params = M.init(cfg, args.seed, device=device)
     stacked = stack_nodes(params, n)
+    rows = slice(None) if node is None else slice(node, node + 1)
     if args.optimizer != "parallel_msgd" and args.desync:
         # start nodes desynchronized to exercise consensus (a torch
-        # Generator: not the reference's jax.random noise)
+        # Generator: not the reference's jax.random noise); leaf by leaf,
+        # so a node's row is cut before the next leaf's noise is drawn
         gen = torch.Generator(device=device).manual_seed(1)
-        stacked = {k: p + (0.01 * torch.randn(p.shape, generator=gen,
-                                              device=device)).to(p.dtype)
-                   for k, p in stacked.items()}
+        noisy = {}
+        for k, p in stacked.items():
+            v = p + (0.01 * torch.randn(p.shape, generator=gen,
+                                        device=device)).to(p.dtype)
+            noisy[k] = v if node is None else v[rows].clone()
+            del v
+        stacked = noisy
+    elif node is not None:
+        stacked = {k: p[rows] for k, p in stacked.items()}
 
-    data = SyntheticLM(cfg.vocab_size, n, hetero=args.hetero, seed=args.seed)
     lr_fn = schedule.warmup_step_decay(
         args.lr, args.warmup, [int(args.steps * 0.6), int(args.steps * 0.85)])
-    n_codebooks = cfg.n_codebooks if cfg.family == "audio" else 0
-    batches = [{"tokens": torch.from_numpy(
-        data.sample(step, args.batch, args.seq, n_codebooks))}
-        for step in range(args.steps)]
+    if tokens is None:
+        data = SyntheticLM(cfg.vocab_size, n, hetero=args.hetero,
+                           seed=args.seed)
+        n_codebooks = cfg.n_codebooks if cfg.family == "audio" else 0
+        tokens = [data.sample(step, args.batch, args.seq, n_codebooks)
+                  for step in range(args.steps)]
+    batches = [{"tokens": torch.as_tensor(t)} for t in tokens]
     if cfg.family == "vlm":
         for step, batch in enumerate(batches):
             batch["image_embeds"] = image_embeds(
@@ -188,20 +259,36 @@ def prepare(args) -> dict:
             batch["alive"] = torch.from_numpy(
                 np.random.default_rng(2**20 + step).random(n)
                 >= args.straggler_prob)
+    if node is not None:
+        batches = [{k: v[rows].clone() for k, v in b.items()}
+                   for b in batches]
     return {"device": device, "config": cfg,
             "topology": topo_mod.get_topology(args.topology, n),
             "momentum_dtype": mom_dtype, "params": stacked,
-            "batches": batches, "lr_fn": lr_fn}
+            "batches": batches, "lr_fn": lr_fn, "node": node}
 
 
-def run(args, timeline=None) -> dict:
+def run(args, timeline=None, mesh=None, start=None) -> dict:
     """Train per ``args`` (the CLI's namespace).  Returns the history (one
     entry per logged step: step, loss, consensus, lr, step_s), every
     step's seconds, the final params and state (flushed under
     ``--overlap``), the config, the plan and the per-step ``alive`` flags
     (None without ``--deadline-skip``).  ``timeline`` (a list) collects
-    the pipelined steps' CUDA events (``steps.make_train_step``)."""
-    start = prepare(args)
+    the pipelined steps' CUDA events (``steps.make_train_step``).  On a
+    ``mesh`` (module docstring) the params and state are this rank's
+    node's, and the history's loss and consensus the whole run's.
+    ``start`` is what :func:`prepare` returns, for a caller that changes
+    it first (another activation dtype, say); by default ``prepare(args)``
+    (on a mesh ``prepare(args, node=i)``, the rank's node ``i``)."""
+    node, loud = None, True
+    if mesh is not None:
+        check_mesh(mesh, args.nodes, overlap=args.overlap,
+                   optimizer_name=args.optimizer, ckpt=bool(args.ckpt_dir))
+        node, loud = mesh.axis_index("node"), mesh.rank == 0
+    start = prepare(args, node=node) if start is None else start
+    if start.get("node") != node:
+        raise ValueError(f"a start prepared for node {start.get('node')} "
+                         f"on a rank that trains node {node}")
     device, cfg = start["device"], start["config"]
     stacked, batches, lr_fn = (start["params"], start["batches"],
                                start["lr_fn"])
@@ -212,7 +299,7 @@ def run(args, timeline=None) -> dict:
                                   loss_aware=args.loss_aware,
                                   deadline=args.deadline_skip,
                                   compression=args.compression,
-                                  timeline=timeline)
+                                  timeline=timeline, mesh=mesh)
     plan = step_for.plan
     state = opt.init(stacked)
 
@@ -229,13 +316,17 @@ def run(args, timeline=None) -> dict:
             # the flushed view (pure; dropped at once: under --overlap it
             # is a payload-sized buffer of its own)
             cd = consensus_distance(
-                plan.flush_step_fn(step + 1)(stacked, state)[0])
+                plan.flush_step_fn(step + 1)(stacked, state)[0], mesh)
+            if mesh is not None:     # the node mean of the ranks' losses
+                loss = mesh.psum(loss.reshape(1).float(), "node")[0] \
+                    / args.nodes
             history.append(dict(step=step, loss=float(loss), consensus=cd,
                                 lr=lr, step_s=step_s[-1]))
-            print(f"step {step:5d}  loss {float(loss):.4f}  "
-                  f"consensus {cd:.3e}  lr {lr:.2e}  "
-                  f"step {1e3 * step_s[-1]:.1f} ms  "
-                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            if loud:
+                print(f"step {step:5d}  loss {float(loss):.4f}  "
+                      f"consensus {cd:.3e}  lr {lr:.2e}  "
+                      f"step {1e3 * step_s[-1]:.1f} ms  "
+                      f"({time.perf_counter() - t0:.1f}s)", flush=True)
         if args.ckpt_dir and step and step % args.ckpt_every == 0:
             if args.overlap and args.ckpt_flush:
                 # flush-on-save: the mixed iterates, no buffer; a resume

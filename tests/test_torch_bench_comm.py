@@ -28,7 +28,9 @@ the JAX package's, on the CPU.
   ``BENCH_comm.json``.  On the CPU there is no side stream, so the
   overlap speedup is not held to 1.0 here (``min_overlap_speedup=0``);
   the card's run is ``chip_smoke.py`` phase 17.
-* The two-axis engine comparison raises, naming ROADMAP item 18.
+* The two-axis engine comparison runs on a CPU world of 8 ranks: the
+  shard-native round one permute a rank, the global path 194
+  all-gathers, the two bit for bit equal.
 Torch is pinned to one thread."""
 import copy
 import functools
@@ -331,19 +333,41 @@ def test_engine_compare_rows_and_two_axis_refusal(capsys):
     assert [d["permutes_per_step"] for d in derived] == ["1", "97", "3",
                                                          "291", "1"]
     assert all(r["us"] > 0 for r in rows)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tbc.engine_compare_two_axis()
+    two = tbc.engine_compare_two_axis(device="cpu", iters=1)
+    assert [r["name"] for r in two] == [
+        "comm_engine2ax_one_peer_exp_shardnative",
+        "comm_engine2ax_one_peer_exp_global"]
+    d2 = [r["derived"] for r in two]
+    assert "collectives={'permute': 1}" in d2[0]
+    assert "coll_bytes_per_rank=2000000" in d2[0]     # half a node's 1M f32
+    assert "equal_to_global=True" in d2[0]
+    assert "collectives={'all_gather': 194}" in d2[1]  # 97 leaves x 2 axes
 
 
-def test_run_suite_comm(capsys):
+def test_run_suite_comm(capsys, monkeypatch):
+    """``run --only comm`` prints the table, the flat-engine rows, then
+    the two-axis comparison's.  That comparison's world of 8 ranks is
+    test_engine_compare_rows_and_two_axis_refusal's; here a stand-in
+    records that ``run`` calls it on the device and prints its rows."""
+    calls = []
+
+    def two_axis(device="cuda", **kw):
+        calls.append(str(device))
+        for tag in ("shardnative", "global"):
+            tbc.emit(f"comm_engine2ax_one_peer_exp_{tag}", 1.0, "stand-in")
+
+    monkeypatch.setattr(tbc, "engine_compare_two_axis", two_axis)
     trun.main(["--only", "comm", "--device", "cpu"])
+    assert calls == ["cpu"]
     cap = capsys.readouterr()
     names = [ln.split(",")[0] for ln in cap.out.splitlines()[1:]]
     assert names[:len(jbc.TABLE_TOPOLOGIES)] == [
         f"comm_{t}" for t in jbc.TABLE_TOPOLOGIES]
     assert names[len(jbc.TABLE_TOPOLOGIES):][0] == \
         "comm_engine_one_peer_exp_flat"
-    assert "item 18" in cap.err
+    assert names[-2:] == ["comm_engine2ax_one_peer_exp_shardnative",
+                          "comm_engine2ax_one_peer_exp_global"]
+    assert "item 18" not in cap.err
 
 
 def test_roofline_still_waits_and_comm_needs_a_card():

@@ -364,6 +364,26 @@ def test_gossip_mix_kernel(cuda, shape, degree, dtype):
         **GM_TOLS[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_mix_kernel_on_a_rank_shard(cuda, dtype):
+    """A shard-native round's buffers: one node's (1, B) local block, B
+    odd (``pad_multiple=1`` packing), the received block a fresh
+    tensor."""
+    B = 2 * 3 * 5 * 7 * 11 * 13 + 1
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x, r = (torch.randn((1, B), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    n0 = gm_ops.gossip_mix.launches
+    got = gm_ops.gossip_mix(x, [r], w_self=0.5, ws=(0.5,))
+    torch.cuda.synchronize()
+    assert gm_ops.gossip_mix.launches == n0 + 1
+    assert got.shape == (1, B) and got.dtype == dtype
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        gm_ref.gossip_mix_ref(x, [r], 0.5, (0.5,)).float().cpu().numpy(),
+        **GM_TOLS[dtype])
+
+
 def test_gossip_mix_kernel_unaligned_input(cuda):
     base = torch.randn(4 * 1000 + 1, device=cuda)
     x, r = base[1:], base[:-1]                  # 4-byte offset views

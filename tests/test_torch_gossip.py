@@ -14,6 +14,7 @@ import torch
 
 from repro.core import flatbuf as JF, gossip as JG, topology as JT
 from repro_torch.core import flatbuf as TF, gossip as TG, topology as TT
+from repro_torch.launch import mesh_check as MC
 
 TOL32 = dict(rtol=1e-5, atol=1e-5)
 TOLBF = dict(rtol=2e-2, atol=2e-2)
@@ -155,9 +156,11 @@ def test_mix_switch_matches_mix(name):
                 assert torch.equal(got[k], want[k])
 
 
-def test_mix_switch_typed_aperiodic_error():
+def test_mix_switch_typed_aperiodic_error(tmp_path):
     """Aperiodic schedules raise the typed error naming the schedule, as
-    the reference's (tests/test_gossip.py:129-139)."""
+    the reference's (tests/test_gossip.py:129-139).  With mesh= a periodic
+    one mixes: on a world of one rank (node extent 1, all 8 nodes on the
+    rank) the gathered global path, bit for bit the no-mesh mix."""
     tree = {"x": torch.zeros(8, 4)}
     for top in (TT.bipartite_random_match(8),
                 TT.bipartite_random_match(8, pool=3),
@@ -166,8 +169,14 @@ def test_mix_switch_typed_aperiodic_error():
         with pytest.raises(TG.AperiodicScheduleError,
                            match=type(top.schedule).__name__):
             TG.mix_switch(tree, top, 0)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        TG.mix_switch(tree, TT.one_peer_exponential(8), 0, mesh=object())
+    _, tree = _pair(8, seed=5)
+    top = TT.one_peer_exponential(8)
+    with MC.one_rank_mesh(tmp_path) as mesh:
+        got = TG.mix_switch(tree, top, 2, mesh=mesh)
+        assert mesh.log.counts() == {"all_gather": 2}   # f32 + bf16 groups
+    want = TG.mix_switch(tree, top, 2)
+    for k in tree:
+        assert torch.equal(got[k], want[k])
 
 
 @pytest.mark.parametrize("kind", ["random_match", "uniform"])
@@ -188,10 +197,11 @@ def test_aperiodic_stream_mixes_like_jax(kind, jax_interpret):
         _close(tt, jt)
 
 
-def test_later_slices_raise():
+def test_later_slices_raise(tmp_path):
     """int8 (slice C item 8) now mixes, bit for bit the reference's int8
-    round; an unknown wire format is a ValueError; mesh= (slice F) still
-    raises."""
+    round; an unknown wire format is a ValueError; mesh= (item 18) now
+    mixes too: a matching on a one-rank world, int8 included, is bit for
+    bit the no-mesh round."""
     jt, tree = _pair(4)
     got = TG.mix_shifts(tree, 0.5, [(1, 0.5)], compression="int8")
     want = JG.mix_shifts(jt, 0.5, [(1, 0.5)], compression="int8")
@@ -199,8 +209,12 @@ def test_later_slices_raise():
         np.testing.assert_array_equal(_f32(got[k]), _f32(want[k]))
     with pytest.raises(ValueError, match="unknown compression"):
         TG.mix_shifts(tree, 0.5, [(1, 0.5)], compression="fp8")
-    with pytest.raises(NotImplementedError, match="slice F"):
-        TG.mix_matching(tree, (1, 0, 3, 2), mesh=object())
+    with MC.one_rank_mesh(tmp_path) as mesh:
+        for comp in (None, "int8"):
+            got = TG.mix_matching(tree, (1, 0, 3, 2), 0.5, comp, mesh)
+            want = TG.mix_matching(tree, (1, 0, 3, 2), 0.5, comp)
+            for k in got:
+                assert torch.equal(got[k], want[k])
 
 
 def test_bf16_tree_mixes_in_f32():

@@ -31,6 +31,7 @@ from repro_torch.core import flatbuf as TF, gossip as TG, optim as TO
 from repro_torch.core import schedule as TS, topology as TT
 from repro_torch.core import transforms as TTr
 from repro_torch.core.plan import GossipPlan as TPlan
+from repro_torch.launch import mesh_check as MC
 
 TOL32 = dict(rtol=1e-5, atol=1e-5)
 TOL_TRAJ = dict(rtol=2e-4, atol=2e-4)
@@ -370,10 +371,13 @@ def test_scheduled_plan_refuses_aperiodic(n=8):
         TG.mix_scheduled(_tree(n), TT.bipartite_random_match(n), 0)
 
 
-def test_runtime_refusals_match_reference(n=8):
+def test_runtime_refusals_match_reference(tmp_path, n=8):
     """The reference's other loud refusals: a per-node gate on a Dense
     round, a Gated round with an explicit node_gate, metadata on a Dense
-    round, a runtime round with mesh= (slice F), a missing aux flag."""
+    round, a missing aux flag.  A runtime round with mesh= mixes with one
+    rank per node (tests/test_torch_shard_native.py); with several nodes
+    a rank (the gathered global path) it raises, naming ROADMAP item
+    18b."""
     tree = _tree(n)
     alive = torch.ones(n, dtype=torch.bool)
     dense = TT.Dense(np.full((n, n), 1.0 / n))
@@ -384,8 +388,9 @@ def test_runtime_refusals_match_reference(n=8):
             TT.one_peer_hypercube(n).realization(0), alive), node_gate=alive)
     with pytest.raises(ValueError, match="permute wire"):
         TG.mix_realization(tree, dense, node_gate=alive)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        TG.mix_shifts(tree, 0.5, [(1, 0.5)], mesh=object(), node_gate=alive)
+    with MC.one_rank_mesh(tmp_path) as mesh:
+        with pytest.raises(NotImplementedError, match="item 18b"):
+            TG.mix_shifts(tree, 0.5, [(1, 0.5)], mesh=mesh, node_gate=alive)
     opt = TO.dmsgd(TT.one_peer_exponential(n), deadline=True)
     params = {"x": torch.zeros((n, 3))}
     with pytest.raises(ValueError, match="alive"):
