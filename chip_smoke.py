@@ -30,7 +30,9 @@ structural gates, then the kernel and communication benchmarks
 paper's LM-scale experiment (train_lm at the 100m preset, one-peer and
 static exponential graphs on 8 nodes), and the gossip across processes:
 the shard-native engine on a mesh of ranks sharing the card, and phase
-6's training with one rank a node.
+6's training with one rank a node, and last the dry run: every arch,
+input shape and mesh counted per chip on the meta device, and the
+counter held on the card against meta.
 
   python3 chip_smoke.py [--seed N]
 
@@ -296,6 +298,17 @@ Phases, in order; any failure exits non-zero before the result lines:
                  6 a rank; (c) on one card asking for NCCL raises (two
                  ranks on cuda:0); with >= 4 cards (a)'s tree also runs
                  over NCCL, one card a rank, else one line says why not
+ 19. dryrun   -- the dry run and its counter (ROADMAP item 23): (a) the
+                 whole matrix, 10 archs x 4 shapes x both meshes, counted
+                 on the meta device in worker processes: every record ok,
+                 the card's max_memory_allocated unmoved, make_experiments'
+                 two tables printed; (b) phase 6's train step counted by
+                 launch.cost.Cost on the card (K1 launched) and on meta:
+                 flops equal, bytes within 1 %, any op whose count differs
+                 printed, the step's median ms against the bound its count
+                 gives on one card; (c) the same for phase 7's forward
+                 (mamba2-1.3b, 2 x 2048, bf16 activations, K4 recorded by
+                 ssd_cost); under 120 s
 Every phase's runtime is printed after it.
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -3229,6 +3242,175 @@ def mesh_phase(torch, dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dry run and the counter of a step's work
+# ---------------------------------------------------------------------------
+
+COUNT_BYTES_TOL = 0.01       # card against meta: bytes within 1 %
+
+
+def _count_pair(torch, what, card_fn, meta_fn):
+    """Count ``card_fn`` on the card and ``meta_fn`` on meta: flops equal,
+    bytes within ``COUNT_BYTES_TOL``; prints any op whose count differs.
+    Returns (card count, meta count)."""
+    from repro_torch.launch.cost import Cost
+
+    torch.cuda.synchronize()
+    with Cost() as card:
+        card_fn()
+    torch.cuda.synchronize()
+    with Cost() as meta:
+        meta_fn()
+    a, b = card.ops(), meta.ops()
+    for op in sorted(set(a) | set(b)):
+        if a.get(op) != b.get(op):
+            log(f"  {what}: op {op} card (calls, flops, bytes) "
+                f"{a.get(op)} meta {b.get(op)}")
+    rel = abs(card.hbm_bytes - meta.hbm_bytes) / max(meta.hbm_bytes, 1.0)
+    log(f"  {what}: card flops {card.flops:.6e} bytes {card.hbm_bytes:.6e} "
+        f"peak {card.peak_bytes / 1e9:.3f} GB; meta flops {meta.flops:.6e} "
+        f"bytes {meta.hbm_bytes:.6e} peak {meta.peak_bytes / 1e9:.3f} GB; "
+        f"bytes apart by {100 * rel:.4f} % (tolerance "
+        f"{100 * COUNT_BYTES_TOL:.0f} %)")
+    check(card.flops == meta.flops,
+          f"{what}: flops on the card {card.flops} != on meta {meta.flops}")
+    check(rel <= COUNT_BYTES_TOL, f"{what}: bytes apart by {rel:.4%}")
+    return card, meta
+
+
+def _against_bound(what, count, ms, smi_line):
+    """The bound one card gives a count (its flops at the bf16 peak, its
+    bytes at the memory rate, the larger) against the measured ms."""
+    from repro_torch.launch.mesh import HW
+
+    c_ms = 1e3 * count.flops / HW["peak_flops_bf16"]
+    m_ms = 1e3 * count.hbm_bytes / HW["hbm_bw"]
+    bound = max(c_ms, m_ms)
+    log(f"  {what}: median {ms:.3f} ms against the count's bound "
+        f"{bound:.3f} ms (compute {c_ms:.3f}, memory {m_ms:.3f}): "
+        f"{100 * bound / ms:.1f} % of the bound ({smi_line})")
+    return {"ms": ms, "bound_ms": bound, "compute_ms": c_ms,
+            "memory_ms": m_ms, "share": bound / ms,
+            "flops": count.flops, "bytes": count.hbm_bytes,
+            "peak_bytes": count.peak_bytes}
+
+
+def dryrun_phase(torch, dev, seed, smi_line):
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.benchmarks import make_experiments as MX
+    from repro_torch.kernels.gossip_mix import ops as gm_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import train as T
+    from repro_torch.models import model as M
+    out = {}
+
+    # (a) the matrix on meta: nothing allocated on the card
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    before = (torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated())
+    jobs = min(8, os.cpu_count() or 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        failures = D.run_matrix(D.ARCH_IDS, D.SHAPE_IDS, [False, True],
+                                jobs=jobs, out_dir=tmp, verbose=False)
+        check(not failures, f"dryrun: {len(failures)} failures: {failures}")
+        os.environ["DRYRUN_DIR"] = tmp
+        recs = MX.load()
+        check(len(recs) == 80 and all(r["ok"] for r in recs.values()),
+              f"dryrun: {len(recs)} records")
+        log(MX.dryrun_section(recs))
+        log(MX.roofline_section(recs))
+        del os.environ["DRYRUN_DIR"]
+    torch.cuda.synchronize()
+    after = (torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated())
+    check(after == before, f"dryrun: the matrix moved the card's memory "
+          f"(max, now) {before} -> {after}")
+    log(f"  (a) ALL DRY-RUNS OK: 80 records in "
+        f"{time.perf_counter() - t0:.1f} s on {jobs} worker processes; the "
+        f"card's (max_memory_allocated, memory_allocated) {after} before "
+        "and after")
+    out["matrix_s"] = time.perf_counter() - t0
+
+    # (b) phase 6's train step counted on the card and on meta
+    t0 = time.perf_counter()
+    args = T.parse_args(TRAIN_ARGV + ["--seed", str(seed)])
+    start = T.prepare(args)
+    cfg = start["config"]
+    opt, step_for = T.build_trainer(cfg, start["topology"], args.optimizer,
+                                    args.beta, args.micro_batch,
+                                    momentum_dtype=start["momentum_dtype"])
+    params, state = start["params"], opt.init(start["params"])
+    lr, batches = start["lr_fn"], start["batches"]
+    params, state, _ = step_for(0)(params, state, batches[0], lr(0))
+    torch.cuda.synchronize()
+    metas = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in params.items()}
+    meta_state = opt.init(metas)
+    gm_ops.gossip_mix.launches = 0
+    card, _ = _count_pair(
+        torch, "(b) train step",
+        lambda: step_for(1)(params, state, batches[1], lr(1)),
+        lambda: step_for(1)(metas, meta_state, batches[1], lr(1)))
+    check(gm_ops.gossip_mix.launches == 1, f"dryrun (b): K1 launched "
+          f"{gm_ops.gossip_mix.launches} times in the counted step")
+    out["train_k1_launches"] = gm_ops.gossip_mix.launches
+    secs = []
+    for k in range(1, args.steps):
+        t = time.perf_counter()
+        params, state, _ = step_for(k)(params, state, batches[k], lr(k))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    step_ms = 1e3 * sorted(secs)[len(secs) // 2]
+    out["train"] = _against_bound(
+        f"(b) {cfg.name} x {cfg.n_layers} layers, {args.nodes} nodes, "
+        f"{args.batch} x {args.seq} tokens a node, step", card, step_ms,
+        smi_line)
+    del params, state, start, metas, meta_state
+    torch.cuda.empty_cache()
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+
+    # (c) phase 7's forward: mamba2-1.3b through K4
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config("mamba2-1.3b"),
+                              attention_impl="pallas")
+    params = M.init(cfg, seed, device=dev)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SSM_B, SSM_S))).to(dev)
+    meta_params = M.init(cfg, device="meta")
+    meta_tokens = torch.empty(tokens.shape, dtype=tokens.dtype,
+                              device="meta")
+    with torch.no_grad():
+        M.forward(params, cfg, tokens)
+        ssd_ops.ssd_scan.launches = 0
+        card, _ = _count_pair(
+            torch, "(c) ssm forward",
+            lambda: M.forward(params, cfg, tokens),
+            lambda: M.forward(meta_params, cfg, meta_tokens))
+        check(ssd_ops.ssd_scan.launches == cfg.n_layers,
+              f"dryrun (c): K4 launched {ssd_ops.ssd_scan.launches} times, "
+              f"expected {cfg.n_layers}")
+        out["ssm_k4_launches"] = ssd_ops.ssd_scan.launches
+        secs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            M.forward(params, cfg, tokens)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+    out["ssm"] = _against_bound(
+        f"(c) {cfg.name} forward {SSM_B} x {SSM_S}, bf16 activations",
+        card, 1e3 * sorted(secs)[1], smi_line)
+    del params, tokens
+    torch.cuda.empty_cache()
+    log(f"  (c) {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3443,6 +3625,15 @@ def main() -> int:
                 "train_per_rank": mesh["train"]["k1_per_rank"],
                 "nccl_per_rank": (mesh["nccl"]["k1_per_rank"]
                                   if mesh["nccl"] else None)}
+
+    torch.cuda.empty_cache()
+    phase("phase 19: the dry run (meta) and the counter, card against meta")
+    dry = dryrun_phase(torch, dev, args.seed, smi_line)
+    for k in kernels:
+        if k["name"] == "gossip_mix":
+            k["dryrun_count_launches"] = dry["train_k1_launches"]
+        if k["name"] == "ssd_scan":
+            k["dryrun_count_launches"] = dry["ssm_k4_launches"]
 
     phase(None)
     log(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -12,11 +12,15 @@ Prints ``name,us_per_call,derived`` CSV, as the JAX package's
                                    engine against per-leaf)  --device
   kernels       each hand-written kernel against its plain version
                                                           --device
+  roofline      the dry run's records (``$DRYRUN_DIR``, written by
+                ``python -m repro_torch.launch.dryrun``): per-chip
+                roofline terms on the H100's constants    host
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--only a,b] \\
       [--device cuda|cpu]
 
-``roofline`` is not ported yet (ROADMAP item 23) and raises.
+Every suite of the reference is ported: ``LATER`` (suites that raise,
+naming their ROADMAP item) is empty.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import traceback
 
 from ..device import resolve_device
 from . import bench_comm, bench_consensus, bench_hetero, bench_kernels
-from . import bench_spectral_gap, bench_transient
+from . import bench_roofline, bench_spectral_gap, bench_transient
 
 __all__ = ["SUITES", "LATER", "run_suites", "main"]
 
@@ -38,8 +42,9 @@ SUITES = {
     "hetero": lambda device: bench_hetero.run(device=device),
     "comm": lambda device: bench_comm.run(device=device),
     "kernels": lambda device: bench_kernels.run(device),
+    "roofline": lambda device: bench_roofline.run(),
 }
-LATER = {"roofline": "item 23"}
+LATER: dict[str, str] = {}
 
 
 def run_suites(names, device="cuda") -> tuple[dict, list]:

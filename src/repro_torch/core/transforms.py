@@ -430,6 +430,15 @@ class DecentralizedOptimizer:
         return vals.pop() if vals else 1
 
     @property
+    def gossip_where(self) -> tuple:
+        """Union of tensor names the chain's gossip transforms mix (what
+        the wire payload is made of; the dry run's accounting reads it)."""
+        names: list = []
+        for t in self.transforms:
+            names += [w for w in t.where if w not in names]
+        return tuple(names)
+
+    @property
     def overlap(self) -> bool:
         """True when the chain's gossip is one-step-delayed (overlapped).
 

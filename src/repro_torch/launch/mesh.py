@@ -33,6 +33,12 @@ the transport goes through the host.
 :func:`spawn` runs a function on a world of spawned processes (one rank
 each, a ``file://`` store), the way the tests, ``chip_smoke.py`` and
 ``benchmarks/bench_comm.py`` start their worlds.
+
+:func:`dry_mesh` gives an abstract mesh one rank's coordinates and a
+wire that moves nothing: its ops take meta tensors, log the bytes that
+rank would send, and return empty results, so the dry run
+(``launch/dryrun.py``) runs the real shard-native engine and reads its
+wire.
 """
 from __future__ import annotations
 
@@ -52,8 +58,8 @@ import torch.distributed as dist
 from ..benchmarks import common
 
 __all__ = ["Mesh", "WireLog", "HW", "make_mesh", "abstract_mesh",
-           "make_production_mesh", "to_logical_mesh", "init_world",
-           "spawn"]
+           "dry_mesh", "make_production_mesh", "to_logical_mesh",
+           "init_world", "spawn"]
 
 # Per card, for item 23's roofline: the H100 peaks of
 # benchmarks/common.py (one source), the card they are the published
@@ -66,26 +72,44 @@ HW = {
     "peak_flops_f32": common.PEAK_F32_FLOPS,     # outside the tensor cores
     "hbm_bw": common.PEAK_BYTES,                 # B/s
     "nvlink_bw": 450e9,                          # B/s one way, 18 links
+    # B/s one way between servers: a DGX H100 gives each GPU one 400 Gb/s
+    # NDR InfiniBand port (ConnectX-7; NVIDIA DGX H100 user guide).  A
+    # node of fsdp * model >= 16 cards spans servers of 8, so its gossip
+    # crosses this network; NVLink carries what stays inside a server.
+    "net_bw": 50e9,
     "hbm_bytes": 80e9,
 }
+
+
+def _link_bytes(kind: str, nbytes: int, group: int) -> float:
+    g = max(group, 1)
+    if kind in ("psum", "pmax"):
+        return 2.0 * (g - 1) / g * nbytes
+    if kind == "all_gather":
+        return float((g - 1) * nbytes)
+    return float(nbytes)
 
 
 @dataclasses.dataclass
 class WireLog:
     """What this rank's mesh ops moved since the last :meth:`reset`: per
     kind (``permute``, ``psum``, ``pmax``, ``all_gather``) the ops, the
-    bytes this rank sent (a permute to itself sends none), the seconds of
-    the op, and of those the seconds spent copying through pinned host
-    memory (the ``gloo-host`` wire)."""
+    bytes this rank sent (a permute to itself sends none), the link bytes
+    (the reference's ``hlo_cost`` factors for an op over a group of g
+    ranks: a permute its buffer, an all-reduce 2 (g - 1) / g of it, an
+    all-gather (g - 1) times its block), the seconds of the op, and of
+    those the seconds spent copying through pinned host memory (the
+    ``gloo-host`` wire)."""
 
     kinds: dict = dataclasses.field(default_factory=dict)
 
     def add(self, kind: str, nbytes: int, seconds: float,
-            stage_s: float) -> None:
-        k = self.kinds.setdefault(kind, {"ops": 0, "bytes": 0, "s": 0.0,
-                                         "stage_s": 0.0})
+            stage_s: float, group: int = 1) -> None:
+        k = self.kinds.setdefault(kind, {"ops": 0, "bytes": 0, "link": 0.0,
+                                         "s": 0.0, "stage_s": 0.0})
         k["ops"] += 1
         k["bytes"] += int(nbytes)
+        k["link"] += _link_bytes(kind, int(nbytes), group)
         k["s"] += seconds
         k["stage_s"] += stage_s
 
@@ -214,6 +238,17 @@ class Mesh:
         torch.cuda.synchronize(like.device)
         return out, time.perf_counter() - t
 
+    def _peers(self, pairs, axis: str) -> tuple:
+        """(the coordinate this rank sends to, the one it receives from --
+        None for itself or nobody -- and its sources) under ``pairs``."""
+        me = self.coords[axis]
+        dst = [d for s, d in pairs if s == me]
+        src = [s for s, d in pairs if d == me]
+        if len(dst) > 1 or len(src) > 1:
+            raise ValueError(f"pairs {pairs} send or receive twice at {me}")
+        return (dst[0] if dst and dst[0] != me else None,
+                src[0] if src and src[0] != me else None, src)
+
     def permute(self, buf: torch.Tensor, pairs, axis: str) -> torch.Tensor:
         """``lax.ppermute`` over ``axis``: ``pairs`` are ``(src, dst)`` axis
         coordinates, each source and each destination at most once; this
@@ -222,14 +257,8 @@ class Mesh:
         ``dist.batch_isend_irecv`` on the axis's line."""
         self._need_live()
         t0 = time.perf_counter()
-        me = self.coords[axis]
-        dst = [d for s, d in pairs if s == me]
-        src = [s for s, d in pairs if d == me]
-        if len(dst) > 1 or len(src) > 1:
-            raise ValueError(f"pairs {pairs} send or receive twice at {me}")
+        send_to, recv_from, src = self._peers(pairs, axis)
         line = self.line(axis)
-        send_to = dst[0] if dst and dst[0] != me else None
-        recv_from = src[0] if src and src[0] != me else None
         stage = 0.0
         ops, out_w = [], None
         if send_to is not None:
@@ -265,7 +294,8 @@ class Mesh:
         out, s = self._from_wire(w, x)
         if out.device.type == "cuda" and self.wire == "nccl":
             torch.cuda.synchronize(out.device)
-        self.log.add(kind, x.nbytes, time.perf_counter() - t0, stage + s)
+        self.log.add(kind, x.nbytes, time.perf_counter() - t0, stage + s,
+                     self.shape[axis])
         return out
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -294,8 +324,63 @@ class Mesh:
         full = torch.cat(parts, dim)
         out, s = self._from_wire(full, x)
         self.log.add("all_gather", x.nbytes, time.perf_counter() - t0,
-                     stage + s)
+                     stage + s, self.shape[axis])
         return out
+
+
+class _DryMesh(Mesh):
+    """An abstract mesh seen from one rank, whose wire moves nothing
+    (:func:`dry_mesh`)."""
+
+    @property
+    def wire(self) -> str:
+        return "dry"
+
+    def _need_live(self) -> None:
+        pass
+
+    def _dry(self, kind: str, x: torch.Tensor) -> None:
+        if x.device.type != "meta":
+            raise ValueError(f"the dry mesh's {kind} takes meta tensors; got "
+                             f"one on {x.device}")
+
+    def permute(self, buf, pairs, axis):
+        self._dry("permute", buf)
+        send_to = self._peers(pairs, axis)[0]
+        self.log.add("permute", 0 if send_to is None else buf.nbytes, 0.0,
+                     0.0)
+        return torch.empty_like(buf)
+
+    def psum(self, x, axis):
+        self._dry("psum", x)
+        self.log.add("psum", x.nbytes, 0.0, 0.0, self.shape[axis])
+        return torch.empty_like(x)
+
+    def pmax(self, x, axes):
+        self._dry("pmax", x)
+        for a in ((axes,) if isinstance(axes, str) else tuple(axes)):
+            if self.shape[a] > 1:
+                self.log.add("pmax", x.nbytes, 0.0, 0.0, self.shape[a])
+        return torch.empty_like(x)
+
+    def all_gather(self, x, axis, dim: int = 0):
+        self._dry("all_gather", x)
+        self.log.add("all_gather", x.nbytes, 0.0, 0.0, self.shape[axis])
+        shape = list(x.shape)
+        shape[dim] *= self.shape[axis]
+        return x.new_empty(shape)
+
+
+def dry_mesh(mesh: Mesh, rank: int = 0) -> Mesh:
+    """``mesh``'s ranks and axes seen from ``rank`` (its coordinates, its
+    lines), with a wire that moves nothing: ``permute``, ``psum``,
+    ``pmax`` and ``all_gather`` take meta tensors only (any other tensor
+    raises), log into its own ``log`` the bytes that rank would send, by the
+    live wire's rules (a permute to itself sends none), and return empty
+    results of the live ops' shapes.  The shard-native engine runs on it
+    unchanged; ``wire`` is ``"dry"``."""
+    return _DryMesh(mesh.devices, mesh.axis_names, backend="dry",
+                    device="meta", rank=rank)
 
 
 def abstract_mesh(shape, axis_names) -> Mesh:

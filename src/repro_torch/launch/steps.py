@@ -1,10 +1,24 @@
-"""Train step builder: per-node gradients, then the decentralized update.
+"""Train, prefill and serve step builders, and the dry run's input specs.
 
-The port of the JAX package's ``launch/steps.py`` (``train_loss_fn`` and
-``make_train_step``; the dry-run's shape helpers are ROADMAP slice G).
-Parameters, momentum and gradients are ``dict[str, Tensor]`` trees named
-as :class:`repro_torch.models.model.Model`'s parameters, with a leading
-node axis of size ``n``.
+The port of the JAX package's ``launch/steps.py``: ``train_loss_fn`` and
+``make_train_step``, and the dry run's shape helpers (``SHAPES``,
+``shape_cfg``, ``input_specs``, ``cache_len_for``, ``cache_struct``,
+``make_prefill_step``, ``make_serve_step``).  Parameters, momentum and
+gradients are ``dict[str, Tensor]`` trees named as
+:class:`repro_torch.models.model.Model`'s parameters, with a leading node
+axis of size ``n``.
+
+Input shapes (the reference's):
+  train_4k     seq=4096    global_batch=256   -> train_step (DmSGD gossip)
+  prefill_32k  seq=32768   global_batch=32    -> prefill_step
+  decode_32k   seq=32768   global_batch=128   -> serve_step (1 new token)
+  long_500k    seq=524288  global_batch=1     -> serve_step, sub-quadratic
+               (ssm and hybrid natively; the attention families take the
+               ``LONG_WINDOW`` sliding-window override)
+
+Where the reference's ``input_specs`` returns ``ShapeDtypeStruct``
+stand-ins, the port's returns tensors on the ``meta`` device (shapes and
+dtypes, nothing allocated), which the step functions run on directly.
 """
 from __future__ import annotations
 
@@ -18,9 +32,95 @@ from ..models import model as M
 
 Tree = Any
 
-__all__ = ["train_loss_fn", "make_train_step", "overlap_ms"]
+__all__ = ["SHAPES", "LONG_WINDOW", "shape_cfg", "input_specs",
+           "cache_len_for", "cache_struct", "train_loss_fn",
+           "loss_and_grads", "accumulate_grads", "make_train_step",
+           "make_prefill_step", "make_serve_step", "overlap_ms"]
 
 AUX_WEIGHT = 0.01     # the MoE aux loss's weight (zero aux for dense)
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq=524288, global_batch=1),
+}
+
+LONG_WINDOW = 8192  # sliding-window override for full attention at long_500k
+
+
+def shape_cfg(cfg: M.ModelConfig, shape_name: str) -> M.ModelConfig:
+    """Per-shape config overrides: at ``long_500k`` every family but ssm
+    and hybrid attends over a ``LONG_WINDOW`` sliding window."""
+    if shape_name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return dataclasses.replace(cfg, attention_override_window=LONG_WINDOW)
+    return cfg
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _token_spec(cfg: M.ModelConfig, lead: tuple, seq: int) -> torch.Tensor:
+    shp = lead + (seq,)
+    if cfg.family == "audio":
+        shp = shp + (cfg.n_codebooks,)
+    return _meta(shp, torch.int32)
+
+
+def input_specs(cfg: M.ModelConfig, shape_name: str, *,
+                nodes: int = 1) -> dict:
+    """Meta-tensor stand-ins for every input of the shape's step: train
+    ``tokens`` (nodes, global_batch / nodes, seq) (audio ``+ (K,)``),
+    prefill ``tokens`` (global_batch, seq), decode ``token``
+    (global_batch, 1); the vlm family adds ``image_embeds`` (..., T, d)
+    in the activation dtype.  The decode ``idx`` departs from the
+    reference's 0-d int32 struct: the port's ``decode_step`` takes the
+    position as a Python int, so ``idx`` is the position of the shape's
+    last token (``seq - 1``); the ring decode's work does not depend on
+    it."""
+    info = SHAPES[shape_name]
+    seq, gb = info["seq"], info["global_batch"]
+    adt = cfg.activation_dtype
+
+    def images(lead):
+        return _meta(lead + (cfg.n_image_tokens, cfg.d_model), adt)
+
+    if info["kind"] == "train":
+        pnb = gb // nodes
+        if pnb < 1:
+            raise ValueError(
+                f"global_batch {gb} < nodes {nodes}: the decentralized "
+                "layout needs at least one sequence per node")
+        out = {"tokens": _token_spec(cfg, (nodes, pnb), seq)}
+        if cfg.family == "vlm":
+            out["image_embeds"] = images((nodes, pnb))
+        return out
+    if info["kind"] == "prefill":
+        out = {"tokens": _token_spec(cfg, (gb,), seq)}
+        if cfg.family == "vlm":
+            out["image_embeds"] = images((gb,))
+        return out
+    out = {"token": _token_spec(cfg, (gb,), 1), "idx": seq - 1}
+    if cfg.family == "vlm":
+        out["image_embeds"] = images((gb,))
+    return out
+
+
+def cache_len_for(cfg: M.ModelConfig, shape_name: str) -> int:
+    seq = SHAPES[shape_name]["seq"]
+    if cfg.attention_override_window is not None:
+        return min(seq, cfg.attention_override_window)
+    return seq
+
+
+def cache_struct(cfg: M.ModelConfig, shape_name: str,
+                 batch: int | None = None) -> dict:
+    """The decode cache on the meta device (``init_cache``'s tree, nothing
+    allocated) for the shape's global batch, or ``batch`` rows."""
+    gb = SHAPES[shape_name]["global_batch"] if batch is None else batch
+    return M.init_cache(cfg, gb, cache_len_for(cfg, shape_name),
+                        device="meta")
 
 
 def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None):
@@ -43,6 +143,22 @@ def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None):
     label_logit = lo.gather(-1, labels[..., None]).squeeze(-1)
     ce = (lse - label_logit).mean()
     return ce + AUX_WEIGHT * aux
+
+
+def loss_and_grads(cfg: M.ModelConfig, p: dict, tokens, img=None):
+    """One node's (loss, gradients) on one (micro-)batch: ``p`` is the
+    node's ``{name: tensor}`` slice, ``tokens`` (B, S) (audio: (B, S, K)),
+    ``img`` the vlm family's (B, T, d) or None."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    loss = train_loss_fn(M.params_view(leaves), cfg, tokens, img)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def accumulate_grads(acc_loss, acc_g: dict, loss, g: dict, nm: int):
+    """One micro-batch of ``nm`` added into the f32 accumulators."""
+    acc_g = {k: acc_g[k] + g[k].float() / nm for k in acc_g}
+    return acc_loss + loss / nm, acc_g
 
 
 def make_train_step(cfg: M.ModelConfig,
@@ -81,15 +197,9 @@ def make_train_step(cfg: M.ModelConfig,
     (:func:`overlap_ms` reads them).
     """
 
-    def loss_and_grads(p: dict, tokens, img):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-        loss = train_loss_fn(M.params_view(leaves), cfg, tokens, img)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves, grads))
-
     def per_node_grads(p: dict, tokens, img):
         if micro_batch is None or micro_batch >= tokens.shape[0]:
-            return loss_and_grads(p, tokens, img)
+            return loss_and_grads(cfg, p, tokens, img)
         nm = tokens.shape[0] // micro_batch
 
         def split(t):
@@ -101,10 +211,9 @@ def make_train_step(cfg: M.ModelConfig,
         acc_g = {k: torch.zeros(v.shape, dtype=torch.float32,
                                 device=v.device) for k, v in p.items()}
         for m, tok in enumerate(toks):
-            loss, g = loss_and_grads(p, tok,
+            loss, g = loss_and_grads(cfg, p, tok,
                                      None if imgs is None else imgs[m])
-            acc_g = {k: acc_g[k] + g[k].float() / nm for k in acc_g}
-            acc_loss = acc_loss + loss / nm
+            acc_loss, acc_g = accumulate_grads(acc_loss, acc_g, loss, g, nm)
         return acc_loss, acc_g
 
     def train_step(mix, params: Tree, opt_state, batch: dict, lr):
@@ -166,3 +275,26 @@ def overlap_ms(marks) -> tuple[float, float]:
     b, d = t0.elapsed_time(begin), t0.elapsed_time(done)
     gb, ge = t0.elapsed_time(g_begin), t0.elapsed_time(g_end)
     return d - b, max(0.0, min(d, ge) - max(b, gb))
+
+
+def make_prefill_step(cfg: M.ModelConfig):
+    """``prefill_step(params, batch)`` -> the last position's logits (B, V)
+    (audio: (B, K, V)): the train/eval forward over ``batch["tokens"]``
+    (and the vlm family's ``batch["image_embeds"]``), as the reference's
+    serving prefill."""
+    def prefill_step(params, batch):
+        logits, _ = M.forward(params, cfg, batch["tokens"],
+                              image_embeds=batch.get("image_embeds"))
+        return logits[:, -1]
+    return prefill_step
+
+
+def make_serve_step(cfg: M.ModelConfig):
+    """``serve_step(params, cache, batch)`` -> (logits, cache): one
+    ``decode_step`` of ``batch["token"]`` at position ``batch["idx"]`` (a
+    Python int); the cache is updated in place and returned."""
+    def serve_step(params, cache, batch):
+        return M.decode_step(params, cfg, batch["token"], cache,
+                             batch["idx"],
+                             image_embeds=batch.get("image_embeds"))
+    return serve_step

@@ -302,9 +302,12 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Model:
     audio heads (K, d, V): d), norm scales zero, the vlm cross layers'
     0-d ``gate`` zero, and the mamba mixer's
     deterministic leaves A_log = log(linspace(1, 16, H)), dt_bias = 0,
-    D = 1, conv_b = 0."""
+    D = 1, conv_b = 0.  On ``device="meta"`` the model is shape-only (no
+    generator, no values), as ``eval_shape`` of the reference's init."""
     model = Model(cfg, device=device)
     dev = model.embed.device
+    if dev.type == "meta":
+        return model
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, w in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]

@@ -370,9 +370,23 @@ def test_run_suite_comm(capsys, monkeypatch):
     assert "item 18" not in cap.err
 
 
-def test_roofline_still_waits_and_comm_needs_a_card():
-    with pytest.raises(NotImplementedError, match="item 23"):
-        trun.run_suites(["roofline"], "cpu")
+def test_roofline_still_waits_and_comm_needs_a_card(tmp_path, monkeypatch,
+                                                    capsys):
+    """The roofline suite (it raised, naming item 23, until the dry run
+    was ported) reads DRYRUN_DIR: a row per record, a missing-records row
+    for an empty directory; ``bench_comm`` still needs a card."""
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setenv("DRYRUN_DIR", str(tmp_path))
+    trun.run_suites(["roofline"], "cpu")
+    assert capsys.readouterr().out.startswith("roofline_missing,0.0,")
+    dryrun.run_one("mamba2-1.3b", "decode_32k", multi_pod=True,
+                   out_dir=str(tmp_path), verbose=False)
+    seconds, failed = trun.run_suites(["roofline"], "cpu")
+    assert failed == [] and set(seconds) == {"roofline"}
+    rows = capsys.readouterr().out.splitlines()
+    assert [r.split(",")[0] for r in rows] == [
+        "roofline_mamba2-1.3b_decode_32k_2pod"]
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")
     with pytest.raises(RuntimeError, match="no CUDA device"):

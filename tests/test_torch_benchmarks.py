@@ -11,8 +11,8 @@ and ``launch/topology_compare``, on the CPU at small sizes.
   indices, gradient noise) injected into the port agree within f32 2e-4
   (tests/test_kernels.py:16).  The JAX side runs the reference's own loop
   bodies with those draws; the full-size orderings are chip_smoke.py's.
-* ``run.py``'s CSV header and its refusal (``roofline``, ROADMAP item
-  23), and ``topology_compare`` on a tiny grid.
+* ``run.py``'s CSV header, its ``roofline`` suite reading a dry-run
+  record from ``DRYRUN_DIR``, and ``topology_compare`` on a tiny grid.
 * The serving benchmark: the port's ``check_serve_regression.compare``
   gives the reference's messages on the same records, and ``bench_serve
   --quick --device cpu`` writes the reference's JSON schema, which the
@@ -236,16 +236,30 @@ def test_straggler_run_matches_jax_with_injected_noise(mode, n=8, d=10,
     np.testing.assert_allclose(row["tail_mse"], np.mean(tail), **TOL_TRAJ)
 
 
-def test_run_prints_csv_and_refuses_unported_suites(capsys, tmp_path):
+def test_run_prints_csv_and_refuses_unported_suites(capsys, tmp_path,
+                                                    tmp_path_factory,
+                                                    monkeypatch):
+    from repro_torch.launch import dryrun
+
     trun.main(["--only", "spectral_gap", "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "name,us_per_call,derived"
     assert out[1].startswith("spectral_gap_fig3,")
     assert all(len(ln.split(",", 2)) == 3 for ln in out)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        trun.main(["--only", "roofline", "--device", "cpu"])
-    assert set(trun.LATER) == {"roofline"}
-    assert {"kernels", "comm"} <= set(trun.SUITES)
+    # roofline (refused, naming item 23, until the dry run was ported)
+    # reads the dry run's records from DRYRUN_DIR: one CSV row a record
+    records = tmp_path_factory.mktemp("dryrun")
+    dryrun.run_one("qwen3-0.6b", "decode_32k", multi_pod=False,
+                   out_dir=str(records), verbose=False)
+    monkeypatch.setenv("DRYRUN_DIR", str(records))
+    trun.main(["--only", "roofline", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "name,us_per_call,derived" and len(out) == 2
+    name, us, derived = out[1].split(",", 2)
+    assert name == "roofline_qwen3-0.6b_decode_32k_1pod" and float(us) > 0
+    assert "dominant=" in derived and "useful_flops_ratio=" in derived
+    assert trun.LATER == {}
+    assert {"kernels", "comm", "roofline"} <= set(trun.SUITES)
     with pytest.raises(KeyError):
         trun.run_suites(["figure_99"], "cpu")
     merge = tmp_path / "hetero.json"

@@ -1,0 +1,138 @@
+"""The port's dry run (``repro_torch.launch.dryrun``), mirroring
+``tests/test_dryrun_integration.py`` on the port, and its dry mesh.
+
+* The dry mesh (``launch.mesh.dry_mesh``) refuses a tensor that is not on
+  the meta device, and what it logs for one rank equals ``gossip_spec``'s
+  wire accounting of the round.
+* qwen3-0.6b ``train_4k`` on one pod with ``model=1, fsdp=1`` (256 nodes
+  of one chip, the pure-gossip layout): one-peer's logged wire is exactly
+  2 x 4 x n_params bytes a rank (the reference allows 5 %), static_exp's
+  8x that in 8 permutes, int8 2 permutes and about a quarter of the
+  bytes, one_peer_hypercube and random_match 1 permute and no all-gather.
+  The node's gradient pass is counted once per process (``_PASSES``), so
+  the five records cost one pass.
+* ``decode_32k`` (qwen3, 1pod) and mamba2 ``long_500k`` (2pod) through
+  the CLI: ``ALL DRY-RUNS OK``, records ok with a dominant term, and
+  ``make_experiments`` prints their rows.
+* n_params equals the reference's for all 10 archs, and the roofline
+  suite's active parameters equal the reference's ``_active_params``.
+"""
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from benchmarks import bench_roofline as JRoof
+from repro import configs as jconfigs
+from repro.models import model as JM
+from repro_torch import configs as tconfigs
+from repro_torch.benchmarks import bench_roofline as TRoof
+from repro_torch.benchmarks import make_experiments as TMX
+from repro_torch.core import flatbuf, gossip, topology as TT
+from repro_torch.core.plan import GossipPlan
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import mesh as MM
+from repro_torch.models import model as TM
+from test_torch_arch_smoke import ARCH_IDS
+
+QWEN_PARAMS = 596_049_920
+PURE_GOSSIP = {"model": 1, "fsdp": 1}
+
+
+def test_dry_mesh_refuses_a_tensor_off_meta():
+    mesh = MM.dry_mesh(MM.abstract_mesh((4,), ("node",)), rank=1)
+    assert mesh.wire == "dry" and mesh.coords == {"node": 1}
+    for op in (lambda x: mesh.permute(x, [(1, 2)], "node"),
+               lambda x: mesh.psum(x, "node"),
+               lambda x: mesh.all_gather(x, "node")):
+        with pytest.raises(ValueError, match="meta"):
+            op(torch.zeros(3))
+    assert mesh.log.kinds == {}
+
+
+@pytest.mark.parametrize("topology,compression", [
+    ("one_peer_exp", None), ("static_exp", None), ("one_peer_hypercube", None),
+    ("one_peer_exp", "int8")])
+def test_dry_mesh_log_equals_gossip_spec(topology, compression):
+    n = 8
+    top = TT.get_topology(topology, n)
+    block = {"w": torch.empty((1, 33, 7), device="meta"),
+             "b": torch.empty((1, 5), dtype=torch.bfloat16, device="meta")}
+    mesh = MM.dry_mesh(MM.abstract_mesh((n,), ("node",)))
+    out = GossipPlan(top, mesh=mesh, compression=compression).mix(0)(block)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in out.items()} == {
+        k: (tuple(v.shape), v.dtype) for k, v in block.items()}
+    spec = gossip.gossip_spec(top, 0, flatbuf.layout_of(block, pad_multiple=1),
+                              compression=compression)
+    assert mesh.log.counts() == {"permute": spec["collectives_per_step"]}
+    assert mesh.log.bytes() == {"permute": spec["bytes_per_node_per_step"]}
+
+
+def _wire(tmp_path, topology="one_peer_exp", **knobs):
+    rec = D.run_one("qwen3-0.6b", "train_4k", multi_pod=False,
+                    out_dir=str(tmp_path), verbose=False, topology=topology,
+                    knobs=dict(PURE_GOSSIP, **knobs))
+    assert rec["ok"] and rec["nodes"] == 256 and rec["n_params"] == \
+        QWEN_PARAMS
+    return rec
+
+
+def test_pure_gossip_wire_bytes(tmp_path):
+    a = _wire(tmp_path)
+    assert (tmp_path / "dryrun_qwen3-0.6b_train_4k_1pod_fsdp1-model1.json"
+            ).exists()
+    ir = a["gossip_ir"]
+    assert ir["wire_bytes_per_rank"] == 2 * 4 * QWEN_PARAMS == 4_768_399_360
+    assert ir["payload_bytes_per_shard"] == ir["wire_bytes_per_rank"]
+    assert a["cost"]["collective_counts"] == {"collective-permute": 1}
+    assert a["cost"]["collective_bytes"] == {
+        "collective-permute": 4_768_399_360}
+    assert "uncounted" not in a and a["partition"] == "even"
+    assert a["memory_analysis"]["fits"] and a["cost"]["flops"] > 0
+
+    b = _wire(tmp_path, "static_exp")
+    assert b["gossip_ir"]["wire_bytes_per_rank"] == 8 * 4_768_399_360
+    assert b["cost"]["collective_counts"] == {"collective-permute": 8}
+
+    q = _wire(tmp_path, compression="int8")
+    assert q["cost"]["collective_counts"] == {"collective-permute": 2}
+    ratio = q["gossip_ir"]["wire_bytes_per_rank"] / 4_768_399_360
+    assert 0.25 < ratio < 0.26, ratio
+
+    for top in ("one_peer_hypercube", "random_match"):
+        m = _wire(tmp_path, top)
+        assert m["cost"]["collective_counts"] == {"collective-permute": 1}
+        assert "all-gather" not in m["cost"]["collective_bytes"]
+
+
+@pytest.mark.parametrize("arch,shape,mesh,tag", [
+    ("qwen3-0.6b", "decode_32k", "1pod", "1pod"),
+    ("mamba2-1.3b", "long_500k", "2pod", "2pod"),
+])
+def test_dryrun_cli(tmp_path, capsys, monkeypatch, arch, shape, mesh, tag):
+    D.main(["--arch", arch, "--shape", shape, "--mesh", mesh,
+            "--out", str(tmp_path)])
+    assert "ALL DRY-RUNS OK" in capsys.readouterr().out
+    rec = json.loads((tmp_path / f"dryrun_{arch}_{shape}_{tag}.json")
+                     .read_text())
+    assert rec["ok"] and rec["cost"]["flops"] > 0
+    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
+    assert rec["memory_analysis"]["temp_bytes"] is not None
+    assert rec["uncounted"].startswith("intra-replica collectives")
+    monkeypatch.setenv("DRYRUN_DIR", str(tmp_path))
+    TMX.main([])
+    out = capsys.readouterr().out
+    assert f"| {arch} | {shape} | {tag} |" in out
+    assert out.count(f"| {arch} | {shape} | {tag} |") == 2
+
+
+def test_n_params_and_active_params_match_the_reference():
+    for arch in ARCH_IDS:
+        shapes = jax.eval_shape(lambda: JM.init(jconfigs.get_config(arch),
+                                                jax.random.key(0)))
+        want = int(sum(np.prod(x.shape) for x in jax.tree.leaves(shapes)))
+        cfg = tconfigs.get_config(arch)
+        assert TM.param_count(TM.init(cfg, device="meta")) == want, arch
+        assert TRoof.active_params(arch) == JRoof._active_params(arch, want)

@@ -100,10 +100,25 @@ def test_attn_apply_matches_jax_pallas_and_sdpa():
     np.testing.assert_allclose(_f32(got), _f32(oracle), rtol=1e-3, atol=1e-3)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device the wrappers do not take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_flash_attention_raises_off_cpu_and_cuda():
-    q = torch.zeros(1, 4, 2, 64, device="meta")
-    with pytest.raises(ValueError):
+    # off the CPU, the card and meta (the dry run's shapes, since the
+    # dry run was ported: an empty output, nothing launched) it raises
+    q = torch.Tensor._make_subclass(_Elsewhere, torch.zeros(1, 4, 2, 64))
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
         fa_ops.flash_attention(q, q, q)
+    m = torch.zeros(1, 4, 2, 64, device="meta")
+    n = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(m, m, m)
+    assert out.device.type == "meta" and out.shape == m.shape
+    assert fa_ops.flash_attention.launches == n
 
 
 def _wgmma_arithmetic(q, k, v, *, causal=True, window=None, attn_cap=None):

@@ -74,10 +74,25 @@ def test_plain_version_keeps_inputs_and_dtype():
                                   (0.5,)).dtype == torch.bfloat16
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device the wrapper does not take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_wrappers_refuse_what_they_do_not_take():
-    x = torch.zeros(8, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    x = torch.Tensor._make_subclass(_Elsewhere, torch.zeros(8))
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
         tgm_ops.gossip_mix(x, [x], w_self=0.5, ws=(0.5,))
+    # meta (the dry run's shapes, taken since the dry run was ported): an
+    # empty output, nothing launched
+    m = torch.zeros(8, device="meta")
+    n = tgm_ops.gossip_mix.launches
+    out = tgm_ops.gossip_mix(m, [m], w_self=0.5, ws=(0.5,))
+    assert out.device.type == "meta" and out.shape == m.shape
+    assert tgm_ops.gossip_mix.launches == n
     with pytest.raises(ValueError, match="CUDA tensors"):
         tgm_kernel.gossip_mix_cuda(torch.zeros(8), [torch.zeros(8)], 0.5,
                                    (0.5,))

@@ -176,7 +176,11 @@ def test_logical_and_production_meshes():
     assert MM.HW["peak_flops_bf16"] == common.PEAK_BF16_FLOPS
     assert MM.HW["hbm_bw"] == common.PEAK_BYTES
     tpu = set(JMesh.HW.values())
-    assert not tpu & set(v for v in MM.HW.values() if isinstance(v, float))
+    # net_bw, one 400 Gb/s NDR port a GPU of a DGX H100, equals v5e's ICI
+    # figure by coincidence: it is pinned to its own source instead
+    assert MM.HW["net_bw"] == 400e9 / 8
+    assert not tpu & set(v for k, v in MM.HW.items()
+                         if isinstance(v, float) and k != "net_bw")
     with pytest.raises(ValueError, match="abstract"):
         prod.permute(torch.zeros(1), [(0, 1)], "data")
     with pytest.raises(ValueError, match="cuda device"):

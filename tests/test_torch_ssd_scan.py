@@ -163,10 +163,25 @@ def test_ssd_chunked_values_and_grads_match_jax(b, s, h, p, g, n, chunk,
                                    err_msg=name)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device the wrapper does not take."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_ssd_scan_rejects_other_devices():
-    x = torch.zeros(1, 8, 2, 32, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    x = torch.Tensor._make_subclass(_Elsewhere, torch.zeros(1, 8, 2, 32))
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
         tssd_ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x, x)
+    # meta (the dry run's shapes, taken since the dry run was ported):
+    # empty outputs of the kernel's shapes, nothing launched
+    m = torch.zeros(1, 8, 2, 32, device="meta")
+    n = tssd_ops.ssd_scan.launches
+    y, h = tssd_ops.ssd_scan(m, m[..., 0], m[0, 0, :, 0], m, m)
+    assert y.shape == m.shape and tuple(h.shape) == (1, 2, 32, 32)
+    assert h.dtype == torch.float32 and tssd_ops.ssd_scan.launches == n
 
 
 # --- the tensor-core kernel's arithmetic (csrc/ssd_scan.cu, L = 64 or
