@@ -30,7 +30,9 @@ structural gates, then the kernel and communication benchmarks
 paper's LM-scale experiment (train_lm at the 100m preset, one-peer and
 static exponential graphs on 8 nodes), and the gossip across processes:
 the shard-native engine on a mesh of ranks sharing the card, and phase
-6's training with one rank a node, and last the dry run: every arch,
+6's training with one rank a node, then the overlapped trainer,
+parallel_msgd, a checkpoint and runtime rounds on such meshes, and last
+the dry run: every arch,
 input shape and mesh counted per chip on the meta device, and the
 counter held on the card against meta.
 
@@ -295,9 +297,25 @@ Phases, in order; any failure exits non-zero before the result lines:
                  repeated here with the plain combine (2e-4 of max-abs,
                  f32 params; bit for bit
                  reported), median step ms and peak memory per rank, K1
-                 6 a rank; (c) on one card asking for NCCL raises (two
-                 ranks on cuda:0); with >= 4 cards (a)'s tree also runs
-                 over NCCL, one card a rank, else one line says why not
+                 6 a rank; (d)-(g) on one more world of 4 ranks, one a
+                 node, full-width qwen3-0.6b cut to 2 layers: the
+                 synchronous dmsgd leg (its step ms), (d) --overlap
+                 dmsgd, 4 steps, each delayed round's permute posted
+                 before the rank's gradients and waited for after them
+                 (wire ms and the share of it open under the gradients,
+                 step ms against the synchronous leg, K1 3 delayed + 2
+                 logged flushes + 1 final a rank), (e) parallel_msgd, 3
+                 steps (one psum a step: ops, bytes, ms), both held
+                 against the single-process run with the plain combine
+                 (2e-4 of max-abs; bit for bit reported), (f) (d)'s
+                 carry-buffer checkpoint at step 2, gathered at rank 0,
+                 against the single-process run's array by array, (g)
+                 runtime rounds with 2 nodes a rank (node 2 x fsdp 2: each
+                 node line 2 ranks over 4 nodes) bit for bit the global
+                 path's, and the legs' seconds; (c) on one card asking
+                 for NCCL raises (two ranks on cuda:0); with >= 4 cards
+                 (a)'s tree also runs over NCCL, one card a rank, else
+                 one line says why not
  19. dryrun   -- the dry run and its counter (ROADMAP item 23): (a) the
                  whole matrix, 10 archs x 4 shapes x both meshes, counted
                  on the meta device in worker processes: every record ok,
@@ -3132,6 +3150,240 @@ def _mesh_engine(res, seed, shape):
             "round_ms": {n: rec["ms"] for n, rec in r0.items()}}
 
 
+MESH_LEG_ARGV = ["--full", "--layers", str(MESH_PAYLOAD[1]), "--nodes", "4",
+                 "--topology", "one_peer_exp", "--beta", "0.9", "--batch",
+                 "2", "--seq", "128", "--hetero", "0.5", "--log-every",
+                 "100", "--device", "cuda"]
+MESH_OVERLAP_STEPS = 4       # (d), (f): 3 delayed rounds, a save at step 2
+MESH_PMSGD_STEPS = 3         # (e)
+
+
+def _median_ms(step_s) -> float:
+    rest = sorted(step_s[1:])
+    return 1e3 * rest[len(rest) // 2]
+
+
+def _against_single(what, r, ref_losses, comp):
+    """A rank's losses and final (m, x) against the single-process run's
+    (TRAIN_TOL x max-abs); returns whether the state is bit for bit."""
+    losses = [h["loss"] for h in r["history"]]
+    check(len(losses) == len(ref_losses) and all(
+        abs(a - b) <= TRAIN_TOL * abs(b) for a, b in zip(losses, ref_losses)),
+        f"{what} rank {r['rank']}: losses {losses} vs {ref_losses}")
+    equal, err, scale = comp
+    check(err <= TRAIN_TOL * scale, f"{what} rank {r['rank']}: (m, x) max "
+          f"abs diff {err} beyond {TRAIN_TOL} x {scale}")
+    return equal
+
+
+def _ckpt_arrays(mesh_dir: str, step: int, want: dict) -> dict:
+    """(f): the checkpoint of step ``step`` that the mesh run wrote against
+    the arrays the single-process run saved at that step (``want``: leaf
+    key path -> array, in the order ``checkpoint.save`` writes them):
+    the same leaves, each of the same shape and dtype within TRAIN_TOL x
+    its max-abs; counts bit-equal arrays and the largest difference."""
+    import numpy as np
+    man = json.loads((Path(mesh_dir) / f"step_{step}" / "manifest.json")
+                     .read_text())
+    check(man["treedef"] == list(want), f"mesh checkpoint leaves "
+          f"{man['treedef']} != single-process {list(want)}")
+    equal, worst, nbytes = 0, 0.0, 0
+    with np.load(Path(mesh_dir) / f"step_{step}" / "arrays.npz") as a:
+        for i, (path, y) in enumerate(want.items()):
+            x = a[f"leaf_{i}"]
+            check(x.shape == y.shape and x.dtype == y.dtype,
+                  f"checkpoint {path}: {x.shape} {x.dtype} vs {y.shape} "
+                  f"{y.dtype}")
+            nbytes += x.nbytes
+            if np.array_equal(x, y):
+                equal += 1
+                continue
+            err = float(np.abs(x.astype(np.float32) - y).max())
+            scale = float(np.abs(y).max())
+            check(err <= TRAIN_TOL * scale, f"checkpoint {path}: max abs "
+                  f"diff {err} beyond {TRAIN_TOL} x {scale}")
+            worst = max(worst, err)
+    return {"leaves": len(want), "bit_equal": equal, "max_abs_diff": worst,
+            "gb": nbytes / 1e9,
+            "gossip_buf": any(p.startswith("gossip_buf") for p in want)}
+
+
+def _kept_checkpoints():
+    """A stand-in for ``checkpoint.save`` that keeps what it is given as
+    numpy, by leaf key path in the order ``save`` writes them, instead of
+    writing it: ``(save, {step: {path: array}})``."""
+    from repro_torch.checkpoint import ckpt
+    kept = {}
+
+    def save(ckpt_dir, step, tree):
+        kept[step] = {path: leaf.detach().cpu().numpy()
+                      for path, leaf in ckpt._flatten(tree)}
+
+    return save, kept
+
+
+def _mesh_legs(torch, seed):
+    """(d)-(g) on one world of 4 ranks, one a node, every rank on the card
+    over gloo-host: (d) --overlap dmsgd with (f) its carry-buffer
+    checkpoint, the same leg synchronous, (e) parallel_msgd, each
+    compared in this process with the single-process run (the plain
+    combine: every rank's K1 meets its plain version; its checkpoint
+    kept in memory by a stand-in ``checkpoint.save``), then (g) runtime
+    rounds with 2 nodes a rank on a (node 2, fsdp 2) mesh of the same
+    ranks."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.core import gossip
+    from repro_torch.launch import mesh_check as MC
+    from repro_torch.launch import train as T
+    t_legs = time.perf_counter()
+    base = MESH_LEG_ARGV + ["--seed", str(seed)]
+    ovl = base + ["--steps", str(MESH_OVERLAP_STEPS), "--overlap",
+                  "--ckpt-every", "2"]
+    sync = base + ["--steps", str(MESH_OVERLAP_STEPS)]
+    pm = base + ["--steps", str(MESH_PMSGD_STEPS), "--optimizer",
+                 "parallel_msgd"]
+    tmp = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    try:
+        start = T.prepare(T.parse_args(ovl))
+        tokens = [b["tokens"].numpy() for b in start["batches"]]
+        refs = {}
+        # the single-process run's checkpoint is kept in memory, not
+        # written: (f) reads only the file the mesh's rank 0 writes
+        save, kept = _kept_checkpoints()
+        with gossip.kernel_mode("off"), \
+                mock.patch.object(T.checkpoint, "save", save):
+            for name, argv in (("overlap", ovl + ["--ckpt-dir",
+                                                  f"{tmp}/single"]),
+                               ("parallel_msgd", pm)):
+                a = T.parse_args(argv)
+                r = T.run(a, start=start if name == "overlap"
+                          else T.prepare(a, tokens))
+                refs[name] = ([h["loss"] for h in r["history"]],
+                              (r["state"].momentum, r["params"]))
+                del r
+                start = None
+                torch.cuda.empty_cache()
+        t_refs = time.perf_counter() - t_legs
+        # the synchronous leg first: a process's first steps carry its
+        # one-time costs
+        SYNC, OVL, PM = range(3)
+        runs = [(sync, None),
+                (ovl + ["--ckpt-dir", f"{tmp}/mesh"], refs["overlap"][1]),
+                (pm, refs["parallel_msgd"][1])]
+        res, comps = MC.train_world(runs, tokens, runtime=True)
+        losses = {k: v[0] for k, v in refs.items()}
+        del refs, runs
+        torch.cuda.empty_cache()
+        t_world = time.perf_counter() - t_legs - t_refs
+
+        # (d) the overlapped trainer: its delayed rounds' wire, K1
+        rounds = MESH_OVERLAP_STEPS - 1
+        logged = 2                              # steps 0 and 3
+        k1_want = rounds + logged + 1           # delayed, logged, final
+        bits, wire_ms, share, k1 = [], [], [], []
+        for r in res:
+            o = r["runs"][OVL]
+            bits.append(_against_single("mesh overlap", o,
+                                        losses["overlap"],
+                                        comps[OVL][o["rank"]]))
+            perm = o["log"]["permute"]
+            check(perm["ops"] == rounds, f"mesh overlap rank {o['rank']}: "
+                  f"{perm['ops']} delayed permutes, expected {rounds} (one "
+                  "a delayed round, one dtype group)")
+            wire_ms.append(1e3 * perm["s"] / perm["ops"])
+            share.append(perm["open_s"] / perm["s"])
+            k1.append(o["k1"])
+            check(o["k1"] == k1_want, f"mesh overlap rank {o['rank']}: K1 "
+                  f"{o['k1']}, reckoned {k1_want}")
+        ovl_ms = [_median_ms(r["runs"][OVL]["step_s"]) for r in res]
+        sync_ms = [_median_ms(r["runs"][SYNC]["step_s"]) for r in res]
+        o0 = res[0]["runs"][OVL]
+        log(f"  (d) --overlap dmsgd, {MESH_OVERLAP_STEPS} steps on a (node "
+            f"4) mesh ({o0['wire']}): losses "
+            f"{[round(h['loss'], 5) for h in o0['history']]} (single "
+            f"process {[round(v, 5) for v in losses['overlap']]}); final "
+            f"(m, x) per rank max abs diff "
+            f"{[comps[OVL][k][1] for k in sorted(comps[OVL])]} (tolerance "
+            f"{TRAIN_TOL} x max-abs), bit for bit {bits}")
+        log(f"  (d) delayed round's wire per rank "
+            f"{[round(v, 1) for v in wire_ms]} ms (start to wait; one "
+            f"permute a round of {o0['log']['permute']['bytes'] // rounds} "
+            f"bytes), of which between start and wait (under the "
+            f"gradients) {[f'{100 * v:.1f} %' for v in share]}; median step "
+            f"ms per rank {[round(v, 1) for v in ovl_ms]} against the "
+            f"synchronous leg's {[round(v, 1) for v in sync_ms]}; K1 per "
+            f"rank {k1} (reckoned {rounds} delayed + {logged} logged "
+            f"flushes + 1 final flush); logging and flushes apart: "
+            f"{ {k: (v['ops'], round(v['s'], 3)) for k, v in o0['log'].items() if ':' in k} }"
+            " (ops, s)")
+
+        # (e) parallel_msgd: one psum a gradient dtype group a step
+        pbits, psum_ms, psum_b = [], [], []
+        for r in res:
+            p = r["runs"][PM]
+            pbits.append(_against_single("mesh parallel_msgd", p,
+                                         losses["parallel_msgd"],
+                                         comps[PM][p["rank"]]))
+            ps = p["log"]["psum"]
+            check(ps["ops"] == MESH_PMSGD_STEPS and "permute" not in
+                  p["log"], f"mesh parallel_msgd rank {p['rank']}: wire "
+                  f"{p['log']}, expected one psum a step")
+            psum_ms.append(1e3 * ps["s"] / ps["ops"])
+            psum_b.append(ps["bytes"] // ps["ops"])
+            check(p["k1"] == 0, f"mesh parallel_msgd: K1 {p['k1']}")
+        p0 = res[0]["runs"][PM]
+        log(f"  (e) parallel_msgd, {MESH_PMSGD_STEPS} steps: losses "
+            f"{[round(h['loss'], 5) for h in p0['history']]} (single "
+            f"process {[round(v, 5) for v in losses['parallel_msgd']]}); "
+            f"final (m, x) max abs diff "
+            f"{[comps[PM][k][1] for k in sorted(comps[PM])]}, bit for bit "
+            f"{pbits}; psum a step: {p0['log']['psum']['ops'] // MESH_PMSGD_STEPS}"
+            f" op of {psum_b[0]} bytes, ms per rank "
+            f"{[round(v, 1) for v in psum_ms]}; median step ms per rank "
+            f"{[round(_median_ms(r['runs'][PM]['step_s']), 1) for r in res]}")
+
+        # (f) the carry-buffer checkpoint of (d): rank 0 wrote the rows
+        ck = _ckpt_arrays(f"{tmp}/mesh", 2, kept.pop(2))
+        check(ck["gossip_buf"], "mesh checkpoint carries no gossip_buf")
+        log(f"  (f) --overlap --ckpt-dir (carry-buffer), step 2: "
+            f"{ck['leaves']} arrays ({ck['gb']:.2f} GB, gossip_buf among "
+            f"them) against the single-process run's: {ck['bit_equal']} bit "
+            f"for bit, largest difference {ck['max_abs_diff']}")
+
+        # (g) runtime rounds, 2 nodes a rank
+        fails = []
+        for r in res:
+            rt = r["runtime"]
+            want = MC.gathered_runtime_expected(rt["coords"], device="cuda")
+            for name, blocks in rt["rounds"].items():
+                for k, v in blocks.items():
+                    if not (v == want[name][k]).all():
+                        fails.append(f"rank {r['runs'][OVL]['rank']} "
+                                     f"{name}.{k}")
+        check(not fails, f"(g) runtime blocks off the global path: {fails}")
+        rt0 = res[0]["runtime"]
+        log(f"  (g) runtime rounds {sorted(rt0['rounds'])} with 2 nodes a "
+            f"rank (node 2 x fsdp 2; each node line 2 ranks over 4 nodes): "
+            f"every block bit for bit the global path's; rank 0 wire "
+            f"{ {k: (v['ops'], v['bytes']) for k, v in rt0['log'].items()} }")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - t_legs
+    log(f"  (d)-(g) {total:.1f} s (single-process references {t_refs:.1f} "
+        f"s, the world {t_world:.1f} s)")
+    return {"overlap_k1_per_rank": k1,
+            "parallel_msgd_k1_per_rank": [r["runs"][PM]["k1"] for r in res],
+            "overlap_wire_ms_per_rank": wire_ms,
+            "overlap_open_share_per_rank": share,
+            "overlap_step_ms_per_rank": ovl_ms, "sync_step_ms_per_rank": sync_ms,
+            "psum_ms_per_rank": psum_ms, "psum_bytes": psum_b[0],
+            "overlap_bit_equal": bits, "parallel_msgd_bit_equal": pbits,
+            "ckpt": ck, "seconds": total}
+
+
 def mesh_phase(torch, dev, seed):
     from repro_torch.core import gossip
     from repro_torch.launch import mesh as mesh_mod
@@ -3190,7 +3442,8 @@ def mesh_phase(torch, dev, seed):
     reference = (ref["state"].momentum, ref["params"])
     del ref, start
     torch.cuda.empty_cache()
-    res, comps = MC.train_world(argv, reference, tokens)
+    res, comps = MC.train_world([(argv, reference)], tokens)
+    res, comps = [r["runs"][0] for r in res], comps[0]
     del reference
     torch.cuda.empty_cache()
     for r in res:
@@ -3223,6 +3476,10 @@ def mesh_phase(torch, dev, seed):
                     "step_ms_per_rank": step_ms,
                     "peak_gb_per_rank": [r["peak_gb"] for r in res],
                     "bit_equal": bits}
+
+    # (d)-(g): the overlapped trainer, parallel_msgd, a checkpoint and a
+    # runtime round with 2 nodes a rank, on one world
+    out["legs"] = _mesh_legs(torch, seed)
 
     # (c) NCCL: refused on one card; one card a rank where there are 4+
     msgs = mesh_mod.spawn(MC.nccl_refusal_rank, 2, (2,), timeout=120)
@@ -3623,6 +3880,9 @@ def main() -> int:
                 "engine_per_rank": mesh["engine"]["k1_per_rank"],
                 "payload_per_rank": mesh["payload"]["k1_per_rank"],
                 "train_per_rank": mesh["train"]["k1_per_rank"],
+                "overlap_per_rank": mesh["legs"]["overlap_k1_per_rank"],
+                "parallel_msgd_per_rank": mesh["legs"][
+                    "parallel_msgd_k1_per_rank"],
                 "nccl_per_rank": (mesh["nccl"]["k1_per_rank"]
                                   if mesh["nccl"] else None)}
 

@@ -8,7 +8,9 @@ training and 2 N D for serving (N the active parameters for moe,
 flops (remat and attention show as a ratio below 1), and reports the
 dominant roofline term.  ``us_per_call`` is the projected step time, the
 largest of the three terms; on the H100's constants each is a lower bound
-(the dry run does not count the collectives inside a replica).
+where the dry run does not count the collectives inside a replica, and
+then ``dominant=`` names the largest counted term as ``<term> (lower
+bound)``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import glob
 import json
 import os
 
+from ..launch.dryrun import dominant_label
 from ..launch.steps import SHAPES
 from .common import emit
 
@@ -65,6 +68,6 @@ def run(pattern: str = "*.json") -> None:
              f"compute_ms={1e3 * r['compute_s']:.2f};"
              f"memory_ms={1e3 * r['memory_s']:.2f};"
              f"collective_ms={1e3 * r['collective_s']:.2f};"
-             f"dominant={r['dominant']};"
+             f"dominant={dominant_label(r)};"
              f"useful_flops_ratio={ratio:.3f};"
              f"temp_GB={rec['memory_analysis']['temp_bytes'] / 1e9:.2f}")

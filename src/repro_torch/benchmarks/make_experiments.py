@@ -16,6 +16,7 @@ import json
 import os
 import sys
 
+from ..launch.dryrun import dominant_label
 from ..launch.steps import SHAPES
 from .bench_roofline import model_flops_per_chip
 
@@ -80,7 +81,7 @@ def roofline_section(recs) -> str:
             f"| {1e3 * rf['compute_s']:.2f} "
             f"| {1e3 * rf['memory_s']:.2f} "
             f"| {1e3 * rf['collective_s']:.2f} "
-            f"| **{rf['dominant']}** | {ratio:.3f} |")
+            f"| **{dominant_label(rf)}** | {ratio:.3f} |")
     return "\n".join(out)
 
 

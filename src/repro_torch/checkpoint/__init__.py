@@ -1,1 +1,1 @@
-from .ckpt import latest_step, restore, save  # noqa: F401
+from .ckpt import latest_step, map_leaves, restore, save  # noqa: F401

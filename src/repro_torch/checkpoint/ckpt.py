@@ -28,7 +28,7 @@ import shutil
 import numpy as np
 import torch
 
-__all__ = ["save", "latest_step", "restore"]
+__all__ = ["save", "latest_step", "restore", "map_leaves"]
 
 
 def _children(tree):
@@ -67,6 +67,13 @@ def _unflatten_like(like, leaves):
     if hasattr(like, "_fields"):                 # a NamedTuple
         return type(like)(*vals)
     return type(like)(vals)
+
+
+def map_leaves(fn, tree):
+    """``tree`` with each leaf replaced by ``fn(leaf)``, the leaves visited
+    one at a time in the order :func:`save` writes them (every rank of a
+    mesh gathers them in the same order)."""
+    return _unflatten_like(tree, (fn(leaf) for _, leaf in _flatten(tree)))
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:

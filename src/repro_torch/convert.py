@@ -260,14 +260,19 @@ def _jax_groups(leaves) -> dict:
     return groups
 
 
-def gossip_buf_to_jax(buf, template, cfg: ModelConfig | None) -> tuple:
+def gossip_buf_to_jax(buf, template, cfg: ModelConfig | None,
+                      pad_multiple: int = flatbuf.PAD_MULTIPLE) -> tuple:
     """The port's in-flight buffer (one ``(n, B)`` tensor per dtype group,
-    packed against ``template``: ``opt.payload_template(params, state)``)
-    -> the reference's: the payload unpacked, its layer leaves restacked
-    (``stacked_to_nested``; ``cfg=None`` for a tree without layers),
-    packed in JAX's flatten order and zero-padded to a multiple of 8,192
-    columns."""
-    payload = flatbuf.unpack(flatbuf.layout_of(template), list(buf))
+    packed against ``template``: ``opt.payload_template(params, state)``,
+    at ``pad_multiple``) -> the reference's: the payload unpacked, its
+    layer leaves restacked (``stacked_to_nested``; ``cfg=None`` for a tree
+    without layers), packed in JAX's flatten order and zero-padded to a
+    multiple of 8,192 columns.  A row of the result depends only on its
+    node's row, so a mesh rank converts its own block (packed at
+    ``pad_multiple=1``) and the blocks' rows stacked are the whole run's
+    buffer."""
+    payload = flatbuf.unpack(flatbuf.layout_of(template, pad_multiple),
+                             list(buf))
     nested = tuple(_nested(p, cfg) for p in _payload_parts(payload))
     leaves = _jax_leaves(nested)
     n = leaves[0].shape[0]

@@ -81,15 +81,21 @@ within rounding for Dense (another summation order).  Where the mesh's
 node extent is not the node count -- a rank holds ``L > 1`` nodes -- the
 global path runs as the reference's does under GSPMD: the ranks' node
 blocks are gathered over the node axis (an all-gather of the payload),
-mixed, and each rank keeps its rows.  The reference's ``specs=`` map
+mixed, and each rank keeps its rows; a runtime round gathers its
+per-node values with them.  The reference's ``specs=`` map
 global arrays to the blocks at ``shard_map``'s boundary; here each rank
 already holds its block (``sharding.local_shard(tree, specs, mesh)``), so
 the engine takes no specs.
 
 The single-process path and the mesh path run one body: a static round
-is :func:`_round_bufs` over a wire -- the mesh, or :data:`_ROWS`, whose
+is :func:`_round_start` over a wire -- the mesh, or :data:`_ROWS`, whose
 permute gathers the rows of a buffer that holds every node -- and a
-runtime round is :func:`_runtime_round` over the same two.
+runtime round is :func:`_runtime_bufs` over the same two.  A round posts
+its wire and then finishes (waits, combines): :func:`delayed_post` hands
+the two halves to the overlapped trainer, which computes the gradients
+between them; every other entry point runs them back to back.
+:func:`node_mean` is the all-reduce baseline's gradient average, a
+``psum`` per dtype group on a mesh.
 """
 from __future__ import annotations
 
@@ -109,8 +115,9 @@ Tree = Any
 
 __all__ = ["mix_dense", "mix_shifts", "mix_shifts_per_leaf", "mix_matching",
            "mix_realization", "mix", "mix_switch", "mix_scheduled",
-           "pack_payload", "delayed_mix", "gossip_spec", "set_kernel_mode",
-           "kernel_mode", "AperiodicScheduleError"]
+           "pack_payload", "delayed_mix", "delayed_post", "node_mean",
+           "Pending", "gossip_spec", "set_kernel_mode", "kernel_mode",
+           "AperiodicScheduleError"]
 
 # "auto": the tensors' device picks (CUDA -> the kernel, CPU -> plain);
 # "off": the plain combine everywhere
@@ -180,7 +187,7 @@ def mix_dense(tree: Tree, W, *, mesh=None,
         layout = flatbuf.layout_of(tree, pad_multiple=1)
         layout, bufs = flatbuf.pack(tree, layout)
         return flatbuf.unpack(layout, _local_dense(
-            bufs, np.asarray(W, np.float64), mesh, axis_name))
+            bufs, np.asarray(W, np.float64), mesh, axis_name)())
     return _gathered_bufs(tree, mesh, axis_name,
                           lambda layout, bufs: _einsum_bufs(bufs, W))
 
@@ -188,6 +195,24 @@ def mix_dense(tree: Tree, W, *, mesh=None,
 # ---------------------------------------------------------------------------
 # Wires: the mesh, or the rows of one process's buffers
 # ---------------------------------------------------------------------------
+
+class Pending:
+    """Work in flight: ``wait()`` runs ``finish`` and returns its result,
+    once; the handle keeps nothing, so a received buffer lives only as
+    long as its caller holds it.  A mesh's split ops return one (the
+    wire posted, ``finish`` completing it); a synchronous round wraps
+    each permute in one, so that it runs where the combine reads it, one
+    received buffer alive at a time."""
+
+    def __init__(self, finish):
+        self._finish = finish
+
+    def wait(self):
+        finish, self._finish = self._finish, None
+        if finish is None:
+            raise RuntimeError("a Pending is waited for once")
+        return finish()
+
 
 class _Rows:
     """The single-process wire: a buffer holds every node's row, and a
@@ -204,6 +229,16 @@ class _Rows:
 
 
 _ROWS = _Rows()
+
+
+def _starter(wire, axis_name: str, split: bool):
+    """``start(buf, pairs)`` -> a pending permute over ``wire``: with
+    ``split`` posted at once (the mesh's ``permute_start``), else run when
+    it is waited for."""
+    if split:
+        return lambda buf, pairs: wire.permute_start(buf, pairs, axis_name)
+    return lambda buf, pairs: Pending(
+        lambda: wire.permute(buf, pairs, axis_name))
 
 
 def _mesh_nodes(tree: Tree, mesh, axis_name: str) -> tuple[int, int]:
@@ -374,22 +409,60 @@ def _runtime_round(tree: Tree, *, rounds: list, base_ws: list, self_w,
     """A runtime-valued Shifts/Matching round: ``rounds[d]`` are edge
     ``d``'s send pairs, ``base_ws[d]`` its base weight (float, 0-d or
     per-node tensor; ``edge_weight`` may override).  Without a mesh the
-    buffers hold every node and the wire is :data:`_ROWS`; on a mesh (one
-    rank per node) each rank packs its block and the combine acts on its
-    own row."""
+    buffers hold every node and the wire is :data:`_ROWS`; on a mesh with
+    one rank per node each rank packs its block and the combine acts on
+    its own row; with several nodes a rank the global path runs on the
+    gathered buffers (:func:`_gathered_runtime`)."""
     n = _node_count(tree, mesh, axis_name)
+    kw = dict(rounds=rounds, base_ws=base_ws, self_w=self_w, meta=meta,
+              node_gate=node_gate, edge_weight=edge_weight,
+              fixed_mask=fixed_mask)
     if mesh is None:
         wire, rows = _ROWS, slice(None)
         layout, bufs = flatbuf.pack(tree)
     else:
         if _mesh_nodes(tree, mesh, axis_name)[1] != 1:
-            raise NotImplementedError(
-                "runtime-valued rounds on a mesh with several nodes per "
-                "rank (the gathered global path) wait for ROADMAP item 18b")
+            return _gathered_runtime(tree, mesh, axis_name, n, kw)
         wire, i = mesh, mesh.axis_index(axis_name)
         rows = slice(i, i + 1)
         layout, bufs = flatbuf.pack(tree,
                                     flatbuf.layout_of(tree, pad_multiple=1))
+    return flatbuf.unpack(layout, _runtime_bufs(layout, bufs, wire, rows, n,
+                                                axis_name, **kw))
+
+
+def _gathered_runtime(tree: Tree, mesh, axis_name: str, n: int,
+                      kw: dict) -> Tree:
+    """A runtime round where each rank holds ``L > 1`` nodes: the rank
+    blocks' buffers gathered over the node axis (:func:`_gathered_bufs`),
+    and so is every per-node value given for the rank's ``L`` rows (the
+    metadata, the gate, a per-node weight; a value of all ``n`` nodes is
+    kept); the single-process combine runs over :data:`_ROWS` on all n
+    nodes, and the rank keeps its rows -- the reference's global path
+    outside ``shard_map``."""
+    L = _mesh_nodes(tree, mesh, axis_name)[1]
+
+    def full(x):
+        if x is None or np.ndim(x) == 0 or len(x) != L:
+            return x
+        t = torch.as_tensor(x)
+        # the gather moves f32 (a gate is bool): every value is exact
+        return mesh.all_gather(t.to(torch.float32), axis_name).to(t.dtype)
+
+    kw = dict(kw, meta=full(kw["meta"]), node_gate=full(kw["node_gate"]),
+              self_w=full(kw["self_w"]),
+              base_ws=[full(w) for w in kw["base_ws"]])
+    return _gathered_bufs(tree, mesh, axis_name, lambda layout, bufs: (
+        _runtime_bufs(layout, bufs, _ROWS, slice(None), n, axis_name,
+                      **kw)))
+
+
+def _runtime_bufs(layout, bufs, wire, rows: slice, n: int, axis_name: str,
+                  *, rounds, base_ws, self_w, meta, node_gate, edge_weight,
+                  fixed_mask) -> list:
+    """The runtime round's body on packed buffers holding the nodes
+    ``rows`` over ``wire`` (the mesh, or :data:`_ROWS`); returns the
+    combined buffers."""
     dev = bufs[0].device
     own = lambda x: _own_rows(x, rows, n)  # noqa: E731
     meta_mat, n_user, has_gate = _assemble_meta(own(meta), own(node_gate),
@@ -412,9 +485,8 @@ def _runtime_round(tree: Tree, *, rounds: list, base_ws: list, self_w,
             return r
         return wire.permute(bufs[j], rounds[d], axis_name)
 
-    outs = _runtime_combine(bufs, recv, recv_meta, base_ws, own(self_w),
+    return _runtime_combine(bufs, recv, recv_meta, base_ws, own(self_w),
                             meta_mat, n_user, has_gate, edge_weight, keep)
-    return flatbuf.unpack(layout, outs)
 
 
 def _is_runtime_round(self_w, ws, meta, edge_weight, node_gate) -> bool:
@@ -482,9 +554,46 @@ def _add_dequantized(acc, rq: torch.Tensor, rs: torch.Tensor,
     return acc
 
 
-def _round_bufs(layout: flatbuf.FlatLayout, bufs, wire, axis_name: str,
-                rounds: list, self_w: float, compression, keep,
-                matching: bool, reduce=None) -> list:
+def _post_group(g: flatbuf.GroupLayout, buf, start, rounds: list,
+                compression, reduce) -> list:
+    """One dtype group's wire of a static round: a pending permute of the
+    buffer per edge, or under int8 (the buffer quantized against its
+    scale rows, the scales completed by ``reduce``) a pending permute of
+    the int8 buffer and one of its scale rows per edge."""
+    if compression is None:
+        return [start(buf, pairs) for pairs, _ in rounds]
+    sc = _scale_columns(buf, g, reduce)
+    q = _quantize(buf, g, sc)
+    return [(start(q, pairs), start(sc, pairs)) for pairs, _ in rounds]
+
+
+def _finish_group(g: flatbuf.GroupLayout, buf, posted: list, rounds: list,
+                  self_w: float, compression, keep, matching: bool):
+    """One dtype group's combine of a static round over its received
+    buffers: K1, or the int8 receiver (dequantize and combine in f32)."""
+    rows = None if keep is None else np.flatnonzero(keep).tolist()
+    if compression is None:
+        recvs = [p.wait() for p in posted]
+        o = _combine(buf, recvs, self_w, tuple(w for _, w in rounds))
+        del recvs
+        if rows:
+            o = torch.where(torch.as_tensor(keep, device=buf.device)
+                            [:, None], buf, o)
+        return o
+    x32 = buf.float()
+    acc = (self_w * x32) if (self_w or matching) else None
+    for (pq, ps), (_, w) in zip(posted, rounds):
+        acc = _add_dequantized(acc, pq.wait(), ps.wait(), g, float(w))
+    del posted
+    if rows:
+        # in place: no second payload-sized tensor
+        acc[rows] = x32[rows]
+    return acc.to(buf.dtype)
+
+
+def _round_start(layout: flatbuf.FlatLayout, bufs, wire, axis_name: str,
+                 rounds: list, self_w: float, compression, keep,
+                 matching: bool, reduce=None, split: bool = False):
     """One static Shifts or Matching round on packed buffers over ``wire``
     (the mesh, or :data:`_ROWS`): ``rounds`` is ``[(send pairs, weight),
     ...]``, one permute each per dtype group, then K1 -- or the int8
@@ -493,75 +602,77 @@ def _round_bufs(layout: flatbuf.FlatLayout, bufs, wire, axis_name: str,
     dequantizing and combining in f32.  ``keep`` (a bool array over the
     buffers' rows, or None) marks matching fixed points, which keep their
     full-precision buffer bit for bit; ``matching`` starts the int8 sum
-    with the self term even at a self weight of 0."""
+    with the self term even at a self weight of 0.
+
+    Returns ``finish()``, which gives the combined buffers.  With
+    ``split`` every group's wire is posted here (``wire.permute_start``)
+    and ``finish`` waits for it; without, each group's permutes and
+    combine run inside ``finish``, one group after the other."""
     _check_compression(compression)
-    ws = tuple(w for _, w in rounds)
-    rows = None if keep is None else np.flatnonzero(keep).tolist()
-    out = []
-    for g, buf in zip(layout.groups, bufs):
-        if compression is None:
-            recvs = [wire.permute(buf, pairs, axis_name)
-                     for pairs, _ in rounds]
-            o = _combine(buf, recvs, self_w, ws)
-            del recvs
-            if rows:
-                o = torch.where(torch.as_tensor(keep, device=buf.device)
-                                [:, None], buf, o)
-            out.append(o)
-            continue
-        sc = _scale_columns(buf, g, reduce)
-        q = _quantize(buf, g, sc)
-        x32 = buf.float()
-        acc = (self_w * x32) if (self_w or matching) else None
-        for pairs, w in rounds:
-            acc = _add_dequantized(acc, wire.permute(q, pairs, axis_name),
-                                   wire.permute(sc, pairs, axis_name), g,
-                                   float(w))
-        del q
-        if rows:
-            # in place: no second payload-sized tensor
-            acc[rows] = x32[rows]
-        out.append(acc.to(buf.dtype))
-    return out
+    start = _starter(wire, axis_name, split)
+    groups = list(zip(layout.groups, bufs))
+
+    def one(g, buf, posted):
+        return _finish_group(g, buf, posted, rounds, self_w, compression,
+                             keep, matching)
+
+    if split:
+        posted = [_post_group(g, buf, start, rounds, compression, reduce)
+                  for g, buf in groups]
+        return lambda: [one(g, buf, p) for (g, buf), p in zip(groups,
+                                                                posted)]
+    return lambda: [one(g, buf, _post_group(g, buf, start, rounds,
+                                            compression, reduce))
+                    for g, buf in groups]
 
 
-def _static_bufs(layout, bufs, wire, n: int, *, shifts=None, partner=None,
-                 self_w: float, compression, rows=slice(None),
-                 axis_name: str = "node", reduce=None) -> list:
+def _static_start(layout, bufs, wire, n: int, *, shifts=None, partner=None,
+                  self_w: float, compression, rows=slice(None),
+                  axis_name: str = "node", reduce=None, split: bool = False):
     """A static Shifts (``shifts``) or Matching (``partner``) round of
-    ``n`` nodes on packed buffers holding the nodes ``rows``."""
+    ``n`` nodes on packed buffers holding the nodes ``rows``:
+    :func:`_round_start`'s ``finish``."""
     if shifts is not None:
-        return _round_bufs(layout, bufs, wire, axis_name,
-                           [(_shift_pairs(n, s), w) for s, w in shifts],
-                           self_w, compression, None, False, reduce)
+        return _round_start(layout, bufs, wire, axis_name,
+                            [(_shift_pairs(n, s), w) for s, w in shifts],
+                            self_w, compression, None, False, reduce, split)
     fixed = np.fromiter((j == i for i, j in enumerate(partner)), dtype=bool,
                         count=n)[rows]
-    return _round_bufs(layout, bufs, wire, axis_name,
-                       [(_matching_pairs(partner), 1.0 - self_w)], self_w,
-                       compression, fixed if fixed.any() else None, True,
-                       reduce)
+    return _round_start(layout, bufs, wire, axis_name,
+                        [(_matching_pairs(partner), 1.0 - self_w)], self_w,
+                        compression, fixed if fixed.any() else None, True,
+                        reduce, split)
 
 
 # ---------------------------------------------------------------------------
 # Shard-native engine: each rank's block, the mesh's wire
 # ---------------------------------------------------------------------------
 
-def _local_dense(bufs, W: np.ndarray, mesh, axis_name: str) -> list:
-    """One dense round on a rank's packed block.  Uniform-row ``W`` (exact
-    averaging, the all-reduce warm-up) is ONE ``psum`` per dtype group;
-    any other ``W`` is the self term plus one explicit-pairs permute per
-    nonzero circulant distance class ``s`` (``W[i, (i - s) % n] != 0``
-    for some ``i``), each received buffer weighted by the receiving node's
-    own entry."""
+def _local_dense(bufs, W: np.ndarray, mesh, axis_name: str,
+                 split: bool = False):
+    """One dense round on a rank's packed block, as ``finish()`` (see
+    :func:`_round_start`; ``split`` posts the whole wire first).
+    Uniform-row ``W`` (exact averaging, the all-reduce warm-up) is ONE
+    ``psum`` per dtype group; any other ``W`` is the self term plus one
+    explicit-pairs permute per nonzero circulant distance class ``s``
+    (``W[i, (i - s) % n] != 0`` for some ``i``), each received buffer
+    weighted by the receiving node's own entry."""
     n = W.shape[0]
     i = mesh.axis_index(axis_name)
-    out = []
     if np.allclose(W, W[0:1, :]):
         row = torch.as_tensor(W[0], dtype=torch.float32)
-        for buf in bufs:
-            o = mesh.psum(row[i].to(buf.device) * buf.float(), axis_name)
-            out.append(o.to(buf.dtype))
-        return out
+
+        def psum(buf):
+            x = row[i].to(buf.device) * buf.float()
+            if split:
+                return mesh.psum_start(x, axis_name)
+            return Pending(lambda: mesh.psum(x, axis_name))
+
+        if split:
+            posted = [psum(buf) for buf in bufs]
+            return lambda: [p.wait().to(buf.dtype)
+                            for p, buf in zip(posted, bufs)]
+        return lambda: [psum(buf).wait().to(buf.dtype) for buf in bufs]
     diag = torch.as_tensor(np.ascontiguousarray(np.diagonal(W)),
                            dtype=torch.float32)
     shifts = []
@@ -569,13 +680,21 @@ def _local_dense(bufs, W: np.ndarray, mesh, axis_name: str) -> list:
         col = np.array([W[j, (j - s) % n] for j in range(n)])
         if np.any(col):
             shifts.append((s, torch.as_tensor(col, dtype=torch.float32)))
-    for buf in bufs:
+    start = _starter(mesh, axis_name, split)
+
+    def post(buf):
+        return [start(buf, _shift_pairs(n, s)) for s, _ in shifts]
+
+    def one(buf, posted):
         acc = diag[i].to(buf.device) * buf.float()
-        for s, col in shifts:
-            recv = mesh.permute(buf, _shift_pairs(n, s), axis_name)
-            acc = acc + col[i].to(buf.device) * recv.float()
-        out.append(acc.to(buf.dtype))
-    return out
+        for (_, col), p in zip(shifts, posted):
+            acc = acc + col[i].to(buf.device) * p.wait().float()
+        return acc.to(buf.dtype)
+
+    if split:
+        posted = [post(buf) for buf in bufs]
+        return lambda: [one(buf, p) for buf, p in zip(bufs, posted)]
+    return lambda: [one(buf, post(buf)) for buf in bufs]
 
 
 def _gathered_bufs(tree: Tree, mesh, axis_name: str, fn) -> Tree:
@@ -604,16 +723,16 @@ def _static(tree: Tree, mesh, axis_name: str, *, shifts=None,
               reduce=_scale_reduce(mesh, axis_name))
     if mesh is None:
         layout, bufs = flatbuf.pack(tree)
-        return flatbuf.unpack(layout, _static_bufs(layout, bufs, _ROWS, n,
-                                                   **kw))
+        return flatbuf.unpack(layout, _static_start(layout, bufs, _ROWS, n,
+                                                    **kw)())
     if not _shard_native(mesh, axis_name, tree):
         return _gathered_bufs(tree, mesh, axis_name, lambda lay, b: (
-            _static_bufs(lay, b, _ROWS, n, **kw)))
+            _static_start(lay, b, _ROWS, n, **kw)()))
     i = mesh.axis_index(axis_name)
     layout = flatbuf.layout_of(tree, pad_multiple=1)
     layout, bufs = flatbuf.pack(tree, layout)
-    return flatbuf.unpack(layout, _static_bufs(
-        layout, bufs, mesh, n, rows=slice(i, i + 1), **kw))
+    return flatbuf.unpack(layout, _static_start(
+        layout, bufs, mesh, n, rows=slice(i, i + 1), **kw)())
 
 
 def mix_shifts(tree: Tree, self_weight: float,
@@ -869,13 +988,33 @@ def delayed_mix(template: Tree, bufs, realization, *,
     second pack); a Dense round on a mesh runs the shard-native dense
     round; any other round mixes the unpacked tree.  Each is bit for bit
     what :func:`mix_realization` gives the unpacked tree."""
+    return _delayed(template, bufs, realization, compression, mesh,
+                    axis_name, split=False).wait()
+
+
+def delayed_post(template: Tree, bufs, realization, *,
+                 compression: str | None = None, mesh=None,
+                 axis_name: str = "node"):
+    """:func:`delayed_mix` in two halves: on a mesh with one rank per node
+    the round's whole wire -- every permute (two per edge under int8) or
+    ``psum`` of every dtype group -- is posted here, and the returned
+    handle's ``wait()`` completes it, combines (K1 on the rank's block,
+    or the int8 / dense receiver) and unpacks: the same bits as
+    :func:`delayed_mix`.  The work between the two overlaps the wire.
+    Anywhere else the round runs at ``wait()``."""
+    return _delayed(template, bufs, realization, compression, mesh,
+                    axis_name, split=True)
+
+
+def _delayed(template, bufs, r, compression, mesh, axis_name: str,
+             split: bool):
     native = _shard_native(mesh, axis_name, template)
+    split = split and native
     layout = flatbuf.layout_of(template, pad_multiple=1 if native else
                                flatbuf.PAD_MULTIPLE)
     bufs = list(bufs)
-    r = realization
     if isinstance(r, Identity):
-        return flatbuf.unpack(layout, bufs)
+        return Pending(lambda: flatbuf.unpack(layout, bufs))
     static = isinstance(r, (Shifts, Matching)) and not r.traced
     if static and (native or mesh is None):
         n = _node_count(template, mesh, axis_name)
@@ -886,20 +1025,41 @@ def delayed_mix(template: Tree, bufs, realization, *,
         kw = (dict(shifts=list(r.shifts), self_w=r.self_w)
               if isinstance(r, Shifts) else
               dict(partner=tuple(r.partner), self_w=r.w_self))
-        return flatbuf.unpack(layout, _static_bufs(
+        finish = _static_start(
             layout, bufs, wire, n, compression=compression, rows=rows,
             axis_name=axis_name, reduce=_scale_reduce(mesh, axis_name),
-            **kw))
+            split=split, **kw)
+        return Pending(lambda: flatbuf.unpack(layout, finish()))
     if native and isinstance(r, Dense) and not isinstance(r.W, torch.Tensor):
         if compression is not None:
             raise ValueError(
                 f"compression={compression!r} has no dense-matrix wire "
                 f"format; only Shifts/Matching realizations quantize")
-        return flatbuf.unpack(layout, _local_dense(
-            bufs, np.asarray(r.W, np.float64), mesh, axis_name))
-    return mix_realization(flatbuf.unpack(layout, bufs), r,
-                           compression=compression, mesh=mesh,
-                           axis_name=axis_name)
+        finish = _local_dense(bufs, np.asarray(r.W, np.float64), mesh,
+                              axis_name, split)
+        return Pending(lambda: flatbuf.unpack(layout, finish()))
+    return Pending(lambda: mix_realization(
+        flatbuf.unpack(layout, bufs), r, compression=compression, mesh=mesh,
+        axis_name=axis_name))
+
+
+def node_mean(tree: Tree, *, mesh=None, axis_name: str = "node") -> Tree:
+    """Every leaf's exact mean over the node axis in f32, broadcast back
+    to its node rows (the all-reduce baseline's gradient average).  On a
+    mesh with one rank per node each rank holds its block: the tree is
+    packed (``pad_multiple=1``) and each dtype group's f32 buffer is one
+    ``psum`` over the node axis, divided by the node count."""
+    if mesh is None:
+        return {k: v.float().mean(0, keepdim=True).expand(v.shape)
+                for k, v in tree.items()}
+    n, L = _mesh_nodes(tree, mesh, axis_name)
+    if L != 1:
+        raise ValueError(f"node_mean on a mesh takes one node a rank; the "
+                         f"block holds {L}")
+    layout = flatbuf.layout_of(tree, pad_multiple=1)
+    layout, bufs = flatbuf.pack(tree, layout)
+    return flatbuf.unpack(layout, [mesh.psum(b.float(), axis_name) / n
+                                   for b in bufs])
 
 
 def gossip_spec(topology: Topology, step: int,

@@ -45,7 +45,9 @@ the payload over the mesh's wire (each rank's block is cut by
 ``launch.sharding.local_shard``; the engine reads no specs).  The keys,
 and so
 ``num_compiled`` and the cache counters, are the same with and without
-a mesh.
+a mesh.  Every executor the step receives is a :class:`MixExecutor`,
+whose ``mean`` averages over the nodes on the same wire (the all-reduce
+baseline's gradients).
 
 **Overlap plans** (``overlap=True``, from ``gossip(..., overlap=True)``
 optimizers) bind the one-step-delayed step instead: ``mix``/``step_fn(k)``
@@ -55,7 +57,9 @@ and whose ``pack`` half packs step k's payload; the keys gain the overlap
 phase (``("overlap", "prime")``, ``("overlap",) + key(k-1)``, ``("overlap",
 "flush") + key(k-1)``), and ``flush_step_fn(k)`` drains the pipeline for
 checkpoints and metrics.  On the card :meth:`OverlapIO.start` runs the
-delayed round on a side CUDA stream, under the step's backward.
+delayed round on a side CUDA stream, under the step's backward; on a
+mesh it posts the round's wire, which moves under the backward, and the
+wait combines.
 """
 from __future__ import annotations
 
@@ -72,7 +76,8 @@ from .topology import (AperiodicScheduleError, Dense, Identity, Matching,
 
 Tree = Any
 
-__all__ = ["CompileCache", "GossipPlan", "OverlapIO", "InFlight"]
+__all__ = ["CompileCache", "GossipPlan", "OverlapIO", "InFlight",
+           "MixExecutor"]
 
 
 @functools.cache
@@ -85,13 +90,18 @@ class InFlight:
     """A delayed round started by :meth:`OverlapIO.start`.  ``wait()``
     makes the current stream wait for it and returns the mixed tree;
     ``begin``/``done`` are its timing events on the side stream (None when
-    it ran inline, on the CPU)."""
+    it ran inline, on the CPU, or on a mesh).  On a mesh ``pending`` is
+    the round whose wire is posted: ``wait()`` completes the wire,
+    combines and unpacks."""
 
-    def __init__(self, mixed: Tree, begin=None, done=None, device=None):
+    def __init__(self, mixed: Tree = None, begin=None, done=None,
+                 device=None, pending=None):
         self.mixed, self.begin, self.done = mixed, begin, done
-        self.device = device
+        self.device, self.pending = device, pending
 
     def wait(self) -> Tree:
+        if self.pending is not None:
+            self.mixed, self.pending = self.pending.wait(), None
         if self.done is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(self.done)
@@ -103,6 +113,22 @@ class InFlight:
                     seen.add(ptr)
                     leaf.record_stream(cur)
         return self.mixed
+
+
+class MixExecutor:
+    """A realization-bound gossip executor, as the plan hands it to the
+    step: calling it mixes a payload (``fn``); :meth:`mean` is the exact
+    node mean on the same wire (``gossip.node_mean``: on the plan's mesh
+    a ``psum``), what ``transforms.average_gradients`` reads."""
+
+    def __init__(self, fn: Callable, mesh=None):
+        self.fn, self.mesh = fn, mesh
+
+    def __call__(self, *args, **kw):
+        return self.fn(*args, **kw)
+
+    def mean(self, tree: Tree) -> Tree:
+        return gossip.node_mean(tree, mesh=self.mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,12 +162,21 @@ class OverlapIO:
                                   mesh=self.mesh, axis_name=self.axis_name)
 
     def start(self, template: Tree, bufs) -> InFlight:
-        """Start :meth:`delayed`: on CUDA buffers on the card's side
-        stream, after everything queued on the current stream (which
-        packed ``bufs``), so the caller's next work overlaps it; on CPU
-        buffers inline.  The results are the same bits either way."""
+        """Start :meth:`delayed`.  On a mesh the round's wire is staged and
+        posted here (``gossip.delayed_post``) and the caller's next work
+        overlaps it; ``wait()`` completes the wire, then combines on the
+        current stream.  Without a mesh, on CUDA buffers the round runs on
+        the card's side stream, after everything queued on the current
+        stream (which packed ``bufs``), so the caller's next work overlaps
+        it; on CPU buffers inline.  The results are the same bits either
+        way."""
         if self.prime:
             raise ValueError("priming step has no in-flight payload to mix")
+        if self.mesh is not None:
+            return InFlight(pending=gossip.delayed_post(
+                template, bufs, self.realization,
+                compression=self.compression, mesh=self.mesh,
+                axis_name=self.axis_name))
         dev = bufs[0].device
         if dev.type != "cuda":
             return InFlight(self.delayed(template, bufs))
@@ -315,15 +350,18 @@ class GossipPlan:
         mesh = self.mesh
         if self.warmup_steps and k < self.warmup_steps:
             top_full = full_averaging(self.topology.n)
-            return lambda t: gossip.mix(t, top_full, 0, mesh=mesh)
+            return MixExecutor(lambda t: gossip.mix(t, top_full, 0,
+                                                    mesh=mesh), mesh)
         comp = self.compression
         if self.scheduled:
             top = self.topology
-            return lambda t, pos, gate=None, **kw: gossip.mix_scheduled(
-                t, top, pos, gate, compression=comp, mesh=mesh, **kw)
+            return MixExecutor(
+                lambda t, pos, gate=None, **kw: gossip.mix_scheduled(
+                    t, top, pos, gate, compression=comp, mesh=mesh, **kw),
+                mesh)
         r = self.realization(k)
-        return lambda t, **kw: gossip.mix_realization(
-            t, r, compression=comp, mesh=mesh, **kw)
+        return MixExecutor(lambda t, **kw: gossip.mix_realization(
+            t, r, compression=comp, mesh=mesh, **kw), mesh)
 
     def overlap_io(self, step: int) -> OverlapIO:
         """The :class:`OverlapIO` of pipelined step ``step``: its delayed
@@ -360,8 +398,8 @@ class GossipPlan:
         if key == ("dense",):
             mesh = self.mesh
             shared = self._cache.get(key, lambda: (
-                lambda W, *a: fn(lambda t: gossip.mix_dense(
-                    t, W, mesh=mesh), *a)))
+                lambda W, *a: fn(MixExecutor(lambda t: gossip.mix_dense(
+                    t, W, mesh=mesh), mesh), *a)))
             W = self.realization(int(step)).dense(self.topology.n)
             return lambda *a: shared(W, *a)
         k = int(step)
@@ -371,10 +409,10 @@ class GossipPlan:
             if r.traced:
                 comp, mesh = self.compression, self.mesh
                 shared = self._cache.get(key, lambda: (
-                    lambda wvals, *a: fn(
+                    lambda wvals, *a: fn(MixExecutor(
                         lambda t, **kw: gossip.mix_realization(
                             t, r.with_weights(wvals), compression=comp,
-                            mesh=mesh, **kw), *a)))
+                            mesh=mesh, **kw), mesh), *a)))
                 wvals = r.weight_values()
                 return lambda *a: shared(wvals, *a)
         mix = self.mix(step)

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from . import schedule as schedule_mod
+from .gossip import node_mean
 from .topology import Topology
 
 Tree = Any
@@ -315,13 +316,14 @@ def quantize_int8() -> Transform:
 
 def average_gradients() -> Transform:
     """Exact global gradient averaging (the All-Reduce baseline): replaces
-    ``g`` with its node-mean, broadcast back to every node."""
+    ``g`` with its node-mean in f32, broadcast back to every node.  The
+    mean is the injected executor's (``ctx.mix.mean``: on a plan's mesh
+    one ``psum`` per dtype group over the node axis, divided by n); a
+    bare callable ``mix`` takes the single-process mean."""
 
     def apply(ctx):
-        g = ctx.tensors["g"]
-        ctx.tensors["g"] = {
-            k: _f32(v).mean(0, keepdim=True).expand(v.shape)
-            for k, v in g.items()}
+        mean = getattr(ctx.mix, "mean", node_mean)
+        ctx.tensors["g"] = mean(ctx.tensors["g"])
 
     return Transform("average_gradients", (), None, apply)
 

@@ -16,10 +16,18 @@ The wire primitives are the engine's counterparts of ``lax.ppermute``,
 (explicit ``(src, dst)`` pairs in axis coordinates, one
 ``dist.batch_isend_irecv``), :meth:`Mesh.psum`, :meth:`Mesh.pmax`,
 :meth:`Mesh.axis_index`, and :meth:`Mesh.all_gather` (the global path's
-gather, and ``sharding.gather``).  Each op is recorded in the mesh's
-:class:`WireLog` -- ops, bytes this rank sends, seconds, and the seconds
-spent staging through the host -- the port's counterpart of the HLO
-collective counts the reference's tests read.
+gather, and ``sharding.gather``).  :meth:`Mesh.permute_start` and
+:meth:`Mesh.psum_start` are the two halves of a permute and a psum: the
+start stages the buffer and posts the sends and receives, and the
+:class:`~repro_torch.core.gossip.Pending` it returns completes them on
+``wait()`` -- the
+overlapped trainer's delayed round puts the per-node gradients between
+the two.  :meth:`Mesh.gather` collects a line's blocks at one rank and
+:meth:`Mesh.barrier` waits for the line (checkpoints of a mesh run).
+Each op is recorded in the mesh's :class:`WireLog` -- ops, bytes this
+rank sends, seconds, the seconds spent staging through the host and, for
+a split op, the seconds between its start and its wait -- the port's
+counterpart of the HLO collective counts the reference's tests read.
 
 The backend is explicit (:func:`make_mesh`): ``"nccl"`` moves device
 buffers and needs one card per rank (NCCL refuses two ranks on one card,
@@ -42,6 +50,7 @@ wire.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import queue as queue_mod
@@ -56,6 +65,7 @@ import torch
 import torch.distributed as dist
 
 from ..benchmarks import common
+from ..core.gossip import Pending
 
 __all__ = ["Mesh", "WireLog", "HW", "make_mesh", "abstract_mesh",
            "dry_mesh", "make_production_mesh", "to_logical_mesh",
@@ -93,25 +103,43 @@ def _link_bytes(kind: str, nbytes: int, group: int) -> float:
 @dataclasses.dataclass
 class WireLog:
     """What this rank's mesh ops moved since the last :meth:`reset`: per
-    kind (``permute``, ``psum``, ``pmax``, ``all_gather``) the ops, the
-    bytes this rank sent (a permute to itself sends none), the link bytes
-    (the reference's ``hlo_cost`` factors for an op over a group of g
-    ranks: a permute its buffer, an all-reduce 2 (g - 1) / g of it, an
-    all-gather (g - 1) times its block), the seconds of the op, and of
-    those the seconds spent copying through pinned host memory (the
-    ``gloo-host`` wire)."""
+    kind (``permute``, ``psum``, ``pmax``, ``all_gather``, ``gather``)
+    the ops, the bytes this rank sent (a permute to itself sends none),
+    the link bytes (the reference's ``hlo_cost`` factors for an op over a
+    group of g ranks: a permute its buffer, an all-reduce 2 (g - 1) / g
+    of it, an all-gather (g - 1) times its block), the seconds of the op
+    (from its start to the end of its wait), of those the seconds spent
+    copying through pinned host memory (the ``gloo-host`` wire), and
+    ``open_s``, the seconds between a split op's start and the call of
+    its wait (the part of the op that other work can hide; about 0 for
+    an op that waits at once).  Inside :meth:`scope` ``(name)`` every
+    kind is recorded as ``"name:kind"``."""
 
     kinds: dict = dataclasses.field(default_factory=dict)
+    prefix: str = ""
 
     def add(self, kind: str, nbytes: int, seconds: float,
-            stage_s: float, group: int = 1) -> None:
-        k = self.kinds.setdefault(kind, {"ops": 0, "bytes": 0, "link": 0.0,
-                                         "s": 0.0, "stage_s": 0.0})
+            stage_s: float, group: int = 1, open_s: float = 0.0) -> None:
+        k = self.kinds.setdefault(self.prefix + kind, {
+            "ops": 0, "bytes": 0, "link": 0.0, "s": 0.0, "stage_s": 0.0,
+            "open_s": 0.0})
         k["ops"] += 1
         k["bytes"] += int(nbytes)
         k["link"] += _link_bytes(kind, int(nbytes), group)
         k["s"] += seconds
         k["stage_s"] += stage_s
+        k["open_s"] += open_s
+
+    @contextlib.contextmanager
+    def scope(self, name: str):
+        """Record the block's ops as ``"name:kind"`` (a run's logging and
+        checkpoints apart from its steps)."""
+        prev = self.prefix
+        self.prefix = f"{name}:"
+        try:
+            yield self
+        finally:
+            self.prefix = prev
 
     def reset(self) -> None:
         self.kinds = {}
@@ -229,14 +257,22 @@ class Mesh:
             return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
         return torch.empty_like(like, memory_format=torch.contiguous_format)
 
-    def _from_wire(self, w: torch.Tensor, like: torch.Tensor):
-        """``(w on like's device, staging seconds)``."""
+    def _from_wire(self, w: torch.Tensor, like: torch.Tensor,
+                   blocking: bool = True):
+        """``(w on like's device, staging seconds)``.  ``blocking=False``
+        queues the copy from pinned memory on the current stream and
+        returns at once (the work that follows is queued behind it)."""
         if not self._staged(like):
             return w, 0.0
         t = time.perf_counter()
-        out = w.to(like.device)
-        torch.cuda.synchronize(like.device)
+        out = w.to(like.device, non_blocking=not blocking)
+        if blocking:
+            torch.cuda.synchronize(like.device)
         return out, time.perf_counter() - t
+
+    def _sync_nccl(self, out: torch.Tensor) -> None:
+        if out.device.type == "cuda" and self.wire == "nccl":
+            torch.cuda.synchronize(out.device)
 
     def _peers(self, pairs, axis: str) -> tuple:
         """(the coordinate this rank sends to, the one it receives from --
@@ -254,13 +290,28 @@ class Mesh:
         coordinates, each source and each destination at most once; this
         rank receives its source's ``buf`` (zeros when nothing is sent to
         it; its own ``buf``, copied, for a pair ``(i, i)``).  One
-        ``dist.batch_isend_irecv`` on the axis's line."""
+        ``dist.batch_isend_irecv`` on the axis's line, waited for at
+        once."""
+        return self._permute(buf, pairs, axis, blocking=True).wait()
+
+    def permute_start(self, buf: torch.Tensor, pairs, axis: str) -> Pending:
+        """The first half of :meth:`permute`: stages ``buf`` (a copy to
+        pinned host memory on the gloo-host wire), posts the send and the
+        receive and returns; the :class:`Pending`'s ``wait()`` completes
+        them and returns what :meth:`permute` returns.  On the gloo-host
+        wire the received buffer's copy to the card is queued on the
+        stream current at the wait, without waiting for it.  The log's
+        record (the same bytes as :meth:`permute`'s) spans start to wait,
+        its ``open_s`` start to the call of the wait."""
+        return self._permute(buf, pairs, axis, blocking=False)
+
+    def _permute(self, buf, pairs, axis: str, blocking: bool) -> Pending:
         self._need_live()
         t0 = time.perf_counter()
         send_to, recv_from, src = self._peers(pairs, axis)
         line = self.line(axis)
         stage = 0.0
-        ops, out_w = [], None
+        ops, out_w, wbuf = [], None, None
         if send_to is not None:
             wbuf, stage = self._to_wire(buf)
             ops.append(dist.P2POp(dist.isend, wbuf, line[send_to],
@@ -269,39 +320,68 @@ class Mesh:
             out_w = self._wire_empty(buf)
             ops.append(dist.P2POp(dist.irecv, out_w, line[recv_from],
                                   group=self.groups[axis]))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        if recv_from is not None:
-            out, s = self._from_wire(out_w, buf)
-            stage += s
-        elif src:                      # a pair (i, i): a copy, no wire
-            out = buf.clone()
-        else:
-            out = torch.zeros_like(buf)
-        if out.device.type == "cuda" and self.wire == "nccl":
-            torch.cuda.synchronize(out.device)
-        self.log.add("permute", buf.nbytes if send_to is not None else 0,
-                     time.perf_counter() - t0, stage)
-        return out
+        reqs = dist.batch_isend_irecv(ops) if ops else []
+        nbytes = buf.nbytes if send_to is not None else 0
+        like = torch.empty((0,), dtype=buf.dtype, device=buf.device)
+        shape = buf.shape
+        # a pair (i, i) copies buf at the wait; otherwise it is not held
+        own = buf if (recv_from is None and src) else None
+        del buf
 
-    def _reduce(self, kind: str, x: torch.Tensor, axis: str, op):
+        def finish():
+            nonlocal wbuf
+            called = time.perf_counter()
+            for req in reqs:
+                req.wait()
+            wbuf = None                     # sent: the staging copy goes
+            s = 0.0
+            if recv_from is not None:
+                out, s = self._from_wire(out_w, like, blocking)
+            elif own is not None:          # a copy, no wire
+                out = own.clone()
+            else:
+                out = torch.zeros(shape, dtype=like.dtype,
+                                  device=like.device)
+            self._sync_nccl(out)
+            self.log.add("permute", nbytes, time.perf_counter() - t0,
+                         stage + s, open_s=called - t0)
+            return out
+
+        return Pending(finish)
+
+    def _reduce_start(self, kind: str, x: torch.Tensor, axis: str, op,
+                      blocking: bool = True) -> Pending:
         t0 = time.perf_counter()
         w, stage = self._to_wire(x)
         if w is x:
             w = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(w, op=op, group=self.groups[axis])
-        out, s = self._from_wire(w, x)
-        if out.device.type == "cuda" and self.wire == "nccl":
-            torch.cuda.synchronize(out.device)
-        self.log.add(kind, x.nbytes, time.perf_counter() - t0, stage + s,
-                     self.shape[axis])
-        return out
+        work = dist.all_reduce(w, op=op, group=self.groups[axis],
+                               async_op=True)
+        like = torch.empty((0,), dtype=x.dtype, device=x.device)
+        nbytes = x.nbytes
+
+        def finish():
+            called = time.perf_counter()
+            work.wait()
+            out, s = self._from_wire(w, like, blocking)
+            self._sync_nccl(out)
+            self.log.add(kind, nbytes, time.perf_counter() - t0, stage + s,
+                         self.shape[axis], open_s=called - t0)
+            return out
+
+        return Pending(finish)
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``lax.psum`` over ``axis`` (one all-reduce on the line)."""
         self._need_live()
-        return self._reduce("psum", x, axis, dist.ReduceOp.SUM)
+        return self._reduce_start("psum", x, axis, dist.ReduceOp.SUM).wait()
+
+    def psum_start(self, x: torch.Tensor, axis: str) -> Pending:
+        """The first half of :meth:`psum`: the all-reduce posted, completed
+        by the :class:`Pending`'s ``wait()`` (as :meth:`permute_start`)."""
+        self._need_live()
+        return self._reduce_start("psum", x, axis, dist.ReduceOp.SUM,
+                                  blocking=False)
 
     def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
         """``lax.pmax`` over ``axes`` (a name or a tuple): one all-reduce
@@ -309,7 +389,7 @@ class Mesh:
         self._need_live()
         for a in ((axes,) if isinstance(axes, str) else tuple(axes)):
             if self.shape[a] > 1:
-                x = self._reduce("pmax", x, a, dist.ReduceOp.MAX)
+                x = self._reduce_start("pmax", x, a, dist.ReduceOp.MAX).wait()
         return x
 
     def all_gather(self, x: torch.Tensor, axis: str,
@@ -326,6 +406,30 @@ class Mesh:
         self.log.add("all_gather", x.nbytes, time.perf_counter() - t0,
                      stage + s, self.shape[axis])
         return out
+
+    def gather(self, x: torch.Tensor, axis: str, dst: int = 0):
+        """The line's blocks of ``x`` concatenated on dim 0 in axis order,
+        at the rank whose ``axis`` coordinate is ``dst`` (None at the
+        others): one ``dist.gather`` on the line."""
+        self._need_live()
+        t0 = time.perf_counter()
+        w, stage = self._to_wire(x)
+        root = self.coords[axis] == dst
+        parts = ([torch.empty_like(w) for _ in range(self.shape[axis])]
+                 if root else None)
+        dist.gather(w, parts, dst=self.line(axis)[dst],
+                    group=self.groups[axis])
+        out, s = None, 0.0
+        if root:
+            out, s = self._from_wire(torch.cat(parts, 0), x)
+        self.log.add("gather", 0 if root else x.nbytes,
+                     time.perf_counter() - t0, stage + s)
+        return out
+
+    def barrier(self, axis: str) -> None:
+        """Wait until every rank of this rank's ``axis`` line is here."""
+        self._need_live()
+        dist.barrier(group=self.groups[axis])
 
 
 class _DryMesh(Mesh):
@@ -351,10 +455,18 @@ class _DryMesh(Mesh):
                      0.0)
         return torch.empty_like(buf)
 
+    def permute_start(self, buf, pairs, axis):
+        out = self.permute(buf, pairs, axis)
+        return Pending(lambda: out)
+
     def psum(self, x, axis):
         self._dry("psum", x)
         self.log.add("psum", x.nbytes, 0.0, 0.0, self.shape[axis])
         return torch.empty_like(x)
+
+    def psum_start(self, x, axis):
+        out = self.psum(x, axis)
+        return Pending(lambda: out)
 
     def pmax(self, x, axes):
         self._dry("pmax", x)
@@ -377,7 +489,8 @@ def dry_mesh(mesh: Mesh, rank: int = 0) -> Mesh:
     ``pmax`` and ``all_gather`` take meta tensors only (any other tensor
     raises), log into its own ``log`` the bytes that rank would send, by the
     live wire's rules (a permute to itself sends none), and return empty
-    results of the live ops' shapes.  The shard-native engine runs on it
+    results of the live ops' shapes (``permute_start`` and
+    ``psum_start`` log at the start).  The shard-native engine runs on it
     unchanged; ``wire`` is ``"dry"``."""
     return _DryMesh(mesh.devices, mesh.axis_names, backend="dry",
                     device="meta", rank=rank)

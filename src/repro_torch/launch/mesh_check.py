@@ -7,9 +7,11 @@ mesh.spawn`) mixes the reference test's ``{w, b, h}`` tree (``w`` and
 realization kind -- one-peer Shifts, the one-peer hypercube Matching, a
 Matching with fixed points, static exponential Shifts, int8 Shifts and
 Matching, grid Dense, full averaging -- plus the delayed halves
-(``pack_payload`` then ``delayed_mix``), the runtime rounds (a per-node
-``Gated`` round, ``meta=`` with loss-aware edge weights, ``node_gate=``)
-and the gathered global path of a mesh with two nodes per rank.  Each
+(``pack_payload`` then ``delayed_mix``, and ``delayed_post``'s split
+wire), the runtime rounds (a per-node
+``Gated`` round, ``meta=`` with loss-aware edge weights, ``node_gate=``,
+a Matching with fixed points under all three) and the gathered global
+path of a mesh with two nodes per rank.  Each
 rank returns its block of every output, its wire log and its K1
 launches; :func:`check` holds each block against its slice of the global
 path (:mod:`repro_torch.core.gossip` without a mesh, its combine the
@@ -24,12 +26,23 @@ large to return: the parent holds the whole payload and its global
 result, each rank hands its output to the parent through CUDA IPC, and
 the two are compared there, one round at a time.
 
+Training on a node mesh, one rank a node: :func:`train_world` runs
+``launch.train.run(args, mesh=)`` runs in turn on one world and compares
+each rank's final state with a single-process run's in the parent;
+:func:`train_cases_rank` is a CPU world's rank through every flag of the
+driver (:func:`train_cases`, :func:`warmup_run`) and the runtime rounds
+with two nodes a rank (:func:`gathered_runtime_rank`, held against
+:func:`gathered_runtime_expected`).
+
   PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu \
+      --train --nodes 4 --steps 6 --overlap --compression int8
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import threading
 import time
 
@@ -42,14 +55,18 @@ from . import mesh as mesh_mod
 from . import sharding
 
 __all__ = ["NODES", "FSDP", "WBH_SPECS", "wbh_tree", "static_rounds",
-           "engine_rank", "check", "payload_tree", "payload_world", "main"]
+           "engine_rank", "check", "payload_tree", "payload_world",
+           "train_rank", "train_world", "train_cases", "warmup_run",
+           "gathered_runtime_rank", "gathered_runtime_expected",
+           "train_cases_rank", "main"]
 
 NODES, FSDP = 4, 2
 WBH_SPECS = {"w": ("node", "fsdp"), "b": ("node",), "h": ("node", "fsdp")}
 # the reference test's tolerances for the dense rounds (another
 # summation order), by dtype
 DENSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-DELAYED = ("shifts", "matching", "identity", "grid", "matching_int8")
+DELAYED = ("shifts", "matching", "identity", "grid", "full", "shifts_int8",
+           "matching_int8")
 
 
 def wbh_tree(nodes: int = NODES, seed: int = 0) -> dict:
@@ -109,6 +126,9 @@ def runtime_rounds(n: int, inputs: dict, rows: slice, device) -> list:
     loss = torch.from_numpy(inputs["loss"][rows]).to(device)
     one_peer = T.one_peer_exponential(n).realization(0)
     m = T.one_peer_hypercube(n).realization(0)
+    # nodes 0 and 2 paired, every other node a fixed point (the dead
+    # node 1 among them)
+    fixed = T.Matching((2, 1, 0) + tuple(range(3, n)))
     return [
         ("gated", lambda t, **kw: gossip.mix_realization(
             t, T.Gated(one_peer, alive), **kw)),
@@ -117,6 +137,9 @@ def runtime_rounds(n: int, inputs: dict, rows: slice, device) -> list:
             edge_weight=edge_weight_torch, **kw)),
         ("node_gate", lambda t, **kw: gossip.mix_matching(
             t, m.partner, 0.5, node_gate=alive, **kw)),
+        ("fixed_meta", lambda t, **kw: gossip.mix_matching(
+            t, fixed.partner, 0.5, meta=loss, edge_weight=edge_weight_torch,
+            node_gate=alive, **kw)),
     ]
 
 
@@ -125,8 +148,6 @@ def one_rank_mesh(store_dir, axes: tuple = ("node",)):
     """A live mesh of one rank in this process (a world of 1 through a
     ``file://`` store in ``store_dir``), torn down on exit: every axis of
     extent 1, so a tree of ``n`` nodes takes the gathered global path."""
-    import os
-
     import torch.distributed as dist
     mesh_mod.init_world(0, 1, "file://" + os.path.join(
         str(store_dir), f"one-rank-{os.getpid()}-{time.time_ns()}"))
@@ -190,7 +211,11 @@ def engine_rank(rank: int, shape: tuple, axes: tuple, device: str,
         mesh.log.reset()
         bufs = gossip.pack_payload(local, mesh=mesh)
         got = gossip.delayed_mix(local, bufs, r, compression=comp, mesh=mesh)
-        out["delayed"][name] = _bit_equal(got, sync)
+        # the split halves: the whole wire posted, then waited for
+        posted = gossip.delayed_post(local, bufs, r, compression=comp,
+                                     mesh=mesh).wait()
+        out["delayed"][name] = (_bit_equal(got, sync)
+                                and _bit_equal(posted, sync))
     i = mesh.axis_index("node")
     for name, fn in runtime_rounds(n, runtime_inputs(n), slice(i, i + 1),
                                    device):
@@ -568,13 +593,15 @@ def f32_start(args, tokens=None, node=None):
 
 
 def train_rank(rank: int, argv: list, outq=None, goq=None,
-               f32: bool = False, tokens=None) -> dict:
+               f32: bool = False, tokens=None, keep: bool = True,
+               tag=None) -> dict:
     """A rank of a training world: ``launch.train.run(args, mesh=...)`` on
     a ``("node",)`` mesh of ``--nodes`` ranks (gloo; on the card every
     rank on ``cuda:0``, staged through host memory).  Returns the
-    history, the step seconds, the peak memory and the K1 launches; the
-    final params and momentum come back as numpy (``outq`` None) or,
-    packed on the card, through ``outq`` (CUDA IPC), held until ``goq``
+    history, the step seconds, the peak memory, the K1 launches and the
+    wire log; the final params and momentum come back as numpy (``outq``
+    None; dropped unless ``keep``) or, packed on the card, through
+    ``outq`` (CUDA IPC) as ``(rank, tag, packed)``, held until ``goq``
     says the parent is done with them.  ``f32``: f32 activations
     (:func:`f32_start`); ``tokens``: the batches' tokens, as the parent
     sampled them (``launch.train.prepare``)."""
@@ -582,6 +609,7 @@ def train_rank(rank: int, argv: list, outq=None, goq=None,
     args = train_mod.parse_args(argv)
     if torch.device(args.device).type == "cuda":
         torch.cuda.set_device(0)
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     mesh = mesh_mod.make_mesh((args.nodes,), ("node",), backend="gloo",
                               device=args.device)
@@ -599,17 +627,128 @@ def train_rank(rank: int, argv: list, outq=None, goq=None,
         torch.cuda.synchronize()
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if outq is None:
-        out["params"], out["momentum"] = _np(x), _np(m)
+        if keep:
+            out["params"], out["momentum"] = _np(x), _np(m)
         return out
     del res
     packed = _packed((m, x))
     del x, m
     if torch.device(args.device).type == "cuda":
         torch.cuda.empty_cache()
-    outq.put((rank, "train", packed))
+    outq.put((rank, tag, packed))
     if goq.get() == "stop":
         raise RuntimeError("the parent stopped comparing")
     del packed
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Every flag of launch.train on a node mesh; runtime rounds with several
+# nodes a rank
+# ---------------------------------------------------------------------------
+
+def train_cases(argv: list, ckpt_dir: str | None = None) -> dict:
+    """``{name: argv}`` of the node-mesh training cases beyond plain dmsgd:
+    the overlapped trainer (its carry-buffer checkpoints under
+    ``ckpt_dir/overlap``), the overlapped trainer under int8 (its
+    flush-on-save checkpoints under ``ckpt_dir/overlap_int8``) and
+    ``parallel_msgd``; a checkpoint at every second step."""
+    def ck(name, *flags):
+        if ckpt_dir is None:
+            return []
+        return ["--ckpt-dir", os.path.join(ckpt_dir, name), "--ckpt-every",
+                "2", *flags]
+
+    return {"overlap": argv + ["--overlap"] + ck("overlap"),
+            "overlap_int8": argv + ["--overlap", "--compression", "int8"]
+            + ck("overlap_int8", "--ckpt-flush"),
+            "parallel_msgd": argv + ["--optimizer", "parallel_msgd"]}
+
+
+def warmup_run(args, warmup_steps: int, mesh=None, start=None) -> dict:
+    """``args``' steps through ``launch.train.build_trainer(warmup_steps=)``
+    (the driver has no warm-up flag; nor has the reference's), in f32
+    (:func:`f32_start`) unless ``start`` is given: every step's node-mean
+    loss and plan key, the final params and momentum (on a mesh the
+    rank's node)."""
+    from . import train as train_mod
+    node = None if mesh is None else mesh.axis_index("node")
+    start = f32_start(args, node=node) if start is None else start
+    opt, step_for = train_mod.build_trainer(
+        start["config"], start["topology"], args.optimizer, args.beta,
+        momentum_dtype=start["momentum_dtype"], warmup_steps=warmup_steps,
+        mesh=mesh)
+    p = start["params"]
+    s = opt.init(p)
+    losses = []
+    for k in range(args.steps):
+        p, s, loss = step_for(k)(p, s, start["batches"][k],
+                                 start["lr_fn"](k))
+        if mesh is not None:
+            loss = mesh.psum(loss.reshape(1).float(), "node")[0] / args.nodes
+        losses.append(float(loss))
+    return {"losses": losses, "params": p, "momentum": s.momentum,
+            "keys": [step_for.plan.realization_key(k)
+                     for k in range(args.steps)]}
+
+
+def gathered_runtime_rank(rank: int, shape: tuple = (2, 2), nodes: int = 4,
+                          device: str = "cpu", seed: int = 0) -> dict:
+    """Runtime rounds with ``nodes // shape[0]`` nodes a rank: on a (node,
+    fsdp) mesh each rank holds the rows of its node coordinate of a
+    ``nodes``-node {w, b, h} tree (w and h cut over fsdp) and mixes them
+    through every :func:`runtime_rounds` round, its per-node values its
+    own rows.  Returns its blocks (numpy f32) and its wire log."""
+    mesh = mesh_mod.make_mesh(shape, ("node", "fsdp"), backend="gloo",
+                              device=device)
+    L = nodes // shape[0]
+    i = mesh.axis_index("node")
+    rows = slice(L * i, (i + 1) * L)
+    block = {k: v[rows] for k, v in torch_tree(wbh_tree(nodes, seed),
+                                               device).items()}
+    local = {k: v.contiguous() for k, v in
+             sharding.local_shard(block, _ROW_SPECS, mesh).items()}
+    out = {name: _np(fn(local, mesh=mesh)) for name, fn in runtime_rounds(
+        nodes, runtime_inputs(nodes), rows, device)}
+    return {"coords": dict(mesh.coords), "rounds": out,
+            "log": mesh.log.snapshot()}
+
+
+_ROW_SPECS = {k: (None,) + s[1:] for k, s in WBH_SPECS.items()}
+
+
+def gathered_runtime_expected(coords: dict, shape: tuple = (2, 2),
+                              nodes: int = 4, device: str = "cpu",
+                              seed: int = 0) -> dict:
+    """Rank ``coords``' blocks of :func:`gathered_runtime_rank`'s rounds
+    on the single-process global path."""
+    L = nodes // shape[0]
+    i = coords["node"]
+    mesh = mesh_mod.abstract_mesh(shape, ("node", "fsdp"))
+    full = torch_tree(wbh_tree(nodes, seed), device)
+    out = {}
+    for name, fn in runtime_rounds(nodes, runtime_inputs(nodes),
+                                   slice(None), device):
+        got = {k: v[L * i:(i + 1) * L] for k, v in fn(full).items()}
+        out[name] = _np(sharding.local_shard(got, _ROW_SPECS, mesh, coords))
+    return out
+
+
+def train_cases_rank(rank: int, argv: list, ckpt_dir: str) -> dict:
+    """A rank of a 4-rank CPU world: every :func:`train_cases` case
+    through :func:`train_rank` in f32 on a (node 4) mesh, then
+    :func:`warmup_run` with one warm-up step on such a mesh, then
+    :func:`gathered_runtime_rank` on a (node 2, fsdp 2) mesh."""
+    from . import train as train_mod
+    out = {name: train_rank(rank, a, f32=True)
+           for name, a in train_cases(argv, ckpt_dir).items()}
+    args = train_mod.parse_args(argv)
+    mesh = mesh_mod.make_mesh((args.nodes,), ("node",), device=args.device)
+    w = warmup_run(args, 1, mesh)
+    out["warmup"] = dict(w, params=_np(w["params"]),
+                         momentum=_np(w["momentum"]),
+                         log=mesh.log.snapshot())
+    out["runtime"] = gathered_runtime_rank(rank, device=args.device)
     return out
 
 
@@ -648,23 +787,33 @@ def world_rank(rank: int, argv: list) -> dict:
             "train": train_rank(rank, argv, f32=True)}
 
 
-def _train_entry(rank, argv, outq, goqs, tokens):
-    return train_rank(rank, argv, outq, goqs[rank], tokens=tokens)
+def _train_entry(rank, runs, outq, goqs, tokens, runtime):
+    out = {"runs": [train_rank(rank, argv, outq if held else None,
+                               goqs[rank], tokens=tokens, keep=False, tag=i)
+                    for i, (argv, held) in enumerate(runs)]}
+    if runtime:
+        from . import train as train_mod
+        out["runtime"] = gathered_runtime_rank(
+            rank, device=train_mod.parse_args(runs[0][0]).device)
+    return out
 
 
-def train_world(argv: list, reference: tuple, tokens=None,
-                timeout: float = 900.0):
-    """``argv``'s run on a node mesh of ``--nodes`` ranks sharing the card,
-    each rank's final ``(momentum, params)`` compared in this process
-    with ``reference`` (the single-process run's final ``(momentum,
-    params)``, on the card): max abs difference and bit equality per
-    rank.  ``tokens``: every step's tokens as ``launch.train.prepare``
-    sampled them for the reference (None: each rank samples).  Returns
-    (rank results, comparisons)."""
+def train_world(runs: list, tokens=None, timeout: float = 900.0,
+                runtime: bool = False):
+    """Each ``(argv, reference)`` of ``runs`` in turn on one node mesh of
+    ``--nodes`` ranks sharing the card; where ``reference`` (the
+    single-process run's final ``(momentum, params)``, on the card) is
+    given, each rank's final ``(momentum, params)`` is compared with it
+    in this process: bit equality, max abs difference and the
+    reference's max-abs per rank.  ``tokens``: every step's tokens as
+    ``launch.train.prepare`` sampled them (None: each rank samples).
+    ``runtime``: then :func:`gathered_runtime_rank` on a (node 2, fsdp 2)
+    mesh of the same ranks.  Returns (rank results, one ``{rank:
+    comparison}`` a compared run, keyed by its index in ``runs``)."""
     import torch.multiprocessing as mp
 
     from . import train as train_mod
-    nodes = train_mod.parse_args(argv).nodes
+    nodes = train_mod.parse_args(runs[0][0]).nodes
     ctx = mp.get_context("spawn")
     outq = ctx.Queue()
     goqs = [ctx.Queue() for _ in range(nodes)]
@@ -673,16 +822,22 @@ def train_world(argv: list, reference: tuple, tokens=None,
 
     def compare():
         try:
-            for _ in range(nodes):
-                rank, _, got = outq.get(timeout=timeout)
-                want = _packed(tuple({k: v[rank:rank + 1] for k, v in
-                                      part.items()} for part in reference))
-                comps[rank] = (torch.equal(got, want),
-                               float((got - want).abs().max()),
-                               float(want.abs().max()))
-                del got, want
-            for q in goqs:
-                q.put("done")
+            for i, (_, reference) in enumerate(runs):
+                if reference is None:
+                    continue
+                comps[i] = {}
+                for _ in range(nodes):
+                    rank, tag, got = outq.get(timeout=timeout)
+                    assert tag == i, (tag, i)
+                    want = _packed(tuple({k: v[rank:rank + 1] for k, v in
+                                          part.items()}
+                                         for part in reference))
+                    comps[i][rank] = (torch.equal(got, want),
+                                      float((got - want).abs().max()),
+                                      float(want.abs().max()))
+                    del got, want
+                for q in goqs:
+                    q.put("done")
         except BaseException as e:          # re-raised by the caller
             errors.append(e)
             for q in goqs:
@@ -690,14 +845,40 @@ def train_world(argv: list, reference: tuple, tokens=None,
 
     th = threading.Thread(target=compare, daemon=True)
     th.start()
+    held = [(argv, ref is not None) for argv, ref in runs]
     try:
-        res = mesh_mod.spawn(_train_entry, nodes, (argv, outq, goqs, tokens),
+        res = mesh_mod.spawn(_train_entry, nodes,
+                             (held, outq, goqs, tokens, runtime),
                              timeout=timeout)
     finally:
         th.join(timeout=60)
     if errors:
         raise errors[0]
     return res, comps
+
+
+def _train_cli_rank(rank: int, argv: list) -> dict:
+    return train_rank(rank, argv, keep=False)
+
+
+def train_cli(argv: list, device: str) -> None:
+    """``launch.train``'s flags ``argv`` run on a (node) mesh of
+    ``--nodes`` spawned ranks, one a node (rank 0 prints the run's log);
+    then each rank's median step ms and rank 0's wire log."""
+    from . import train as train_mod
+    if "--device" not in argv:
+        argv = list(argv) + ["--device", device]
+    nodes = train_mod.parse_args(argv).nodes
+    cpu = train_mod.parse_args(argv).device == "cpu"
+    res = mesh_mod.spawn(_train_cli_rank, nodes, (argv,),
+                         threads=1 if cpu else None)
+    for r in res:
+        rest = sorted(r["step_s"][1:]) or r["step_s"]
+        print(f"rank {r['rank']} ({r['wire']}): median step "
+              f"{1e3 * rest[len(rest) // 2]:.1f} ms, K1 {r['k1']}")
+    print("rank 0 wire (ops, bytes, s, s open before the wait): " + str(
+        {k: (v["ops"], v["bytes"], round(v["s"], 3), round(v["open_s"], 3))
+         for k, v in res[0]["log"].items()}))
 
 
 def main(argv=None) -> None:
@@ -710,9 +891,16 @@ def main(argv=None) -> None:
                     help="the fsdp extent (4 nodes x fsdp ranks; NCCL needs "
                          "that many cards)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--train", nargs=argparse.REMAINDER, default=None,
+                    help="instead: the rest of the line is launch.train's "
+                         "flags, run on a (node) mesh of --nodes spawned "
+                         "gloo ranks, one a node")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a card; use --device cpu")
+    if args.train is not None:
+        train_cli(args.train, args.device)
+        return
     shape = (NODES, args.fsdp)
     t0 = time.perf_counter()
     res = mesh_mod.spawn(engine_rank, NODES * args.fsdp,

@@ -193,8 +193,10 @@ def make_train_step(cfg: M.ModelConfig,
     the local transforms on the mixed iterates with the gradients taken
     at the pre-mix params.  ``timeline``, a list, gets one ``(start,
     delayed begin, delayed done, grads begin, grads end)`` tuple of CUDA
-    events a pipelined step with a round in flight on the card
-    (:func:`overlap_ms` reads them).
+    events a pipelined step with a round in flight on the card's side
+    stream (:func:`overlap_ms` reads them).  On a mesh the round's wire
+    is posted before the gradients and completed after them; the mesh's
+    wire log times it.
     """
 
     def per_node_grads(p: dict, tokens, img):
@@ -245,7 +247,7 @@ def make_train_step(cfg: M.ModelConfig,
                 grads[k][i].copy_(v)
             losses.append(loss)
         losses = torch.stack(losses)
-        if marks:
+        if marks and pending.begin is not None:   # a mesh's has none
             g_end.record()
             timeline.append((t0, pending.begin, pending.done, g_begin,
                              g_end))

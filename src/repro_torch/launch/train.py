@@ -50,11 +50,20 @@ params and batches, which ``prepare(args, node=i)`` builds without
 keeping any other node's, so the step's node loop runs once -- and the
 gossip runs shard-natively over the mesh's wire.
 The logged loss and consensus are reduced across the ranks, so rank 0
-(the only one that prints) prints what the single-process run prints.
-The reference gets fsdp/model-sharded training from GSPMD; the port has
-no sharded forward, so a mesh with an fsdp or model extent above 1, the
-overlapped trainer, ``parallel_msgd`` (whose gradient average reads the
-node axis) and checkpoints on a mesh raise, naming ROADMAP item 18b.
+(the only one that prints) prints what the single-process run prints;
+the mesh's wire log records that logging (and the flush it reads under
+``--overlap``) in the scope ``"log"``, the final flush in ``"flush"``
+and checkpoints in ``"ckpt"``, apart from the steps' own ops, and each
+history entry carries the logging's seconds (``log_s``) apart from the
+step's.  Every flag runs on such a mesh: ``--overlap`` posts each delayed
+round's wire before the rank's gradients and completes it after them
+(``gossip.delayed_post``), ``parallel_msgd`` averages the gradients with
+one ``psum`` per dtype group, and ``--ckpt-dir`` gathers the node rows at
+rank 0, which writes the whole run's checkpoint (the single-process
+run's arrays) while the others wait.  The reference gets
+fsdp/model-sharded training from GSPMD; the port has no sharded
+forward, so a mesh with an fsdp or model extent above 1 raises, naming
+ROADMAP item 18b.
 
 ``--overlap`` trains the one-step-delayed pipeline (each step mixes the
 previous step's payload, on the card on a side stream under the
@@ -68,6 +77,7 @@ as int8 (a flag the JAX driver lacks; its optimizers take it).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -80,6 +90,7 @@ from ..core import flatbuf
 from ..core import optim as optim_mod
 from ..core import schedule
 from ..core import topology as topo_mod
+from ..core import transforms
 from ..core.plan import GossipPlan
 from ..data import SyntheticLM
 from ..device import resolve_device
@@ -93,9 +104,7 @@ __all__ = ["build_trainer", "consensus_distance", "stack_nodes",
 WAITS = "ROADMAP item 18b (sharded training on a mesh)"
 
 
-def check_mesh(mesh, n: int, *, overlap: bool = False,
-               optimizer_name: str | None = None,
-               ckpt: bool = False) -> None:
+def check_mesh(mesh, n: int) -> None:
     """Refuse what training on ``mesh`` cannot run yet: the mesh must
     have a ``node`` axis of ``n`` ranks and no other axis above 1."""
     if "node" not in mesh.axis_names or mesh.axis_size("node") != n:
@@ -107,26 +116,20 @@ def check_mesh(mesh, n: int, *, overlap: bool = False,
             f"training on a mesh with {inner}: the port has no "
             f"fsdp/model-sharded forward (the reference's is GSPMD's); "
             f"{WAITS}")
-    if overlap:
-        raise NotImplementedError(
-            f"the overlapped trainer on a mesh waits for {WAITS}")
-    if optimizer_name == "parallel_msgd":
-        raise NotImplementedError(
-            "parallel_msgd averages the gradients over the node axis, "
-            f"which a rank's block does not hold; {WAITS}")
-    if ckpt:
-        raise NotImplementedError(
-            f"checkpoints of a run on a mesh wait for {WAITS}")
+
 
 def build_trainer(cfg, topology, optimizer_name: str, beta: float,
-                  micro_batch=None, momentum_dtype=None, overlap=False,
-                  loss_aware=False, deadline=False, compression=None,
-                  timeline=None, mesh=None):
+                  micro_batch=None, momentum_dtype=None, warmup_steps=0,
+                  overlap=False, loss_aware=False, deadline=False,
+                  compression=None, timeline=None, mesh=None):
     """Returns (opt, step_for) where ``step_for(step, prime=False)`` is the
     train-step executable for that step's gossip realization (the plan
     rides along as ``step_for.plan``).  All schedule handling lives in
     :class:`repro_torch.core.plan.GossipPlan`; this is optimizer + step
-    function + plan wiring.  ``loss_aware`` / ``deadline`` bind the
+    function + plan wiring.  ``warmup_steps`` wraps the optimizer in
+    ``transforms.allreduce_warmup`` before the plan is built, as the
+    reference does, so the warm-up phase is its own plan key.
+    ``loss_aware`` / ``deadline`` bind the
     runtime gossip hooks (the step then reads ``batch["alive"]``);
     ``overlap`` builds the pipelined trainer (``timeline``: see
     :func:`~repro_torch.launch.steps.make_train_step`),
@@ -134,12 +137,13 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     :func:`check_mesh`) runs every gossip round shard-natively, the step
     taking each rank's block."""
     if mesh is not None:
-        check_mesh(mesh, topology.n, overlap=overlap,
-                   optimizer_name=optimizer_name)
+        check_mesh(mesh, topology.n)
     opt = optim_mod.make_optimizer(optimizer_name, topology, beta=beta,
                                    momentum_dtype=momentum_dtype,
                                    compression=compression, overlap=overlap,
                                    loss_aware=loss_aware, deadline=deadline)
+    if warmup_steps:
+        opt = transforms.allreduce_warmup(warmup_steps)(opt)
     step_fn = steps_mod.make_train_step(cfg, opt, micro_batch=micro_batch,
                                         timeline=timeline)
     plan = GossipPlan.for_optimizer(opt, fn=step_fn, mesh=mesh)
@@ -191,6 +195,28 @@ def image_embeds(seed: int, step: int, shape, device) -> torch.Tensor:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _scope(mesh, name: str):
+    """The mesh's wire log scope ``name`` (nothing without a mesh)."""
+    return contextlib.nullcontext() if mesh is None else mesh.log.scope(name)
+
+
+def _save(ckpt_dir: str, step: int, payload: dict, mesh) -> None:
+    """``checkpoint.save`` of the train state ``payload`` (the reference's
+    layout).  On a mesh each rank holds its node's rows: every leaf is
+    gathered at rank 0 (on the host over gloo), which writes the whole
+    run's checkpoint, and the line waits for it."""
+    if mesh is None:
+        checkpoint.save(ckpt_dir, step, payload)
+        return
+    host = mesh.backend == "gloo"
+    full = checkpoint.map_leaves(
+        lambda x: mesh.gather(x.cpu() if host else x, "node"), payload)
+    if mesh.axis_index("node") == 0:
+        checkpoint.save(ckpt_dir, step, full)
+    del full
+    mesh.barrier("node")
 
 
 def prepare(args, tokens=None, node: int | None = None) -> dict:
@@ -270,7 +296,8 @@ def prepare(args, tokens=None, node: int | None = None) -> dict:
 
 def run(args, timeline=None, mesh=None, start=None) -> dict:
     """Train per ``args`` (the CLI's namespace).  Returns the history (one
-    entry per logged step: step, loss, consensus, lr, step_s), every
+    entry per logged step: step, loss, consensus, lr, step_s, and log_s,
+    the seconds of the logging after the step), every
     step's seconds, the final params and state (flushed under
     ``--overlap``), the config, the plan and the per-step ``alive`` flags
     (None without ``--deadline-skip``).  ``timeline`` (a list) collects
@@ -282,8 +309,7 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
     (on a mesh ``prepare(args, node=i)``, the rank's node ``i``)."""
     node, loud = None, True
     if mesh is not None:
-        check_mesh(mesh, args.nodes, overlap=args.overlap,
-                   optimizer_name=args.optimizer, ckpt=bool(args.ckpt_dir))
+        check_mesh(mesh, args.nodes)
         node, loud = mesh.axis_index("node"), mesh.rank == 0
     start = prepare(args, node=node) if start is None else start
     if start.get("node") != node:
@@ -313,36 +339,51 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
         _sync(device)
         step_s.append(time.perf_counter() - t)
         if step % args.log_every == 0 or step == args.steps - 1:
-            # the flushed view (pure; dropped at once: under --overlap it
-            # is a payload-sized buffer of its own)
-            cd = consensus_distance(
-                plan.flush_step_fn(step + 1)(stacked, state)[0], mesh)
-            if mesh is not None:     # the node mean of the ranks' losses
-                loss = mesh.psum(loss.reshape(1).float(), "node")[0] \
-                    / args.nodes
-            history.append(dict(step=step, loss=float(loss), consensus=cd,
-                                lr=lr, step_s=step_s[-1]))
+            t = time.perf_counter()
+            with _scope(mesh, "log"):
+                # the flushed view (pure; dropped at once: under --overlap
+                # it is a payload-sized buffer of its own, and on a mesh
+                # one more payload-sized permute)
+                cd = consensus_distance(
+                    plan.flush_step_fn(step + 1)(stacked, state)[0], mesh)
+                if mesh is not None:   # the node mean of the ranks' losses
+                    loss = mesh.psum(loss.reshape(1).float(), "node")[0] \
+                        / args.nodes
+                loss = float(loss)
+            history.append(dict(step=step, loss=loss, consensus=cd,
+                                lr=lr, step_s=step_s[-1],
+                                log_s=time.perf_counter() - t))
             if loud:
-                print(f"step {step:5d}  loss {float(loss):.4f}  "
+                print(f"step {step:5d}  loss {loss:.4f}  "
                       f"consensus {cd:.3e}  lr {lr:.2e}  "
                       f"step {1e3 * step_s[-1]:.1f} ms  "
                       f"({time.perf_counter() - t0:.1f}s)", flush=True)
         if args.ckpt_dir and step and step % args.ckpt_every == 0:
-            if args.overlap and args.ckpt_flush:
-                # flush-on-save: the mixed iterates, no buffer; a resume
-                # re-primes (step_for(k, prime=True))
-                fp, fs = plan.flush_step_fn(step + 1)(stacked, state)
-                payload = train_state_to_jax(fp, fs.momentum, cfg)
-            else:
-                # carry-buffer: the in-flight payload is saved with the
-                # state, so a resume is bit-identical to never stopping
-                payload = train_state_to_jax(stacked, state.momentum, cfg)
-                if state.buf is not None:
-                    payload["gossip_buf"] = gossip_buf_to_jax(
-                        state.buf, opt.payload_template(stacked, state), cfg)
-            checkpoint.save(args.ckpt_dir, step, payload)
+            with _scope(mesh, "ckpt"):
+                if args.overlap and args.ckpt_flush:
+                    # flush-on-save: the mixed iterates, no buffer; a
+                    # resume re-primes (step_for(k, prime=True))
+                    fp, fs = plan.flush_step_fn(step + 1)(stacked, state)
+                    payload = train_state_to_jax(fp, fs.momentum, cfg)
+                    del fp, fs
+                else:
+                    # carry-buffer: the in-flight payload is saved with the
+                    # state, so a resume is bit-identical to never stopping
+                    payload = train_state_to_jax(stacked, state.momentum,
+                                                 cfg)
+                    if state.buf is not None:
+                        # on a mesh the rank's block, packed at its own
+                        # layout (pad_multiple=1); the reference's packing
+                        # of the whole payload is the blocks' rows stacked
+                        payload["gossip_buf"] = gossip_buf_to_jax(
+                            state.buf, opt.payload_template(stacked, state),
+                            cfg, pad_multiple=1 if mesh is not None
+                            else flatbuf.PAD_MULTIPLE)
+                _save(args.ckpt_dir, step, payload, mesh)
+                del payload
     if args.overlap:
-        stacked, state = plan.flush_step_fn(args.steps)(stacked, state)
+        with _scope(mesh, "flush"):
+            stacked, state = plan.flush_step_fn(args.steps)(stacked, state)
     alive = ([b["alive"].tolist() for b in batches] if args.deadline_skip
              else None)
     return {"history": history, "step_s": step_s, "params": stacked,

@@ -111,13 +111,27 @@ def _project_qkv(p: Attention, x, n_heads, n_kv, head_dim, qk_norm,
     return q, k, v
 
 
-def _sdpa(q, k, v, mask, attn_cap=None):
-    """Grouped-layout masked attention: the train forward's attention, and
-    the positions-masked oracle the kernel path is held to.  q: (B,S,H,hd); k,v: (B,T,Kv,hd); mask:
-    (B,1,S,T) or (1,1,S,T) bool."""
+def _sdpa(q, k, v, mask, attn_cap=None, gqa_layout="grouped"):
+    """Masked attention: the train forward's attention, and the
+    positions-masked oracle the kernel path is held to.  q: (B,S,H,hd);
+    k,v: (B,T,Kv,hd); mask: (B,1,S,T) or (1,1,S,T) bool.
+
+    gqa_layout, as in the reference: ``"grouped"`` shapes the scores (B,
+    Kv, G, S, T); ``"flat"`` repeats K and V to H heads and shapes them
+    (B, H, S, T) -- the same values, more bytes (the dry run's knob)."""
     B, S, H, hd = q.shape
     Kv = k.shape[2]
     G = H // Kv
+    if gqa_layout == "flat":
+        kf = torch.repeat_interleave(k, G, dim=2)        # (B,T,H,hd)
+        vf = torch.repeat_interleave(v, G, dim=2)
+        logits = torch.einsum("bshd,bthd->bhst", q, kf).float()
+        logits = logits * hd ** -0.5
+        if attn_cap is not None:
+            logits = attn_cap * torch.tanh(logits / attn_cap)
+        logits = torch.where(mask, logits, NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        return torch.einsum("bhst,bthd->bshd", probs, vf)
     qg = q.reshape(B, S, Kv, G, hd)
     logits = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
     logits = logits * hd ** -0.5
@@ -125,13 +139,16 @@ def _sdpa(q, k, v, mask, attn_cap=None):
         logits = attn_cap * torch.tanh(logits / attn_cap)
     logits = torch.where(mask[:, :, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
-    return out.reshape(B, S, H, hd)
+    # the product in the probabilities' own (k, g, s) order, so that no
+    # (S, T) tensor is copied; the small output is permuted after
+    out = torch.einsum("bkgst,btkh->bkgsh", probs, v)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
 
 
 def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
                rope_theta=10000.0, qk_norm=False, window=None,
-               attn_cap=None, return_kv=False, kernel=True):
+               attn_cap=None, return_kv=False, kernel=True,
+               gqa_layout="grouped"):
     """Causal self-attention on a full sequence.
 
     kernel: True (serving prefill; the hybrid shared block when
@@ -144,6 +161,8 @@ def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
     window: if set, token i attends to (i-window, i] (sliding window).
     return_kv: also return the (rotated, normed) k, v as (B, S, Kv, hd) --
       exactly what a decode cache stores.
+    gqa_layout: the plain attention's score layout (:func:`_sdpa`); the
+      kernel takes no layout.
     """
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm,
@@ -157,7 +176,7 @@ def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
         mask = j <= i
         if window is not None:
             mask &= j > i - window
-        out = _sdpa(q, k, v, mask[:, None], attn_cap)
+        out = _sdpa(q, k, v, mask[:, None], attn_cap, gqa_layout)
     y = out.reshape(B, S, n_heads * head_dim) @ p.wo.to(x.dtype)
     if return_kv:
         return y, k, v

@@ -153,6 +153,10 @@ class ModelConfig:
     attention_impl: str = "jnp"
     remat: bool = True
     attention_override_window: int | None = None
+    # the reference's two layout knobs (the dry run's --knob): the default
+    # positions as one (1, S) row, broadcast over the batch, so the causal
+    # mask is (1, S, S); and the plain attention's score layout, "grouped"
+    # (B, Kv, G, S, T) or "flat" (K/V repeated to H heads, (B, H, S, T))
     broadcast_positions: bool = False
     gqa_layout: str = "grouped"
 
@@ -415,7 +419,7 @@ def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
         head_dim=cfg.head_dim, positions=positions,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
         window=_effective_window(cfg, layer), attn_cap=cfg.attn_softcap,
-        return_kv=prefill, kernel=prefill)
+        return_kv=prefill, kernel=prefill, gqa_layout=cfg.gqa_layout)
     h, kv = (out[0], out[1:]) if prefill else (out, None)
     x = x + h
     h, aux = _ffn(cfg, p, rms_norm(p.ln2.scale, x, cfg.norm_eps),
@@ -480,10 +484,13 @@ def _embed_tokens(params: Model, cfg: ModelConfig, tokens):
     return x
 
 
-def _default_positions(tokens):
+def _default_positions(cfg: ModelConfig, tokens):
+    """``arange(S)`` for each of the B rows, or one (1, S) row that
+    broadcasts over the batch under ``cfg.broadcast_positions``."""
     B, S = tokens.shape[0], tokens.shape[1]
+    rows = 1 if cfg.broadcast_positions else B
     return torch.arange(S, dtype=torch.int32,
-                        device=tokens.device).expand(B, S)
+                        device=tokens.device).expand(rows, S)
 
 
 def forward(params: Model, cfg: ModelConfig, tokens, *, image_embeds=None,
@@ -518,7 +525,7 @@ def _forward(params, cfg, tokens, positions, prefill, image_embeds=None):
     x = _embed_tokens(params, cfg, tokens)
     x0 = x                     # hybrid: the shared block's embedding input
     if positions is None:
-        positions = _default_positions(tokens)
+        positions = _default_positions(cfg, tokens)
     remat = cfg.remat and not prefill and torch.is_grad_enabled()
 
     def run(block, *args):
@@ -551,7 +558,8 @@ def _forward(params, cfg, tokens, positions, prefill, image_embeds=None):
             x = _shared_block(cfg, shared, x, x0, lambda h: attn.attn_apply(
                 shared.attn, h, positions=positions,
                 window=cfg.window_for(True),
-                kernel=cfg.attention_impl == "pallas", **_attn_kw(cfg)))
+                kernel=cfg.attention_impl == "pallas",
+                gqa_layout=cfg.gqa_layout, **_attn_kw(cfg)))
     x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
     logits = _lm_head(params, cfg, x)
     if prefill:

@@ -118,14 +118,51 @@ def test_dryrun_cli(tmp_path, capsys, monkeypatch, arch, shape, mesh, tag):
     rec = json.loads((tmp_path / f"dryrun_{arch}_{shape}_{tag}.json")
                      .read_text())
     assert rec["ok"] and rec["cost"]["flops"] > 0
-    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
-    assert rec["memory_analysis"]["temp_bytes"] is not None
+    # the terms are lower bounds: no dominant term, the largest counted
+    # one named apart
     assert rec["uncounted"].startswith("intra-replica collectives")
+    assert rec["roofline"]["dominant"] is None
+    assert rec["roofline"]["dominant_counted"] in ("compute", "memory",
+                                                   "collective")
+    assert rec["memory_analysis"]["temp_bytes"] is not None
     monkeypatch.setenv("DRYRUN_DIR", str(tmp_path))
     TMX.main([])
     out = capsys.readouterr().out
     assert f"| {arch} | {shape} | {tag} |" in out
     assert out.count(f"| {arch} | {shape} | {tag} |") == 2
+
+
+def test_layout_knobs_move_the_count(tmp_path, capsys):
+    """qwen3 ``prefill_32k`` on one pod moves with the two layout knobs
+    as the reference's count does: ``gqa_layout=flat`` counts more bytes
+    and a higher peak, ``broadcast_positions=1`` a lower peak; the flops
+    stay (within 1e-4: one positions row leaves B - 1 rows of rope
+    angles uncomputed); each record names its knob."""
+    recs = {}
+    for tag, knobs in (("base", {}), ("flat", {"gqa_layout": "flat"}),
+                       ("bcast", {"broadcast_positions": 1})):
+        recs[tag] = D.run_one("qwen3-0.6b", "prefill_32k", multi_pod=False,
+                              out_dir=str(tmp_path), verbose=False,
+                              knobs=knobs)
+        assert recs[tag]["knobs"] == knobs
+    base, flat, bcast = recs["base"], recs["flat"], recs["bcast"]
+
+    def temp(r):
+        return r["memory_analysis"]["temp_bytes"]
+
+    assert flat["cost"]["hbm_bytes"] > base["cost"]["hbm_bytes"]
+    assert temp(flat) > temp(base)
+    assert temp(bcast) < temp(base)
+    for r in (flat, bcast):
+        assert abs(r["cost"]["flops"] - base["cost"]["flops"]) <= \
+            1e-4 * base["cost"]["flops"]
+    assert flat["cost"]["flops"] == base["cost"]["flops"]
+    # a record of lower bounds names no dominant term
+    assert base["roofline"]["dominant"] is None
+    assert base["roofline"]["dominant_counted"] == "memory"
+    D.main(["--arch", "qwen3-0.6b", "--shape", "prefill_32k", "--mesh",
+            "1pod", "--knob", "gqa_layout=flat", "--out", str(tmp_path)])
+    assert "dominant=memory (lower bound)" in capsys.readouterr().out
 
 
 def test_n_params_and_active_params_match_the_reference():

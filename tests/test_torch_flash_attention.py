@@ -100,6 +100,28 @@ def test_attn_apply_matches_jax_pallas_and_sdpa():
     np.testing.assert_allclose(_f32(got), _f32(oracle), rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("attn_cap", [None, 50.0])
+@pytest.mark.parametrize("H,Kv", [(4, 2), (8, 1)])
+def test_sdpa_flat_layout_matches_jax(H, Kv, attn_cap):
+    """``_sdpa(gqa_layout="flat")`` (K and V repeated to H heads, scores
+    (B, H, S, T)) against the reference's flat layout, in f32, under a
+    (B, 1, S, T) and a broadcast (1, 1, S, T) causal mask; and the grouped
+    layout gives the same values."""
+    (qj, kj, vj), (qt, kt, vt) = _qkv(2, 64, 64, H, Kv, 32, H + Kv, "f32")
+    for rows in (2, 1):
+        mask = np.broadcast_to(np.tril(np.ones((64, 64), bool)),
+                               (rows, 1, 64, 64))
+        got = TA._sdpa(qt, kt, vt, torch.from_numpy(mask.copy()), attn_cap,
+                       gqa_layout="flat")
+        want = JA._sdpa(qj, kj, vj, jnp.asarray(mask), attn_cap,
+                        gqa_layout="flat")
+        assert got.shape == (2, 64, H, 32)
+        np.testing.assert_allclose(_f32(got), _f32(want), **TOL32)
+        grouped = TA._sdpa(qt, kt, vt, torch.from_numpy(mask.copy()),
+                           attn_cap)
+        np.testing.assert_allclose(_f32(got), _f32(grouped), **TOL32)
+
+
 class _Elsewhere(torch.Tensor):
     """A tensor that reports a device the wrappers do not take."""
 

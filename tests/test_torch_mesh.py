@@ -15,8 +15,9 @@ against the JAX package's.
   reduced qwen3 in f32 on a (node 4) mesh, one rank per node, held
   against the port's single-process run and the reference's
   ``build_trainer`` without a mesh.
-* What training on a mesh cannot run yet raises, naming ROADMAP item 18b;
-  a rank's ``prepare`` builds only its own node.
+* What training on a mesh cannot run yet (an fsdp or model extent above
+  1) raises, naming ROADMAP item 18b; a rank's ``prepare`` builds only its
+  own node.
 """
 import dataclasses
 import re
@@ -188,27 +189,33 @@ def test_logical_and_production_meshes():
 
 
 def test_training_on_a_mesh_refuses_item_18b():
-    """fsdp/model extents above 1, the overlapped trainer, parallel_msgd
-    and checkpoints on a mesh raise naming ROADMAP item 18b."""
+    """Only fsdp/model extents above 1 raise, naming ROADMAP item 18b; on
+    a node mesh the overlapped trainer, parallel_msgd, the warm-up and
+    checkpoints (``run``'s refusals are ``check_mesh``'s) build, their
+    plans on the mesh."""
     cfg = tconfigs.reduced_config(tconfigs.get_config("qwen3-0.6b"))
     top = TT.one_peer_exponential(4)
-    for mesh, kw in (
-            (MM.abstract_mesh((4, 2), ("node", "fsdp")), {}),
-            (MM.abstract_mesh((4, 1, 2), ("node", "fsdp", "model")), {}),
-            (MM.abstract_mesh((4,), ("node",)), {"overlap": True})):
+    for mesh in (MM.abstract_mesh((4, 2), ("node", "fsdp")),
+                 MM.abstract_mesh((4, 1, 2), ("node", "fsdp", "model"))):
+        for kw in ({}, {"overlap": True}):
+            with pytest.raises(NotImplementedError, match="item 18b"):
+                TTrain.build_trainer(cfg, top, "dmsgd", 0.9, mesh=mesh, **kw)
         with pytest.raises(NotImplementedError, match="item 18b"):
-            TTrain.build_trainer(cfg, top, "dmsgd", 0.9, mesh=mesh, **kw)
+            TTrain.check_mesh(mesh, 4)
     node = MM.abstract_mesh((4,), ("node",))
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        TTrain.build_trainer(cfg, top, "parallel_msgd", 0.9, mesh=node)
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        TTrain.check_mesh(node, 4, ckpt=True)
     with pytest.raises(ValueError, match="'node' axis of 8"):
         TTrain.check_mesh(node, 8)
-    # a node mesh with an fsdp extent of 1 builds, its plan on the mesh
+    assert TTrain.check_mesh(node, 4) is None
     ok = MM.abstract_mesh((4, 1), ("node", "fsdp"))
-    _, step_for = TTrain.build_trainer(cfg, top, "dmsgd", 0.9, mesh=ok)
-    assert step_for.plan.mesh is ok
+    for name, kw in (("dmsgd", {}), ("dmsgd", {"overlap": True}),
+                     ("dmsgd", {"overlap": True, "compression": "int8"}),
+                     ("parallel_msgd", {}), ("dmsgd", {"warmup_steps": 1})):
+        for mesh in (node, ok):
+            opt, step_for = TTrain.build_trainer(cfg, top, name, 0.9,
+                                                 mesh=mesh, **kw)
+            assert step_for.plan.mesh is mesh
+            assert opt.overlap == bool(kw.get("overlap"))
+            assert opt.warmup_steps == kw.get("warmup_steps", 0)
 
 
 @pytest.mark.parametrize("desync", [False, True])
@@ -322,7 +329,8 @@ def test_dmsgd_on_a_node_mesh_matches_single_process_and_reference(world):
         tr = res["train"]
         assert tr["wire"] == "gloo" and tr["num_compiled"] == \
             single["plan"].num_compiled
-        assert set(tr["log"]) == {"permute", "psum"}
+        # the steps' permutes; the logging's reductions apart
+        assert set(tr["log"]) == {"permute", "log:psum"}
         np.testing.assert_allclose(
             [h["loss"] for h in tr["history"]],
             [h["loss"] for h in single["history"]], **tol)

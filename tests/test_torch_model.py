@@ -144,6 +144,28 @@ def test_prefill_and_paged_decode_match_jax(jax_setup, act):
                                    _f32(jpool[name])[:, :, 1:], **tol)
 
 
+@pytest.mark.parametrize("knobs", [{"broadcast_positions": True},
+                                   {"gqa_layout": "flat"},
+                                   {"broadcast_positions": True,
+                                    "gqa_layout": "flat"}])
+def test_layout_knobs_forward_matches_jax(jax_setup, knobs):
+    """The train forward of reduced qwen3 in f32 under the dry run's two
+    layout knobs (default positions one broadcast row; K/V repeated to H
+    heads) against the reference's forward under the same knobs, 2e-4;
+    the knobs change no value."""
+    jcfg, jparams, tcfg, model, tol = _pair(jax_setup, "f32")
+    tokens = np.random.default_rng(3).integers(
+        0, tcfg.vocab_size, (2, 24)).astype(np.int32)
+    jcfg = dataclasses.replace(jcfg, attention_impl="jnp", **knobs)
+    want, _ = JM.forward(jparams, jcfg, jnp.asarray(tokens))
+    with torch.no_grad():
+        got, _ = TM.forward(model, dataclasses.replace(tcfg, **knobs),
+                            torch.from_numpy(tokens))
+        base, _ = TM.forward(model, tcfg, torch.from_numpy(tokens))
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+    np.testing.assert_allclose(_f32(got), _f32(base), **tol)
+
+
 def test_unsupported_family_raises():
     """Every family of the reference runs; one it does not have raises."""
     cfg = dataclasses.replace(

@@ -376,8 +376,8 @@ def test_runtime_refusals_match_reference(tmp_path, n=8):
     round, a Gated round with an explicit node_gate, metadata on a Dense
     round, a missing aux flag.  A runtime round with mesh= mixes with one
     rank per node (tests/test_torch_shard_native.py); with several nodes
-    a rank (the gathered global path) it raises, naming ROADMAP item
-    18b."""
+    a rank it takes the gathered global path (here all n nodes on one
+    rank), bit for bit the single-process round."""
     tree = _tree(n)
     alive = torch.ones(n, dtype=torch.bool)
     dense = TT.Dense(np.full((n, n), 1.0 / n))
@@ -388,9 +388,14 @@ def test_runtime_refusals_match_reference(tmp_path, n=8):
             TT.one_peer_hypercube(n).realization(0), alive), node_gate=alive)
     with pytest.raises(ValueError, match="permute wire"):
         TG.mix_realization(tree, dense, node_gate=alive)
+    gate = alive.clone()
+    gate[1] = False
+    want = TG.mix_shifts(tree, 0.5, [(1, 0.5)], node_gate=gate)
     with MC.one_rank_mesh(tmp_path) as mesh:
-        with pytest.raises(NotImplementedError, match="item 18b"):
-            TG.mix_shifts(tree, 0.5, [(1, 0.5)], mesh=mesh, node_gate=alive)
+        got = TG.mix_shifts(tree, 0.5, [(1, 0.5)], mesh=mesh, node_gate=gate)
+        assert set(mesh.log.counts()) == {"all_gather"}
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
     opt = TO.dmsgd(TT.one_peer_exponential(n), deadline=True)
     params = {"x": torch.zeros((n, 3))}
     with pytest.raises(ValueError, match="alive"):

@@ -75,7 +75,7 @@ def _stacked_np(np_params, n, seed=1):
 
 def _train_both(np_params, act, n, steps=STEPS, micro_batch=None,
                 arch="qwen3-0.6b", optimizer="dmsgd", topology="one_peer_exp",
-                straggler_prob=None):
+                straggler_prob=None, warmup_steps=0):
     """``steps`` train steps on both packages.  With ``straggler_prob``
     the trainers are loss-aware with deadline skips, and both batches
     carry the same numpy ``alive`` draws."""
@@ -84,6 +84,8 @@ def _train_both(np_params, act, n, steps=STEPS, micro_batch=None,
     jtop, ttop = JT.get_topology(topology, n), TT.get_topology(topology, n)
     rt = ({} if straggler_prob is None
           else {"loss_aware": True, "deadline": True})
+    if warmup_steps:
+        rt["warmup_steps"] = warmup_steps
     jopt, jstep_for = JTrain.build_trainer(jcfg, jtop, optimizer, 0.9,
                                            micro_batch, **rt)
     topt, tstep_for = TTrain.build_trainer(tcfg, ttop, optimizer, 0.9,
@@ -153,6 +155,22 @@ def test_runtime_train_steps_match_jax(jax_params, n=4):
     round is runtime-valued)."""
     tcfg, tol, losses, (jx, js, jplan), (tx, ts, tplan) = _train_both(
         jax_params, "f32", n, straggler_prob=0.4)
+    got, want = zip(*losses)
+    np.testing.assert_allclose(got, want, **tol)
+    _check_state(tcfg, tol, tx, ts, jx, js)
+    assert tplan.num_compiled == jplan.num_compiled == 2
+
+
+def test_warmup_steps_match_jax(jax_params, n=4):
+    """``build_trainer(warmup_steps=2)``: the plan keys of steps 0-4 are
+    the reference's (the warm-up phase its own key), and over 3 steps
+    (two warm-up rounds, one one-peer round) the losses and final state
+    agree in f32 within 2e-4."""
+    tcfg, tol, losses, (jx, js, jplan), (tx, ts, tplan) = _train_both(
+        jax_params, "f32", n, warmup_steps=2)
+    keys = [tplan.realization_key(k) for k in range(5)]
+    assert keys == [jplan.realization_key(k) for k in range(5)]
+    assert keys[:2] == [("warmup",)] * 2 and ("warmup",) not in keys[2:]
     got, want = zip(*losses)
     np.testing.assert_allclose(got, want, **tol)
     _check_state(tcfg, tol, tx, ts, jx, js)
