@@ -312,7 +312,22 @@ Phases, in order; any failure exits non-zero before the result lines:
                  against the single-process run's array by array, (g)
                  runtime rounds with 2 nodes a rank (node 2 x fsdp 2: each
                  node line 2 ranks over 4 nodes) bit for bit the global
-                 path's, and the legs' seconds; (c) on one card asking
+                 path's, and the legs' seconds; (h)-(i) on one world of
+                 8 ranks, a (node 4, fsdp 2, model 1) mesh, the same
+                 model in f32 activations, each rank holding its fsdp
+                 shards, gathering its node's leaves for the gradients
+                 and reduce-scattering their mean: (h) dmsgd, 3 steps,
+                 and the every=2 pair (the Shifts step one permute more
+                 than the Identity step, nothing else), (i) --overlap, 3
+                 steps, its carry-buffer checkpoint at step 2 against the
+                 single-process run's array by array, both held against
+                 the single-process run with the plain combine (2e-4 of
+                 max-abs; bit for bit reported), the fsdp ops a step
+                 (one all_gather, one reduce_scatter, one psum), per rank
+                 median step ms, peak memory beside (d)'s, the wire log
+                 per kind and K1 (3 / 5 a rank); then K1 alone at a
+                 rank's (1, 187.0 M) f32 block from CUDA-graph replays in
+                 turns with torch.lerp, beside its bytes bound; (c) on one card asking
                  for NCCL raises (two ranks on cuda:0); with >= 4 cards
                  (a)'s tree also runs over NCCL, one card a rank, else
                  one line says why not
@@ -3381,7 +3396,200 @@ def _mesh_legs(torch, seed):
             "overlap_step_ms_per_rank": ovl_ms, "sync_step_ms_per_rank": sync_ms,
             "psum_ms_per_rank": psum_ms, "psum_bytes": psum_b[0],
             "overlap_bit_equal": bits, "parallel_msgd_bit_equal": pbits,
+            "overlap_peak_gb_per_rank": [r["runs"][OVL]["peak_gb"]
+                                         for r in res],
+            "sync_peak_gb_per_rank": [r["runs"][SYNC]["peak_gb"]
+                                      for r in res],
             "ckpt": ck, "seconds": total}
+
+
+FSDP_SHAPE = (4, 2, 1)     # (node, fsdp, model): the reference tests' mesh
+FSDP_STEPS = 3             # (h), (i): a save at step 2 in (i)
+
+
+def _wire_rows(log: dict) -> dict:
+    """A wire log per kind: (ops, bytes, s, staging share of the s)."""
+    return {k: (v["ops"], v["bytes"], round(v["s"], 3),
+                round(v["stage_s"] / v["s"], 3) if v["s"] else 0.0)
+            for k, v in log.items()}
+
+
+def _k1_fsdp_block(torch, elems: int, seed: int) -> dict:
+    """K1 alone at a rank's (1, elems) f32 (m, x) block, degree 1 with
+    weights 1/2 (one-peer Shifts over 4 nodes), against its plain version
+    (max abs err), then timed from CUDA-graph replays in turns with
+    ``torch.lerp``, beside its bytes bound (x and the received block read
+    once, the output written once)."""
+    from repro_torch.kernels.gossip_mix import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(seed + 27)
+    x, r = (torch.randn((1, elems), generator=g, device="cuda")
+            for _ in range(2))
+    got = ops.gossip_mix(x, [r], w_self=0.5, ws=(0.5,))
+    err = max_err(got, ref.gossip_mix_ref(x, [r], 0.5, (0.5,)))
+    del got
+    check(err <= GOSSIP_TOL["float32"], f"K1 at the fsdp block (1, {elems})"
+          f": max abs err {err} beyond {GOSSIP_TOL['float32']}")
+    t = time_turns({
+        "kernel": lambda: ops.gossip_mix(x, [r], w_self=0.5, ws=(0.5,)),
+        "lerp": lambda: torch.lerp(x, r, 0.5)},
+        timer=lambda f: time_graph_us(f) / 1e3)
+    plain = time_ms(lambda: ref.gossip_mix_ref(x, [r], 0.5, (0.5,)),
+                    iters=5)
+    bound, by = bound_us(3 * elems, 3 * 4 * elems, PEAK_F32_FLOPS)
+    del x, r
+    torch.cuda.empty_cache()
+    return {"elems": elems, "max_abs_err": err, "ms": t["kernel"],
+            "lerp_ms": t["lerp"], "plain_ms": plain, "bound_ms": bound / 1e3,
+            "bound_by": by}
+
+
+def _fsdp_legs(torch, seed, d_peaks):
+    """(h), (i) on one world of 8 ranks sharing the card over gloo-host,
+    a (node 4, fsdp 2, model 1) mesh: each rank keeps its fsdp shard of
+    its node's leaves, gathers the node's whole leaves for the gradient
+    pass and reduce-scatters the gradients' mean.  Activations in f32
+    (``mesh_check.f32_start``), every run alike: the row split changes
+    the products' shapes, which bf16 activations round apart by more
+    than the 2e-4 held here.  (h) dmsgd synchronous,
+    then the every=2 pair (a Shifts step against the same step's
+    Identity: one permute more and nothing else); (i) --overlap with a
+    carry-buffer checkpoint at step 2, written by the mesh's rank 0 and
+    held array by array against the single-process run's (kept in
+    memory by a stand-in ``checkpoint.save``, taken after the world).  Both held in this process against the
+    single-process run with the plain combine (every rank's K1 meets its
+    plain version), shard by shard; then K1 alone at a rank's block.
+    ``d_peaks``: (d)'s peaks, (sync, overlap) per rank."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from repro_torch.core import gossip
+    from repro_torch.launch import mesh_check as MC
+    from repro_torch.launch import train as T
+    t_legs = time.perf_counter()
+    base = MESH_LEG_ARGV + ["--seed", str(seed), "--steps", str(FSDP_STEPS)]
+    ovl = base + ["--overlap", "--ckpt-every", "2"]
+    tmp = tempfile.mkdtemp(prefix="fsdp_ckpt_")
+    try:
+        start = MC.f32_start(T.parse_args(ovl))
+        tokens = [b["tokens"].numpy() for b in start["batches"]]
+        refs = {}
+        with gossip.kernel_mode("off"):
+            for name, argv in (("overlap", ovl), ("sync", base)):
+                a = T.parse_args(argv)
+                r = T.run(a, start=start if name == "overlap"
+                          else MC.f32_start(a, tokens))
+                refs[name] = ([h["loss"] for h in r["history"]],
+                              (r["state"].momentum, r["params"]))
+                del r
+                start = None
+                torch.cuda.empty_cache()
+        t_refs = time.perf_counter() - t_legs
+        SYNC, OVL = range(2)
+        runs = [(base, refs["sync"][1]),
+                (ovl + ["--ckpt-dir", f"{tmp}/mesh"], refs["overlap"][1])]
+        res, comps = MC.train_world(runs, tokens, shape=FSDP_SHAPE,
+                                    axes=MC.TRAIN_AXES, every2=base,
+                                    f32=True)
+        losses = {k: v[0] for k, v in refs.items()}
+        del refs, runs
+        torch.cuda.empty_cache()
+        t_world = time.perf_counter() - t_legs - t_refs
+        fsdp_want = {"fsdp:all_gather": FSDP_STEPS,
+                     "fsdp:reduce_scatter": FSDP_STEPS,
+                     "fsdp:psum": FSDP_STEPS}
+        out = {}
+        for leg, idx, what, k1_want, perm_want in (
+                ("h", SYNC, "fsdp sync", FSDP_STEPS, FSDP_STEPS),
+                # 2 delayed rounds, 2 logged flushes (steps 0 and 2), 1
+                # final flush; the priming step permutes nothing
+                ("i", OVL, "fsdp overlap", FSDP_STEPS + 2, FSDP_STEPS - 1)):
+            bits, k1, peaks, ms = [], [], [], []
+            for r in res:
+                o = r["runs"][idx]
+                bits.append(_against_single(what, o, losses[
+                    "sync" if idx == SYNC else "overlap"],
+                    comps[idx][o["rank"]]))
+                fs = {k: v["ops"] for k, v in o["log"].items()
+                      if k.startswith("fsdp:")}
+                check(fs == fsdp_want, f"{what} rank {o['rank']}: fsdp ops "
+                      f"{fs}, expected {fsdp_want}")
+                perm = o["log"].get("permute", {}).get("ops", 0)
+                check(perm == perm_want, f"{what} rank {o['rank']}: "
+                      f"{perm} permutes in the steps, expected {perm_want}")
+                check(o["k1"] == k1_want, f"{what} rank {o['rank']}: K1 "
+                      f"{o['k1']}, reckoned {k1_want}")
+                k1.append(o["k1"])
+                peaks.append(o["peak_gb"])
+                ms.append(_median_ms(o["step_s"]))
+            o0 = res[0]["runs"][idx]
+            log(f"  ({leg}) {what}, {FSDP_STEPS} steps on a (node 4, fsdp "
+                f"2, model 1) mesh ({o0['wire']}), "
+                f"{sum(o0['param_elems'].values()) / 1e6:.1f} M parameters "
+                f"a rank: losses {[round(h['loss'], 5) for h in o0['history']]}"
+                f" (single process {[round(v, 5) for v in losses['sync' if idx == SYNC else 'overlap']]}); "
+                f"final (m, x) shards per rank max abs diff "
+                f"{[comps[idx][k][1] for k in sorted(comps[idx])]} "
+                f"(tolerance {TRAIN_TOL} x max-abs), bit for bit {bits}")
+            log(f"  ({leg}) median step ms per rank "
+                f"{[round(v, 1) for v in ms]}; peak GB per rank "
+                f"{[round(v, 3) for v in peaks]} against (d)'s "
+                f"{'synchronous' if idx == SYNC else '--overlap'} leg, one "
+                f"rank a node, {[round(v, 3) for v in d_peaks[idx]]}; K1 per"
+                f" rank {k1}; rank 0 wire (ops, bytes, s, staging share): "
+                f"{_wire_rows(o0['log'])}")
+            out[leg] = {"k1_per_rank": k1, "bit_equal": bits,
+                        "peak_gb_per_rank": peaks, "step_ms_per_rank": ms,
+                        "wire_rank0": _wire_rows(o0["log"])}
+        # the every=2 pair: the gossip step adds one permute, nothing else
+        for r in res:
+            gossip_log, base_log = r["every2"]
+            counts = {k: v["ops"] for k, v in gossip_log.items()}
+            base_c = {k: v["ops"] for k, v in base_log.items()}
+            diff = {k: counts.get(k, 0) - base_c.get(k, 0)
+                    for k in set(counts) | set(base_c)}
+            diff = {k: d for k, d in diff.items() if d}
+            check(diff == {"permute": 1}, f"every=2 pair rank "
+                  f"{r['runs'][0]['rank']}: the gossip step adds {diff} "
+                  "over the Identity step, expected one permute")
+        log(f"  (h) every=2 pair: the Shifts step's wire {counts} against "
+            f"the Identity step's {base_c}: one permute more and nothing "
+            "else, on every rank")
+        # (i)'s carry-buffer checkpoint: rank 0 wrote the rows; the
+        # single-process run's, kept in memory by a stand-in save, is
+        # taken now that the world's ranks and their host buffers are gone
+        save, kept = _kept_checkpoints()
+        with gossip.kernel_mode("off"), \
+                mock.patch.object(T.checkpoint, "save", save):
+            a = T.parse_args(ovl + ["--ckpt-dir", f"{tmp}/single"])
+            T.run(a, start=MC.f32_start(a, tokens))
+        torch.cuda.empty_cache()
+        ck = _ckpt_arrays(f"{tmp}/mesh", 2, kept.pop(2))
+        check(ck["gossip_buf"], "fsdp checkpoint carries no gossip_buf")
+        log(f"  (i) --overlap --ckpt-dir (carry-buffer), step 2: "
+            f"{ck['leaves']} arrays ({ck['gb']:.2f} GB, gossip_buf among "
+            f"them, each leaf gathered over fsdp) against the "
+            f"single-process run's: {ck['bit_equal']} bit for bit, largest "
+            f"difference {ck['max_abs_diff']}")
+        out["ckpt"] = ck
+        elems = 2 * sum(res[0]["runs"][SYNC]["param_elems"].values())
+        del res
+        torch.cuda.empty_cache()
+        k = _k1_fsdp_block(torch, elems, seed)
+        log(f"  K1 at a rank's (1, {elems / 1e6:.1f} M) f32 (m, x) block: "
+            f"{k['ms']:.4f} ms ({100 * k['bound_ms'] / k['ms']:.1f} % of its"
+            f" {k['bound_ms']:.4f} ms {k['bound_by']} bound), torch.lerp "
+            f"{k['lerp_ms']:.4f} ms (K1 / lerp {k['ms'] / k['lerp_ms']:.4f}; "
+            f"graph replays in turns), plain {k['plain_ms']:.4f} ms, max abs "
+            f"err {k['max_abs_err']}")
+        out["k1_block"] = k
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = time.perf_counter() - t_legs
+    log(f"  (h)-(i) {total:.1f} s (single-process references {t_refs:.1f} "
+        f"s, the world {t_world:.1f} s)")
+    out["seconds"] = total
+    return out
 
 
 def mesh_phase(torch, dev, seed):
@@ -3480,6 +3688,11 @@ def mesh_phase(torch, dev, seed):
     # (d)-(g): the overlapped trainer, parallel_msgd, a checkpoint and a
     # runtime round with 2 nodes a rank, on one world
     out["legs"] = _mesh_legs(torch, seed)
+
+    # (h)-(i): fsdp-sharded training on a (node 4, fsdp 2, model 1) mesh
+    out["fsdp"] = _fsdp_legs(torch, seed, (
+        out["legs"]["sync_peak_gb_per_rank"],
+        out["legs"]["overlap_peak_gb_per_rank"]))
 
     # (c) NCCL: refused on one card; one card a rank where there are 4+
     msgs = mesh_mod.spawn(MC.nccl_refusal_rank, 2, (2,), timeout=120)
@@ -3883,8 +4096,11 @@ def main() -> int:
                 "overlap_per_rank": mesh["legs"]["overlap_k1_per_rank"],
                 "parallel_msgd_per_rank": mesh["legs"][
                     "parallel_msgd_k1_per_rank"],
+                "fsdp_sync_per_rank": mesh["fsdp"]["h"]["k1_per_rank"],
+                "fsdp_overlap_per_rank": mesh["fsdp"]["i"]["k1_per_rank"],
                 "nccl_per_rank": (mesh["nccl"]["k1_per_rank"]
                                   if mesh["nccl"] else None)}
+            k["fsdp_block"] = mesh["fsdp"]["k1_block"]
 
     torch.cuda.empty_cache()
     phase("phase 19: the dry run (meta) and the counter, card against meta")

@@ -15,8 +15,10 @@ The wire primitives are the engine's counterparts of ``lax.ppermute``,
 ``lax.psum``, ``lax.pmax`` and ``lax.axis_index``: :meth:`Mesh.permute`
 (explicit ``(src, dst)`` pairs in axis coordinates, one
 ``dist.batch_isend_irecv``), :meth:`Mesh.psum`, :meth:`Mesh.pmax`,
-:meth:`Mesh.axis_index`, and :meth:`Mesh.all_gather` (the global path's
-gather, and ``sharding.gather``).  :meth:`Mesh.permute_start` and
+:meth:`Mesh.axis_index`, :meth:`Mesh.all_gather` (the global path's
+gather, and ``sharding.gather``) and :meth:`Mesh.reduce_scatter`
+(``lax.psum_scatter``: fsdp training's gradient shards).
+:meth:`Mesh.permute_start` and
 :meth:`Mesh.psum_start` are the two halves of a permute and a psum: the
 start stages the buffer and posts the sends and receives, and the
 :class:`~repro_torch.core.gossip.Pending` it returns completes them on
@@ -95,7 +97,7 @@ def _link_bytes(kind: str, nbytes: int, group: int) -> float:
     g = max(group, 1)
     if kind in ("psum", "pmax"):
         return 2.0 * (g - 1) / g * nbytes
-    if kind == "all_gather":
+    if kind in ("all_gather", "reduce_scatter"):
         return float((g - 1) * nbytes)
     return float(nbytes)
 
@@ -103,11 +105,13 @@ def _link_bytes(kind: str, nbytes: int, group: int) -> float:
 @dataclasses.dataclass
 class WireLog:
     """What this rank's mesh ops moved since the last :meth:`reset`: per
-    kind (``permute``, ``psum``, ``pmax``, ``all_gather``, ``gather``)
-    the ops, the bytes this rank sent (a permute to itself sends none),
-    the link bytes (the reference's ``hlo_cost`` factors for an op over a
-    group of g ranks: a permute its buffer, an all-reduce 2 (g - 1) / g
-    of it, an all-gather (g - 1) times its block), the seconds of the op
+    kind (``permute``, ``psum``, ``pmax``, ``all_gather``,
+    ``reduce_scatter``, ``gather``) the ops, the bytes this rank sent (a
+    permute to itself sends none; an all-gather and a reduce-scatter
+    count the rank's block), the link bytes (the reference's ``hlo_cost``
+    factors for an op over a group of g ranks: a permute its buffer, an
+    all-reduce 2 (g - 1) / g of it, an all-gather or a reduce-scatter
+    (g - 1) times its block), the seconds of the op
     (from its start to the end of its wait), of those the seconds spent
     copying through pinned host memory (the ``gloo-host`` wire), and
     ``open_s``, the seconds between a split op's start and the call of
@@ -407,6 +411,30 @@ class Mesh:
                      stage + s, self.shape[axis])
         return out
 
+    def reduce_scatter(self, x: torch.Tensor, axis: str,
+                       dim: int = 0) -> torch.Tensor:
+        """``lax.psum_scatter`` over ``axis``: the sum over the line of
+        ``x``, whose ``dim`` holds the line's blocks in axis order, and of
+        which this rank keeps its own block (``x.shape[dim] // g`` along
+        ``dim``).  One ``dist.reduce_scatter_tensor`` on the line (its
+        newer name ``reduce_scatter_single`` where the torch has it)."""
+        self._need_live()
+        g = self.shape[axis]
+        if x.shape[dim] % g:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"{g} ways over {axis!r}")
+        t0 = time.perf_counter()
+        w, stage = self._to_wire(x.movedim(dim, 0).contiguous())
+        out_w = w.new_empty((w.shape[0] // g,) + tuple(w.shape[1:]))
+        op = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+        op(out_w, w, group=self.groups[axis])
+        out, s = self._from_wire(out_w, x)
+        self._sync_nccl(out)
+        self.log.add("reduce_scatter", out_w.nbytes,
+                     time.perf_counter() - t0, stage + s, g)
+        return out.movedim(0, dim)
+
     def gather(self, x: torch.Tensor, axis: str, dst: int = 0):
         """The line's blocks of ``x`` concatenated on dim 0 in axis order,
         at the rank whose ``axis`` coordinate is ``dst`` (None at the
@@ -482,11 +510,20 @@ class _DryMesh(Mesh):
         shape[dim] *= self.shape[axis]
         return x.new_empty(shape)
 
+    def reduce_scatter(self, x, axis, dim: int = 0):
+        self._dry("reduce_scatter", x)
+        shape = list(x.shape)
+        shape[dim] //= self.shape[axis]
+        out = x.new_empty(shape)
+        self.log.add("reduce_scatter", out.nbytes, 0.0, 0.0, self.shape[axis])
+        return out
+
 
 def dry_mesh(mesh: Mesh, rank: int = 0) -> Mesh:
     """``mesh``'s ranks and axes seen from ``rank`` (its coordinates, its
     lines), with a wire that moves nothing: ``permute``, ``psum``,
-    ``pmax`` and ``all_gather`` take meta tensors only (any other tensor
+    ``pmax``, ``all_gather`` and ``reduce_scatter`` take meta tensors
+    only (any other tensor
     raises), log into its own ``log`` the bytes that rank would send, by the
     live wire's rules (a permute to itself sends none), and return empty
     results of the live ops' shapes (``permute_start`` and

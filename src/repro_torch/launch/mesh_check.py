@@ -37,6 +37,14 @@ with two nodes a rank (:func:`gathered_runtime_rank`, held against
   PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu
   PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu \
       --train --nodes 4 --steps 6 --overlap --compression int8
+  PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu \
+      --fsdp 2 --train --nodes 4 --steps 6 --overlap --ckpt-dir /tmp/ck
+
+fsdp-sharded training (a node's leaves over its fsdp ranks, each rank
+holding its shards): :func:`fsdp_cases` on a CPU world of 8
+(:func:`fsdp_cases_rank`), and :func:`every2_logs`, the reference's
+differential wire check (a gossip step against the same step with
+``every=2``'s ``Identity``).
 """
 from __future__ import annotations
 
@@ -58,7 +66,9 @@ __all__ = ["NODES", "FSDP", "WBH_SPECS", "wbh_tree", "static_rounds",
            "engine_rank", "check", "payload_tree", "payload_world",
            "train_rank", "train_world", "train_cases", "warmup_run",
            "gathered_runtime_rank", "gathered_runtime_expected",
-           "train_cases_rank", "main"]
+           "train_cases_rank", "train_mesh", "every2_logs", "fsdp_cases",
+           "fsdp_cases_rank", "reduce_scatter_rank", "family_cases",
+           "FAMILY_ARCHS", "main"]
 
 NODES, FSDP = 4, 2
 WBH_SPECS = {"w": ("node", "fsdp"), "b": ("node",), "h": ("node", "fsdp")}
@@ -580,29 +590,52 @@ def _payload_entry(rank, shape, axes, seed, outq, goqs,
 # Training on a node mesh: one rank per node
 # ---------------------------------------------------------------------------
 
-def f32_start(args, tokens=None, node=None):
-    """``launch.train.prepare(args, tokens, node)`` with f32
+def f32_start(args, tokens=None, node=None, mesh=None):
+    """``launch.train.prepare(args, tokens, node, mesh=mesh)`` with f32
     activations."""
     import dataclasses
 
     from . import train as train_mod
-    start = train_mod.prepare(args, tokens, node)
+    start = train_mod.prepare(args, tokens, node, mesh=mesh)
     start["config"] = dataclasses.replace(start["config"],
                                           activation_dtype=torch.float32)
     return start
 
 
+TRAIN_AXES = ("node", "fsdp", "model")
+
+
+def train_mesh(args, shape=None, axes=("node",)):
+    """The live mesh a training rank runs on: ``shape`` (default
+    ``(--nodes,)``) on ``axes``, gloo; on the card every rank on
+    ``cuda:0``, staged through host memory."""
+    return mesh_mod.make_mesh(shape or (args.nodes,), axes, backend="gloo",
+                              device=args.device)
+
+
+def _shard_specs(args, mesh):
+    """The rank's fsdp cut of its node row (``sharding.fsdp_only`` of
+    ``node_param_specs``), or None on a mesh without fsdp shards."""
+    from . import train as train_mod
+    if train_mod.fsdp_extent(mesh) == 1:
+        return None
+    return sharding.node_param_specs(train_mod.config_of(args), args.nodes,
+                                     mesh)
+
+
 def train_rank(rank: int, argv: list, outq=None, goq=None,
                f32: bool = False, tokens=None, keep: bool = True,
-               tag=None) -> dict:
+               tag=None, shape=None, axes=("node",)) -> dict:
     """A rank of a training world: ``launch.train.run(args, mesh=...)`` on
-    a ``("node",)`` mesh of ``--nodes`` ranks (gloo; on the card every
-    rank on ``cuda:0``, staged through host memory).  Returns the
-    history, the step seconds, the peak memory, the K1 launches and the
-    wire log; the final params and momentum come back as numpy (``outq``
-    None; dropped unless ``keep``) or, packed on the card, through
-    ``outq`` (CUDA IPC) as ``(rank, tag, packed)``, held until ``goq``
-    says the parent is done with them.  ``f32``: f32 activations
+    :func:`train_mesh` ``(args, shape, axes)`` -- by default a
+    ``("node",)`` mesh of ``--nodes`` ranks.  Returns the history, the
+    step seconds, the peak memory, the K1 launches, the wire log and the
+    elements of the rank's params (``param_elems``); the final params and
+    momentum come back as numpy (``outq`` None; dropped unless ``keep``;
+    on an fsdp mesh the node's whole leaves, gathered) or, packed on the
+    card, the rank's own block of ``(momentum, params)`` through ``outq``
+    (CUDA IPC) as ``(rank, tag, packed)``, held until ``goq`` says the
+    parent is done with them.  ``f32``: f32 activations
     (:func:`f32_start`); ``tokens``: the batches' tokens, as the parent
     sampled them (``launch.train.prepare``)."""
     from . import train as train_mod
@@ -611,23 +644,29 @@ def train_rank(rank: int, argv: list, outq=None, goq=None,
         torch.cuda.set_device(0)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    mesh = mesh_mod.make_mesh((args.nodes,), ("node",), backend="gloo",
-                              device=args.device)
+    mesh = train_mesh(args, shape, axes)
     k1 = gm_ops.gossip_mix.launches
     node = mesh.axis_index("node")
     res = train_mod.run(args, mesh=mesh,
-                        start=(f32_start(args, tokens, node) if f32 else
-                               train_mod.prepare(args, tokens, node)))
-    out = {"rank": rank, "wire": mesh.wire, "history": res["history"],
-           "step_s": res["step_s"], "k1": gm_ops.gossip_mix.launches - k1,
-           "num_compiled": res["plan"].num_compiled,
-           "log": mesh.log.snapshot()}
+                        start=(f32_start(args, tokens, node, mesh) if f32
+                               else train_mod.prepare(args, tokens, node,
+                                                      mesh=mesh)))
     x, m = res["params"], res["state"].momentum
+    out = {"rank": rank, "coords": dict(mesh.coords), "wire": mesh.wire,
+           "history": res["history"], "step_s": res["step_s"],
+           "k1": gm_ops.gossip_mix.launches - k1,
+           "num_compiled": res["plan"].num_compiled,
+           "log": mesh.log.snapshot(),
+           "param_elems": {k: v.numel() for k, v in x.items()}}
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if outq is None:
         if keep:
+            specs = _shard_specs(args, mesh)
+            if specs is not None:
+                x = sharding.fsdp_gather(x, specs, mesh)
+                m = sharding.fsdp_gather(m, specs, mesh)
             out["params"], out["momentum"] = _np(x), _np(m)
         return out
     del res
@@ -640,6 +679,37 @@ def train_rank(rank: int, argv: list, outq=None, goq=None,
         raise RuntimeError("the parent stopped comparing")
     del packed
     return out
+
+
+def every2_logs(argv: list, shape=None, axes=("node",), f32: bool = True,
+                tokens=None) -> list:
+    """The reference's differential wire check on a training mesh: two
+    steps of ``argv``'s trainer through its plan with ``every=2``
+    (``dataclasses.replace(plan, every=2)``), so step 0 realizes the
+    topology's round and step 1 ``Identity`` -- the same step with no
+    gossip.  Returns each step's wire log (``Mesh.log.snapshot()``)."""
+    import dataclasses
+
+    from . import train as train_mod
+    args = train_mod.parse_args(argv)
+    mesh = train_mesh(args, shape, axes)
+    node = mesh.axis_index("node")
+    start = (f32_start(args, tokens, node, mesh) if f32 else
+             train_mod.prepare(args, tokens, node, mesh=mesh))
+    opt, step_for = train_mod.build_trainer(
+        start["config"], start["topology"], args.optimizer, args.beta,
+        args.micro_batch, momentum_dtype=start["momentum_dtype"],
+        compression=args.compression, mesh=mesh)
+    plan = dataclasses.replace(step_for.plan, every=2)
+    p = start["params"]
+    s = opt.init(p)
+    logs = []
+    for k in range(2):
+        mesh.log.reset()
+        p, s, _ = plan.step_fn(k)(p, s, start["batches"][k],
+                                  start["lr_fn"](k))
+        logs.append(mesh.log.snapshot())
+    return logs
 
 
 # ---------------------------------------------------------------------------
@@ -673,7 +743,7 @@ def warmup_run(args, warmup_steps: int, mesh=None, start=None) -> dict:
     rank's node)."""
     from . import train as train_mod
     node = None if mesh is None else mesh.axis_index("node")
-    start = f32_start(args, node=node) if start is None else start
+    start = f32_start(args, node=node, mesh=mesh) if start is None else start
     opt, step_for = train_mod.build_trainer(
         start["config"], start["topology"], args.optimizer, args.beta,
         momentum_dtype=start["momentum_dtype"], warmup_steps=warmup_steps,
@@ -752,6 +822,82 @@ def train_cases_rank(rank: int, argv: list, ckpt_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# fsdp-sharded training: a node's leaves over its fsdp ranks
+# ---------------------------------------------------------------------------
+
+FSDP_MESH = ((NODES, FSDP, 1), TRAIN_AXES)      # the reference tests' mesh
+FSDP_MESH_2AX = ((NODES, FSDP), ("node", "fsdp"))  # embed replicated
+MOE_ARCH = "granite-moe-3b-a800m"
+
+
+def fsdp_cases(argv: list, ckpt_dir: str | None = None) -> dict:
+    """``{name: (argv, mesh shape, axes)}`` of the fsdp training cases, on
+    the (node 4, fsdp 2, model 1) mesh unless named: ``dmsgd`` (with
+    ``--micro-batch 1`` over a batch of 4), ``overlap_int8`` (its
+    carry-buffer checkpoints under ``ckpt_dir/overlap_int8``, a save at
+    every second step), ``parallel_msgd``, ``runtime`` (``--loss-aware
+    --deadline-skip --straggler-prob 0.25`` on the (node 4, fsdp 2) mesh,
+    where ``embed`` is replicated over fsdp) and ``moe`` (the moe family,
+    its router replicated and its batch whole on every rank; 2 steps)."""
+    def ck(name):
+        if ckpt_dir is None:
+            return []
+        return ["--ckpt-dir", os.path.join(ckpt_dir, name), "--ckpt-every",
+                "2"]
+
+    return {
+        "dmsgd": (argv + ["--batch", "4", "--micro-batch", "1"],
+                  *FSDP_MESH),
+        "overlap_int8": (argv + ["--overlap", "--compression", "int8"]
+                         + ck("overlap_int8"), *FSDP_MESH),
+        "parallel_msgd": (argv + ["--optimizer", "parallel_msgd"],
+                          *FSDP_MESH),
+        "runtime": (argv + ["--loss-aware", "--deadline-skip",
+                            "--straggler-prob", "0.25"], *FSDP_MESH_2AX),
+        "moe": (argv + ["--arch", MOE_ARCH, "--steps", "2"], *FSDP_MESH),
+    }
+
+
+# the families fsdp_cases leaves out: ssm, hybrid, audio, vlm
+FAMILY_ARCHS = ("mamba2-1.3b", "zamba2-1.2b", "musicgen-large",
+                "llama-3.2-vision-90b")
+
+
+def family_cases(argv: list) -> dict:
+    """``{arch: (argv, mesh shape, axes)}``: dmsgd, 2 steps, of each of
+    :data:`FAMILY_ARCHS` on the (node 4, fsdp 2, model 1) mesh."""
+    return {a: (argv + ["--arch", a, "--steps", "2"], *FSDP_MESH)
+            for a in FAMILY_ARCHS}
+
+
+def reduce_scatter_rank(mesh, seed: int = 5) -> tuple:
+    """``Mesh.reduce_scatter`` over fsdp of a seeded (2F, 3) f32 tensor on
+    dim 0 and of its transpose on dim 1: (the two blocks as numpy, the
+    wire log)."""
+    fs = mesh.axis_size("fsdp")
+    x = torch.from_numpy(np.random.default_rng(
+        seed + mesh.rank).standard_normal((2 * fs, 3)).astype(np.float32))
+    mesh.log.reset()
+    a = mesh.reduce_scatter(x, "fsdp")
+    b = mesh.reduce_scatter(x.t().contiguous(), "fsdp", dim=1)
+    return a.numpy(), b.numpy(), mesh.log.snapshot()
+
+
+def fsdp_cases_rank(rank: int, argv: list, ckpt_dir: str) -> dict:
+    """A rank of a CPU world of 8: every :func:`fsdp_cases` and
+    :func:`family_cases` case through :func:`train_rank` in f32, then :func:`every2_logs` of ``argv``'s
+    dmsgd on the 3-axis mesh (``"every2"``) and
+    :func:`reduce_scatter_rank` on it (``"reduce_scatter"``)."""
+    cases = dict(fsdp_cases(argv, ckpt_dir), **family_cases(argv))
+    out = {name: train_rank(rank, a, f32=True, shape=shape, axes=axes)
+           for name, (a, shape, axes) in cases.items()}
+    out["every2"] = every2_logs(argv, *FSDP_MESH)
+    mesh = mesh_mod.make_mesh(*FSDP_MESH, device="cpu")
+    out["reduce_scatter"] = reduce_scatter_rank(mesh)
+    return out
+
+
 ROUNDTRIP_SPECS = {"w": ("node", "fsdp"), "b": (("node", "fsdp"),),
                    "h": ("node", None, "fsdp")}
 
@@ -787,10 +933,15 @@ def world_rank(rank: int, argv: list) -> dict:
             "train": train_rank(rank, argv, f32=True)}
 
 
-def _train_entry(rank, runs, outq, goqs, tokens, runtime):
+def _train_entry(rank, runs, outq, goqs, tokens, runtime, shape, axes,
+                 every2, f32):
     out = {"runs": [train_rank(rank, argv, outq if held else None,
-                               goqs[rank], tokens=tokens, keep=False, tag=i)
+                               goqs[rank], f32=f32, tokens=tokens,
+                               keep=False, tag=i, shape=shape, axes=axes)
                     for i, (argv, held) in enumerate(runs)]}
+    if every2 is not None:
+        out["every2"] = every2_logs(every2, shape, axes, f32=f32,
+                                    tokens=tokens)
     if runtime:
         from . import train as train_mod
         out["runtime"] = gathered_runtime_rank(
@@ -799,26 +950,50 @@ def _train_entry(rank, runs, outq, goqs, tokens, runtime):
 
 
 def train_world(runs: list, tokens=None, timeout: float = 900.0,
-                runtime: bool = False):
-    """Each ``(argv, reference)`` of ``runs`` in turn on one node mesh of
-    ``--nodes`` ranks sharing the card; where ``reference`` (the
-    single-process run's final ``(momentum, params)``, on the card) is
-    given, each rank's final ``(momentum, params)`` is compared with it
-    in this process: bit equality, max abs difference and the
-    reference's max-abs per rank.  ``tokens``: every step's tokens as
-    ``launch.train.prepare`` sampled them (None: each rank samples).
-    ``runtime``: then :func:`gathered_runtime_rank` on a (node 2, fsdp 2)
-    mesh of the same ranks.  Returns (rank results, one ``{rank:
-    comparison}`` a compared run, keyed by its index in ``runs``)."""
+                runtime: bool = False, shape=None, axes=("node",),
+                every2: list | None = None, f32: bool = False):
+    """Each ``(argv, reference)`` of ``runs`` in turn on one mesh sharing
+    the card -- ``shape`` on ``axes``, by default a node mesh of
+    ``--nodes`` ranks; where ``reference`` (the single-process run's
+    final ``(momentum, params)``, on the card or the host) is given, each
+    rank's
+    final ``(momentum, params)`` -- on an fsdp mesh its shards -- is
+    compared with its block of it in this process: bit equality, max abs
+    difference and the reference's max-abs per rank.  ``tokens``: every
+    step's tokens as ``launch.train.prepare`` sampled them (None: each
+    rank samples).  ``runtime``: then :func:`gathered_runtime_rank` on a
+    (node 2, fsdp 2) mesh of the same ranks; ``every2`` (an argv): then
+    :func:`every2_logs` of it on the same mesh (``"every2"``); ``f32``:
+    every run with f32 activations (:func:`f32_start`).  Returns (rank
+    results, one ``{rank: comparison}`` a compared run, keyed by its
+    index in ``runs``)."""
     import torch.multiprocessing as mp
 
     from . import train as train_mod
-    nodes = train_mod.parse_args(runs[0][0]).nodes
+    args = train_mod.parse_args(runs[0][0])
+    shape = tuple(shape or (args.nodes,))
+    world = int(np.prod(shape))
+    abstract = mesh_mod.abstract_mesh(shape, axes)
+    cut = None
+    if train_mod.fsdp_extent(abstract) > 1:
+        cut = sharding.fsdp_only(sharding.node_param_specs(
+            train_mod.config_of(args), args.nodes, abstract))
     ctx = mp.get_context("spawn")
     outq = ctx.Queue()
-    goqs = [ctx.Queue() for _ in range(nodes)]
+    goqs = [ctx.Queue() for _ in range(world)]
     comps: dict = {}
     errors: list = []
+
+    def block(reference, rank):
+        at = dict(zip(axes, map(int, np.argwhere(abstract.devices
+                                                 == rank)[0])))
+        i = at["node"]
+        parts = tuple({k: v[i:i + 1] for k, v in part.items()}
+                      for part in reference)
+        if cut is not None:
+            parts = tuple(sharding.local_shard(p, cut, abstract, at)
+                          for p in parts)
+        return _packed(parts)
 
     def compare():
         try:
@@ -826,12 +1001,10 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
                 if reference is None:
                     continue
                 comps[i] = {}
-                for _ in range(nodes):
+                for _ in range(world):
                     rank, tag, got = outq.get(timeout=timeout)
                     assert tag == i, (tag, i)
-                    want = _packed(tuple({k: v[rank:rank + 1] for k, v in
-                                          part.items()}
-                                         for part in reference))
+                    want = block(reference, rank).to(got.device)
                     comps[i][rank] = (torch.equal(got, want),
                                       float((got - want).abs().max()),
                                       float(want.abs().max()))
@@ -847,9 +1020,10 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
     th.start()
     held = [(argv, ref is not None) for argv, ref in runs]
     try:
-        res = mesh_mod.spawn(_train_entry, nodes,
-                             (held, outq, goqs, tokens, runtime),
-                             timeout=timeout)
+        res = mesh_mod.spawn(_train_entry, world,
+                             (held, outq, goqs, tokens, runtime, shape,
+                              axes, every2, f32), timeout=timeout,
+                             threads=1 if args.device == "cpu" else None)
     finally:
         th.join(timeout=60)
     if errors:
@@ -857,21 +1031,25 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
     return res, comps
 
 
-def _train_cli_rank(rank: int, argv: list) -> dict:
-    return train_rank(rank, argv, keep=False)
+def _train_cli_rank(rank: int, argv: list, shape, axes) -> dict:
+    return train_rank(rank, argv, keep=False, shape=shape, axes=axes)
 
 
-def train_cli(argv: list, device: str) -> None:
+def train_cli(argv: list, device: str, fsdp: int | None = None) -> None:
     """``launch.train``'s flags ``argv`` run on a (node) mesh of
-    ``--nodes`` spawned ranks, one a node (rank 0 prints the run's log);
-    then each rank's median step ms and rank 0's wire log."""
+    ``--nodes`` spawned ranks, one a node, or with ``fsdp`` on a (node,
+    fsdp, model 1) mesh of ``--nodes`` x ``fsdp`` ranks (rank 0 prints
+    the run's log); then each rank's median step ms and rank 0's wire
+    log."""
     from . import train as train_mod
     if "--device" not in argv:
         argv = list(argv) + ["--device", device]
-    nodes = train_mod.parse_args(argv).nodes
-    cpu = train_mod.parse_args(argv).device == "cpu"
-    res = mesh_mod.spawn(_train_cli_rank, nodes, (argv,),
-                         threads=1 if cpu else None)
+    args = train_mod.parse_args(argv)
+    shape, axes = (((args.nodes,), ("node",)) if fsdp is None
+                   else ((args.nodes, fsdp, 1), TRAIN_AXES))
+    res = mesh_mod.spawn(_train_cli_rank, int(np.prod(shape)),
+                         (argv, shape, axes),
+                         threads=1 if args.device == "cpu" else None)
     for r in res:
         rest = sorted(r["step_s"][1:]) or r["step_s"]
         print(f"rank {r['rank']} ({r['wire']}): median step "
@@ -887,23 +1065,26 @@ def main(argv=None) -> None:
                     help="cuda (every rank on the card, gloo staged "
                          "through host memory) or cpu")
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
-    ap.add_argument("--fsdp", type=int, default=FSDP,
-                    help="the fsdp extent (4 nodes x fsdp ranks; NCCL needs "
-                         "that many cards)")
+    ap.add_argument("--fsdp", type=int, default=None,
+                    help=f"the fsdp extent (4 nodes x fsdp ranks, default "
+                         f"{FSDP}; NCCL needs that many cards); with "
+                         "--train, train on a (node, fsdp, model 1) mesh")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train", nargs=argparse.REMAINDER, default=None,
                     help="instead: the rest of the line is launch.train's "
                          "flags, run on a (node) mesh of --nodes spawned "
-                         "gloo ranks, one a node")
+                         "gloo ranks, one a node, or with --fsdp F on a "
+                         "(node, fsdp F, model 1) mesh of --nodes x F")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a card; use --device cpu")
     if args.train is not None:
-        train_cli(args.train, args.device)
+        train_cli(args.train, args.device, args.fsdp)
         return
-    shape = (NODES, args.fsdp)
+    fsdp = FSDP if args.fsdp is None else args.fsdp
+    shape = (NODES, fsdp)
     t0 = time.perf_counter()
-    res = mesh_mod.spawn(engine_rank, NODES * args.fsdp,
+    res = mesh_mod.spawn(engine_rank, NODES * fsdp,
                          (shape, ("node", "fsdp"), args.device,
                           args.backend, args.seed),
                          threads=1 if args.device == "cpu" else None)

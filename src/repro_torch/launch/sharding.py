@@ -33,6 +33,19 @@ In eager PyTorch a rank holds its block of each leaf, so
 blocks back into the whole leaf, over the mesh) take the place of
 ``named``.  The gossip's numbers do not depend on the specs: they decide
 only which bytes each rank holds and moves.
+
+fsdp-sharded training (a mesh whose fsdp extent is above 1) needs what
+GSPMD inserts around the reference's jitted step: :func:`fsdp_gather`
+turns a rank's fsdp shards of its node's leaves into the node's whole
+leaves for the gradient pass, and :func:`fsdp_reduce_scatter_mean` turns
+the rank's whole-leaf gradients into its shard of their mean over the
+node's fsdp ranks.  Both pack the leaves of one dtype side by side
+(:mod:`repro_torch.core.flatbuf`'s layout at ``pad_multiple=1``), so a
+step makes one ``all_gather`` and one ``reduce_scatter`` a dtype group;
+a leaf replicated over fsdp (``embed`` on a mesh without a ``model``
+axis, the moe ``router``) is not gathered, and its gradient mean is one
+``psum`` a dtype group.  Their specs are :func:`node_param_specs`: the
+rules read at the GLOBAL node-stacked shapes, never at a shard's.
 """
 from __future__ import annotations
 
@@ -42,12 +55,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core import flatbuf
 from .mesh import Mesh
 
 Tree = Any
 
 __all__ = ["param_specs", "batch_spec", "cache_specs", "axis_size",
-           "gossip_payload_spec_fn", "local_shard", "gather", "map_specs"]
+           "gossip_payload_spec_fn", "local_shard", "gather", "map_specs",
+           "node_param_specs", "fsdp_dim", "fsdp_only", "fsdp_gather",
+           "fsdp_reduce_scatter_mean"]
 
 
 def axis_size(mesh: Mesh, name: str) -> int:
@@ -378,3 +394,166 @@ def gather(tree: Tree, specs: Tree, mesh: Mesh) -> Tree:
         return x
 
     return map_specs(one, tree, specs)
+
+
+# ---------------------------------------------------------------------------
+# fsdp-sharded training: the gather and the scatter GSPMD inserts
+# ---------------------------------------------------------------------------
+
+def node_param_specs(cfg, n: int, mesh: Mesh) -> dict:
+    """The spec tree of ``cfg``'s node-stacked training params at their
+    GLOBAL shapes, ``(n,)`` + each parameter's (meta tensors: nothing is
+    allocated), with ``cfg`` giving the stack axes: what a rank's fsdp
+    shards are cut by and gathered by.  Read at a shard's shapes, the
+    divisibility guards would decide otherwise."""
+    from ..models import model as M
+    shapes = {k: torch.empty((n,) + tuple(p.shape), dtype=p.dtype,
+                             device="meta")
+              for k, p in M.init(cfg, 0, device="meta").named_parameters()}
+    return param_specs(shapes, mesh, cfg=cfg)
+
+
+def fsdp_dim(spec: tuple) -> int | None:
+    """The dim a spec cuts over ``fsdp`` (None: replicated over it)."""
+    for d, entry in enumerate(spec):
+        if "fsdp" in _axes(entry):
+            return d
+    return None
+
+
+def fsdp_only(specs: dict) -> dict:
+    """``specs`` (a params tree's) with every axis but ``fsdp`` dropped:
+    what :func:`local_shard` cuts over fsdp alone (a rank's node row is
+    cut already)."""
+    return {k: tuple("fsdp" if "fsdp" in _axes(e) else None for e in spec)
+            for k, spec in specs.items()}
+
+
+def _check_fsdp_mesh(mesh: Mesh) -> int:
+    shape = mesh.shape
+    if shape.get("model", 1) != 1:
+        raise NotImplementedError(
+            f"fsdp shards on a mesh with model extent {shape['model']}: "
+            "ROADMAP item 18b-c")
+    return shape["fsdp"]
+
+
+def _leaves_specs(tree: Tree, specs: Tree) -> tuple[list, list]:
+    leaves, dims = [], []
+
+    def take(x, spec):
+        leaves.append(x)
+        dims.append(fsdp_dim(spec))
+        return x
+
+    map_specs(take, tree, specs)
+    return leaves, dims
+
+
+def _rebuild(tree: Tree, specs: Tree, leaves: list) -> Tree:
+    it = iter(leaves)
+    return map_specs(lambda x, spec: next(it), tree, specs)
+
+
+def _by_dtype(idxs: list, leaves: list) -> dict:
+    groups: dict = {}
+    for i in idxs:
+        groups.setdefault(leaves[i].dtype, []).append(i)
+    return groups
+
+
+def _blocks(x: torch.Tensor, d: int, parts: int) -> torch.Tensor:
+    """A view of ``x`` with its dim ``d`` split into ``parts`` blocks,
+    the block index moved to the front: ``(parts,) + block shape``."""
+    shape = tuple(x.shape)
+    split = shape[:d] + (parts, shape[d] // parts) + shape[d + 1:]
+    return x.reshape(split).movedim(d, 0)
+
+
+def fsdp_gather(tree: Tree, specs: Tree, mesh: Mesh,
+                dst: int | None = None) -> Tree:
+    """This rank's fsdp shards of its node's leaves -> the node's whole
+    leaves, on every rank of the node's fsdp line: the line's shards
+    concatenated along each leaf's fsdp dim, in fsdp order.  The sharded
+    leaves of one dtype are packed side by side (``flatbuf``'s layout at
+    ``pad_multiple=1``) and gathered by ONE ``all_gather``; a leaf
+    replicated over fsdp is returned as it is.  Each whole leaf is a new
+    tensor (the gathered buffer is freed).  ``dst``: gathered at the
+    line's rank of fsdp coordinate ``dst`` alone (one ``gather`` a dtype
+    group; None at the others)."""
+    parts = _check_fsdp_mesh(mesh)
+    root = dst is None or mesh.axis_index("fsdp") == dst
+    leaves, dims = _leaves_specs(tree, specs)
+    out = list(leaves)
+    sharded = [i for i, d in enumerate(dims) if d is not None]
+    for idxs in _by_dtype(sharded, leaves).values():
+        group = [leaves[i] for i in idxs]
+        layout = flatbuf.layout_of(group, pad_multiple=1)
+        (buf,) = flatbuf.pack(group, layout)[1]
+        rows = buf.shape[0]
+        full = (mesh.all_gather(buf, "fsdp", dim=0) if dst is None
+                else mesh.gather(buf, "fsdp", dst))
+        del buf
+        if not root:
+            continue
+        full = full.view(parts, rows, -1)
+        for slot in layout.groups[0].slots:
+            i = idxs[slot.leaf_index]
+            shard = leaves[i].shape
+            d = dims[i]
+            whole = list(shard)
+            whole[d] *= parts
+            x = full.new_empty(whole)
+            _blocks(x, d, parts).copy_(
+                full[:, :, slot.offset:slot.offset + slot.size]
+                .view((parts,) + tuple(shard)))
+            out[i] = x
+        del full
+    return _rebuild(tree, specs, out) if root else None
+
+
+def fsdp_reduce_scatter_mean(tree: Tree, specs: Tree, mesh: Mesh) -> Tree:
+    """The rank's whole-leaf gradients -> its fsdp shard of their mean
+    over its node's fsdp line (``specs`` as :func:`fsdp_gather`'s).  The
+    sharded leaves of one dtype are packed, block by block, into one
+    ``(F x rows, B)`` buffer -- block f holds fsdp rank f's shards at the
+    layout :func:`fsdp_gather` packs -- and ONE ``reduce_scatter`` a
+    dtype group sums it; a leaf replicated over fsdp keeps its whole
+    shape, its mean one ``psum`` a dtype group.  Each sum is divided by
+    F; the shards are views into the scattered buffer."""
+    parts = _check_fsdp_mesh(mesh)
+    leaves, dims = _leaves_specs(tree, specs)
+    out = list(leaves)
+    sharded = [i for i, d in enumerate(dims) if d is not None]
+    for idxs in _by_dtype(sharded, leaves).values():
+        shards = []
+        for i in idxs:
+            shp = list(leaves[i].shape)
+            shp[dims[i]] //= parts
+            shards.append(torch.empty(shp, dtype=leaves[i].dtype,
+                                      device="meta"))
+        layout = flatbuf.layout_of(shards, pad_multiple=1)
+        g = layout.groups[0]
+        rows = shards[0].shape[0]
+        buf = leaves[idxs[0]].new_empty((parts, rows, g.padded))
+        for slot in g.slots:
+            i = idxs[slot.leaf_index]
+            buf[:, :, slot.offset:slot.offset + slot.size].view(
+                (parts,) + tuple(shards[slot.leaf_index].shape)).copy_(
+                    _blocks(leaves[i], dims[i], parts))
+        mine = mesh.reduce_scatter(buf.view(parts * rows, g.padded), "fsdp")
+        del buf
+        mine = mine.div_(parts)
+        for i, got in zip(idxs, flatbuf.tree_flatten(
+                flatbuf.unpack(layout, [mine]))[0]):
+            out[i] = got
+    replicated = [i for i, d in enumerate(dims) if d is None]
+    for idxs in _by_dtype(replicated, leaves).values():
+        group = [leaves[i] for i in idxs]
+        layout = flatbuf.layout_of(group, pad_multiple=1)
+        (buf,) = flatbuf.pack(group, layout)[1]
+        total = mesh.psum(buf, "fsdp").div_(parts)
+        for i, got in zip(idxs, flatbuf.tree_flatten(
+                flatbuf.unpack(layout, [total]))[0]):
+            out[i] = got
+    return _rebuild(tree, specs, out)

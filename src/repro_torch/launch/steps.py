@@ -29,6 +29,7 @@ import torch
 
 from ..core import optim as optim_mod
 from ..models import model as M
+from . import sharding
 
 Tree = Any
 
@@ -163,7 +164,8 @@ def accumulate_grads(acc_loss, acc_g: dict, loss, g: dict, nm: int):
 
 def make_train_step(cfg: M.ModelConfig,
                     opt: optim_mod.DecentralizedOptimizer,
-                    *, micro_batch: int | None = None, timeline=None):
+                    *, micro_batch: int | None = None, timeline=None,
+                    fsdp=None):
     """Returns ``train_step(mix, params, opt_state, batch, lr)``.
 
     ``mix`` is the realization-bound gossip executor that
@@ -197,6 +199,21 @@ def make_train_step(cfg: M.ModelConfig,
     stream (:func:`overlap_ms` reads them).  On a mesh the round's wire
     is posted before the gradients and completed after them; the mesh's
     wire log times it.
+
+    ``fsdp``, a ``(mesh, specs)`` pair (a mesh whose fsdp extent is above
+    1 and :func:`~repro_torch.launch.sharding.node_param_specs`), takes a
+    rank's fsdp shards of its node's params and the rank's rows of the
+    node's batch, and does what GSPMD inserts around the reference's
+    step: the node's whole leaves gathered once a step
+    (``sharding.fsdp_gather``, before the node loop and outside the
+    micro-batches), the gradients taken on them, turned into the rank's
+    shard of their mean over the fsdp line
+    (``sharding.fsdp_reduce_scatter_mean``) before the update, and the
+    node's loss the fsdp ``psum`` of the ranks' over F -- what the
+    runtime gossip reads and the step returns, alike on every rank of a
+    node.  The delayed round of an overlapped step is posted before the
+    gather and waited for after the scatter.  These ops are recorded in
+    the wire log's scope ``"fsdp"``.
     """
 
     def per_node_grads(p: dict, tokens, img):
@@ -218,6 +235,13 @@ def make_train_step(cfg: M.ModelConfig,
             acc_loss, acc_g = accumulate_grads(acc_loss, acc_g, loss, g, nm)
         return acc_loss, acc_g
 
+    def node_loss(losses):
+        if fsdp is None:
+            return losses
+        mesh = fsdp[0]
+        with mesh.log.scope("fsdp"):
+            return mesh.psum(losses.float(), "fsdp") / mesh.axis_size("fsdp")
+
     def train_step(mix, params: Tree, opt_state, batch: dict, lr):
         first = next(iter(params.values()))
         tokens = batch["tokens"].to(first.device)
@@ -235,18 +259,30 @@ def make_train_step(cfg: M.ModelConfig,
                    if opt.overlap else None)
         if marks:
             g_begin.record()
+        whole = params
+        if fsdp is not None:
+            with fsdp[0].log.scope("fsdp"):
+                whole = sharding.fsdp_gather(params, fsdp[1], fsdp[0])
         losses, grads = [], None
         for i in range(n):
-            loss, g = per_node_grads({k: v[i] for k, v in params.items()},
+            loss, g = per_node_grads({k: v[i] for k, v in whole.items()},
                                      tokens[i],
                                      None if images is None else images[i])
+            losses.append(loss)
+            if n == 1:               # a rank's node: no copy
+                grads = {k: v.unsqueeze(0) for k, v in g.items()}
+                break
             if grads is None:        # written node by node, never stacked
                 grads = {k: v.new_empty((n,) + tuple(v.shape))
                          for k, v in g.items()}
             for k, v in g.items():
                 grads[k][i].copy_(v)
-            losses.append(loss)
-        losses = torch.stack(losses)
+        del whole, g
+        if fsdp is not None:
+            with fsdp[0].log.scope("fsdp"):
+                grads = sharding.fsdp_reduce_scatter_mean(grads, fsdp[1],
+                                                          fsdp[0])
+        losses = node_loss(torch.stack(losses))
         if marks and pending.begin is not None:   # a mesh's has none
             g_end.record()
             timeline.append((t0, pending.begin, pending.done, g_begin,

@@ -43,12 +43,25 @@ cannot reproduce, so the two drivers drop different nodes; parity tests
 put the same ``alive`` in both batches.
 
 ``run(args, mesh=mesh)`` trains on a live
-:class:`~repro_torch.launch.mesh.Mesh` with only a ``"node"`` axis, one
-rank per node (a world of ``--nodes`` ranks, every rank calling ``run``
-with the same ``args``): each rank trains its own node -- its row of the
+:class:`~repro_torch.launch.mesh.Mesh` whose ``"node"`` axis has one
+coordinate per node -- ``("node",)``, ``("node", "fsdp")`` or ``("node",
+"fsdp", "model")`` with model extent 1; every rank calls ``run`` with
+the same ``args``: each rank trains its own node -- its row of the
 params and batches, which ``prepare(args, node=i)`` builds without
 keeping any other node's, so the step's node loop runs once -- and the
-gossip runs shard-natively over the mesh's wire.
+gossip runs shard-natively over the mesh's wire.  With an fsdp extent F
+above 1 a rank keeps only its fsdp shard of each of its node's leaves
+(``prepare(args, node=i, fsdp=f, mesh=mesh)``, cut by
+``sharding.node_param_specs``) and its rows of the node's batch (split
+over fsdp where F divides the batch, as ``sharding.batch_spec`` says;
+the moe family takes the whole batch on every rank: its capacity
+dispatch and aux loss couple all of a node's tokens, which the
+reference's GSPMD keeps global, so splitting rows would change its
+numbers -- replicated, they stay the reference's at F times the
+compute).  Each step gathers the node's whole leaves, takes the
+gradients on the rank's rows and reduce-scatters their mean over the
+node's F ranks (``steps.make_train_step(fsdp=)``), and the gossip moves
+each rank's shard.
 The logged loss and consensus are reduced across the ranks, so rank 0
 (the only one that prints) prints what the single-process run prints;
 the mesh's wire log records that logging (and the flush it reads under
@@ -60,10 +73,12 @@ round's wire before the rank's gradients and completes it after them
 (``gossip.delayed_post``), ``parallel_msgd`` averages the gradients with
 one ``psum`` per dtype group, and ``--ckpt-dir`` gathers the node rows at
 rank 0, which writes the whole run's checkpoint (the single-process
-run's arrays) while the others wait.  The reference gets
-fsdp/model-sharded training from GSPMD; the port has no sharded
-forward, so a mesh with an fsdp or model extent above 1 raises, naming
-ROADMAP item 18b.
+run's arrays) while the others wait; on an fsdp mesh each leaf is
+first gathered over fsdp (under ``--overlap`` the in-flight buffer
+too, unpacked, gathered and converted node by node), and only the
+line at fsdp coordinate 0 writes.  The reference gets model-sharded
+training from GSPMD; the port has no tensor-parallel forward, so a
+mesh with a model extent above 1 raises, naming ROADMAP item 18b-c.
 
 ``--overlap`` trains the one-step-delayed pipeline (each step mixes the
 previous step's payload, on the card on a side stream under the
@@ -95,27 +110,43 @@ from ..core.plan import GossipPlan
 from ..data import SyntheticLM
 from ..device import resolve_device
 from ..models import model as M
+from . import sharding
 from . import steps as steps_mod
 
 __all__ = ["build_trainer", "consensus_distance", "stack_nodes",
            "image_embeds", "prepare", "run", "parse_args", "main",
-           "check_mesh"]
+           "check_mesh", "config_of", "fsdp_extent"]
 
-WAITS = "ROADMAP item 18b (sharded training on a mesh)"
+WAITS = "ROADMAP item 18b-c (model/tensor-parallel sharding)"
 
 
 def check_mesh(mesh, n: int) -> None:
     """Refuse what training on ``mesh`` cannot run yet: the mesh must
-    have a ``node`` axis of ``n`` ranks and no other axis above 1."""
+    have a ``node`` axis of ``n`` ranks, and no axis but ``node`` and
+    ``fsdp`` above 1."""
     if "node" not in mesh.axis_names or mesh.axis_size("node") != n:
         raise ValueError(f"training {n} nodes needs a mesh with a 'node' "
                          f"axis of {n}; got {mesh.shape}")
-    inner = {a: s for a, s in mesh.shape.items() if a != "node" and s > 1}
+    inner = {a: s for a, s in mesh.shape.items()
+             if a not in ("node", "fsdp") and s > 1}
     if inner:
         raise NotImplementedError(
             f"training on a mesh with {inner}: the port has no "
-            f"fsdp/model-sharded forward (the reference's is GSPMD's); "
-            f"{WAITS}")
+            f"model-sharded (tensor-parallel) forward (the reference's is "
+            f"GSPMD's); {WAITS}")
+
+
+def fsdp_extent(mesh) -> int:
+    """The mesh's fsdp extent (1 without a mesh or an fsdp axis)."""
+    return 1 if mesh is None else mesh.shape.get("fsdp", 1)
+
+
+def _rows_over_fsdp(cfg, mesh, batch: int) -> bool:
+    """Whether a node's batch rows are split over fsdp: where
+    ``sharding.batch_spec`` splits them, except for the moe family (the
+    module docstring)."""
+    spec = sharding.batch_spec(mesh, node_axis=True, batch_dim_size=batch)
+    return spec[1] == "fsdp" and not cfg.n_experts
 
 
 def build_trainer(cfg, topology, optimizer_name: str, beta: float,
@@ -133,11 +164,17 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     runtime gossip hooks (the step then reads ``batch["alive"]``);
     ``overlap`` builds the pipelined trainer (``timeline``: see
     :func:`~repro_torch.launch.steps.make_train_step`),
-    ``compression="int8"`` the int8 wire.  ``mesh`` (one rank per node,
-    :func:`check_mesh`) runs every gossip round shard-natively, the step
-    taking each rank's block."""
+    ``compression="int8"`` the int8 wire.  ``mesh`` (one node
+    coordinate a node, :func:`check_mesh`) runs every gossip round
+    shard-natively, the step taking each rank's block; with an fsdp
+    extent above 1 the step gathers and reduce-scatters by
+    ``sharding.node_param_specs(cfg, topology.n, mesh)``, which ride
+    along as ``step_for.fsdp`` (``(mesh, specs)``, else None)."""
+    fsdp = None
     if mesh is not None:
         check_mesh(mesh, topology.n)
+        if fsdp_extent(mesh) > 1:
+            fsdp = (mesh, sharding.node_param_specs(cfg, topology.n, mesh))
     opt = optim_mod.make_optimizer(optimizer_name, topology, beta=beta,
                                    momentum_dtype=momentum_dtype,
                                    compression=compression, overlap=overlap,
@@ -145,22 +182,19 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     if warmup_steps:
         opt = transforms.allreduce_warmup(warmup_steps)(opt)
     step_fn = steps_mod.make_train_step(cfg, opt, micro_batch=micro_batch,
-                                        timeline=timeline)
+                                        timeline=timeline, fsdp=fsdp)
     plan = GossipPlan.for_optimizer(opt, fn=step_fn, mesh=mesh)
 
     def step_for(step, **kw):
         return plan.step_fn(step, **kw)
 
     step_for.plan = plan
+    step_for.fsdp = fsdp
     return opt, step_for
 
 
-def consensus_distance(params, mesh=None) -> float:
-    """||x_i - x_bar|| aggregated over the tree (the paper's consensus
-    metric): one reduction over the packed flat buffers and a single host
-    sync (padding columns are zeros on every node, so they add 0).  On a
-    mesh each rank holds its node's block: the mean is a ``psum`` over
-    the node axis, and so is the sum of squares."""
+def _sq_dist(params, mesh):
+    """sum ||x_i - x_bar||^2 of this process's rows (a device scalar)."""
     _, bufs = flatbuf.pack(params)
     total = torch.zeros((), dtype=torch.float32, device=bufs[0].device)
     for buf in bufs:
@@ -170,6 +204,29 @@ def consensus_distance(params, mesh=None) -> float:
         else:
             mean = mesh.psum(b32, "node") / mesh.axis_size("node")
         total += torch.sum(torch.square(b32 - mean))
+    return total
+
+
+def consensus_distance(params, mesh=None, specs=None) -> float:
+    """||x_i - x_bar|| aggregated over the tree (the paper's consensus
+    metric): one reduction over the packed flat buffers and a single host
+    sync (padding columns are zeros on every node, so they add 0).  On a
+    mesh each rank holds its node's block: the mean is a ``psum`` over
+    the node axis, and so is the sum of squares.  With fsdp ``specs``
+    (``build_trainer``'s) each element counts once: the sharded leaves'
+    sums are added over the fsdp line too, a leaf replicated over fsdp
+    is counted at fsdp coordinate 0 only."""
+    if mesh is None or specs is None:
+        total = _sq_dist(params, mesh)
+    else:
+        cut = {k: sharding.fsdp_dim(specs[k]) is not None for k in params}
+        total = _sq_dist({k: v for k, v in params.items() if cut[k]}, mesh)
+        rep = {k: v for k, v in params.items() if not cut[k]}
+        if rep:
+            own = _sq_dist(rep, mesh)
+            total = total + (own if mesh.axis_index("fsdp") == 0
+                             else torch.zeros_like(own))
+        total = mesh.psum(total.reshape(1), "fsdp")[0]
     if mesh is not None:
         total = mesh.psum(total.reshape(1), "node")[0]
     return float(torch.sqrt(total))
@@ -204,9 +261,10 @@ def _scope(mesh, name: str):
 
 def _save(ckpt_dir: str, step: int, payload: dict, mesh) -> None:
     """``checkpoint.save`` of the train state ``payload`` (the reference's
-    layout).  On a mesh each rank holds its node's rows: every leaf is
-    gathered at rank 0 (on the host over gloo), which writes the whole
-    run's checkpoint, and the line waits for it."""
+    layout).  On a mesh each rank holds its node's rows (whole leaves,
+    :func:`_whole_state`): every leaf is gathered at the line's node-0
+    rank (on the host over gloo), which writes the whole run's
+    checkpoint, and the line waits for it."""
     if mesh is None:
         checkpoint.save(ckpt_dir, step, payload)
         return
@@ -219,7 +277,67 @@ def _save(ckpt_dir: str, step: int, payload: dict, mesh) -> None:
     mesh.barrier("node")
 
 
-def prepare(args, tokens=None, node: int | None = None) -> dict:
+def _specs_like(tree, specs):
+    """``specs`` (a params tree's) repeated over ``tree``'s structure: a
+    params-shaped dict, a dict of them (d_adamw's ``{"mu", "nu"}``) or a
+    tuple of them (a gossip payload)."""
+    if isinstance(tree, dict):
+        if all(isinstance(v, torch.Tensor) for v in tree.values()):
+            return {k: specs[k] for k in tree}
+        return {k: _specs_like(v, specs) for k, v in tree.items()}
+    return type(tree)(_specs_like(v, specs) for v in tree)
+
+
+def _whole_state(params, state, opt, cfg, mesh, fsdp) -> dict | None:
+    """The train state ``checkpoint.save`` takes, in the reference's
+    layout, of the rank's node (its whole leaves, gathered over the fsdp
+    line where ``fsdp`` -- ``(mesh, specs)`` -- is given): params,
+    momentum and, under ``--overlap``, the in-flight buffer as the
+    reference packs it.  On a mesh the rank's own block is packed at its
+    own layout (``pad_multiple=1``); the reference's packing of the whole
+    payload is the blocks' rows stacked.  On an fsdp mesh the leaves are
+    gathered at fsdp coordinate 0 alone, whose line writes: None at the
+    others."""
+    momentum = state.momentum
+    template = (None if state.buf is None
+                else opt.payload_template(params, state))
+    buf = None if state.buf is None else list(state.buf)
+    pad = flatbuf.PAD_MULTIPLE if mesh is None else 1
+    if fsdp is not None:
+        specs = fsdp[1]
+
+        def gather(tree):
+            return sharding.fsdp_gather(tree, _specs_like(tree, specs), mesh,
+                                        dst=0)
+
+        params, momentum = gather(params), gather(momentum)
+        if buf is not None:
+            template = gather(flatbuf.unpack(
+                flatbuf.layout_of(template, pad), buf))
+            buf = (None if template is None else flatbuf.pack(
+                template, flatbuf.layout_of(template, pad))[1])
+        if mesh.axis_index("fsdp") != 0:
+            return None
+    payload = train_state_to_jax(params, momentum, cfg)
+    if buf is not None:
+        payload["gossip_buf"] = gossip_buf_to_jax(buf, template, cfg,
+                                                  pad_multiple=pad)
+    return payload
+
+
+def config_of(args):
+    """The model config ``args`` trains: ``--arch``, reduced unless
+    ``--full``, its depth cut to ``--layers``."""
+    cfg = configs.get_config(args.arch)
+    if args.reduced:
+        cfg = configs.reduced_config(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
+
+
+def prepare(args, tokens=None, node: int | None = None,
+            fsdp: int | None = None, mesh=None) -> dict:
     """What a run of ``args`` starts from, built as :func:`run` builds it:
     the config, the topology, the momentum dtype, the node-stacked
     initial params, every step's batch and the learning-rate schedule.
@@ -229,16 +347,21 @@ def prepare(args, tokens=None, node: int | None = None) -> dict:
     grows with the vocabulary: a world of ranks samples once).  ``node``
     keeps only that node's row of the params and of every per-node batch
     entry (a node axis of 1, the values the whole run gives it): a rank
-    of a mesh then holds its own node and no other's."""
+    of a mesh then holds its own node and no other's.  ``fsdp``, the
+    rank's fsdp coordinate on ``mesh`` (a mesh, live or abstract, whose
+    fsdp extent F is above 1; the coordinate defaults to a live mesh's
+    own), keeps only the rank's shard of each leaf, cloned (cut by
+    ``sharding.node_param_specs``, read at the global shapes), and its
+    rows of every batch entry but ``alive`` where they split over fsdp
+    (the module docstring).  ``--desync``'s noise is drawn on the whole
+    stacked leaf, leaf by leaf, and cut at once: the values are the
+    single-process run's, and no more than one whole stacked leaf is
+    held at a time."""
     if args.straggler_prob and not args.deadline_skip:
         raise ValueError("--straggler-prob simulates missed deadlines; "
                          "pair it with --deadline-skip")
     device = resolve_device(args.device)
-    cfg = configs.get_config(args.arch)
-    if args.reduced:
-        cfg = configs.reduced_config(cfg)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cfg = config_of(args)
     n = args.nodes
     # momentum dtype comes from the arch's layout config (an explicit
     # argument, not a process-global knob)
@@ -246,9 +369,27 @@ def prepare(args, tokens=None, node: int | None = None) -> dict:
     mom_dtype = {"bfloat16": torch.bfloat16,
                  "float32": torch.float32}.get(layout.get("momentum_dtype"))
 
+    shards = fsdp_extent(mesh) > 1
+    if shards:
+        if node is None:
+            raise ValueError("fsdp shards are a rank's: give its node too")
+        fsdp = mesh.axis_index("fsdp") if fsdp is None else fsdp
+        cut = sharding.fsdp_only(sharding.node_param_specs(cfg, n, mesh))
+        at = {"fsdp": fsdp}
+    else:
+        fsdp = None
+
+    def own(k, v):
+        """The rank's part of a stacked leaf: its node row, its shard."""
+        if node is None:
+            return v
+        v = v[node:node + 1]
+        if shards:
+            v = sharding.local_shard({k: v}, {k: cut[k]}, mesh, at)[k]
+        return v.clone()
+
     params = M.init(cfg, args.seed, device=device)
     stacked = stack_nodes(params, n)
-    rows = slice(None) if node is None else slice(node, node + 1)
     if args.optimizer != "parallel_msgd" and args.desync:
         # start nodes desynchronized to exercise consensus (a torch
         # Generator: not the reference's jax.random noise); leaf by leaf,
@@ -258,11 +399,12 @@ def prepare(args, tokens=None, node: int | None = None) -> dict:
         for k, p in stacked.items():
             v = p + (0.01 * torch.randn(p.shape, generator=gen,
                                         device=device)).to(p.dtype)
-            noisy[k] = v if node is None else v[rows].clone()
+            noisy[k] = own(k, v)
             del v
         stacked = noisy
     elif node is not None:
-        stacked = {k: p[rows] for k, p in stacked.items()}
+        stacked = {k: own(k, p) for k, p in stacked.items()}
+    del params
 
     lr_fn = schedule.warmup_step_decay(
         args.lr, args.warmup, [int(args.steps * 0.6), int(args.steps * 0.85)])
@@ -286,12 +428,21 @@ def prepare(args, tokens=None, node: int | None = None) -> dict:
                 np.random.default_rng(2**20 + step).random(n)
                 >= args.straggler_prob)
     if node is not None:
-        batches = [{k: v[rows].clone() for k, v in b.items()}
-                   for b in batches]
+        split = shards and _rows_over_fsdp(cfg, mesh, args.batch)
+        per = args.batch // mesh.axis_size("fsdp") if split else None
+
+        def mine(k, v):
+            v = v[node:node + 1]
+            if split and k != "alive":
+                v = v[:, fsdp * per:(fsdp + 1) * per]
+            return v.clone()
+
+        batches = [{k: mine(k, v) for k, v in b.items()} for b in batches]
     return {"device": device, "config": cfg,
             "topology": topo_mod.get_topology(args.topology, n),
             "momentum_dtype": mom_dtype, "params": stacked,
-            "batches": batches, "lr_fn": lr_fn, "node": node}
+            "batches": batches, "lr_fn": lr_fn, "node": node,
+            "fsdp": fsdp}
 
 
 def run(args, timeline=None, mesh=None, start=None) -> dict:
@@ -306,15 +457,19 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
     node's, and the history's loss and consensus the whole run's.
     ``start`` is what :func:`prepare` returns, for a caller that changes
     it first (another activation dtype, say); by default ``prepare(args)``
-    (on a mesh ``prepare(args, node=i)``, the rank's node ``i``)."""
-    node, loud = None, True
+    (on a mesh ``prepare(args, node=i, mesh=mesh)``, the rank's node
+    ``i`` and, on an fsdp mesh, its shard)."""
+    node, fsdp, loud = None, None, True
     if mesh is not None:
         check_mesh(mesh, args.nodes)
         node, loud = mesh.axis_index("node"), mesh.rank == 0
-    start = prepare(args, node=node) if start is None else start
-    if start.get("node") != node:
-        raise ValueError(f"a start prepared for node {start.get('node')} "
-                         f"on a rank that trains node {node}")
+        if fsdp_extent(mesh) > 1:
+            fsdp = mesh.axis_index("fsdp")
+    start = prepare(args, node=node, mesh=mesh) if start is None else start
+    if (start.get("node"), start.get("fsdp")) != (node, fsdp):
+        raise ValueError(f"a start prepared for node {start.get('node')}, "
+                         f"fsdp {start.get('fsdp')} on a rank that trains "
+                         f"node {node}, fsdp {fsdp}")
     device, cfg = start["device"], start["config"]
     stacked, batches, lr_fn = (start["params"], start["batches"],
                                start["lr_fn"])
@@ -327,6 +482,7 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
                                   compression=args.compression,
                                   timeline=timeline, mesh=mesh)
     plan = step_for.plan
+    specs = None if step_for.fsdp is None else step_for.fsdp[1]
     state = opt.init(stacked)
 
     history, step_s = [], []
@@ -345,8 +501,9 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
                 # it is a payload-sized buffer of its own, and on a mesh
                 # one more payload-sized permute)
                 cd = consensus_distance(
-                    plan.flush_step_fn(step + 1)(stacked, state)[0], mesh)
-                if mesh is not None:   # the node mean of the ranks' losses
+                    plan.flush_step_fn(step + 1)(stacked, state)[0], mesh,
+                    specs)
+                if mesh is not None:   # the node mean of the nodes' losses
                     loss = mesh.psum(loss.reshape(1).float(), "node")[0] \
                         / args.nodes
                 loss = float(loss)
@@ -364,22 +521,16 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
                     # flush-on-save: the mixed iterates, no buffer; a
                     # resume re-primes (step_for(k, prime=True))
                     fp, fs = plan.flush_step_fn(step + 1)(stacked, state)
-                    payload = train_state_to_jax(fp, fs.momentum, cfg)
+                    payload = _whole_state(fp, fs._replace(buf=None), opt,
+                                           cfg, mesh, step_for.fsdp)
                     del fp, fs
                 else:
                     # carry-buffer: the in-flight payload is saved with the
                     # state, so a resume is bit-identical to never stopping
-                    payload = train_state_to_jax(stacked, state.momentum,
-                                                 cfg)
-                    if state.buf is not None:
-                        # on a mesh the rank's block, packed at its own
-                        # layout (pad_multiple=1); the reference's packing
-                        # of the whole payload is the blocks' rows stacked
-                        payload["gossip_buf"] = gossip_buf_to_jax(
-                            state.buf, opt.payload_template(stacked, state),
-                            cfg, pad_multiple=1 if mesh is not None
-                            else flatbuf.PAD_MULTIPLE)
-                _save(args.ckpt_dir, step, payload, mesh)
+                    payload = _whole_state(stacked, state, opt, cfg, mesh,
+                                           step_for.fsdp)
+                if payload is not None:
+                    _save(args.ckpt_dir, step, payload, mesh)
                 del payload
     if args.overlap:
         with _scope(mesh, "flush"):

@@ -15,9 +15,9 @@ against the JAX package's.
   reduced qwen3 in f32 on a (node 4) mesh, one rank per node, held
   against the port's single-process run and the reference's
   ``build_trainer`` without a mesh.
-* What training on a mesh cannot run yet (an fsdp or model extent above
-  1) raises, naming ROADMAP item 18b; a rank's ``prepare`` builds only its
-  own node.
+* What training on a mesh cannot run yet (a model extent above 1)
+  raises, naming ROADMAP item 18b-c, and fsdp extents build; a rank's
+  ``prepare`` builds only its own node.
 """
 import dataclasses
 import re
@@ -189,33 +189,43 @@ def test_logical_and_production_meshes():
 
 
 def test_training_on_a_mesh_refuses_item_18b():
-    """Only fsdp/model extents above 1 raise, naming ROADMAP item 18b; on
-    a node mesh the overlapped trainer, parallel_msgd, the warm-up and
+    """fsdp extents above 1 build (ROADMAP item 18b-b), their plans on
+    the mesh and the step's fsdp specs ``sharding.node_param_specs``; a
+    model extent above 1 raises, naming ROADMAP item 18b-c; on a node
+    mesh the overlapped trainer, parallel_msgd, the warm-up and
     checkpoints (``run``'s refusals are ``check_mesh``'s) build, their
-    plans on the mesh."""
+    plans on the mesh and no fsdp specs."""
     cfg = tconfigs.reduced_config(tconfigs.get_config("qwen3-0.6b"))
     top = TT.one_peer_exponential(4)
-    for mesh in (MM.abstract_mesh((4, 2), ("node", "fsdp")),
-                 MM.abstract_mesh((4, 1, 2), ("node", "fsdp", "model"))):
+    for mesh in (MM.abstract_mesh((4, 1, 2), ("node", "fsdp", "model")),
+                 MM.abstract_mesh((4, 2, 2), ("node", "fsdp", "model"))):
         for kw in ({}, {"overlap": True}):
-            with pytest.raises(NotImplementedError, match="item 18b"):
+            with pytest.raises(NotImplementedError, match="item 18b-c"):
                 TTrain.build_trainer(cfg, top, "dmsgd", 0.9, mesh=mesh, **kw)
-        with pytest.raises(NotImplementedError, match="item 18b"):
+        with pytest.raises(NotImplementedError, match="item 18b-c"):
             TTrain.check_mesh(mesh, 4)
     node = MM.abstract_mesh((4,), ("node",))
     with pytest.raises(ValueError, match="'node' axis of 8"):
         TTrain.check_mesh(node, 8)
     assert TTrain.check_mesh(node, 4) is None
     ok = MM.abstract_mesh((4, 1), ("node", "fsdp"))
+    fsdp2 = MM.abstract_mesh((4, 2), ("node", "fsdp"))
+    fsdp3 = MM.abstract_mesh((4, 2, 1), ("node", "fsdp", "model"))
     for name, kw in (("dmsgd", {}), ("dmsgd", {"overlap": True}),
                      ("dmsgd", {"overlap": True, "compression": "int8"}),
                      ("parallel_msgd", {}), ("dmsgd", {"warmup_steps": 1})):
-        for mesh in (node, ok):
+        for mesh in (node, ok, fsdp2, fsdp3):
             opt, step_for = TTrain.build_trainer(cfg, top, name, 0.9,
                                                  mesh=mesh, **kw)
             assert step_for.plan.mesh is mesh
             assert opt.overlap == bool(kw.get("overlap"))
             assert opt.warmup_steps == kw.get("warmup_steps", 0)
+            if mesh in (node, ok):
+                assert step_for.fsdp is None
+            else:
+                got_mesh, specs = step_for.fsdp
+                assert got_mesh is mesh
+                assert specs == TS.node_param_specs(cfg, 4, mesh)
 
 
 @pytest.mark.parametrize("desync", [False, True])
