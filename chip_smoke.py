@@ -267,7 +267,7 @@ Phases, in order; any failure exits non-zero before the result lines:
                  the overlap pair and its speedup printed, not gated (the
                  step is host-bound on one card); (c) launch.train_lm
                  train_one at the 100m preset (128,995,584 parameters a
-                 node), 8 nodes, 20 steps over one_peer_exp and then
+                 node), 8 nodes, 10 steps over one_peer_exp and then
                  static_exp: every loss finite, the last below step 0's,
                  K1 once a step and no other kernel, 3 and 1 executables
                  (one per distinct realization), peak memory beside the
@@ -316,16 +316,25 @@ Phases, in order; any failure exits non-zero before the result lines:
                  8 ranks, a (node 4, fsdp 2, model 1) mesh, the same
                  model in f32 activations, each rank holding its fsdp
                  shards, gathering its node's leaves for the gradients
-                 and reduce-scattering their mean: (h) dmsgd, 3 steps,
+                 and reduce-scattering their mean: (h) dmsgd, 2 steps,
                  and the every=2 pair (the Shifts step one permute more
-                 than the Identity step, nothing else), (i) --overlap, 3
-                 steps, its carry-buffer checkpoint at step 2 against the
+                 than the Identity step, nothing else), (i) --overlap, 2
+                 steps, its carry-buffer checkpoint at step 1 against the
                  single-process run's array by array, both held against
                  the single-process run with the plain combine (2e-4 of
                  max-abs; bit for bit reported), the fsdp ops a step
                  (one all_gather, one reduce_scatter, one psum), per rank
                  median step ms, peak memory beside (d)'s, the wire log
-                 per kind and K1 (3 / 5 a rank); then K1 alone at a
+                 per kind and K1 (2 / 4 a rank); in the same world of 8,
+                 model-sharded (tensor-parallel) training, each rank
+                 holding its (fsdp, model) shard and running the pass on
+                 its model shards (launch/tp.py): (j) dmsgd, 3 steps, on
+                 (node 2, fsdp 2, model 2), (k) (i)'s --overlap run on
+                 (node 4, fsdp 1, model 2), its carry-buffer checkpoint
+                 against the same single-process one array by array,
+                 both within 2e-4 of max-abs, per rank median step ms,
+                 peak memory, the "model" scope's ops, bytes and ms a
+                 step and K1 (3 / 4 a rank); then K1 alone at a
                  rank's (1, 187.0 M) f32 block from CUDA-graph replays in
                  turns with torch.lerp, beside its bytes bound; (c) on one card asking
                  for NCCL raises (two ranks on cuda:0); with >= 4 cards
@@ -2916,7 +2925,8 @@ COMM_PORT_ELEMS, COMM_REF_ELEMS = 1_000_000, 1_007_616
 BENCH_KERNELS = {"kernel_flash_attention": "flash_attention",
                  "kernel_ssd_scan": "ssd_scan",
                  "kernel_gossip_mix": "gossip_mix"}
-LM_PRESET, LM_NODES, LM_STEPS = "100m", 8, 20
+# 10 steps a topology: the whole script must end within its limit on slow hosts
+LM_PRESET, LM_NODES, LM_STEPS = "100m", 8, 10
 LM_TOPS = {"one_peer_exp": 3, "static_exp": 1}   # executables expected
 # train_lm's other arguments: the reference's CLI defaults
 LM_KW = dict(batch=2, seq=128, lr0=0.3, hetero=0.3)
@@ -3191,36 +3201,95 @@ def _against_single(what, r, ref_losses, comp):
     return equal
 
 
-def _ckpt_arrays(mesh_dir: str, step: int, want: dict) -> dict:
-    """(f): the checkpoint of step ``step`` that the mesh run wrote against
-    the arrays the single-process run saved at that step (``want``: leaf
-    key path -> array, in the order ``checkpoint.save`` writes them):
-    the same leaves, each of the same shape and dtype within TRAIN_TOL x
-    its max-abs; counts bit-equal arrays and the largest difference."""
+def _npz_leaf(z, i: int):
+    """Leaf ``i`` of a checkpoint's ``arrays.npz`` (``z``, its open
+    ``zipfile.ZipFile``) as numpy: the stored member's bytes read from the
+    file straight into the array, past zipfile's reader (which copies the
+    member through Python and checks its CRC: ~50 s for two 12 GB
+    checkpoints on the card's host; ``np.load`` is slower still)."""
+    import io
+    import struct
+    import zipfile
+
     import numpy as np
-    man = json.loads((Path(mesh_dir) / f"step_{step}" / "manifest.json")
-                     .read_text())
-    check(man["treedef"] == list(want), f"mesh checkpoint leaves "
-          f"{man['treedef']} != single-process {list(want)}")
-    equal, worst, nbytes = 0, 0.0, 0
-    with np.load(Path(mesh_dir) / f"step_{step}" / "arrays.npz") as a:
+    from numpy.lib import format as npf
+    info = z.getinfo(f"leaf_{i}.npy")
+    check(info.compress_type == zipfile.ZIP_STORED,
+          f"checkpoint leaf {i} is compressed")
+    with open(z.filename, "rb") as fh:
+        fh.seek(info.header_offset)
+        local = fh.read(30)
+        check(local[:4] == b"PK\x03\x04", f"checkpoint leaf {i}: no local "
+              "file header at its offset")
+        start = info.header_offset + 30 + sum(struct.unpack("<HH",
+                                                            local[26:30]))
+        fh.seek(start)
+        head = io.BytesIO(fh.read(min(1 << 16, info.file_size)))
+        major, _ = npf.read_magic(head)
+        shape, fortran, dtype = getattr(
+            npf, f"read_array_header_{major}_0")(head)
+        x = np.empty(int(np.prod(shape)), dtype)
+        check(head.tell() + x.nbytes == info.file_size, f"checkpoint leaf "
+              f"{i}: {head.tell()} + {x.nbytes} bytes in a member of "
+              f"{info.file_size}")
+        fh.seek(start + head.tell())
+        view, got = memoryview(x.view(np.uint8)), 0
+        while got < x.nbytes:
+            n = fh.readinto(view[got:])
+            check(n > 0, f"checkpoint leaf {i}: the file ends early")
+            got += n
+    return x.reshape(shape, order="F" if fortran else "C")
+
+
+def _ckpt_arrays(mesh_dirs: list, step: int, want: dict) -> list:
+    """(f), (i), (k): the checkpoints of step ``step`` that mesh runs wrote
+    under ``mesh_dirs`` against the arrays the single-process run saved
+    at that step (``want``: leaf key path -> array, in the order
+    ``checkpoint.save`` writes them): the same leaves, each of the same
+    shape and dtype within TRAIN_TOL x its max-abs, compared on the card
+    (each single-process leaf moved there once); per directory the
+    bit-equal arrays and the largest difference."""
+    import zipfile
+
+    import torch
+    out = []
+    for d in mesh_dirs:
+        man = json.loads((Path(d) / f"step_{step}" / "manifest.json")
+                         .read_text())
+        check(man["treedef"] == list(want), f"mesh checkpoint leaves "
+              f"{man['treedef']} != single-process {list(want)}")
+        out.append({"leaves": len(want), "bit_equal": 0,
+                    "max_abs_diff": 0.0, "gb": 0.0,
+                    "gossip_buf": any(p.startswith("gossip_buf")
+                                      for p in want)})
+    files = [zipfile.ZipFile(Path(d) / f"step_{step}" / "arrays.npz")
+             for d in mesh_dirs]
+    try:
         for i, (path, y) in enumerate(want.items()):
-            x = a[f"leaf_{i}"]
-            check(x.shape == y.shape and x.dtype == y.dtype,
-                  f"checkpoint {path}: {x.shape} {x.dtype} vs {y.shape} "
-                  f"{y.dtype}")
-            nbytes += x.nbytes
-            if np.array_equal(x, y):
-                equal += 1
-                continue
-            err = float(np.abs(x.astype(np.float32) - y).max())
-            scale = float(np.abs(y).max())
-            check(err <= TRAIN_TOL * scale, f"checkpoint {path}: max abs "
-                  f"diff {err} beyond {TRAIN_TOL} x {scale}")
-            worst = max(worst, err)
-    return {"leaves": len(want), "bit_equal": equal, "max_abs_diff": worst,
-            "gb": nbytes / 1e9,
-            "gossip_buf": any(p.startswith("gossip_buf") for p in want)}
+            yt = torch.from_numpy(y).cuda()
+            scale = float(yt.abs().max())
+            for z, rec in zip(files, out):
+                x = _npz_leaf(z, i)
+                check(x.shape == y.shape and x.dtype == y.dtype,
+                      f"checkpoint {path}: {x.shape} {x.dtype} vs {y.shape} "
+                      f"{y.dtype}")
+                rec["gb"] += x.nbytes / 1e9
+                xt = torch.from_numpy(x).cuda()
+                del x
+                if torch.equal(xt, yt):
+                    rec["bit_equal"] += 1
+                    continue
+                err = float((xt.float() - yt.float()).abs().max())
+                del xt
+                check(err <= TRAIN_TOL * scale, f"checkpoint {path}: max "
+                      f"abs diff {err} beyond {TRAIN_TOL} x {scale}")
+                rec["max_abs_diff"] = max(rec["max_abs_diff"], err)
+            del yt
+    finally:
+        for z in files:
+            z.close()
+        torch.cuda.empty_cache()
+    return out
 
 
 def _kept_checkpoints():
@@ -3361,7 +3430,7 @@ def _mesh_legs(torch, seed):
             f"{[round(_median_ms(r['runs'][PM]['step_s']), 1) for r in res]}")
 
         # (f) the carry-buffer checkpoint of (d): rank 0 wrote the rows
-        ck = _ckpt_arrays(f"{tmp}/mesh", 2, kept.pop(2))
+        (ck,) = _ckpt_arrays([f"{tmp}/mesh"], 2, kept.pop(2))
         check(ck["gossip_buf"], "mesh checkpoint carries no gossip_buf")
         log(f"  (f) --overlap --ckpt-dir (carry-buffer), step 2: "
             f"{ck['leaves']} arrays ({ck['gb']:.2f} GB, gossip_buf among "
@@ -3404,7 +3473,13 @@ def _mesh_legs(torch, seed):
 
 
 FSDP_SHAPE = (4, 2, 1)     # (node, fsdp, model): the reference tests' mesh
-FSDP_STEPS = 3             # (h), (i): a save at step 2 in (i)
+# (h), (i), (k): 2 steps, a save at step 1 in (i) and (k) (3 steps and a
+# save at step 2 took the script past 1,100 s on a slow host); (j): 3
+FSDP_STEPS = 2
+CKPT_STEP = 1
+TP_J_STEPS = 3
+TP_J_SHAPE = (2, 2, 2)     # (j): node 2, fsdp 2, model 2
+TP_K_SHAPE = (4, 1, 2)     # (k): node 4, fsdp 1, model 2
 
 
 def _wire_rows(log: dict) -> dict:
@@ -3443,22 +3518,62 @@ def _k1_fsdp_block(torch, elems: int, seed: int) -> dict:
             "bound_by": by}
 
 
-def _fsdp_legs(torch, seed, d_peaks):
-    """(h), (i) on one world of 8 ranks sharing the card over gloo-host,
-    a (node 4, fsdp 2, model 1) mesh: each rank keeps its fsdp shard of
-    its node's leaves, gathers the node's whole leaves for the gradient
-    pass and reduce-scatters the gradients' mean.  Activations in f32
+FREE_EVERY_S = 0.25
+
+
+@contextlib.contextmanager
+def _least_free(torch):
+    """Yields ``[least free bytes, total bytes]`` of the card, filled by a
+    thread that reads ``torch.cuda.mem_get_info`` every FREE_EVERY_S
+    seconds until the block ends: the low-water mark of every process on
+    the card."""
+    import threading
+    free = list(torch.cuda.mem_get_info())
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(FREE_EVERY_S):
+            free[0] = min(free[0], torch.cuda.mem_get_info()[0])
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield free
+    finally:
+        done.set()
+        th.join()
+
+
+def _model_rows(log: dict, steps: int) -> dict:
+    """The wire log's ``model`` scope (the tensor-parallel pass) a step:
+    per kind (ops, bytes sent, ms)."""
+    return {k: (v["ops"] / steps, v["bytes"] / steps,
+                round(1e3 * v["s"] / steps, 3))
+            for k, v in log.items() if k.startswith("model:")}
+
+
+def _sharded_legs(torch, seed, d_peaks):
+    """(h)-(k) on one world of 8 ranks sharing the card over gloo-host.
+    (h), (i) on a (node 4, fsdp 2, model 1) mesh: each rank keeps its
+    fsdp shard of its node's leaves, gathers the node's whole leaves for
+    the gradient pass and reduce-scatters the gradients' mean; (j), (k)
+    on (node 2, fsdp 2, model 2) and (node 4, fsdp 1, model 2): each
+    rank keeps its (fsdp, model) shard and runs the tensor-parallel pass
+    (``launch/tp.py``) on its model shards.  Activations in f32
     (``mesh_check.f32_start``), every run alike: the row split changes
     the products' shapes, which bf16 activations round apart by more
     than the 2e-4 held here.  (h) dmsgd synchronous,
     then the every=2 pair (a Shifts step against the same step's
     Identity: one permute more and nothing else); (i) --overlap with a
-    carry-buffer checkpoint at step 2, written by the mesh's rank 0 and
+    carry-buffer checkpoint at step 1, written by the mesh's rank 0 and
     held array by array against the single-process run's (kept in
-    memory by a stand-in ``checkpoint.save``, taken after the world).  Both held in this process against the
-    single-process run with the plain combine (every rank's K1 meets its
-    plain version), shard by shard; then K1 alone at a rank's block.
-    ``d_peaks``: (d)'s peaks, (sync, overlap) per rank."""
+    memory by a stand-in ``checkpoint.save``, taken after the world);
+    (j) dmsgd synchronous on 2 nodes; (k) (i)'s run on the model mesh,
+    its checkpoint held against the same single-process one.  All held
+    in this process against the single-process run with the plain
+    combine (every rank's K1 meets its plain version), shard by shard;
+    then K1 alone at a rank's block of (h).  ``d_peaks``: (d)'s peaks,
+    (sync, overlap) per rank."""
     import shutil
     import tempfile
     from unittest import mock
@@ -3468,29 +3583,48 @@ def _fsdp_legs(torch, seed, d_peaks):
     from repro_torch.launch import train as T
     t_legs = time.perf_counter()
     base = MESH_LEG_ARGV + ["--seed", str(seed), "--steps", str(FSDP_STEPS)]
-    ovl = base + ["--overlap", "--ckpt-every", "2"]
+    ovl = base + ["--overlap", "--ckpt-every", str(CKPT_STEP)]
     tmp = tempfile.mkdtemp(prefix="fsdp_ckpt_")
     try:
         start = MC.f32_start(T.parse_args(ovl))
         tokens = [b["tokens"].numpy() for b in start["batches"]]
+        tp_j = base + ["--nodes", str(TP_J_SHAPE[0]), "--steps",
+                       str(TP_J_STEPS)]
+        start_j = MC.f32_start(T.parse_args(tp_j))
+        tokens_j = [b["tokens"].numpy() for b in start_j["batches"]]
         refs = {}
         with gossip.kernel_mode("off"):
-            for name, argv in (("overlap", ovl), ("sync", base)):
+            for name, argv in (("overlap", ovl), ("sync", base),
+                               ("tp_j", tp_j)):
                 a = T.parse_args(argv)
-                r = T.run(a, start=start if name == "overlap"
-                          else MC.f32_start(a, tokens))
+                st = {"overlap": start, "tp_j": start_j}.get(name)
+                r = T.run(a, start=MC.f32_start(a, tokens) if st is None
+                          else st)
+                # on the host: 15 GB on the card here beside the world's
+                # 8 ranks ran the card out of memory at (k)'s checkpoint
                 refs[name] = ([h["loss"] for h in r["history"]],
-                              (r["state"].momentum, r["params"]))
-                del r
-                start = None
+                              tuple({k: v.cpu() for k, v in part.items()}
+                                    for part in (r["state"].momentum,
+                                                 r["params"])))
+                del r, st
+                if name == "overlap":
+                    start = None
                 torch.cuda.empty_cache()
+        del start_j
         t_refs = time.perf_counter() - t_legs
-        SYNC, OVL = range(2)
+        SYNC, OVL, TPJ, TPK = range(4)
         runs = [(base, refs["sync"][1]),
-                (ovl + ["--ckpt-dir", f"{tmp}/mesh"], refs["overlap"][1])]
-        res, comps = MC.train_world(runs, tokens, shape=FSDP_SHAPE,
-                                    axes=MC.TRAIN_AXES, every2=base,
-                                    f32=True)
+                (ovl + ["--ckpt-dir", f"{tmp}/mesh"], refs["overlap"][1]),
+                (tp_j, refs["tp_j"][1], TP_J_SHAPE, tokens_j),
+                (ovl + ["--ckpt-dir", f"{tmp}/mesh_k"], refs["overlap"][1],
+                 TP_K_SHAPE)]
+        with _least_free(torch) as free:
+            res, comps = MC.train_world(runs, tokens, shape=FSDP_SHAPE,
+                                        axes=MC.TRAIN_AXES, every2=base,
+                                        f32=True)
+        log(f"  (h)-(k) the card's least free memory while the world ran: "
+            f"{free[0] / 1e9:.2f} GB of {free[1] / 1e9:.2f} (sampled every "
+            f"{FREE_EVERY_S} s)")
         losses = {k: v[0] for k, v in refs.items()}
         del refs, runs
         torch.cuda.empty_cache()
@@ -3498,11 +3632,12 @@ def _fsdp_legs(torch, seed, d_peaks):
         fsdp_want = {"fsdp:all_gather": FSDP_STEPS,
                      "fsdp:reduce_scatter": FSDP_STEPS,
                      "fsdp:psum": FSDP_STEPS}
-        out = {}
+        out = {"least_free_gb": free[0] / 1e9}
         for leg, idx, what, k1_want, perm_want in (
                 ("h", SYNC, "fsdp sync", FSDP_STEPS, FSDP_STEPS),
-                # 2 delayed rounds, 2 logged flushes (steps 0 and 2), 1
-                # final flush; the priming step permutes nothing
+                # a delayed round a step after the first, 2 logged
+                # flushes (the first and last steps), 1 final flush; the
+                # priming step permutes nothing
                 ("i", OVL, "fsdp overlap", FSDP_STEPS + 2, FSDP_STEPS - 1)):
             bits, k1, peaks, ms = [], [], [], []
             for r in res:
@@ -3555,23 +3690,35 @@ def _fsdp_legs(torch, seed, d_peaks):
         log(f"  (h) every=2 pair: the Shifts step's wire {counts} against "
             f"the Identity step's {base_c}: one permute more and nothing "
             "else, on every rank")
-        # (i)'s carry-buffer checkpoint: rank 0 wrote the rows; the
-        # single-process run's, kept in memory by a stand-in save, is
+        out.update(_tp_legs(res, comps, losses, (TPJ, TPK)))
+        # (i)'s and (k)'s carry-buffer checkpoints: rank 0 wrote the rows;
+        # the single-process run's, kept in memory by a stand-in save, is
         # taken now that the world's ranks and their host buffers are gone
+        t_single = time.perf_counter()
         save, kept = _kept_checkpoints()
         with gossip.kernel_mode("off"), \
                 mock.patch.object(T.checkpoint, "save", save):
             a = T.parse_args(ovl + ["--ckpt-dir", f"{tmp}/single"])
             T.run(a, start=MC.f32_start(a, tokens))
         torch.cuda.empty_cache()
-        ck = _ckpt_arrays(f"{tmp}/mesh", 2, kept.pop(2))
-        check(ck["gossip_buf"], "fsdp checkpoint carries no gossip_buf")
-        log(f"  (i) --overlap --ckpt-dir (carry-buffer), step 2: "
-            f"{ck['leaves']} arrays ({ck['gb']:.2f} GB, gossip_buf among "
-            f"them, each leaf gathered over fsdp) against the "
-            f"single-process run's: {ck['bit_equal']} bit for bit, largest "
-            f"difference {ck['max_abs_diff']}")
-        out["ckpt"] = ck
+        t_ck = time.perf_counter()
+        cks = _ckpt_arrays([f"{tmp}/mesh", f"{tmp}/mesh_k"], CKPT_STEP,
+                           kept.pop(CKPT_STEP))
+        log(f"  (i), (k) checkpoints compared on the card in "
+            f"{time.perf_counter() - t_ck:.1f} s (the single-process run "
+            f"that keeps its own {t_ck - t_single:.1f} s)")
+        for (leg, where), ck in zip((("i", "over fsdp"),
+                                     ("k", "over model")), cks):
+            check(ck["gossip_buf"], f"({leg}) checkpoint carries no "
+                  "gossip_buf")
+            log(f"  ({leg}) --overlap --ckpt-dir (carry-buffer), step "
+                f"{CKPT_STEP}: {ck['leaves']} arrays ({ck['gb']:.2f} GB, "
+                f"gossip_buf "
+                f"among them, each leaf gathered {where}) against the "
+                f"single-process run's: {ck['bit_equal']} bit for bit, "
+                f"largest difference {ck['max_abs_diff']}")
+            out["ckpt" if leg == "i" else "ckpt_k"] = ck
+        del kept
         elems = 2 * sum(res[0]["runs"][SYNC]["param_elems"].values())
         del res
         torch.cuda.empty_cache()
@@ -3586,9 +3733,63 @@ def _fsdp_legs(torch, seed, d_peaks):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     total = time.perf_counter() - t_legs
-    log(f"  (h)-(i) {total:.1f} s (single-process references {t_refs:.1f} "
+    log(f"  (h)-(k) {total:.1f} s (single-process references {t_refs:.1f} "
         f"s, the world {t_world:.1f} s)")
     out["seconds"] = total
+    return out
+
+
+def _tp_legs(res, comps, losses, idx) -> dict:
+    """(j), (k) of :func:`_sharded_legs`' world: every rank's losses and
+    final (m, x) shards against the single-process run's (TRAIN_TOL x
+    max-abs), K1 a rank ((j) one a step; (k) under --overlap a delayed
+    round a step after the first, 2 logged flushes, 1 final), the model
+    ops alike on every rank, no fsdp op on fsdp 1; per rank the median
+    step ms, peak memory, the ``model`` scope a step and K1."""
+    out = {}
+    for leg, i, shape, ref, steps, k1_want in (
+            ("j", idx[0], TP_J_SHAPE, "tp_j", TP_J_STEPS, TP_J_STEPS),
+            ("k", idx[1], TP_K_SHAPE, "overlap", FSDP_STEPS,
+             FSDP_STEPS + 2)):
+        what = f"tp {leg} {dict(zip(('node', 'fsdp', 'model'), shape))}"
+        bits, k1, peaks, ms, model = [], [], [], [], []
+        for r in res:
+            o = r["runs"][i]
+            bits.append(_against_single(what, o, losses[ref],
+                                        comps[i][o["rank"]]))
+            check(o["k1"] == k1_want, f"{what} rank {o['rank']}: K1 "
+                  f"{o['k1']}, reckoned {k1_want}")
+            rows = _model_rows(o["log"], steps)
+            check(bool(rows), f"{what} rank {o['rank']}: no model op")
+            fs = [k for k in o["log"] if k.startswith("fsdp:")]
+            check(shape[1] > 1 or not fs, f"{what} rank {o['rank']}: fsdp "
+                  f"ops {fs} on fsdp 1")
+            k1.append(o["k1"])
+            peaks.append(o["peak_gb"])
+            ms.append(_median_ms(o["step_s"]))
+            model.append(rows)
+        check(all({k: v[0] for k, v in m.items()} ==
+                  {k: v[0] for k, v in model[0].items()} for m in model),
+              f"{what}: the model ops differ between ranks")
+        o0 = res[0]["runs"][i]
+        log(f"  ({leg}) {what}, {steps} steps ({o0['wire']}), "
+            f"{sum(o0['param_elems'].values()) / 1e6:.1f} M parameters a "
+            f"rank: losses {[round(h['loss'], 5) for h in o0['history']]} "
+            f"(single process {[round(v, 5) for v in losses[ref]]}); "
+            f"final (m, x) shards per rank max abs diff "
+            f"{[comps[i][k][1] for k in sorted(comps[i])]} (tolerance "
+            f"{TRAIN_TOL} x max-abs), bit for bit {bits}")
+        log(f"  ({leg}) per rank: median step ms "
+            f"{[round(v, 1) for v in ms]}; peak GB "
+            f"{[round(v, 3) for v in peaks]}; K1 {k1}")
+        log(f"  ({leg}) the model scope a step (ops, bytes, ms) per rank: "
+            f"{model}")
+        log(f"  ({leg}) rank 0 wire (ops, bytes, s, staging share): "
+            f"{_wire_rows(o0['log'])}")
+        out[leg] = {"k1_per_rank": k1, "bit_equal": bits,
+                    "peak_gb_per_rank": peaks, "step_ms_per_rank": ms,
+                    "model_per_rank": model,
+                    "wire_rank0": _wire_rows(o0["log"])}
     return out
 
 
@@ -3689,8 +3890,10 @@ def mesh_phase(torch, dev, seed):
     # runtime round with 2 nodes a rank, on one world
     out["legs"] = _mesh_legs(torch, seed)
 
-    # (h)-(i): fsdp-sharded training on a (node 4, fsdp 2, model 1) mesh
-    out["fsdp"] = _fsdp_legs(torch, seed, (
+    # (h)-(k): fsdp-sharded training on a (node 4, fsdp 2, model 1) mesh,
+    # model-sharded on (node 2, fsdp 2, model 2) and (node 4, fsdp 1,
+    # model 2)
+    out["fsdp"] = _sharded_legs(torch, seed, (
         out["legs"]["sync_peak_gb_per_rank"],
         out["legs"]["overlap_peak_gb_per_rank"]))
 
@@ -4098,6 +4301,8 @@ def main() -> int:
                     "parallel_msgd_k1_per_rank"],
                 "fsdp_sync_per_rank": mesh["fsdp"]["h"]["k1_per_rank"],
                 "fsdp_overlap_per_rank": mesh["fsdp"]["i"]["k1_per_rank"],
+                "tp_j_per_rank": mesh["fsdp"]["j"]["k1_per_rank"],
+                "tp_k_per_rank": mesh["fsdp"]["k"]["k1_per_rank"],
                 "nccl_per_rank": (mesh["nccl"]["k1_per_rank"]
                                   if mesh["nccl"] else None)}
             k["fsdp_block"] = mesh["fsdp"]["k1_block"]

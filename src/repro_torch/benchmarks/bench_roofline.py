@@ -7,10 +7,10 @@ training and 2 N D for serving (N the active parameters for moe,
 ``models.model.active_param_count``) and the ratio MODEL_FLOPS / counted
 flops (remat and attention show as a ratio below 1), and reports the
 dominant roofline term.  ``us_per_call`` is the projected step time, the
-largest of the three terms; on the H100's constants each is a lower bound
-where the dry run does not count the collectives inside a replica, and
-then ``dominant=`` names the largest counted term as ``<term> (lower
-bound)``.
+largest of the three terms, on the H100's constants.  A serving record's
+terms are lower bounds (the dry run does not count the collectives
+inside its replica), and then ``dominant=`` names the largest counted
+term as ``<term> (lower bound)``; a training record counts them.
 """
 from __future__ import annotations
 

@@ -50,7 +50,7 @@ def _rows(recs):
 
 def dryrun_section(recs) -> str:
     out = ["### Count matrix (baseline: one-peer exp, DmSGD, per-arch "
-           "layouts; per chip, rank 0, lower bounds)", "",
+           "layouts; per chip, rank 0; serving rows lower bounds)", "",
            "| arch | shape | mesh | nodesxfsdpxmodel | count s | "
            "temp GB/chip | args GB/chip | collectives (counts) |",
            "|---|---|---|---|---|---|---|---|"]

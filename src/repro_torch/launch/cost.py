@@ -28,7 +28,8 @@ backward and is counted where it runs, as the reference counts remat.
 * **collectives**: read from a mesh's :class:`~repro_torch.launch.mesh.
   WireLog` (:meth:`Cost.add_wire`) under the reference's HLO names and
   link factors: a permute moves its buffer once, an all-reduce
-  2 (g - 1) / g of it, an all-gather (g - 1) / g of its output.
+  2 (g - 1) / g of it, an all-gather (g - 1) / g of its output, a
+  reduce-scatter (g - 1) / g of its input.
 * **kernels**: the reference counts a Pallas custom call as zero.  The
   port does not: each hand-written kernel's wrapper, on a CUDA or meta
   tensor under an active :class:`Cost`, records its kernel's operations
@@ -59,7 +60,8 @@ aten = torch.ops.aten
 
 # the mesh's op kinds under the reference's HLO collective names
 LINK_KIND = {"permute": "collective-permute", "psum": "all-reduce",
-             "pmax": "all-reduce", "all_gather": "all-gather"}
+             "pmax": "all-reduce", "all_gather": "all-gather",
+             "reduce_scatter": "reduce-scatter"}
 
 # ops that move no data: allocations without a write (their storage
 # still counts towards the peak), and reshapes that the schema does not
@@ -189,9 +191,10 @@ class Cost(TorchDispatchMode):
     def add_wire(self, log) -> None:
         """Add what a mesh's ``WireLog`` recorded: per kind its ops and its
         link bytes (the reference's factors, applied as the mesh logged
-        each op with its group extent)."""
+        each op with its group extent); a scoped kind (``"model:psum"``)
+        counts under its kind."""
         for kind, rec in log.kinds.items():
-            name = LINK_KIND[kind]
+            name = LINK_KIND[kind.rsplit(":", 1)[-1]]
             self.collective_counts[name] += rec["ops"]
             self.collective_bytes[name] += rec["link"]
 

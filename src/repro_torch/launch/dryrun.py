@@ -20,30 +20,36 @@ rank 0 of the logical mesh (``to_logical_mesh(make_production_mesh())``,
   training, the cache for decode).  ``temp_bytes`` is the counted pass's
   ``peak_bytes`` over the inner shards; ``fits`` compares argument plus
   temp bytes with ``HW["hbm_bytes"]``.
-* **training** (``train_4k``): the port has no sharded forward (ROADMAP
-  item 18b), so one node's gradient pass (``steps.loss_and_grads`` over
-  its ``global_batch / nodes`` sequences in micro-batches of the layout's
-  ``micro``, as ``make_train_step`` runs it; one micro-batch is counted
-  and multiplied by their number, as the reference multiplies a scan body
-  by its trip count) is divided evenly by the node's ``fsdp x model``
-  chips (``"partition": "even"``).  The update and the gossip run as on a
-  mesh: ``opt.update_with_mix`` on rank 0's block of the node-stacked
-  tree through ``GossipPlan(mesh=dry_mesh(...))``, the real shard-native
-  engine on a wire that moves nothing, K1 recorded by its formula; that
-  part is exact per chip.  The record keeps the reference's
-  ``gossip_ir`` and adds ``wire_bytes_per_rank`` from the dry mesh's log.
+* **training** (``train_4k``): rank 0's real step, on meta, over the
+  dry mesh (``dry_mesh(...)``: the real collectives on a wire that moves
+  nothing, each logged with the bytes rank 0 would send): the fsdp
+  gather of its block (``sharding.fsdp_gather``), the tensor-parallel
+  gradient pass on its model shards (``steps.loss_and_grads(tp=)``,
+  :mod:`repro_torch.launch.tp`) over its rows of the node's ``global_batch
+  / nodes`` sequences (split over fsdp as ``launch.train`` splits them)
+  in micro-batches of the layout's ``micro`` -- one micro-batch counted,
+  its ops and collectives taken once per micro-batch, as the reference
+  multiplies a scan body by its trip count -- the gradients'
+  reduce-scatter (``sharding.fsdp_reduce_scatter_mean``), then the
+  update and the gossip: ``opt.update_with_mix`` on rank 0's block
+  through ``GossipPlan(mesh=dry_mesh(...))``, the real shard-native
+  engine, K1 recorded by its formula.  Every term is counted per chip,
+  the collectives inside a replica among them.  The record keeps the
+  reference's ``gossip_ir`` and adds ``wire_bytes_per_rank`` from the
+  dry mesh's log.
 * **serving** (``prefill_32k``, ``decode_32k``, ``long_500k``): one
   replica (the ``fsdp x model`` chips of a node) steps over the batch rows
-  ``sharding.batch_spec`` gives its node, divided evenly by its chips.
-* **not counted**: the collectives GSPMD would insert inside a replica for
-  ``fsdp`` and ``model`` (``"uncounted"``), so every term is a lower
-  bound on the step's time on such a mesh.
+  ``sharding.batch_spec`` gives its node, divided evenly by its chips
+  (``"partition": "even"``).  The collectives a model-sharded prefill or
+  decode would run inside the replica are not counted (``"uncounted"``),
+  so its terms are lower bounds.
 
 ``roofline_terms`` uses the H100's constants (``launch.mesh.HW``):
 compute at the bf16 peak, memory at the HBM rate, collectives at the
 400 Gb/s network port of each card (``net_bw``).  A record whose terms
-are lower bounds (``"uncounted"``) names no ``dominant`` term (null) and
-keeps the largest counted one as ``dominant_counted``.  The record's ``cost``
+are lower bounds (``"uncounted"``: serving) names no ``dominant`` term
+(null) and keeps the largest counted one as ``dominant_counted``; a
+training record names its ``dominant`` term.  The record's ``cost``
 key takes the place of the reference's ``hlo_cost``, ``count_s`` of its
 ``lower_s`` and ``compile_s``.
 
@@ -74,6 +80,8 @@ from ..models import model as M
 from . import sharding, steps
 from .cost import Cost
 from .mesh import HW, dry_mesh, make_production_mesh, to_logical_mesh
+from .tp import TP
+from .train import rows_over_fsdp
 
 __all__ = ["ARCH_IDS", "SHAPE_IDS", "build", "roofline_terms", "run_one",
            "main"]
@@ -87,7 +95,8 @@ SHAPE_IDS = list(steps.SHAPES)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}
 
-UNCOUNTED = "intra-replica collectives (ROADMAP item 18b)"
+UNCOUNTED = ("intra-replica collectives (ROADMAP item 18b-d: model-sharded "
+             "prefill and decode in the dry run, caches by cache_specs)")
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -157,31 +166,41 @@ def _setup(arch: str, shape_name: str, multi_pod: bool, knobs: dict):
 _PASSES: dict = {}
 
 
-def _loss_and_grads(cfg, params: dict, tokens, images) -> tuple:
-    """The count of ``steps.loss_and_grads`` on these shapes, and the
-    gradients' dtypes; the same config and shapes (a 1pod and a 2pod
+def _loss_and_grads(cfg, params: dict, tokens, images, dry, specs) -> tuple:
+    """The count of ``steps.loss_and_grads`` on these shapes -- on rank 0's
+    model shards over ``dry`` (the tensor-parallel pass, its collectives
+    in the count) where the mesh's model extent is above 1 -- and the
+    gradients' dtypes; the same config, shapes and cut (a 1pod and a 2pod
     record) are counted once per process."""
+    tp = TP(dry, specs) if dry.shape["model"] > 1 else None
     key = (cfg, tuple(tokens.shape),
-           None if images is None else tuple(images.shape))
+           None if images is None else tuple(images.shape),
+           tuple((k, tuple(v.shape)) for k, v in params.items()),
+           tuple(sorted(tp.dims.items())) if tp else None)
     if key not in _PASSES:
+        dry.log.reset()
         with Cost() as c:
-            _, g = steps.loss_and_grads(cfg, params, tokens, images)
+            _, g = steps.loss_and_grads(cfg, params, tokens, images, tp)
+        c.add_wire(dry.log)
+        dry.log.reset()
         _PASSES[key] = (c, {k: v.dtype for k, v in g.items()})
     return _PASSES[key]
 
 
-def _grad_pass(cfg, params: dict, tokens, images, micro) -> tuple:
-    """The count of one node's gradient pass over ``tokens`` (B, S, ...)
-    as ``make_train_step`` runs it, and the gradients' dtype per leaf: with
-    ``nm`` micro-batches, one micro-batch's pass counted once and taken
-    ``nm`` times, plus the f32 accumulators and ``nm`` accumulations."""
+def _grad_pass(cfg, params: dict, tokens, images, micro, dry,
+               specs) -> tuple:
+    """The count of a rank's gradient pass over ``tokens`` (B, S, ...) as
+    ``make_train_step`` runs it, and the gradients' dtype per leaf: with
+    ``nm`` micro-batches, one micro-batch's pass (its collectives too)
+    counted once and taken ``nm`` times, plus the f32 accumulators and
+    ``nm`` accumulations."""
     pnb = tokens.shape[0]
     if micro is None or micro >= pnb:
-        return _loss_and_grads(cfg, params, tokens, images)
+        return _loss_and_grads(cfg, params, tokens, images, dry, specs)
     nm = pnb // micro
     one, g_dtypes = _loss_and_grads(
         cfg, params, tokens[:micro], None if images is None
-        else images[:micro])
+        else images[:micro], dry, specs)
     total = Cost()
     with total:
         acc_loss = torch.zeros((), dtype=torch.float32, device="meta")
@@ -216,9 +235,7 @@ def build(arch: str, shape_name: str, *, multi_pod: bool,
                 nodes=nodes, fsdp=fsdp,
                 model_axis=sharding.axis_size(mesh, "model"),
                 topology=topology, optimizer=optimizer, knobs=knobs,
-                n_params=int(n_params), partition="even")
-    if inner > 1:
-        meta["uncounted"] = UNCOUNTED
+                n_params=int(n_params))
     coords = _rank0(mesh)
 
     if kind == "train":
@@ -239,13 +256,38 @@ def build(arch: str, shape_name: str, *, multi_pod: bool,
         batch = steps.input_specs(cfg, shape_name, nodes=nodes)
         arg_bytes = (_nbytes(blk) + _nbytes(mom)
                      + _batch_bytes(batch, mesh, node_axis=True))
-        # one node's gradient pass, shared evenly by its fsdp x model chips
-        images = batch.get("image_embeds")
-        grads_cost, g_dtypes = _grad_pass(
-            cfg, params, batch["tokens"][0],
-            None if images is None else images[0], layout.get("micro"))
-        # the update and the gossip on rank 0's block, exact per chip
         dry = dry_mesh(mesh, rank=0)
+        # the fsdp gather of rank 0's block: its node's leaves, whole over
+        # fsdp, its model shards
+        whole = blk
+        gather = Cost()
+        if fsdp > 1:
+            with gather:
+                whole = sharding.fsdp_gather(blk, p_specs, dry)
+            gather.add_wire(dry.log)
+            dry.log.reset()
+        # the rank's gradient pass: its rows of the node's batch
+        images = batch.get("image_embeds")
+        tokens = batch["tokens"][0]
+        if rows_over_fsdp(cfg, mesh, tokens.shape[0]):
+            rows = tokens.shape[0] // fsdp
+            tokens = tokens[:rows]
+            images = None if images is None else images[:, :rows]
+        grads_cost, g_dtypes = _grad_pass(
+            cfg, {k: v[0] for k, v in whole.items()}, tokens,
+            None if images is None else images[0], layout.get("micro"),
+            dry, p_specs)
+        # the reduce-scatter of the gradients' mean over fsdp
+        grads = {k: _meta(v.shape, g_dtypes[k]) for k, v in whole.items()}
+        scatter = Cost()
+        if fsdp > 1:
+            with scatter:
+                sharding.fsdp_reduce_scatter_mean(grads, p_specs, dry)
+                dry.psum(_meta((1,), torch.float32), "fsdp")   # node loss
+            scatter.add_wire(dry.log)
+            dry.log.reset()
+        del grads
+        # the update and the gossip on rank 0's block
 
         def step_fn(mix, p, s, g, lr):
             return opt.update_with_mix(p, s, g, lr, mix)
@@ -257,9 +299,11 @@ def build(arch: str, shape_name: str, *, multi_pod: bool,
             plan.step_fn(gossip_phase)(blk, state, grads, 0.01)
         update.add_wire(dry.log)
         cost = Cost()
-        cost.add(grads_cost, k=1.0 / inner)
-        cost.add(update)
-        cost.peak_bytes = int(grads_cost.peak_bytes / inner
+        for part in (gather, grads_cost, scatter, update):
+            cost.add(part)
+        # the pass runs beside the gathered leaves; the update after it
+        gathered = _nbytes(whole) - _nbytes(blk) if fsdp > 1 else 0
+        cost.peak_bytes = int(gathered + grads_cost.peak_bytes
                               + update.peak_bytes)
         ir = gossip_mod.gossip_spec(top, gossip_phase,
                                     compression=opt.compression)
@@ -280,6 +324,9 @@ def build(arch: str, shape_name: str, *, multi_pod: bool,
         return cost, meta
 
     # serving: one replica over the rows of the batch its node holds
+    meta["partition"] = "even"
+    if inner > 1:
+        meta["uncounted"] = UNCOUNTED
     p_specs = sharding.param_specs(params, mesh, cfg=cfg, node_axis=False)
     p_bytes = _nbytes(sharding.local_shard(params, p_specs, mesh, coords))
     batch = steps.input_specs(cfg, shape_name, nodes=1)

@@ -39,12 +39,20 @@ with two nodes a rank (:func:`gathered_runtime_rank`, held against
       --train --nodes 4 --steps 6 --overlap --compression int8
   PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu \
       --fsdp 2 --train --nodes 4 --steps 6 --overlap --ckpt-dir /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu \
+      --fsdp 2 --model 2 --train --nodes 2 --steps 6 --overlap
 
 fsdp-sharded training (a node's leaves over its fsdp ranks, each rank
 holding its shards): :func:`fsdp_cases` on a CPU world of 8
 (:func:`fsdp_cases_rank`), and :func:`every2_logs`, the reference's
 differential wire check (a gossip step against the same step with
 ``every=2``'s ``Identity``).
+
+Model-sharded (tensor-parallel) training, a node's leaves over its
+(fsdp, model) ranks: :func:`tp_cases` on a CPU world of 8
+(:func:`tp_cases_rank`: every case, :func:`tp_regions_rank` -- the
+region ops and the vocab-parallel CE -- :func:`tp_grads_rank` and each
+rank's share of the cases' :func:`single_run`).
 """
 from __future__ import annotations
 
@@ -68,7 +76,9 @@ __all__ = ["NODES", "FSDP", "WBH_SPECS", "wbh_tree", "static_rounds",
            "gathered_runtime_rank", "gathered_runtime_expected",
            "train_cases_rank", "train_mesh", "every2_logs", "fsdp_cases",
            "fsdp_cases_rank", "reduce_scatter_rank", "family_cases",
-           "FAMILY_ARCHS", "main"]
+           "FAMILY_ARCHS", "case_config", "f32_start", "whole_leaves",
+           "TP_MESHES", "TP_FAMILIES", "tp_cases", "tp_regions_rank",
+           "tp_grads_rank", "single_run", "tp_cases_rank", "main"]
 
 NODES, FSDP = 4, 2
 WBH_SPECS = {"w": ("node", "fsdp"), "b": ("node",), "h": ("node", "fsdp")}
@@ -590,13 +600,29 @@ def _payload_entry(rank, shape, axes, seed, outq, goqs,
 # Training on a node mesh: one rank per node
 # ---------------------------------------------------------------------------
 
-def f32_start(args, tokens=None, node=None, mesh=None):
-    """``launch.train.prepare(args, tokens, node, mesh=mesh)`` with f32
-    activations."""
+def case_config(args, replace: dict | None = None):
+    """``launch.train.config_of(args)``, with ``replace``'s fields
+    replaced (a config the driver's flags cannot name: fewer experts)."""
     import dataclasses
 
     from . import train as train_mod
-    start = train_mod.prepare(args, tokens, node, mesh=mesh)
+    cfg = train_mod.config_of(args)
+    return dataclasses.replace(cfg, **replace) if replace else cfg
+
+
+def f32_start(args, tokens=None, node=None, mesh=None,
+              replace: dict | None = None, f32_state: bool = False):
+    """``launch.train.prepare(args, tokens, node, mesh=mesh)`` with f32
+    activations (and :func:`case_config`'s ``replace``); ``f32_state``:
+    the momentum in the params' dtype too, not the layout's (bf16 for
+    some archs, whose rounding a reordered f32 sum can flip by an ulp)."""
+    import dataclasses
+
+    from . import train as train_mod
+    start = train_mod.prepare(args, tokens, node, mesh=mesh,
+                              config=case_config(args, replace))
+    if f32_state:
+        start["momentum_dtype"] = None
     start["config"] = dataclasses.replace(start["config"],
                                           activation_dtype=torch.float32)
     return start
@@ -613,31 +639,42 @@ def train_mesh(args, shape=None, axes=("node",)):
                               device=args.device)
 
 
-def _shard_specs(args, mesh):
-    """The rank's fsdp cut of its node row (``sharding.fsdp_only`` of
-    ``node_param_specs``), or None on a mesh without fsdp shards."""
+def _shard_specs(args, mesh, replace: dict | None = None):
+    """``node_param_specs`` of the run's config on ``mesh``, or None on a
+    mesh without fsdp or model shards."""
     from . import train as train_mod
-    if train_mod.fsdp_extent(mesh) == 1:
+    if not train_mod.is_sharded(mesh):
         return None
-    return sharding.node_param_specs(train_mod.config_of(args), args.nodes,
+    return sharding.node_param_specs(case_config(args, replace), args.nodes,
                                      mesh)
+
+
+def whole_leaves(tree: dict, specs: dict, mesh) -> dict:
+    """A rank's shards of its node's leaves gathered whole over fsdp, then
+    model, on every rank."""
+    for axis in ("fsdp", "model"):
+        if mesh.shape.get(axis, 1) > 1:
+            tree = sharding.gather_axis(tree, specs, mesh, axis)
+    return tree
 
 
 def train_rank(rank: int, argv: list, outq=None, goq=None,
                f32: bool = False, tokens=None, keep: bool = True,
-               tag=None, shape=None, axes=("node",)) -> dict:
+               tag=None, shape=None, axes=("node",),
+               replace: dict | None = None, f32_state: bool = False) -> dict:
     """A rank of a training world: ``launch.train.run(args, mesh=...)`` on
     :func:`train_mesh` ``(args, shape, axes)`` -- by default a
     ``("node",)`` mesh of ``--nodes`` ranks.  Returns the history, the
     step seconds, the peak memory, the K1 launches, the wire log and the
     elements of the rank's params (``param_elems``); the final params and
     momentum come back as numpy (``outq`` None; dropped unless ``keep``;
-    on an fsdp mesh the node's whole leaves, gathered) or, packed on the
-    card, the rank's own block of ``(momentum, params)`` through ``outq``
-    (CUDA IPC) as ``(rank, tag, packed)``, held until ``goq`` says the
-    parent is done with them.  ``f32``: f32 activations
+    on an fsdp or model mesh the node's whole leaves, gathered) or,
+    packed on the card, the rank's own block of ``(momentum, params)``
+    through ``outq`` (CUDA IPC) as ``(rank, tag, packed)``, held until
+    ``goq`` says the parent is done with them.  ``f32``: f32 activations
     (:func:`f32_start`); ``tokens``: the batches' tokens, as the parent
-    sampled them (``launch.train.prepare``)."""
+    sampled them (``launch.train.prepare``); ``replace``, ``f32_state``:
+    :func:`f32_start`'s (f32 runs only)."""
     from . import train as train_mod
     args = train_mod.parse_args(argv)
     if torch.device(args.device).type == "cuda":
@@ -648,9 +685,10 @@ def train_rank(rank: int, argv: list, outq=None, goq=None,
     k1 = gm_ops.gossip_mix.launches
     node = mesh.axis_index("node")
     res = train_mod.run(args, mesh=mesh,
-                        start=(f32_start(args, tokens, node, mesh) if f32
-                               else train_mod.prepare(args, tokens, node,
-                                                      mesh=mesh)))
+                        start=(f32_start(args, tokens, node, mesh, replace,
+                                         f32_state)
+                               if f32 else train_mod.prepare(
+                                   args, tokens, node, mesh=mesh)))
     x, m = res["params"], res["state"].momentum
     out = {"rank": rank, "coords": dict(mesh.coords), "wire": mesh.wire,
            "history": res["history"], "step_s": res["step_s"],
@@ -663,10 +701,10 @@ def train_rank(rank: int, argv: list, outq=None, goq=None,
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if outq is None:
         if keep:
-            specs = _shard_specs(args, mesh)
+            specs = _shard_specs(args, mesh, replace)
             if specs is not None:
-                x = sharding.fsdp_gather(x, specs, mesh)
-                m = sharding.fsdp_gather(m, specs, mesh)
+                x, m = whole_leaves(x, specs, mesh), whole_leaves(m, specs,
+                                                                  mesh)
             out["params"], out["momentum"] = _np(x), _np(m)
         return out
     del res
@@ -898,6 +936,168 @@ def fsdp_cases_rank(rank: int, argv: list, ckpt_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# model-sharded (tensor-parallel) training: a node's leaves over its
+# (fsdp, model) ranks
+# ---------------------------------------------------------------------------
+
+TP_MESHES = {"j": ((2, 2, 2), TRAIN_AXES),       # node 2, fsdp 2, model 2
+             "k": ((4, 1, 2), TRAIN_AXES)}       # node 4, fsdp 1, model 2
+# (case, arch, config fields replaced, meshes): every family beyond dense
+# on both meshes -- moe expert-parallel (E 4 over model 2) on one, on the
+# ff dim (E 3 does not split over model 2) on the other -- and one kv
+# head
+TP_FAMILIES = (("moe", MOE_ARCH, None, "k"),
+               ("moe_e3", MOE_ARCH, {"n_experts": 3}, "j"),
+               ("kv1", "granite-34b", None, "k"),
+               ("ssm", "mamba2-1.3b", None, "jk"),
+               ("hybrid", "zamba2-1.2b", None, "jk"),
+               ("audio", "musicgen-large", None, "jk"),
+               ("vlm", "llama-3.2-vision-90b", None, "jk"))
+
+
+def tp_cases(argv: list, ckpt_dir: str | None = None) -> dict:
+    """``{name: (argv, mesh shape, axes, replace)}`` of the model-sharded
+    training cases (qwen3 unless named): ``dmsgd_j`` on (node 2, fsdp 2,
+    model 2) with micro-batches of 1 over a batch of 4 and remat on;
+    ``dmsgd_k`` on (node 4, fsdp 1, model 2) at 3 layers (the dense MLP
+    cut on its ff dim: 3 layers do not split over model 2);
+    ``overlap_int8`` on k, 3 steps, its carry-buffer checkpoints under
+    ``ckpt_dir/overlap_int8``; ``parallel_msgd`` and ``runtime``
+    (``--loss-aware --deadline-skip --straggler-prob 0.25``) on j; then
+    each of :data:`TP_FAMILIES` on its meshes (``{case}_{j|k}``)."""
+    def nodes(shape):
+        return ["--nodes", str(shape[0])]
+
+    ck = ([] if ckpt_dir is None else
+          ["--ckpt-dir", os.path.join(ckpt_dir, "overlap_int8"),
+           "--ckpt-every", "2"])
+    J, K = TP_MESHES["j"], TP_MESHES["k"]
+    cases = {
+        "dmsgd_j": (argv + nodes(J[0]) + ["--batch", "4", "--micro-batch",
+                                          "1"], *J, {"remat": True}),
+        "dmsgd_k": (argv + nodes(K[0]) + ["--layers", "3"], *K, None),
+        "overlap_int8": (argv + nodes(K[0]) + [
+            "--overlap", "--compression", "int8", "--steps", "3"] + ck, *K,
+            None),
+        "parallel_msgd": (argv + nodes(J[0]) + ["--optimizer",
+                                                "parallel_msgd"], *J, None),
+        "runtime": (argv + nodes(J[0]) + [
+            "--loss-aware", "--deadline-skip", "--straggler-prob", "0.25"],
+            *J, None),
+    }
+    for name, arch, rep, tags in TP_FAMILIES:
+        for tag in tags:
+            mesh = TP_MESHES[tag]
+            cases[f"{name}_{tag}"] = (argv + nodes(mesh[0])
+                                      + ["--arch", arch], *mesh, rep)
+    return cases
+
+
+def tp_regions_rank(mesh, seed: int = 7) -> dict:
+    """The four region ops and the vocab-parallel CE of ``launch.tp`` on
+    the rank's model line, forward and backward, on seeded inputs: a
+    tensor alike on every rank (``x``, numpy seed ``seed``) or the
+    rank's own (seed ``seed + 1 + m`` at model coordinate m), and
+    upstream gradients alike or the rank's own (seeds ``seed + 10`` and
+    ``seed + 11 + m``).  Returns ``{op: (output, input gradient)}`` as
+    numpy, and ``"ce"``: the loss and the gradient of the rank's logits
+    block of seeded (2, 5, 8) logits against seeded labels."""
+    from .tp import TP
+    tp = TP(mesh, {})
+    m, M = tp.rank, tp.size
+
+    def arr(s, shape):
+        return torch.from_numpy(np.random.default_rng(s).standard_normal(
+            shape).astype(np.float32))
+
+    def run(fn, x, g):
+        a = x.clone().requires_grad_(True)
+        y = fn(a)
+        y.backward(g)
+        return y.detach().numpy(), a.grad.numpy()
+
+    same, own = arr(seed, (3, 4 * M)), arr(seed + 1 + m, (3, 4 * M))
+    out = {
+        "copy_to": run(tp.copy_to, same, arr(seed + 11 + m, (3, 4 * M))),
+        "reduce_from": run(tp.reduce_from, own, arr(seed + 10, (3, 4 * M))),
+        "gather_from": run(lambda a: tp.gather_from(a, 1), own,
+                           arr(seed + 10, (3, 4 * M * M))),
+        "gather_partial": run(lambda a: tp.gather_from(a, 1, partial=True),
+                              own, arr(seed + 11 + m, (3, 4 * M * M))),
+        "scatter_to": run(lambda a: tp.scatter_to(a, 1), same,
+                          arr(seed + 11 + m, (3, 4))),
+    }
+    logits = arr(seed + 20, (2, 5, 8))
+    labels = torch.from_numpy(np.random.default_rng(seed + 21).integers(
+        0, 8, (2, 5)))
+    V = 8 // M
+    block = logits[..., m * V:(m + 1) * V].clone().requires_grad_(True)
+    loss = tp.vocab_ce(block, labels)
+    loss.backward()
+    out["ce"] = (float(loss.detach()), block.grad.numpy())
+    return out
+
+
+def tp_grads_rank(mesh, argv: list) -> dict:
+    """One pass's gradients (``steps.loss_and_grads`` under ``launch.tp``)
+    of qwen3 ``argv`` on the rank's (fsdp-gathered) model shards of its
+    node, first batch, f32: ``{leaf: gradient}`` of the leaves replicated
+    over model, as numpy -- each rank of a model line should hold the
+    same."""
+    from . import steps as steps_mod
+    from . import train as train_mod
+    from .tp import TP
+    args = train_mod.parse_args(argv)
+    start = f32_start(args, node=mesh.axis_index("node"), mesh=mesh)
+    specs = sharding.node_param_specs(start["config"], args.nodes, mesh)
+    p = start["params"]
+    if mesh.shape["fsdp"] > 1:
+        p = sharding.fsdp_gather(p, specs, mesh)
+    tp = TP(mesh, specs)
+    _, g = steps_mod.loss_and_grads(
+        start["config"], {k: v[0] for k, v in p.items()},
+        start["batches"][0]["tokens"][0], tp=tp)
+    return {k: v.numpy() for k, v in g.items() if tp.dims[k] is None}
+
+
+def single_run(argv: list, replace: dict | None = None) -> dict:
+    """``argv``'s run in this process, no mesh, f32 (activations and
+    momentum, :func:`f32_start`): the logged losses and consensus, and
+    the final params and momentum of every node, as numpy."""
+    from . import train as train_mod
+    args = train_mod.parse_args(argv)
+    res = train_mod.run(args, start=f32_start(args, replace=replace,
+                                              f32_state=True))
+    return {"losses": [h["loss"] for h in res["history"]],
+            "consensus": [h["consensus"] for h in res["history"]],
+            "params": _np(res["params"]),
+            "momentum": _np(res["state"].momentum)}
+
+
+def tp_cases_rank(rank: int, argv: list, ckpt_dir: str,
+                  single_dir: str | None = None) -> dict:
+    """A rank of a CPU world of 8: every :func:`tp_cases` case through
+    :func:`train_rank` in f32 (the momentum too), then
+    :func:`tp_regions_rank` and :func:`tp_grads_rank` on the (node 2,
+    fsdp 2, model 2) mesh; then, with ``single_dir``, its share of the
+    cases' :func:`single_run` (every world-th case, ``"single"``), their
+    checkpoints under ``single_dir``."""
+    out = {name: train_rank(rank, a, f32=True, shape=shape, axes=axes,
+                            replace=rep, f32_state=True)
+           for name, (a, shape, axes, rep) in tp_cases(argv,
+                                                       ckpt_dir).items()}
+    mesh = mesh_mod.make_mesh(*TP_MESHES["j"], device="cpu")
+    out["coords"] = dict(mesh.coords)
+    out["regions"] = tp_regions_rank(mesh)
+    out["grads"] = tp_grads_rank(mesh, tp_cases(argv)["dmsgd_j"][0])
+    if single_dir is not None:
+        cases = list(tp_cases(argv, single_dir).items())
+        out["single"] = {name: single_run(a, rep) for name, (a, _, _, rep)
+                         in cases[rank::mesh.size]}
+    return out
+
+
 ROUNDTRIP_SPECS = {"w": ("node", "fsdp"), "b": (("node", "fsdp"),),
                    "h": ("node", None, "fsdp")}
 
@@ -936,9 +1136,11 @@ def world_rank(rank: int, argv: list) -> dict:
 def _train_entry(rank, runs, outq, goqs, tokens, runtime, shape, axes,
                  every2, f32):
     out = {"runs": [train_rank(rank, argv, outq if held else None,
-                               goqs[rank], f32=f32, tokens=tokens,
-                               keep=False, tag=i, shape=shape, axes=axes)
-                    for i, (argv, held) in enumerate(runs)]}
+                               goqs[rank], f32=f32,
+                               tokens=tokens if toks is None else toks,
+                               keep=False, tag=i, shape=shp or shape,
+                               axes=axes)
+                    for i, (argv, held, shp, toks) in enumerate(runs)]}
     if every2 is not None:
         out["every2"] = every2_logs(every2, shape, axes, f32=f32,
                                     tokens=tokens)
@@ -952,16 +1154,19 @@ def _train_entry(rank, runs, outq, goqs, tokens, runtime, shape, axes,
 def train_world(runs: list, tokens=None, timeout: float = 900.0,
                 runtime: bool = False, shape=None, axes=("node",),
                 every2: list | None = None, f32: bool = False):
-    """Each ``(argv, reference)`` of ``runs`` in turn on one mesh sharing
-    the card -- ``shape`` on ``axes``, by default a node mesh of
-    ``--nodes`` ranks; where ``reference`` (the single-process run's
-    final ``(momentum, params)``, on the card or the host) is given, each
+    """Each ``(argv, reference)`` of ``runs`` in turn on one world sharing
+    the card -- on a mesh of ``shape`` on ``axes``, by default a node mesh
+    of ``--nodes`` ranks; where ``reference`` (the single-process run's
+    final ``(momentum, params)``, on the card or the host: it is moved to
+    the ranks' device for its run's comparisons alone) is given, each
     rank's
-    final ``(momentum, params)`` -- on an fsdp mesh its shards -- is
-    compared with its block of it in this process: bit equality, max abs
-    difference and the reference's max-abs per rank.  ``tokens``: every
-    step's tokens as ``launch.train.prepare`` sampled them (None: each
-    rank samples).  ``runtime``: then :func:`gathered_runtime_rank` on a
+    final ``(momentum, params)`` -- on an fsdp or model mesh its shards --
+    is compared with its block of it in this process: bit equality, max
+    abs difference and the reference's max-abs per rank.  ``tokens``:
+    every step's tokens as ``launch.train.prepare`` sampled them (None:
+    each rank samples).  A run ``(argv, reference, shape, tokens)`` takes
+    its own mesh shape (the same number of ranks, on ``axes``) and
+    tokens.  ``runtime``: then :func:`gathered_runtime_rank` on a
     (node 2, fsdp 2) mesh of the same ranks; ``every2`` (an argv): then
     :func:`every2_logs` of it on the same mesh (``"every2"``); ``f32``:
     every run with f32 activations (:func:`f32_start`).  Returns (rank
@@ -970,21 +1175,28 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
     import torch.multiprocessing as mp
 
     from . import train as train_mod
+    runs = [tuple(r) + (None,) * (4 - len(r)) for r in runs]
     args = train_mod.parse_args(runs[0][0])
     shape = tuple(shape or (args.nodes,))
     world = int(np.prod(shape))
-    abstract = mesh_mod.abstract_mesh(shape, axes)
-    cut = None
-    if train_mod.fsdp_extent(abstract) > 1:
-        cut = sharding.fsdp_only(sharding.node_param_specs(
-            train_mod.config_of(args), args.nodes, abstract))
+
+    def cut_of(argv, shp):
+        """The run's abstract mesh and the (fsdp, model) cut of a node row,
+        None on a node mesh."""
+        abstract = mesh_mod.abstract_mesh(tuple(shp or shape), axes)
+        if not train_mod.is_sharded(abstract):
+            return abstract, None
+        a = train_mod.parse_args(argv)
+        return abstract, sharding.inner_only(sharding.node_param_specs(
+            train_mod.config_of(a), a.nodes, abstract))
+
     ctx = mp.get_context("spawn")
     outq = ctx.Queue()
     goqs = [ctx.Queue() for _ in range(world)]
     comps: dict = {}
     errors: list = []
 
-    def block(reference, rank):
+    def block(reference, rank, abstract, cut):
         at = dict(zip(axes, map(int, np.argwhere(abstract.devices
                                                  == rank)[0])))
         i = at["node"]
@@ -997,18 +1209,29 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
 
     def compare():
         try:
-            for i, (_, reference) in enumerate(runs):
+            for i, (argv, reference, shp, _) in enumerate(runs):
                 if reference is None:
                     continue
+                abstract, cut = cut_of(argv, shp)
                 comps[i] = {}
+                here = None
                 for _ in range(world):
                     rank, tag, got = outq.get(timeout=timeout)
                     assert tag == i, (tag, i)
-                    want = block(reference, rank).to(got.device)
+                    if here is None:
+                        # a reference kept on the host comes to the
+                        # ranks' device for this run's comparisons alone
+                        here = tuple({k: v.to(got.device)
+                                      for k, v in part.items()}
+                                     for part in reference)
+                    want = block(here, rank, abstract, cut)
                     comps[i][rank] = (torch.equal(got, want),
                                       float((got - want).abs().max()),
                                       float(want.abs().max()))
                     del got, want
+                del here
+                if torch.cuda.is_initialized():
+                    torch.cuda.empty_cache()
                 for q in goqs:
                     q.put("done")
         except BaseException as e:          # re-raised by the caller
@@ -1018,7 +1241,8 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
 
     th = threading.Thread(target=compare, daemon=True)
     th.start()
-    held = [(argv, ref is not None) for argv, ref in runs]
+    held = [(argv, ref is not None, shp, toks)
+            for argv, ref, shp, toks in runs]
     try:
         res = mesh_mod.spawn(_train_entry, world,
                              (held, outq, goqs, tokens, runtime, shape,
@@ -1035,18 +1259,20 @@ def _train_cli_rank(rank: int, argv: list, shape, axes) -> dict:
     return train_rank(rank, argv, keep=False, shape=shape, axes=axes)
 
 
-def train_cli(argv: list, device: str, fsdp: int | None = None) -> None:
+def train_cli(argv: list, device: str, fsdp: int | None = None,
+              model: int | None = None) -> None:
     """``launch.train``'s flags ``argv`` run on a (node) mesh of
-    ``--nodes`` spawned ranks, one a node, or with ``fsdp`` on a (node,
-    fsdp, model 1) mesh of ``--nodes`` x ``fsdp`` ranks (rank 0 prints
-    the run's log); then each rank's median step ms and rank 0's wire
-    log."""
+    ``--nodes`` spawned ranks, one a node, or with ``fsdp`` or ``model``
+    on a (node, fsdp, model) mesh of ``--nodes`` x ``fsdp`` x ``model``
+    ranks (an extent not given is 1; rank 0 prints the run's log); then
+    each rank's median step ms and rank 0's wire log."""
     from . import train as train_mod
     if "--device" not in argv:
         argv = list(argv) + ["--device", device]
     args = train_mod.parse_args(argv)
-    shape, axes = (((args.nodes,), ("node",)) if fsdp is None
-                   else ((args.nodes, fsdp, 1), TRAIN_AXES))
+    shape, axes = (((args.nodes,), ("node",))
+                   if fsdp is None and model is None
+                   else ((args.nodes, fsdp or 1, model or 1), TRAIN_AXES))
     res = mesh_mod.spawn(_train_cli_rank, int(np.prod(shape)),
                          (argv, shape, axes),
                          threads=1 if args.device == "cpu" else None)
@@ -1068,18 +1294,22 @@ def main(argv=None) -> None:
     ap.add_argument("--fsdp", type=int, default=None,
                     help=f"the fsdp extent (4 nodes x fsdp ranks, default "
                          f"{FSDP}; NCCL needs that many cards); with "
-                         "--train, train on a (node, fsdp, model 1) mesh")
+                         "--train, train on a (node, fsdp, model) mesh")
+    ap.add_argument("--model", type=int, default=None,
+                    help="with --train: the model extent of a (node, fsdp, "
+                         "model) mesh (tensor-parallel training)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train", nargs=argparse.REMAINDER, default=None,
                     help="instead: the rest of the line is launch.train's "
                          "flags, run on a (node) mesh of --nodes spawned "
-                         "gloo ranks, one a node, or with --fsdp F on a "
-                         "(node, fsdp F, model 1) mesh of --nodes x F")
+                         "gloo ranks, one a node, or with --fsdp F and / or "
+                         "--model M on a (node, fsdp F, model M) mesh of "
+                         "--nodes x F x M")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a card; use --device cpu")
     if args.train is not None:
-        train_cli(args.train, args.device, args.fsdp)
+        train_cli(args.train, args.device, args.fsdp, args.model)
         return
     fsdp = FSDP if args.fsdp is None else args.fsdp
     shape = (NODES, fsdp)

@@ -45,7 +45,12 @@ step makes one ``all_gather`` and one ``reduce_scatter`` a dtype group;
 a leaf replicated over fsdp (``embed`` on a mesh without a ``model``
 axis, the moe ``router``) is not gathered, and its gradient mean is one
 ``psum`` a dtype group.  Their specs are :func:`node_param_specs`: the
-rules read at the GLOBAL node-stacked shapes, never at a shard's.
+rules read at the GLOBAL node-stacked shapes, never at a shard's.  Both
+act on the fsdp dim alone: on a mesh whose model extent is above 1 a
+rank's leaves stay its model shards (the tensor-parallel pass,
+:mod:`repro_torch.launch.tp`, runs on them), and :func:`gather_axis`
+over ``model`` makes them whole where a checkpoint needs the node's
+whole leaves.
 """
 from __future__ import annotations
 
@@ -62,8 +67,8 @@ Tree = Any
 
 __all__ = ["param_specs", "batch_spec", "cache_specs", "axis_size",
            "gossip_payload_spec_fn", "local_shard", "gather", "map_specs",
-           "node_param_specs", "fsdp_dim", "fsdp_only", "fsdp_gather",
-           "fsdp_reduce_scatter_mean"]
+           "node_param_specs", "axis_dim", "fsdp_dim", "inner_only",
+           "gather_axis", "fsdp_gather", "fsdp_reduce_scatter_mean"]
 
 
 def axis_size(mesh: Mesh, name: str) -> int:
@@ -413,37 +418,34 @@ def node_param_specs(cfg, n: int, mesh: Mesh) -> dict:
     return param_specs(shapes, mesh, cfg=cfg)
 
 
-def fsdp_dim(spec: tuple) -> int | None:
-    """The dim a spec cuts over ``fsdp`` (None: replicated over it)."""
+def axis_dim(spec: tuple, axis: str) -> int | None:
+    """The dim a spec cuts over ``axis`` (None: replicated over it)."""
     for d, entry in enumerate(spec):
-        if "fsdp" in _axes(entry):
+        if axis in _axes(entry):
             return d
     return None
 
 
-def fsdp_only(specs: dict) -> dict:
-    """``specs`` (a params tree's) with every axis but ``fsdp`` dropped:
-    what :func:`local_shard` cuts over fsdp alone (a rank's node row is
-    cut already)."""
-    return {k: tuple("fsdp" if "fsdp" in _axes(e) else None for e in spec)
+def fsdp_dim(spec: tuple) -> int | None:
+    """The dim a spec cuts over ``fsdp`` (None: replicated over it)."""
+    return axis_dim(spec, "fsdp")
+
+
+def inner_only(specs: dict) -> dict:
+    """``specs`` with the ``node`` axis dropped: the rank's (fsdp, model)
+    cut of its node row (:func:`local_shard` at the rank's fsdp and
+    model coordinates)."""
+    return {k: tuple(None if e == "node" else e for e in spec)
             for k, spec in specs.items()}
 
 
-def _check_fsdp_mesh(mesh: Mesh) -> int:
-    shape = mesh.shape
-    if shape.get("model", 1) != 1:
-        raise NotImplementedError(
-            f"fsdp shards on a mesh with model extent {shape['model']}: "
-            "ROADMAP item 18b-c")
-    return shape["fsdp"]
-
-
-def _leaves_specs(tree: Tree, specs: Tree) -> tuple[list, list]:
+def _leaves_specs(tree: Tree, specs: Tree,
+                  axis: str = "fsdp") -> tuple[list, list]:
     leaves, dims = [], []
 
     def take(x, spec):
         leaves.append(x)
-        dims.append(fsdp_dim(spec))
+        dims.append(axis_dim(spec, axis))
         return x
 
     map_specs(take, tree, specs)
@@ -472,18 +474,26 @@ def _blocks(x: torch.Tensor, d: int, parts: int) -> torch.Tensor:
 
 def fsdp_gather(tree: Tree, specs: Tree, mesh: Mesh,
                 dst: int | None = None) -> Tree:
-    """This rank's fsdp shards of its node's leaves -> the node's whole
-    leaves, on every rank of the node's fsdp line: the line's shards
-    concatenated along each leaf's fsdp dim, in fsdp order.  The sharded
-    leaves of one dtype are packed side by side (``flatbuf``'s layout at
-    ``pad_multiple=1``) and gathered by ONE ``all_gather``; a leaf
-    replicated over fsdp is returned as it is.  Each whole leaf is a new
-    tensor (the gathered buffer is freed).  ``dst``: gathered at the
-    line's rank of fsdp coordinate ``dst`` alone (one ``gather`` a dtype
-    group; None at the others)."""
-    parts = _check_fsdp_mesh(mesh)
-    root = dst is None or mesh.axis_index("fsdp") == dst
-    leaves, dims = _leaves_specs(tree, specs)
+    """This rank's fsdp shards of its node's leaves -> the node's leaves
+    whole over fsdp, on every rank of the node's fsdp line (a model cut
+    stays): :func:`gather_axis` over ``fsdp``."""
+    return gather_axis(tree, specs, mesh, "fsdp", dst)
+
+
+def gather_axis(tree: Tree, specs: Tree, mesh: Mesh, axis: str,
+                dst: int | None = None) -> Tree:
+    """This rank's shards over ``axis`` of its node's leaves -> the leaves
+    whole over ``axis``, on every rank of the node's ``axis`` line: the
+    line's shards concatenated along each leaf's ``axis`` dim, in axis
+    order.  The sharded leaves of one dtype are packed side by side
+    (``flatbuf``'s layout at ``pad_multiple=1``) and gathered by ONE
+    ``all_gather``; a leaf replicated over ``axis`` is returned as it
+    is.  Each whole leaf is a new tensor (the gathered buffer is freed).
+    ``dst``: gathered at the line's rank of ``axis`` coordinate ``dst``
+    alone (one ``gather`` a dtype group; None at the others)."""
+    parts = mesh.axis_size(axis)
+    root = dst is None or mesh.axis_index(axis) == dst
+    leaves, dims = _leaves_specs(tree, specs, axis)
     out = list(leaves)
     sharded = [i for i, d in enumerate(dims) if d is not None]
     for idxs in _by_dtype(sharded, leaves).values():
@@ -491,8 +501,8 @@ def fsdp_gather(tree: Tree, specs: Tree, mesh: Mesh,
         layout = flatbuf.layout_of(group, pad_multiple=1)
         (buf,) = flatbuf.pack(group, layout)[1]
         rows = buf.shape[0]
-        full = (mesh.all_gather(buf, "fsdp", dim=0) if dst is None
-                else mesh.gather(buf, "fsdp", dst))
+        full = (mesh.all_gather(buf, axis, dim=0) if dst is None
+                else mesh.gather(buf, axis, dst))
         del buf
         if not root:
             continue
@@ -520,8 +530,10 @@ def fsdp_reduce_scatter_mean(tree: Tree, specs: Tree, mesh: Mesh) -> Tree:
     layout :func:`fsdp_gather` packs -- and ONE ``reduce_scatter`` a
     dtype group sums it; a leaf replicated over fsdp keeps its whole
     shape, its mean one ``psum`` a dtype group.  Each sum is divided by
-    F; the shards are views into the scattered buffer."""
-    parts = _check_fsdp_mesh(mesh)
+    F; the shards are views into the scattered buffer.  A model cut
+    stays: each leaf is the rank's model shard, cut over fsdp within
+    it."""
+    parts = mesh.axis_size("fsdp")
     leaves, dims = _leaves_specs(tree, specs)
     out = list(leaves)
     sharded = [i for i, d in enumerate(dims) if d is not None]

@@ -124,7 +124,8 @@ def cache_struct(cfg: M.ModelConfig, shape_name: str,
                         device="meta")
 
 
-def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None):
+def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None,
+                  tp=None):
     """Next-token CE in f32 against ``roll(tokens, -1)`` -- the last
     position's label wraps to the first token, as in the reference -- plus
     ``AUX_WEIGHT`` times the moe load-balance loss (zero for the other
@@ -133,11 +134,18 @@ def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None):
     to the forward.  The experts train with the capacity dispatch: as in the
     reference, ``moe_dropless`` is turned off for the loss (the dropless
     mixture is the serving and eval path).  ``params`` is a ``Model`` or
-    a :func:`~repro_torch.models.model.params_view`."""
+    a :func:`~repro_torch.models.model.params_view`.  ``tp`` (a bound
+    :class:`~repro_torch.launch.tp.TP`): ``params`` are the rank's model
+    shards; where the head cuts the vocabulary the CE is the
+    vocab-parallel one (``TP.vocab_ce``), the logits never gathered.  The
+    loss is then the same on every rank of the model line."""
     if cfg.n_experts and cfg.moe_dropless:
         cfg = dataclasses.replace(cfg, moe_dropless=False)
-    logits, aux = M.forward(params, cfg, tokens, image_embeds=image_embeds)
+    logits, aux = M.forward(params, cfg, tokens, image_embeds=image_embeds,
+                            tp=tp)
     labels = torch.roll(tokens, -1, 1).long()
+    if M.logits_cut(params, cfg, tp):
+        return tp.vocab_ce(logits, labels) + AUX_WEIGHT * aux
     lo = logits.float()
     mx = lo.amax(-1, keepdim=True).detach()
     lse = mx.squeeze(-1) + torch.log(torch.exp(lo - mx).sum(-1))
@@ -146,12 +154,18 @@ def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None):
     return ce + AUX_WEIGHT * aux
 
 
-def loss_and_grads(cfg: M.ModelConfig, p: dict, tokens, img=None):
+def loss_and_grads(cfg: M.ModelConfig, p: dict, tokens, img=None, tp=None):
     """One node's (loss, gradients) on one (micro-)batch: ``p`` is the
     node's ``{name: tensor}`` slice, ``tokens`` (B, S) (audio: (B, S, K)),
-    ``img`` the vlm family's (B, T, d) or None."""
+    ``img`` the vlm family's (B, T, d) or None.  ``tp`` (a
+    :class:`~repro_torch.launch.tp.TP`): ``p`` holds the rank's model
+    shards, bound to the pass (``TP.bind``); the gradients are the
+    shards'."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
-    loss = train_loss_fn(M.params_view(leaves), cfg, tokens, img)
+    view = leaves
+    if tp is not None:
+        tp, view = tp.bind(leaves)
+    loss = train_loss_fn(M.params_view(view), cfg, tokens, img, tp)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
@@ -165,7 +179,7 @@ def accumulate_grads(acc_loss, acc_g: dict, loss, g: dict, nm: int):
 def make_train_step(cfg: M.ModelConfig,
                     opt: optim_mod.DecentralizedOptimizer,
                     *, micro_batch: int | None = None, timeline=None,
-                    fsdp=None):
+                    fsdp=None, tp=None):
     """Returns ``train_step(mix, params, opt_state, batch, lr)``.
 
     ``mix`` is the realization-bound gossip executor that
@@ -214,11 +228,19 @@ def make_train_step(cfg: M.ModelConfig,
     node.  The delayed round of an overlapped step is posted before the
     gather and waited for after the scatter.  These ops are recorded in
     the wire log's scope ``"fsdp"``.
+
+    ``tp`` (a :class:`~repro_torch.launch.tp.TP` over a mesh whose model
+    extent is above 1) runs each (micro-)batch's pass on the rank's
+    model shards of the node's leaves -- after the fsdp gather when both
+    are given -- with the batch replicated over the model line, as the
+    reference's ``batch_spec`` says: a tensor-parallel forward and
+    backward whose collectives are recorded in the scope ``"model"``,
+    and gradients that are the rank's model shards.
     """
 
     def per_node_grads(p: dict, tokens, img):
         if micro_batch is None or micro_batch >= tokens.shape[0]:
-            return loss_and_grads(cfg, p, tokens, img)
+            return loss_and_grads(cfg, p, tokens, img, tp)
         nm = tokens.shape[0] // micro_batch
 
         def split(t):
@@ -231,7 +253,7 @@ def make_train_step(cfg: M.ModelConfig,
                                 device=v.device) for k, v in p.items()}
         for m, tok in enumerate(toks):
             loss, g = loss_and_grads(cfg, p, tok,
-                                     None if imgs is None else imgs[m])
+                                     None if imgs is None else imgs[m], tp)
             acc_loss, acc_g = accumulate_grads(acc_loss, acc_g, loss, g, nm)
         return acc_loss, acc_g
 

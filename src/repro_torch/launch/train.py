@@ -45,7 +45,7 @@ put the same ``alive`` in both batches.
 ``run(args, mesh=mesh)`` trains on a live
 :class:`~repro_torch.launch.mesh.Mesh` whose ``"node"`` axis has one
 coordinate per node -- ``("node",)``, ``("node", "fsdp")`` or ``("node",
-"fsdp", "model")`` with model extent 1; every rank calls ``run`` with
+"fsdp", "model")``; every rank calls ``run`` with
 the same ``args``: each rank trains its own node -- its row of the
 params and batches, which ``prepare(args, node=i)`` builds without
 keeping any other node's, so the step's node loop runs once -- and the
@@ -61,7 +61,13 @@ numbers -- replicated, they stay the reference's at F times the
 compute).  Each step gathers the node's whole leaves, takes the
 gradients on the rank's rows and reduce-scatters their mean over the
 node's F ranks (``steps.make_train_step(fsdp=)``), and the gossip moves
-each rank's shard.
+each rank's shard.  With a model extent M above 1 a rank keeps its
+(fsdp, model) shard of each leaf, as the reference's rules cut it
+(``prepare(args, node=i, mesh=mesh)``), takes the node's batch rows
+replicated over its model line, and runs a tensor-parallel forward and
+backward on its model shards (``steps.make_train_step(tp=)``,
+:mod:`repro_torch.launch.tp`) after the fsdp gather; a mesh with fsdp 1
+runs no fsdp op.
 The logged loss and consensus are reduced across the ranks, so rank 0
 (the only one that prints) prints what the single-process run prints;
 the mesh's wire log records that logging (and the flush it reads under
@@ -73,12 +79,10 @@ round's wire before the rank's gradients and completes it after them
 (``gossip.delayed_post``), ``parallel_msgd`` averages the gradients with
 one ``psum`` per dtype group, and ``--ckpt-dir`` gathers the node rows at
 rank 0, which writes the whole run's checkpoint (the single-process
-run's arrays) while the others wait; on an fsdp mesh each leaf is
-first gathered over fsdp (under ``--overlap`` the in-flight buffer
-too, unpacked, gathered and converted node by node), and only the
-line at fsdp coordinate 0 writes.  The reference gets model-sharded
-training from GSPMD; the port has no tensor-parallel forward, so a
-mesh with a model extent above 1 raises, naming ROADMAP item 18b-c.
+run's arrays) while the others wait; on an fsdp or model mesh each
+leaf is first gathered over fsdp, then over model (under ``--overlap``
+the in-flight buffer too, unpacked, gathered and converted node by
+node), and only the line at (fsdp 0, model 0) writes.
 
 ``--overlap`` trains the one-step-delayed pipeline (each step mixes the
 previous step's payload, on the card on a side stream under the
@@ -112,28 +116,26 @@ from ..device import resolve_device
 from ..models import model as M
 from . import sharding
 from . import steps as steps_mod
+from .tp import TP
 
 __all__ = ["build_trainer", "consensus_distance", "stack_nodes",
            "image_embeds", "prepare", "run", "parse_args", "main",
-           "check_mesh", "config_of", "fsdp_extent"]
-
-WAITS = "ROADMAP item 18b-c (model/tensor-parallel sharding)"
+           "check_mesh", "config_of", "fsdp_extent", "model_extent",
+           "is_sharded", "rows_over_fsdp"]
 
 
 def check_mesh(mesh, n: int) -> None:
-    """Refuse what training on ``mesh`` cannot run yet: the mesh must
-    have a ``node`` axis of ``n`` ranks, and no axis but ``node`` and
-    ``fsdp`` above 1."""
+    """Refuse a mesh training cannot run on: it must have a ``node`` axis
+    of ``n`` ranks, and no axis but ``node``, ``fsdp`` and ``model``
+    above 1."""
     if "node" not in mesh.axis_names or mesh.axis_size("node") != n:
         raise ValueError(f"training {n} nodes needs a mesh with a 'node' "
                          f"axis of {n}; got {mesh.shape}")
-    inner = {a: s for a, s in mesh.shape.items()
-             if a not in ("node", "fsdp") and s > 1}
-    if inner:
-        raise NotImplementedError(
-            f"training on a mesh with {inner}: the port has no "
-            f"model-sharded (tensor-parallel) forward (the reference's is "
-            f"GSPMD's); {WAITS}")
+    other = {a: s for a, s in mesh.shape.items()
+             if a not in ("node", "fsdp", "model") and s > 1}
+    if other:
+        raise ValueError(f"training on a mesh with {other}: the axes are "
+                         "node, fsdp and model")
 
 
 def fsdp_extent(mesh) -> int:
@@ -141,7 +143,18 @@ def fsdp_extent(mesh) -> int:
     return 1 if mesh is None else mesh.shape.get("fsdp", 1)
 
 
-def _rows_over_fsdp(cfg, mesh, batch: int) -> bool:
+def model_extent(mesh) -> int:
+    """The mesh's model extent (1 without a mesh or a model axis)."""
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def is_sharded(mesh) -> bool:
+    """Whether a rank of ``mesh`` holds shards of its node's leaves (an
+    fsdp or model extent above 1)."""
+    return fsdp_extent(mesh) > 1 or model_extent(mesh) > 1
+
+
+def rows_over_fsdp(cfg, mesh, batch: int) -> bool:
     """Whether a node's batch rows are split over fsdp: where
     ``sharding.batch_spec`` splits them, except for the moe family (the
     module docstring)."""
@@ -168,13 +181,20 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     coordinate a node, :func:`check_mesh`) runs every gossip round
     shard-natively, the step taking each rank's block; with an fsdp
     extent above 1 the step gathers and reduce-scatters by
-    ``sharding.node_param_specs(cfg, topology.n, mesh)``, which ride
-    along as ``step_for.fsdp`` (``(mesh, specs)``, else None)."""
-    fsdp = None
+    ``sharding.node_param_specs(cfg, topology.n, mesh)``, and with a
+    model extent above 1 it runs the tensor-parallel pass by them
+    (``launch.tp.TP``).  They ride along as ``step_for.fsdp`` (``(mesh,
+    specs)``, else None), ``step_for.tp`` (the ``TP``, else None) and
+    ``step_for.specs`` (the specs on either mesh, else None)."""
+    fsdp = tp = specs = None
     if mesh is not None:
         check_mesh(mesh, topology.n)
+        if is_sharded(mesh):
+            specs = sharding.node_param_specs(cfg, topology.n, mesh)
         if fsdp_extent(mesh) > 1:
-            fsdp = (mesh, sharding.node_param_specs(cfg, topology.n, mesh))
+            fsdp = (mesh, specs)
+        if model_extent(mesh) > 1:
+            tp = TP(mesh, specs)
     opt = optim_mod.make_optimizer(optimizer_name, topology, beta=beta,
                                    momentum_dtype=momentum_dtype,
                                    compression=compression, overlap=overlap,
@@ -182,7 +202,7 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     if warmup_steps:
         opt = transforms.allreduce_warmup(warmup_steps)(opt)
     step_fn = steps_mod.make_train_step(cfg, opt, micro_batch=micro_batch,
-                                        timeline=timeline, fsdp=fsdp)
+                                        timeline=timeline, fsdp=fsdp, tp=tp)
     plan = GossipPlan.for_optimizer(opt, fn=step_fn, mesh=mesh)
 
     def step_for(step, **kw):
@@ -190,6 +210,8 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
 
     step_for.plan = plan
     step_for.fsdp = fsdp
+    step_for.tp = tp
+    step_for.specs = specs
     return opt, step_for
 
 
@@ -212,21 +234,23 @@ def consensus_distance(params, mesh=None, specs=None) -> float:
     metric): one reduction over the packed flat buffers and a single host
     sync (padding columns are zeros on every node, so they add 0).  On a
     mesh each rank holds its node's block: the mean is a ``psum`` over
-    the node axis, and so is the sum of squares.  With fsdp ``specs``
-    (``build_trainer``'s) each element counts once: the sharded leaves'
-    sums are added over the fsdp line too, a leaf replicated over fsdp
-    is counted at fsdp coordinate 0 only."""
+    the node axis, and so is the sum of squares.  With ``specs``
+    (``build_trainer``'s, on an fsdp or model mesh) each element counts
+    once: the sums are added over the fsdp and model lines too, and a
+    leaf replicated over one of them is counted at its coordinate 0
+    only."""
     if mesh is None or specs is None:
         total = _sq_dist(params, mesh)
     else:
-        cut = {k: sharding.fsdp_dim(specs[k]) is not None for k in params}
-        total = _sq_dist({k: v for k, v in params.items() if cut[k]}, mesh)
-        rep = {k: v for k, v in params.items() if not cut[k]}
-        if rep:
-            own = _sq_dist(rep, mesh)
-            total = total + (own if mesh.axis_index("fsdp") == 0
-                             else torch.zeros_like(own))
-        total = mesh.psum(total.reshape(1), "fsdp")[0]
+        inner = [a for a in ("fsdp", "model") if mesh.shape.get(a, 1) > 1]
+        mine = {k: v for k, v in params.items() if all(
+            sharding.axis_dim(specs[k], a) is not None
+            or mesh.axis_index(a) == 0 for a in inner)}
+        total = (_sq_dist(mine, mesh) if mine else
+                 torch.zeros((), dtype=torch.float32,
+                             device=next(iter(params.values())).device))
+        for a in inner:
+            total = mesh.psum(total.reshape(1), a)[0]
     if mesh is not None:
         total = mesh.psum(total.reshape(1), "node")[0]
     return float(torch.sqrt(total))
@@ -288,36 +312,39 @@ def _specs_like(tree, specs):
     return type(tree)(_specs_like(v, specs) for v in tree)
 
 
-def _whole_state(params, state, opt, cfg, mesh, fsdp) -> dict | None:
+def _whole_state(params, state, opt, cfg, mesh, specs) -> dict | None:
     """The train state ``checkpoint.save`` takes, in the reference's
     layout, of the rank's node (its whole leaves, gathered over the fsdp
-    line where ``fsdp`` -- ``(mesh, specs)`` -- is given): params,
-    momentum and, under ``--overlap``, the in-flight buffer as the
+    line, then the model line, by ``specs`` where they are given):
+    params, momentum and, under ``--overlap``, the in-flight buffer as the
     reference packs it.  On a mesh the rank's own block is packed at its
     own layout (``pad_multiple=1``); the reference's packing of the whole
-    payload is the blocks' rows stacked.  On an fsdp mesh the leaves are
-    gathered at fsdp coordinate 0 alone, whose line writes: None at the
-    others."""
+    payload is the blocks' rows stacked.  On an fsdp or model mesh the
+    leaves are gathered at (fsdp 0, model 0) alone, whose line writes:
+    None at the others."""
     momentum = state.momentum
     template = (None if state.buf is None
                 else opt.payload_template(params, state))
     buf = None if state.buf is None else list(state.buf)
     pad = flatbuf.PAD_MULTIPLE if mesh is None else 1
-    if fsdp is not None:
-        specs = fsdp[1]
-
-        def gather(tree):
-            return sharding.fsdp_gather(tree, _specs_like(tree, specs), mesh,
-                                        dst=0)
-
-        params, momentum = gather(params), gather(momentum)
+    if specs is not None:
         if buf is not None:
-            template = gather(flatbuf.unpack(
-                flatbuf.layout_of(template, pad), buf))
-            buf = (None if template is None else flatbuf.pack(
-                template, flatbuf.layout_of(template, pad))[1])
-        if mesh.axis_index("fsdp") != 0:
-            return None
+            template = flatbuf.unpack(flatbuf.layout_of(template, pad), buf)
+
+        def gather(tree, axis):
+            return sharding.gather_axis(tree, _specs_like(tree, specs), mesh,
+                                        axis, dst=0)
+
+        for axis in ("fsdp", "model"):
+            if mesh.shape.get(axis, 1) == 1:
+                continue
+            params, momentum = gather(params, axis), gather(momentum, axis)
+            if template is not None:
+                template = gather(template, axis)
+            if mesh.axis_index(axis) != 0:
+                return None      # the model gather runs at fsdp 0 alone
+        if buf is not None:
+            buf = flatbuf.pack(template, flatbuf.layout_of(template, pad))[1]
     payload = train_state_to_jax(params, momentum, cfg)
     if buf is not None:
         payload["gossip_buf"] = gossip_buf_to_jax(buf, template, cfg,
@@ -337,7 +364,8 @@ def config_of(args):
 
 
 def prepare(args, tokens=None, node: int | None = None,
-            fsdp: int | None = None, mesh=None) -> dict:
+            fsdp: int | None = None, mesh=None, model: int | None = None,
+            config=None) -> dict:
     """What a run of ``args`` starts from, built as :func:`run` builds it:
     the config, the topology, the momentum dtype, the node-stacked
     initial params, every step's batch and the learning-rate schedule.
@@ -347,21 +375,24 @@ def prepare(args, tokens=None, node: int | None = None,
     grows with the vocabulary: a world of ranks samples once).  ``node``
     keeps only that node's row of the params and of every per-node batch
     entry (a node axis of 1, the values the whole run gives it): a rank
-    of a mesh then holds its own node and no other's.  ``fsdp``, the
-    rank's fsdp coordinate on ``mesh`` (a mesh, live or abstract, whose
-    fsdp extent F is above 1; the coordinate defaults to a live mesh's
-    own), keeps only the rank's shard of each leaf, cloned (cut by
-    ``sharding.node_param_specs``, read at the global shapes), and its
-    rows of every batch entry but ``alive`` where they split over fsdp
-    (the module docstring).  ``--desync``'s noise is drawn on the whole
+    of a mesh then holds its own node and no other's.  ``fsdp`` and
+    ``model``, the rank's coordinates on ``mesh`` (a mesh, live or
+    abstract, whose fsdp or model extent is above 1; they default to a
+    live mesh's own), keep only the rank's (fsdp, model) shard of each
+    leaf, cloned (cut by ``sharding.node_param_specs``, read at the
+    global shapes), and its rows of every batch entry but ``alive``
+    where they split over fsdp (the module docstring); the rows are
+    replicated over model.  ``--desync``'s noise is drawn on the whole
     stacked leaf, leaf by leaf, and cut at once: the values are the
     single-process run's, and no more than one whole stacked leaf is
-    held at a time."""
+    held at a time.  ``config``: the config to train in place of
+    ``config_of(args)`` (the same widths, say, with fewer experts); the
+    shards are cut by its specs."""
     if args.straggler_prob and not args.deadline_skip:
         raise ValueError("--straggler-prob simulates missed deadlines; "
                          "pair it with --deadline-skip")
     device = resolve_device(args.device)
-    cfg = config_of(args)
+    cfg = config_of(args) if config is None else config
     n = args.nodes
     # momentum dtype comes from the arch's layout config (an explicit
     # argument, not a process-global knob)
@@ -369,15 +400,20 @@ def prepare(args, tokens=None, node: int | None = None,
     mom_dtype = {"bfloat16": torch.bfloat16,
                  "float32": torch.float32}.get(layout.get("momentum_dtype"))
 
-    shards = fsdp_extent(mesh) > 1
+    shards = is_sharded(mesh)
     if shards:
         if node is None:
-            raise ValueError("fsdp shards are a rank's: give its node too")
-        fsdp = mesh.axis_index("fsdp") if fsdp is None else fsdp
-        cut = sharding.fsdp_only(sharding.node_param_specs(cfg, n, mesh))
-        at = {"fsdp": fsdp}
+            raise ValueError("fsdp and model shards are a rank's: give its "
+                             "node too")
+        at = {a: 0 for a in mesh.axis_names}
+        for axis, given in (("fsdp", fsdp), ("model", model)):
+            if mesh.shape.get(axis, 1) > 1:
+                at[axis] = mesh.axis_index(axis) if given is None else given
+        fsdp = at["fsdp"] if fsdp_extent(mesh) > 1 else None
+        model = at["model"] if model_extent(mesh) > 1 else None
+        cut = sharding.inner_only(sharding.node_param_specs(cfg, n, mesh))
     else:
-        fsdp = None
+        fsdp = model = None
 
     def own(k, v):
         """The rank's part of a stacked leaf: its node row, its shard."""
@@ -428,7 +464,7 @@ def prepare(args, tokens=None, node: int | None = None,
                 np.random.default_rng(2**20 + step).random(n)
                 >= args.straggler_prob)
     if node is not None:
-        split = shards and _rows_over_fsdp(cfg, mesh, args.batch)
+        split = fsdp is not None and rows_over_fsdp(cfg, mesh, args.batch)
         per = args.batch // mesh.axis_size("fsdp") if split else None
 
         def mine(k, v):
@@ -442,7 +478,7 @@ def prepare(args, tokens=None, node: int | None = None,
             "topology": topo_mod.get_topology(args.topology, n),
             "momentum_dtype": mom_dtype, "params": stacked,
             "batches": batches, "lr_fn": lr_fn, "node": node,
-            "fsdp": fsdp}
+            "fsdp": fsdp, "model": model}
 
 
 def run(args, timeline=None, mesh=None, start=None) -> dict:
@@ -458,18 +494,24 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
     ``start`` is what :func:`prepare` returns, for a caller that changes
     it first (another activation dtype, say); by default ``prepare(args)``
     (on a mesh ``prepare(args, node=i, mesh=mesh)``, the rank's node
-    ``i`` and, on an fsdp mesh, its shard)."""
-    node, fsdp, loud = None, None, True
+    ``i`` and, on an fsdp or model mesh, its shard)."""
+    at = {"node": None, "fsdp": None, "model": None}
+    loud = True
     if mesh is not None:
         check_mesh(mesh, args.nodes)
-        node, loud = mesh.axis_index("node"), mesh.rank == 0
-        if fsdp_extent(mesh) > 1:
-            fsdp = mesh.axis_index("fsdp")
-    start = prepare(args, node=node, mesh=mesh) if start is None else start
-    if (start.get("node"), start.get("fsdp")) != (node, fsdp):
-        raise ValueError(f"a start prepared for node {start.get('node')}, "
-                         f"fsdp {start.get('fsdp')} on a rank that trains "
-                         f"node {node}, fsdp {fsdp}")
+        loud = mesh.rank == 0
+        for axis in at:
+            if axis == "node" or mesh.shape.get(axis, 1) > 1:
+                at[axis] = mesh.axis_index(axis)
+    start = (prepare(args, node=at["node"], mesh=mesh) if start is None
+             else start)
+    got = {axis: start.get(axis) for axis in at}
+    if got != at:
+        raise ValueError(
+            "a start prepared for " + ", ".join(f"{a} {v}" for a, v in
+                                                 got.items())
+            + " on a rank that trains " + ", ".join(f"{a} {v}" for a, v in
+                                                     at.items()))
     device, cfg = start["device"], start["config"]
     stacked, batches, lr_fn = (start["params"], start["batches"],
                                start["lr_fn"])
@@ -482,7 +524,7 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
                                   compression=args.compression,
                                   timeline=timeline, mesh=mesh)
     plan = step_for.plan
-    specs = None if step_for.fsdp is None else step_for.fsdp[1]
+    specs = step_for.specs
     state = opt.init(stacked)
 
     history, step_s = [], []
@@ -522,13 +564,13 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
                     # resume re-primes (step_for(k, prime=True))
                     fp, fs = plan.flush_step_fn(step + 1)(stacked, state)
                     payload = _whole_state(fp, fs._replace(buf=None), opt,
-                                           cfg, mesh, step_for.fsdp)
+                                           cfg, mesh, specs)
                     del fp, fs
                 else:
                     # carry-buffer: the in-flight payload is saved with the
                     # state, so a resume is bit-identical to never stopping
                     payload = _whole_state(stacked, state, opt, cfg, mesh,
-                                           step_for.fsdp)
+                                           specs)
                 if payload is not None:
                     _save(args.ckpt_dir, step, payload, mesh)
                 del payload

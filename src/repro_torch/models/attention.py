@@ -111,6 +111,67 @@ def _project_qkv(p: Attention, x, n_heads, n_kv, head_dim, qk_norm,
     return q, k, v
 
 
+def _heads_tp(tp, q, k, v, q_cut, kv_cut, n_heads, n_kv, head_dim):
+    """The tensor-parallel heads (``tp``: :class:`~repro_torch.launch.tp.
+    TP`) of the projections ``q`` (B, S, cols) and ``k``, ``v`` (B, T,
+    cols), each the rank's columns where cut: ``(q, k, v, local)`` as
+    (B, S, Hl, hd) and (B, T, Kvl, hd).  Query columns that are whole
+    heads give the rank's heads alone (``local``); otherwise q is
+    gathered and every head attends, replicated.  k / v keep the rank's
+    columns where they are whole kv heads and exactly the ones its
+    queries read; otherwise they are gathered whole and those heads are
+    picked -- a contiguous run where the rank's queries fill whole
+    groups, else one kv head per query head (a group of 1).  Read by the
+    rank's own heads alone, gathered k / v take the ranks' partial
+    gradients summed (``gather_from(partial=True)``)."""
+    B, S, T, hd = q.shape[0], q.shape[1], k.shape[1], head_dim
+    G = n_heads // n_kv
+    local = q_cut and q.shape[-1] % hd == 0
+    if not local:
+        q = tp.whole(q, q_cut)
+    Hl = q.shape[-1] // hd
+    q0 = tp.rank * Hl if local else 0
+    Kvl = k.shape[-1] // hd
+    if not (kv_cut and k.shape[-1] % hd == 0 and Kvl * G == Hl):
+        k, v = tp.whole(k, kv_cut, local), tp.whole(v, kv_cut, local)
+        if Hl % G == 0:
+            k = k[..., q0 // G * hd:(q0 + Hl) // G * hd]
+            v = v[..., q0 // G * hd:(q0 + Hl) // G * hd]
+        else:
+            idx = torch.div(torch.arange(q0, q0 + Hl, device=k.device), G,
+                            rounding_mode="floor")
+            k = k.reshape(B, T, n_kv, hd).index_select(2, idx)
+            v = v.reshape(B, T, n_kv, hd).index_select(2, idx)
+    return (q.reshape(B, S, Hl, hd), k.reshape(B, T, -1, hd),
+            v.reshape(B, T, -1, hd), local)
+
+
+def _per_head(tp, scale, local: bool):
+    """A whole leaf read by the rank's own heads: through ``copy_to``."""
+    return tp.copy_to(scale) if local else scale
+
+
+def _project_qkv_tp(tp, p: Attention, x, n_heads, n_kv, head_dim, qk_norm,
+                    positions, rope_theta):
+    """:func:`_project_qkv` on the rank's model shards: the projections
+    column-parallel where their leaves are cut (one ``copy_to`` of x),
+    the heads by :func:`_heads_tp`; qk-norm and rope per head, as in one
+    process -- on the rank's own heads (``local``) the norm scales enter
+    through ``copy_to``, their gradients partial.  Returns (q, k, v,
+    local)."""
+    dt = x.dtype
+    (q, q_cut), (k, kv_cut), (v, _) = tp.columns(x, (p.wq, p.wk, p.wv), dt)
+    q, k, v, local = _heads_tp(tp, q, k, v, q_cut, kv_cut, n_heads, n_kv,
+                               head_dim)
+    if qk_norm:
+        q = rms_norm(_per_head(tp, p.q_norm.scale, local), q)
+        k = rms_norm(_per_head(tp, p.k_norm.scale, local), k)
+    if rope_theta:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    return q, k, v, local
+
+
 def _sdpa(q, k, v, mask, attn_cap=None, gqa_layout="grouped"):
     """Masked attention: the train forward's attention, and the
     positions-masked oracle the kernel path is held to.  q: (B,S,H,hd);
@@ -148,7 +209,7 @@ def _sdpa(q, k, v, mask, attn_cap=None, gqa_layout="grouped"):
 def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
                rope_theta=10000.0, qk_norm=False, window=None,
                attn_cap=None, return_kv=False, kernel=True,
-               gqa_layout="grouped"):
+               gqa_layout="grouped", tp=None):
     """Causal self-attention on a full sequence.
 
     kernel: True (serving prefill; the hybrid shared block when
@@ -163,10 +224,17 @@ def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
       exactly what a decode cache stores.
     gqa_layout: the plain attention's score layout (:func:`_sdpa`); the
       kernel takes no layout.
+    tp: a bound :class:`~repro_torch.launch.tp.TP`: the rank's model
+      shards, the projections and heads by :func:`_project_qkv_tp` and
+      ``wo`` row-parallel (its output summed over the line).
     """
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm,
-                           positions, rope_theta)
+    if tp is None:
+        q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm,
+                               positions, rope_theta)
+    else:
+        q, k, v, local = _project_qkv_tp(tp, p, x, n_heads, n_kv, head_dim,
+                                         qk_norm, positions, rope_theta)
     if kernel:
         out = flash_ops.flash_attention(q, k, v, causal=True, window=window,
                                         attn_cap=attn_cap)
@@ -177,7 +245,10 @@ def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
         if window is not None:
             mask &= j > i - window
         out = _sdpa(q, k, v, mask[:, None], attn_cap, gqa_layout)
-    y = out.reshape(B, S, n_heads * head_dim) @ p.wo.to(x.dtype)
+    if tp is None:
+        y = out.reshape(B, S, n_heads * head_dim) @ p.wo.to(x.dtype)
+    else:
+        y = tp.linear(out.reshape(B, S, -1), p.wo, x.dtype, local)[0]
     if return_kv:
         return y, k, v
     return y
@@ -263,22 +334,38 @@ def attn_decode_paged(p: Attention, x, k_pages, v_pages, page_table,
 
 
 def cross_attn_apply(p: CrossAttention, x, kv_src, *, n_heads, n_kv,
-                     head_dim):
+                     head_dim, tp=None):
     """Cross-attention: queries from x (B, S, d), keys and values from
     ``kv_src`` (B, T, d), the image embeddings, cast to x's dtype.
     qk-norm, no RoPE, no causality (an all-true mask through
     :func:`_sdpa`); the output is scaled by ``tanh(gate)``, taken in f32
-    and cast to the activation dtype, as the reference does."""
+    and cast to the activation dtype, as the reference does.  ``tp``: the
+    rank's model shards, as :func:`attn_apply` (queries from x, keys and
+    values from the images, each entering its column-parallel products
+    once)."""
     dt = x.dtype
     B, S, _ = x.shape
     T = kv_src.shape[1]
     src = kv_src.to(dt)
-    q = (x @ p.wq.to(dt)).reshape(B, S, n_heads, head_dim)
-    k = (src @ p.wk.to(dt)).reshape(B, T, n_kv, head_dim)
-    v = (src @ p.wv.to(dt)).reshape(B, T, n_kv, head_dim)
-    q = rms_norm(p.q_norm.scale, q)
-    k = rms_norm(p.k_norm.scale, k)
+    if tp is None:
+        q = (x @ p.wq.to(dt)).reshape(B, S, n_heads, head_dim)
+        k = (src @ p.wk.to(dt)).reshape(B, T, n_kv, head_dim)
+        v = (src @ p.wv.to(dt)).reshape(B, T, n_kv, head_dim)
+    else:
+        ((q, q_cut),) = tp.columns(x, (p.wq,), dt)
+        (k, kv_cut), (v, _) = tp.columns(src, (p.wk, p.wv), dt)
+        q, k, v, local = _heads_tp(tp, q, k, v, q_cut, kv_cut, n_heads,
+                                   n_kv, head_dim)
+    q_scale, k_scale = p.q_norm.scale, p.k_norm.scale
+    if tp is not None:
+        q_scale = _per_head(tp, q_scale, local)
+        k_scale = _per_head(tp, k_scale, local)
+    q = rms_norm(q_scale, q)
+    k = rms_norm(k_scale, k)
     mask = torch.ones((B, 1, S, T), dtype=torch.bool, device=x.device)
     out = _sdpa(q, k, v, mask)
-    y = out.reshape(B, S, n_heads * head_dim) @ p.wo.to(dt)
+    if tp is None:
+        y = out.reshape(B, S, n_heads * head_dim) @ p.wo.to(dt)
+    else:
+        y = tp.linear(out.reshape(B, S, -1), p.wo, dt, local)[0]
     return torch.tanh(p.gate.float()).to(dt) * y

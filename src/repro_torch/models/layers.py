@@ -92,10 +92,19 @@ class MLP(nn.Module):
         self.w_down = p(d_ff, d_model)
 
 
-def mlp_apply(p: MLP, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
-    """Gated MLP: swiglu (silu gate) or geglu (tanh-gelu gate, gemma)."""
+def mlp_apply(p: MLP, x: torch.Tensor, kind: str = "swiglu",
+              tp=None) -> torch.Tensor:
+    """Gated MLP: swiglu (silu gate) or geglu (tanh-gelu gate, gemma).
+    ``tp`` (a bound :class:`~repro_torch.launch.tp.TP`): the rank's model
+    shards, ``w_gate`` / ``w_up`` column-parallel and ``w_down``
+    row-parallel where their leaves are cut."""
     dt = x.dtype
-    gate = x @ p.w_gate.to(dt)
-    up = x @ p.w_up.to(dt)
+    if tp is None:
+        gate = x @ p.w_gate.to(dt)
+        up = x @ p.w_up.to(dt)
+    else:
+        (gate, cut), (up, _) = tp.columns(x, (p.w_gate, p.w_up), dt)
     act = silu(gate) if kind == "swiglu" else F.gelu(gate, approximate="tanh")
-    return (act * up) @ p.w_down.to(dt)
+    if tp is None:
+        return (act * up) @ p.w_down.to(dt)
+    return tp.linear(act * up, p.w_down, dt, cut)[0]

@@ -152,22 +152,33 @@ def ssd_chunked(x, dt, A, B, C, chunk: int = 128, h0=None):
     return y, carry
 
 
-def _ssd_inputs(p: Mamba2, x, d_state, head_dim, expand, n_groups):
-    """in_proj and its split: (z, xBC, dt_raw, d_inner, n_heads)."""
+def _ssd_inputs(p: Mamba2, x, d_state, head_dim, expand, n_groups,
+                tp=None):
+    """in_proj and its split: (z, xBC, dt_raw, d_inner, n_heads).  ``tp``:
+    a column-parallel ``in_proj`` where its leaf is cut, the packed
+    z, x, B, C, dt then gathered whole (the split does not follow the
+    column cut)."""
     d_inner = expand * x.shape[-1]
     n_heads = d_inner // head_dim
-    proj = x @ p.in_proj.to(x.dtype)
+    if tp is None:
+        proj = x @ p.in_proj.to(x.dtype)
+    else:
+        proj = tp.whole(*tp.linear(x, p.in_proj, x.dtype))
     z, xBC, dt_raw = _split_proj(proj, d_inner, n_groups, d_state, n_heads)
     return z, xBC, dt_raw, d_inner, n_heads
 
 
 def mamba2_apply(p: Mamba2, x, *, d_state: int = 128, head_dim: int = 64,
                  expand: int = 2, d_conv: int = 4, n_groups: int = 1,
-                 chunk: int = 128, impl: str = "jnp"):
-    """Full-sequence Mamba2 block. x: (B,S,d_model) -> (B,S,d_model)."""
+                 chunk: int = 128, impl: str = "jnp", tp=None):
+    """Full-sequence Mamba2 block. x: (B,S,d_model) -> (B,S,d_model).
+    ``tp`` (a bound :class:`~repro_torch.launch.tp.TP`): ``in_proj``
+    column-parallel and gathered, the conv, the scan and the gated norm
+    replicated along the model line, ``out_proj`` row-parallel (its input
+    scattered)."""
     dt_ = x.dtype
     z, xBC, dt_raw, d_inner, n_heads = _ssd_inputs(p, x, d_state, head_dim,
-                                                   expand, n_groups)
+                                                   expand, n_groups, tp)
     xBC = _causal_conv(xBC, p.conv_w.to(dt_), p.conv_b.to(dt_))
     xi = xBC[..., :d_inner]
     Bv = xBC[..., d_inner:d_inner + n_groups * d_state]
@@ -189,6 +200,8 @@ def mamba2_apply(p: Mamba2, x, *, d_state: int = 128, head_dim: int = 64,
     # the inner norm keeps its default eps (1e-6), not cfg.norm_eps, as the
     # reference does
     y = rms_norm(p.norm.scale, y * silu(z))
+    if tp is not None:
+        return tp.linear(y, p.out_proj, dt_)[0]
     return y @ p.out_proj.to(dt_)
 
 

@@ -382,7 +382,7 @@ def _effective_window(cfg: ModelConfig, layer: int) -> int | None:
     return cfg.window_for(layer % 2 == 0)
 
 
-def _ffn(cfg: ModelConfig, p: DenseLayer, h, dropless: bool, aux):
+def _ffn(cfg: ModelConfig, p: DenseLayer, h, dropless: bool, aux, tp=None):
     """The layer's FFN on the normed activations: the MLP, or the experts
     (dispatched dropless or by capacity).  Returns (out, aux plus the
     experts' load-balance loss); the MLP passes ``aux`` through."""
@@ -390,24 +390,25 @@ def _ffn(cfg: ModelConfig, p: DenseLayer, h, dropless: bool, aux):
         out, aux_l = moe_apply(p.moe, h, n_experts=cfg.n_experts,
                                top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
-                               dropless=dropless)
+                               dropless=dropless, tp=tp)
         return out, aux + aux_l
-    return mlp_apply(p.mlp, h, cfg.mlp_kind), aux
+    return mlp_apply(p.mlp, h, cfg.mlp_kind, tp), aux
 
 
-def _cross_block(cfg: ModelConfig, p: CrossLayer, x, img):
+def _cross_block(cfg: ModelConfig, p: CrossLayer, x, img, tp=None):
     """One vlm cross layer: pre-norm residual gated cross-attention over
     the image embeddings ``img`` (in the activation dtype), then the
     MLP."""
     h = rms_norm(p.ln1.scale, x, cfg.norm_eps)
     x = x + attn.cross_attn_apply(p.xattn, h, img, n_heads=cfg.n_heads,
-                                  n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim)
+                                  n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                                  tp=tp)
     h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
-    return x + mlp_apply(p.mlp, h, cfg.mlp_kind)
+    return x + mlp_apply(p.mlp, h, cfg.mlp_kind, tp)
 
 
 def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
-                 aux, prefill=False):
+                 aux, prefill=False, tp=None):
     """One [attn + ffn] layer -> (x, aux plus the layer's load-balance loss,
     kv).  With ``prefill`` (serving)
     the attention kernel runs and kv is the layer's (k, v); otherwise
@@ -419,15 +420,16 @@ def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
         head_dim=cfg.head_dim, positions=positions,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
         window=_effective_window(cfg, layer), attn_cap=cfg.attn_softcap,
-        return_kv=prefill, kernel=prefill, gqa_layout=cfg.gqa_layout)
+        return_kv=prefill, kernel=prefill, gqa_layout=cfg.gqa_layout,
+        tp=tp)
     h, kv = (out[0], out[1:]) if prefill else (out, None)
     x = x + h
     h, aux = _ffn(cfg, p, rms_norm(p.ln2.scale, x, cfg.norm_eps),
-                  cfg.moe_dropless, aux)
+                  cfg.moe_dropless, aux, tp)
     return x + h, aux, kv
 
 
-def _mamba_block(cfg: ModelConfig, p: MambaLayer, x):
+def _mamba_block(cfg: ModelConfig, p: MambaLayer, x, tp=None):
     """One [mamba2] layer: "pallas" runs the SSD-scan kernel, anything else
     the plain chunked scan."""
     h = rms_norm(p.ln.scale, x, cfg.norm_eps)
@@ -435,7 +437,7 @@ def _mamba_block(cfg: ModelConfig, p: MambaLayer, x):
                         head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
                         d_conv=cfg.d_conv, n_groups=cfg.ssm_n_groups,
                         chunk=cfg.ssd_chunk, impl=cfg.attention_impl
-                        if cfg.attention_impl == "pallas" else "jnp")
+                        if cfg.attention_impl == "pallas" else "jnp", tp=tp)
     return x + h
 
 
@@ -445,25 +447,56 @@ def _attn_kw(cfg: ModelConfig) -> dict:
                 qk_norm=cfg.qk_norm, attn_cap=cfg.attn_softcap)
 
 
-def _attn_mlp(cfg: ModelConfig, p: DenseLayer, x, attend):
+def _attn_mlp(cfg: ModelConfig, p: DenseLayer, x, attend, tp=None):
     """Pre-norm residual attention then FFN: ``attend`` maps the normed
     activations to the attention's output (a full sequence or one decode
     token).  The experts, where the layer has them, run dropless: the
     decodes' and the shared block's path."""
     x = x + attend(rms_norm(p.ln1.scale, x, cfg.norm_eps))
     h = rms_norm(p.ln2.scale, x, cfg.norm_eps)
-    return x + _ffn(cfg, p, h, dropless=True, aux=0.0)[0]
+    return x + _ffn(cfg, p, h, dropless=True, aux=0.0, tp=tp)[0]
 
 
-def _shared_block(cfg: ModelConfig, p: SharedBlock, x, x0, attend):
+def _shared_block(cfg: ModelConfig, p: SharedBlock, x, x0, attend,
+                  tp=None):
     """zamba2's shared block on concat(x, x0): ``h = concat @ in_proj``,
     then h's own attention and MLP residuals, and the block returns
-    ``x + h`` -- h, in_proj output included, is what joins the stream."""
-    h = torch.cat([x, x0], dim=-1) @ p.in_proj.to(x.dtype)
-    return x + _attn_mlp(cfg, p, h, attend)
+    ``x + h`` -- h, in_proj output included, is what joins the stream.
+    ``tp``: ``in_proj`` column-parallel, its output gathered whole."""
+    cat = torch.cat([x, x0], dim=-1)
+    if tp is None:
+        h = cat @ p.in_proj.to(x.dtype)
+    else:
+        h = tp.whole(*tp.linear(cat, p.in_proj, x.dtype))
+    return x + _attn_mlp(cfg, p, h, attend, tp)
 
 
-def _embed_tokens(params: Model, cfg: ModelConfig, tokens):
+def _rows(table, ids):
+    """``table[ids]`` of a (V, d) table, or of audio's (K, V, d) with ids
+    (..., K): codebook k's rows for id k."""
+    if table.ndim == 2:
+        return table[ids]
+    return table[torch.arange(table.shape[0], device=ids.device), ids]
+
+
+def _lookup_tp(tp, table, ids):
+    """:func:`_rows` on the rank's model shard of an embedding table: V
+    cut -- ids outside the rank's rows give zero rows, summed over the
+    line by ``reduce_from`` (one collective for audio's K codebooks);
+    d cut -- the rows' columns gathered."""
+    d = tp.dim(table)
+    if d is None:
+        return _rows(table, ids)
+    if d == table.ndim - 1:
+        return tp.gather_from(_rows(table, ids), -1)
+    Vl = table.shape[-2]
+    local = ids - tp.vocab_offset(Vl)
+    ok = (local >= 0) & (local < Vl)
+    rows = _rows(table, local.clamp(0, Vl - 1))
+    return tp.reduce_from(torch.where(ok[..., None], rows, 0.0))
+
+
+def _embed_tokens(params: Model, cfg: ModelConfig, tokens, tp=None):
     """tokens: (B, S) int (audio: (B, S, K)) -> activations (B, S, d).
     Gathers, then casts to the activation dtype (the same bits as the
     reference's cast-then-gather); audio sums the K codebooks' embeddings
@@ -473,12 +506,32 @@ def _embed_tokens(params: Model, cfg: ModelConfig, tokens):
     to the activation dtype as the reference does for qwen3 too."""
     adt = cfg.activation_dtype
     tokens = tokens.long()
+    if tp is not None:
+        return _scale_embedding(cfg, _embed_tp(params, cfg, tokens, tp))
     if cfg.family == "audio":
         x = params.embed[0][tokens[..., 0]].to(adt)
         for k in range(1, cfg.n_codebooks):
             x = x + params.embed[k][tokens[..., k]].to(adt)
     else:
         x = params.embed[tokens].to(adt)
+    return _scale_embedding(cfg, x)
+
+
+def _embed_tp(params, cfg: ModelConfig, tokens, tp):
+    """:func:`_embed_tokens`' lookups on the rank's model shard of
+    ``embed`` (:func:`_lookup_tp`), cast and summed as in one process."""
+    adt = cfg.activation_dtype
+    rows = _lookup_tp(tp, params.embed, tokens)
+    if cfg.family != "audio":
+        return rows.to(adt)
+    x = rows[..., 0, :].to(adt)
+    for k in range(1, cfg.n_codebooks):
+        x = x + rows[..., k, :].to(adt)
+    return x
+
+
+def _scale_embedding(cfg: ModelConfig, x):
+    adt = cfg.activation_dtype
     if cfg.family in ("dense", "moe", "vlm", "audio"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=adt, device=x.device)
     return x
@@ -494,14 +547,34 @@ def _default_positions(cfg: ModelConfig, tokens):
 
 
 def forward(params: Model, cfg: ModelConfig, tokens, *, image_embeds=None,
-            positions=None):
+            positions=None, tp=None):
     """Train / eval forward.  tokens: (B, S) int (audio: (B, S, K)).
     Returns logits (B, S, V) (audio: (B, S, K, V)) and the f32 scalar aux
     loss: the moe layers' load-balance losses summed (zero for the other
     families).  The vlm family needs ``image_embeds`` (B, T, d); the
-    others ignore it, as in the reference."""
+    others ignore it, as in the reference.  ``tp`` (a bound
+    :class:`~repro_torch.launch.tp.TP`): ``params`` are the rank's model
+    shards and each layer follows its leaves' cuts; the logits are then
+    the rank's block of the vocabulary where the head cuts it
+    (:func:`logits_cut`), else whole."""
     return _forward(params, cfg, tokens, positions, prefill=False,
-                    image_embeds=image_embeds)
+                    image_embeds=image_embeds, tp=tp)
+
+
+def _head(params, cfg: ModelConfig):
+    """(the head's leaf, the dim of it that is the vocabulary)."""
+    if cfg.family == "audio" or not cfg.tie_embeddings:
+        return params.lm_head, -1
+    return params.embed, -2
+
+
+def logits_cut(params, cfg: ModelConfig, tp) -> bool:
+    """Whether :func:`forward` under ``tp`` returns the rank's block of
+    the vocabulary (the head's vocabulary dim cut over model)."""
+    if tp is None:
+        return False
+    w, v = _head(params, cfg)
+    return tp.dim(w) == v % w.ndim
 
 
 def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
@@ -515,14 +588,15 @@ def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
     return _forward(params, cfg, tokens, positions, prefill=True)
 
 
-def _forward(params, cfg, tokens, positions, prefill, image_embeds=None):
+def _forward(params, cfg, tokens, positions, prefill, image_embeds=None,
+             tp=None):
     _check_family(cfg)
     if cfg.family == "vlm":
         if image_embeds is None:
             raise ValueError("the vlm family needs image_embeds")
         img = image_embeds.to(cfg.activation_dtype)
         n_self = _vlm_groups(cfg)[1]
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, tp)
     x0 = x                     # hybrid: the shared block's embedding input
     if positions is None:
         positions = _default_positions(cfg, tokens)
@@ -543,13 +617,15 @@ def _forward(params, cfg, tokens, positions, prefill, image_embeds=None):
             vs.append(v)
             continue
         if cfg.family in _ATTN_FAMILIES:
-            x, aux, _ = run(_dense_block, cfg, layer, x, positions, i, aux)
+            x, aux, _ = run(_dense_block, cfg, layer, x, positions, i, aux,
+                            False, tp)
         else:
-            x = run(_mamba_block, cfg, layer, x)
+            x = run(_mamba_block, cfg, layer, x, tp)
         if cfg.family == "vlm" and (i + 1) % n_self == 0:
             # the group's cross layer; remat covers the self layers only,
             # as the reference's _maybe_remat(inner)
-            x = _cross_block(cfg, params.cross_layers[i // n_self], x, img)
+            x = _cross_block(cfg, params.cross_layers[i // n_self], x, img,
+                             tp)
         if cfg.family == "hybrid" and (i + 1) % every == 0:
             # after each group of `every` mamba layers (none after the
             # L % every tail); remat covers the mamba layers only, as the
@@ -559,18 +635,22 @@ def _forward(params, cfg, tokens, positions, prefill, image_embeds=None):
                 shared.attn, h, positions=positions,
                 window=cfg.window_for(True),
                 kernel=cfg.attention_impl == "pallas",
-                gqa_layout=cfg.gqa_layout, **_attn_kw(cfg)))
+                gqa_layout=cfg.gqa_layout, tp=tp, **_attn_kw(cfg)), tp)
     x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
-    logits = _lm_head(params, cfg, x)
+    logits = _lm_head(params, cfg, x, tp)
     if prefill:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits, aux
 
 
-def _lm_head(params: Model, cfg: ModelConfig, x):
+def _lm_head(params: Model, cfg: ModelConfig, x, tp=None):
     """Logits in the activation dtype: audio's K heads
     (``bsd,kdv->bskv``, no softcap, never tied, as the reference's), else
-    the tied or untied head, soft-capped."""
+    the tied or untied head, soft-capped.  ``tp``: the head's vocabulary
+    cut -- the rank's logits (x entering by ``copy_to``) -- or its d cut
+    (row-parallel: x scattered, the partial logits summed)."""
+    if tp is not None:
+        return _lm_head_tp(params, cfg, x, tp)
     if cfg.family == "audio":
         return torch.einsum("bsd,kdv->bskv", x, params.lm_head.to(x.dtype))
     if cfg.tie_embeddings:
@@ -578,6 +658,29 @@ def _lm_head(params: Model, cfg: ModelConfig, x):
     else:
         logits = x @ params.lm_head.to(x.dtype)
     return softcap(logits, cfg.final_softcap)
+
+
+def _lm_head_tp(params, cfg: ModelConfig, x, tp):
+    w, v = _head(params, cfg)
+    d = tp.dim(w)
+    dt = x.dtype
+    if cfg.family == "audio":
+        def prod(a):
+            return torch.einsum("bsd,kdv->bskv", a, w.to(dt))
+    elif w is params.embed:
+        def prod(a):
+            return a @ w.to(dt).T
+    else:
+        def prod(a):
+            return a @ w.to(dt)
+    if d is None:
+        logits = prod(x)
+    elif d == v % w.ndim:                     # the vocabulary cut
+        logits = prod(tp.copy_to(x))
+    else:                                     # the d cut: row-parallel
+        logits = tp.reduce_from(prod(tp.scatter_to(x, -1)))
+    return logits if cfg.family == "audio" else softcap(logits,
+                                                        cfg.final_softcap)
 
 
 # ---------------------------------------------------------------------------

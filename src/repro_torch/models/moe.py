@@ -138,14 +138,65 @@ def _moe_capacity(p: MoE, xf: torch.Tensor, dt, *, n_experts: int,
     return unsorted.reshape(T, top_k, d).sum(1), aux
 
 
+def _moe_capacity_tp(tp, p: MoE, xf: torch.Tensor, dt, *, n_experts: int,
+                     top_k: int, capacity_factor: float):
+    """:func:`_moe_capacity` on the rank's model shards of the experts
+    (``tp``: a bound :class:`~repro_torch.launch.tp.TP`).  The router and
+    the dispatch run replicated on the replicated activations.  Experts
+    cut over model (expert-parallel) compute the kept rows of the rank's
+    own experts; experts cut on the ff dim compute every expert on the
+    rank's ff slice (partial outputs).  The slots and the gates enter the
+    rank's products and its combine through ``copy_to`` (each rank's
+    gradient of them is partial: without it the router's would be), and
+    the combine leaves through ``reduce_from``.  The aux loss stays
+    replicated."""
+    T, d = xf.shape
+    gate_vals, expert_idx, aux = _route(p, xf, n_experts, top_k)
+    capacity, order, slot, keep = _dispatch(expert_idx, n_experts,
+                                            capacity_factor)
+    n_slots = n_experts * capacity
+    sorted_token = torch.div(order, top_k, rounding_mode="floor")
+    src = torch.where(keep, slot, n_slots)
+    gathered = xf.new_zeros((n_slots + 1, d)).index_add(
+        0, src, xf[sorted_token])
+    slots = tp.copy_to(gathered[:n_slots].reshape(n_experts, capacity, d))
+    sorted_gate = tp.copy_to(gate_vals).reshape(-1)[order]
+    if tp.dim(p.w_gate) == 0:            # expert-parallel
+        El = p.w_gate.shape[0]
+        e0 = tp.rank * El
+        ye = _swiglu(p, slots[e0:e0 + El], dt).reshape(El * capacity, d)
+        expert = torch.div(slot, capacity, rounding_mode="floor")
+        mine = keep & (expert >= e0) & (expert < e0 + El)
+        at = (slot - e0 * capacity).clamp(0, El * capacity - 1)
+    else:                                # every expert on the ff slice
+        ye = _swiglu(p, slots, dt).reshape(n_slots, d)
+        mine, at = keep, slot
+    vals = torch.where(mine[:, None], ye[at].float() * sorted_gate[:, None],
+                       0.0)
+    unsorted = torch.empty_like(vals).index_copy(0, order, vals)
+    return tp.reduce_from(unsorted.reshape(T, top_k, d).sum(1)), aux
+
+
 def moe_apply(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
-              capacity_factor: float = 1.25, dropless: bool = True):
+              capacity_factor: float = 1.25, dropless: bool = True,
+              tp=None):
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux loss (f32 scalar)).
     ``dropless=True`` is the batch-invariant serving path,
-    ``dropless=False`` the capacity-bounded training path."""
+    ``dropless=False`` the capacity-bounded training path; ``tp`` (the
+    rank's model shards, :func:`_moe_capacity_tp`) takes the training
+    path only."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
-    if dropless:
+    if tp is not None and tp.dim(p.w_gate) is None:
+        tp = None                        # experts whole on every rank
+    if tp is not None:
+        if dropless:
+            raise ValueError("the tensor-parallel experts train with the "
+                             "capacity dispatch (dropless=False)")
+        y, aux = _moe_capacity_tp(tp, p, xf, x.dtype, n_experts=n_experts,
+                                  top_k=top_k,
+                                  capacity_factor=capacity_factor)
+    elif dropless:
         y, aux = _moe_dropless(p, xf, x.dtype, n_experts=n_experts,
                                top_k=top_k)
     else:

@@ -14,6 +14,10 @@
 * ``decode_32k`` (qwen3, 1pod) and mamba2 ``long_500k`` (2pod) through
   the CLI: ``ALL DRY-RUNS OK``, records ok with a dominant term, and
   ``make_experiments`` prints their rows.
+* qwen3 ``train_4k`` on one pod at its layout (model 16): rank 0's real
+  step, the tensor-parallel pass's all-gathers and all-reduces counted,
+  a dominant term named, and the flops of a chip between 1/16 of the
+  node's pass and the whole of it.
 * n_params equals the reference's for all 10 archs, and the roofline
   suite's active parameters equal the reference's ``_active_params``.
 """
@@ -89,7 +93,10 @@ def test_pure_gossip_wire_bytes(tmp_path):
     assert a["cost"]["collective_counts"] == {"collective-permute": 1}
     assert a["cost"]["collective_bytes"] == {
         "collective-permute": 4_768_399_360}
-    assert "uncounted" not in a and a["partition"] == "even"
+    # a training record counts rank 0's step: no even split, nothing
+    # left uncounted, a dominant term named
+    assert "uncounted" not in a and "partition" not in a
+    assert a["roofline"]["dominant"] in ("compute", "memory", "collective")
     assert a["memory_analysis"]["fits"] and a["cost"]["flops"] > 0
 
     b = _wire(tmp_path, "static_exp")
@@ -119,8 +126,9 @@ def test_dryrun_cli(tmp_path, capsys, monkeypatch, arch, shape, mesh, tag):
                      .read_text())
     assert rec["ok"] and rec["cost"]["flops"] > 0
     # the terms are lower bounds: no dominant term, the largest counted
-    # one named apart
+    # one named apart; the serving collectives wait for item 18b-d
     assert rec["uncounted"].startswith("intra-replica collectives")
+    assert "18b-d" in rec["uncounted"] and rec["partition"] == "even"
     assert rec["roofline"]["dominant"] is None
     assert rec["roofline"]["dominant_counted"] in ("compute", "memory",
                                                    "collective")
@@ -173,3 +181,29 @@ def test_n_params_and_active_params_match_the_reference():
         cfg = tconfigs.get_config(arch)
         assert TM.param_count(TM.init(cfg, device="meta")) == want, arch
         assert TRoof.active_params(arch) == JRoof._active_params(arch, want)
+
+
+def test_model_sharded_training_record_counts_the_replica(tmp_path):
+    """qwen3 ``train_4k`` on one pod at its layout (16 nodes x fsdp 1 x
+    model 16): the record counts rank 0's tensor-parallel step -- the
+    all-gathers (k / v heads: 8 kv heads over 16 ranks) and all-reduces
+    inside the replica beside the gossip's permute -- names its dominant
+    term, and a chip's flops lie between 1/16 of the node's gradient pass
+    (counted unsharded here) and the whole of it."""
+    rec = D.run_one("qwen3-0.6b", "train_4k", multi_pod=False,
+                    out_dir=str(tmp_path), verbose=False)
+    assert rec["ok"] and (rec["nodes"], rec["fsdp"], rec["model_axis"]) == \
+        (16, 1, 16)
+    assert "uncounted" not in rec and "partition" not in rec
+    counts = rec["cost"]["collective_counts"]
+    assert counts["all-gather"] > 0 and counts["all-reduce"] > 0
+    assert counts["collective-permute"] == 1
+    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
+    assert "dominant_counted" not in rec["roofline"]
+    cfg = tconfigs.get_config("qwen3-0.6b")
+    params = {k: v.detach() for k, v in
+              TM.init(cfg, device="meta").named_parameters()}
+    tokens = torch.empty((16, 4096), dtype=torch.int32, device="meta")
+    one = MM.dry_mesh(MM.abstract_mesh((1, 1, 1), ("node", "fsdp", "model")))
+    node, _ = D._grad_pass(cfg, params, tokens, None, 16, one, {})
+    assert node.flops / 16 < rec["cost"]["flops"] < node.flops

@@ -367,16 +367,17 @@ def test_dry_reduce_scatter_logs_the_block(dim):
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "granite-moe-3b-a800m",
                                   "llama-3.2-vision-90b"])
 def test_fsdp_only_keeps_the_fsdp_cut(arch):
-    """``fsdp_only`` of ``node_param_specs`` keeps the fsdp entry of each
-    spec and drops the others (the node row and model extents are cut
-    elsewhere)."""
+    """``inner_only`` of ``node_param_specs`` -- the cut of a rank's node
+    row -- keeps the fsdp entry of each spec, and the model one, and
+    drops the node axis (the node row is cut elsewhere)."""
     from repro_torch import configs as tconfigs
     cfg = tconfigs.reduced_config(tconfigs.get_config(arch))
-    mesh = MM.abstract_mesh((4, 2, 1), MC.TRAIN_AXES)
+    mesh = MM.abstract_mesh((4, 2, 2), MC.TRAIN_AXES)
     specs = TS.node_param_specs(cfg, 4, mesh)
-    cut = TS.fsdp_only(specs)
+    cut = TS.inner_only(specs)
     assert set(cut) == set(specs)
     for k, s in specs.items():
         assert len(cut[k]) == len(s)
         assert TS.fsdp_dim(cut[k]) == TS.fsdp_dim(s)
-        assert set(cut[k]) <= {"fsdp", None}
+        assert TS.axis_dim(cut[k], "model") == TS.axis_dim(s, "model")
+        assert set(cut[k]) <= {"fsdp", "model", None}

@@ -15,9 +15,11 @@ against the JAX package's.
   reduced qwen3 in f32 on a (node 4) mesh, one rank per node, held
   against the port's single-process run and the reference's
   ``build_trainer`` without a mesh.
-* What training on a mesh cannot run yet (a model extent above 1)
-  raises, naming ROADMAP item 18b-c, and fsdp extents build; a rank's
-  ``prepare`` builds only its own node.
+* Training on (node, fsdp, model) meshes builds -- fsdp and model
+  extents above 1 alike (items 18b-b and 18b-c) -- and what a training
+  mesh cannot be still raises (a node axis of another size, an axis
+  besides node, fsdp and model); a rank's ``prepare`` builds only its
+  own node.
 """
 import dataclasses
 import re
@@ -38,7 +40,7 @@ from repro_torch.benchmarks import common
 from repro_torch.convert import stacked_from_jax, stacked_from_nested
 from repro_torch.core import topology as TT
 from repro_torch.launch import mesh as MM, mesh_check as MC
-from repro_torch.launch import sharding as TS, train as TTrain
+from repro_torch.launch import sharding as TS, tp as TP, train as TTrain
 from repro_torch.models import model as TM
 
 ARCHS = [tconfigs.get_config(a).name for a in tconfigs.ARCHS]
@@ -190,20 +192,32 @@ def test_logical_and_production_meshes():
 
 def test_training_on_a_mesh_refuses_item_18b():
     """fsdp extents above 1 build (ROADMAP item 18b-b), their plans on
-    the mesh and the step's fsdp specs ``sharding.node_param_specs``; a
-    model extent above 1 raises, naming ROADMAP item 18b-c; on a node
-    mesh the overlapped trainer, parallel_msgd, the warm-up and
-    checkpoints (``run``'s refusals are ``check_mesh``'s) build, their
-    plans on the mesh and no fsdp specs."""
+    the mesh and the step's fsdp specs ``sharding.node_param_specs``;
+    model extents above 1 build too (item 18b-c), the step's ``TP`` on
+    the mesh with the same specs, fsdp 1 running no fsdp op; what still
+    raises: a node axis of another size than the topology's, and an axis
+    besides node, fsdp and model; on a node mesh the overlapped trainer,
+    parallel_msgd, the warm-up and checkpoints (``run``'s refusals are
+    ``check_mesh``'s) build, their plans on the mesh and no fsdp
+    specs."""
     cfg = tconfigs.reduced_config(tconfigs.get_config("qwen3-0.6b"))
     top = TT.one_peer_exponential(4)
     for mesh in (MM.abstract_mesh((4, 1, 2), ("node", "fsdp", "model")),
                  MM.abstract_mesh((4, 2, 2), ("node", "fsdp", "model"))):
         for kw in ({}, {"overlap": True}):
-            with pytest.raises(NotImplementedError, match="item 18b-c"):
-                TTrain.build_trainer(cfg, top, "dmsgd", 0.9, mesh=mesh, **kw)
-        with pytest.raises(NotImplementedError, match="item 18b-c"):
-            TTrain.check_mesh(mesh, 4)
+            _, step_for = TTrain.build_trainer(cfg, top, "dmsgd", 0.9,
+                                               mesh=mesh, **kw)
+            assert step_for.plan.mesh is mesh
+            assert step_for.specs == TS.node_param_specs(cfg, 4, mesh)
+            assert step_for.tp.mesh is mesh
+            assert step_for.tp.dims == {
+                k: TP.model_dim(v) for k, v in step_for.specs.items()}
+            assert (step_for.fsdp is None) == (mesh.shape["fsdp"] == 1)
+        assert TTrain.check_mesh(mesh, 4) is None
+        with pytest.raises(ValueError, match="'node' axis of 8"):
+            TTrain.check_mesh(mesh, 8)
+    with pytest.raises(ValueError, match="axes are node, fsdp and model"):
+        TTrain.check_mesh(MM.abstract_mesh((4, 2), ("node", "data")), 4)
     node = MM.abstract_mesh((4,), ("node",))
     with pytest.raises(ValueError, match="'node' axis of 8"):
         TTrain.check_mesh(node, 8)
