@@ -334,9 +334,17 @@ Phases, in order; any failure exits non-zero before the result lines:
                  against the same single-process one array by array,
                  both within 2e-4 of max-abs, per rank median step ms,
                  peak memory, the "model" scope's ops, bytes and ms a
-                 step and K1 (3 / 4 a rank); then K1 alone at a
-                 rank's (1, 187.0 M) f32 block from CUDA-graph replays in
-                 turns with torch.lerp, beside its bytes bound; (c) on one card asking
+                 step and K1 (3 / 4 a rank); (l) in the same world,
+                 the moe family's rows split over fsdp: full-width
+                 granite-moe-3b-a800m cut to 2 layers on (node 2, fsdp
+                 4, model 1), a batch of 4 a node, one row a rank, its
+                 capacity routing and aux loss made global over the
+                 node's 4 fsdp ranks (launch/moe_group.py), 2 steps,
+                 within 2e-4 of max-abs, the "moe" scope's ops, bytes
+                 and ms a step, K1 2 a rank, the leg's seconds; then K1
+                 alone at a rank's (1, 187.0 M) f32 block of (h) and at
+                 (l)'s from CUDA-graph replays in turns with torch.lerp,
+                 beside its bytes bound; (c) on one card asking
                  for NCCL raises (two ranks on cuda:0); with >= 4 cards
                  (a)'s tree also runs over NCCL, one card a rank, else
                  one line says why not
@@ -3480,6 +3488,15 @@ CKPT_STEP = 1
 TP_J_STEPS = 3
 TP_J_SHAPE = (2, 2, 2)     # (j): node 2, fsdp 2, model 2
 TP_K_SHAPE = (4, 1, 2)     # (k): node 4, fsdp 1, model 2
+MOE_L_SHAPE = (2, 4, 1)    # (l): node 2, fsdp 4, model 1
+# (l): granite-moe at full width cut to 2 layers, a batch of 4 a node and
+# no micro-batch: one row a rank, the routing group the node's 4 rows
+# over its 4 fsdp ranks
+MOE_L_ARGV = ["--arch", MOE_ARCH, "--full", "--layers", "2", "--nodes",
+              str(MOE_L_SHAPE[0]), "--topology", "one_peer_exp", "--beta",
+              "0.9", "--batch", "4", "--seq", "128", "--hetero", "0.5",
+              "--log-every", "100", "--device", "cuda", "--steps",
+              str(FSDP_STEPS)]
 
 
 def _wire_rows(log: dict) -> dict:
@@ -3519,21 +3536,53 @@ def _k1_fsdp_block(torch, elems: int, seed: int) -> dict:
 
 
 FREE_EVERY_S = 0.25
+HOST_MARK_BYTES = 8e9        # the host's high-water mark printed in steps
+
+
+def _host_used() -> int | None:
+    """Bytes of host memory in use: the cgroup's (``memory.current``) where
+    the process has one, else the machine's (MemTotal - MemAvailable)."""
+    try:
+        with open("/sys/fs/cgroup/memory.current") as f:
+            return int(f.read())
+    except (OSError, ValueError):
+        pass
+    try:
+        with open("/proc/meminfo") as f:
+            info = {line.split(":")[0]: int(line.split()[1]) * 1024
+                    for line in f}
+        return info["MemTotal"] - info["MemAvailable"]
+    except (OSError, KeyError, ValueError, IndexError):
+        return None
 
 
 @contextlib.contextmanager
 def _least_free(torch):
-    """Yields ``[least free bytes, total bytes]`` of the card, filled by a
-    thread that reads ``torch.cuda.mem_get_info`` every FREE_EVERY_S
-    seconds until the block ends: the low-water mark of every process on
-    the card."""
+    """Yields ``[least free bytes, total bytes, most host bytes in use]``
+    of the card and the host (:func:`_host_used`; None where it cannot be
+    read), filled by a thread that reads ``torch.cuda.mem_get_info`` and
+    the host's every FREE_EVERY_S seconds until the block ends: the
+    low-water mark of every process on the card, the high-water mark on
+    the host."""
     import threading
-    free = list(torch.cuda.mem_get_info())
+    free = list(torch.cuda.mem_get_info()) + [_host_used()]
     done = threading.Event()
+
+    t0 = time.perf_counter()
+    mark = [0.0]
 
     def sample():
         while not done.wait(FREE_EVERY_S):
             free[0] = min(free[0], torch.cuda.mem_get_info()[0])
+            used = _host_used()
+            if used is not None:
+                free[2] = max(free[2] or 0, used)
+                if used >= mark[0] + HOST_MARK_BYTES:
+                    # printed as it rises: a run the host's limit ends
+                    # keeps its last mark in the log
+                    mark[0] = used
+                    log(f"  host memory in use {used / 1e9:.1f} GB at "
+                        f"{time.perf_counter() - t0:.1f} s of the world")
 
     th = threading.Thread(target=sample, daemon=True)
     th.start()
@@ -3553,7 +3602,7 @@ def _model_rows(log: dict, steps: int) -> dict:
 
 
 def _sharded_legs(torch, seed, d_peaks):
-    """(h)-(k) on one world of 8 ranks sharing the card over gloo-host.
+    """(h)-(l) on one world of 8 ranks sharing the card over gloo-host.
     (h), (i) on a (node 4, fsdp 2, model 1) mesh: each rank keeps its
     fsdp shard of its node's leaves, gathers the node's whole leaves for
     the gradient pass and reduce-scatters the gradients' mean; (j), (k)
@@ -3569,11 +3618,13 @@ def _sharded_legs(torch, seed, d_peaks):
     held array by array against the single-process run's (kept in
     memory by a stand-in ``checkpoint.save``, taken after the world);
     (j) dmsgd synchronous on 2 nodes; (k) (i)'s run on the model mesh,
-    its checkpoint held against the same single-process one.  All held
-    in this process against the single-process run with the plain
-    combine (every rank's K1 meets its plain version), shard by shard;
-    then K1 alone at a rank's block of (h).  ``d_peaks``: (d)'s peaks,
-    (sync, overlap) per rank."""
+    its checkpoint held against the same single-process one; (l) the moe
+    family's rows split over fsdp, its routing made global over the
+    node's 4 fsdp ranks (:func:`_moe_leg`).  All held in this process
+    against the single-process run with the plain combine (every rank's
+    K1 meets its plain version), shard by shard; then K1 alone at a
+    rank's block of (h) and of (l).  ``d_peaks``: (d)'s peaks, (sync,
+    overlap) per rank."""
     import shutil
     import tempfile
     from unittest import mock
@@ -3592,12 +3643,19 @@ def _sharded_legs(torch, seed, d_peaks):
                        str(TP_J_STEPS)]
         start_j = MC.f32_start(T.parse_args(tp_j))
         tokens_j = [b["tokens"].numpy() for b in start_j["batches"]]
+        moe_l = MOE_L_ARGV + ["--seed", str(seed)]
+        t_ref_l = time.perf_counter()
+        start_l = MC.f32_start(T.parse_args(moe_l))
+        tokens_l = [b["tokens"].numpy() for b in start_l["batches"]]
+        t_ref_l = time.perf_counter() - t_ref_l
         refs = {}
         with gossip.kernel_mode("off"):
             for name, argv in (("overlap", ovl), ("sync", base),
-                               ("tp_j", tp_j)):
+                               ("tp_j", tp_j), ("moe_l", moe_l)):
+                t_ref = time.perf_counter()
                 a = T.parse_args(argv)
-                st = {"overlap": start, "tp_j": start_j}.get(name)
+                st = {"overlap": start, "tp_j": start_j,
+                      "moe_l": start_l}.get(name)
                 r = T.run(a, start=MC.f32_start(a, tokens) if st is None
                           else st)
                 # on the host: 15 GB on the card here beside the world's
@@ -3610,29 +3668,38 @@ def _sharded_legs(torch, seed, d_peaks):
                 if name == "overlap":
                     start = None
                 torch.cuda.empty_cache()
-        del start_j
+        t_ref_l += time.perf_counter() - t_ref
+        del start_j, start_l
         t_refs = time.perf_counter() - t_legs
-        SYNC, OVL, TPJ, TPK = range(4)
+        # (l) last: train_world lets each reference go once compared, so
+        # (l)'s ranks stage through the host without the others' 15 GB
+        # (with them the host's 96 GiB ran out during (l))
+        SYNC, OVL, TPJ, TPK, MOEL = range(5)
+        losses = {k: v[0] for k, v in refs.items()}
         runs = [(base, refs["sync"][1]),
                 (ovl + ["--ckpt-dir", f"{tmp}/mesh"], refs["overlap"][1]),
                 (tp_j, refs["tp_j"][1], TP_J_SHAPE, tokens_j),
                 (ovl + ["--ckpt-dir", f"{tmp}/mesh_k"], refs["overlap"][1],
-                 TP_K_SHAPE)]
+                 TP_K_SHAPE),
+                (moe_l, refs["moe_l"][1], MOE_L_SHAPE, tokens_l)]
+        del refs
         with _least_free(torch) as free:
             res, comps = MC.train_world(runs, tokens, shape=FSDP_SHAPE,
                                         axes=MC.TRAIN_AXES, every2=base,
                                         f32=True)
-        log(f"  (h)-(k) the card's least free memory while the world ran: "
-            f"{free[0] / 1e9:.2f} GB of {free[1] / 1e9:.2f} (sampled every "
-            f"{FREE_EVERY_S} s)")
-        losses = {k: v[0] for k, v in refs.items()}
-        del refs, runs
+        log(f"  (h)-(l) the card's least free memory while the world ran: "
+            f"{free[0] / 1e9:.2f} GB of {free[1] / 1e9:.2f}; the host's most "
+            f"in use "
+            f"{'not read' if free[2] is None else f'{free[2] / 1e9:.2f} GB'}"
+            f" (sampled every {FREE_EVERY_S} s)")
         torch.cuda.empty_cache()
         t_world = time.perf_counter() - t_legs - t_refs
         fsdp_want = {"fsdp:all_gather": FSDP_STEPS,
                      "fsdp:reduce_scatter": FSDP_STEPS,
                      "fsdp:psum": FSDP_STEPS}
-        out = {"least_free_gb": free[0] / 1e9}
+        out = {"least_free_gb": free[0] / 1e9,
+               "host_most_used_gb": None if free[2] is None
+               else free[2] / 1e9}
         for leg, idx, what, k1_want, perm_want in (
                 ("h", SYNC, "fsdp sync", FSDP_STEPS, FSDP_STEPS),
                 # a delayed round a step after the first, 2 logged
@@ -3670,7 +3737,8 @@ def _sharded_legs(torch, seed, d_peaks):
                 f"{[round(v, 1) for v in ms]}; peak GB per rank "
                 f"{[round(v, 3) for v in peaks]} against (d)'s "
                 f"{'synchronous' if idx == SYNC else '--overlap'} leg, one "
-                f"rank a node, {[round(v, 3) for v in d_peaks[idx]]}; K1 per"
+                f"rank a node, "
+                f"{[round(v, 3) for v in d_peaks[idx != SYNC]]}; K1 per"
                 f" rank {k1}; rank 0 wire (ops, bytes, s, staging share): "
                 f"{_wire_rows(o0['log'])}")
             out[leg] = {"k1_per_rank": k1, "bit_equal": bits,
@@ -3691,6 +3759,7 @@ def _sharded_legs(torch, seed, d_peaks):
             f"the Identity step's {base_c}: one permute more and nothing "
             "else, on every rank")
         out.update(_tp_legs(res, comps, losses, (TPJ, TPK)))
+        out["l"] = _moe_leg(res, comps, losses["moe_l"], MOEL, moe_l)
         # (i)'s and (k)'s carry-buffer checkpoints: rank 0 wrote the rows;
         # the single-process run's, kept in memory by a stand-in save, is
         # taken now that the world's ranks and their host buffers are gone
@@ -3720,23 +3789,108 @@ def _sharded_legs(torch, seed, d_peaks):
             out["ckpt" if leg == "i" else "ckpt_k"] = ck
         del kept
         elems = 2 * sum(res[0]["runs"][SYNC]["param_elems"].values())
+        elems_l = 2 * sum(res[0]["runs"][MOEL]["param_elems"].values())
         del res
         torch.cuda.empty_cache()
-        k = _k1_fsdp_block(torch, elems, seed)
-        log(f"  K1 at a rank's (1, {elems / 1e6:.1f} M) f32 (m, x) block: "
-            f"{k['ms']:.4f} ms ({100 * k['bound_ms'] / k['ms']:.1f} % of its"
-            f" {k['bound_ms']:.4f} ms {k['bound_by']} bound), torch.lerp "
-            f"{k['lerp_ms']:.4f} ms (K1 / lerp {k['ms'] / k['lerp_ms']:.4f}; "
-            f"graph replays in turns), plain {k['plain_ms']:.4f} ms, max abs "
-            f"err {k['max_abs_err']}")
-        out["k1_block"] = k
+        for leg, n in (("h", elems), ("l", elems_l)):
+            t_k = time.perf_counter()
+            k = _k1_fsdp_block(torch, n, seed)
+            log(f"  ({leg}) K1 at a rank's (1, {n / 1e6:.1f} M) f32 (m, x) "
+                f"block: {k['ms']:.4f} ms "
+                f"({100 * k['bound_ms'] / k['ms']:.1f} % of its "
+                f"{k['bound_ms']:.4f} ms {k['bound_by']} bound), torch.lerp "
+                f"{k['lerp_ms']:.4f} ms (K1 / lerp "
+                f"{k['ms'] / k['lerp_ms']:.4f}; graph replays in turns), "
+                f"plain {k['plain_ms']:.4f} ms, max abs err "
+                f"{k['max_abs_err']}")
+            if leg == "h":
+                out["k1_block"] = k
+            else:
+                out["l"]["k1_block"] = k
+                out["l"]["seconds"] += time.perf_counter() - t_k
+        out["l"]["seconds"] += t_ref_l
+        log(f"  (l) {out['l']['seconds']:.1f} s: its single-process "
+            f"reference {t_ref_l:.1f} s, its run in the world "
+            f"{out['l']['world_s']:.1f} s (the slowest rank), K1 at its "
+            f"block {out['l']['seconds'] - t_ref_l - out['l']['world_s']:.1f}"
+            " s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     total = time.perf_counter() - t_legs
-    log(f"  (h)-(k) {total:.1f} s (single-process references {t_refs:.1f} "
+    log(f"  (h)-(l) {total:.1f} s (single-process references {t_refs:.1f} "
         f"s, the world {t_world:.1f} s)")
     out["seconds"] = total
     return out
+
+
+def _moe_leg(res, comps, ref_losses, i, argv) -> dict:
+    """(l) of :func:`_sharded_legs`' world: granite-moe at full width, 2
+    layers, f32 activations, on (node 2, fsdp 4, model 1), a batch of 4
+    a node and no micro-batch: each rank trains its one row of the
+    node's batch, and the routing group (the node's 4 rows) spans the
+    node's 4 fsdp ranks, its capacity routing and aux loss made global
+    over them (``launch/moe_group.py``).  Every rank's losses and final
+    (m, x) shards against the single-process run's (TRAIN_TOL x
+    max-abs); its batch of one row; the fsdp ops a step as (h)'s plus
+    the replicated router's psum; the ``"moe"`` scope's ops as
+    ``mesh_check.moe_route_ops`` reckons them (remat on: the recompute
+    issues the forward's again), alike on every rank; K1 one a step a
+    rank.  Per rank the median step ms, peak memory, the run's seconds
+    and the ``"moe"`` scope a step (ops, bytes sent, ms)."""
+    from repro_torch.launch import mesh_check as MC
+    from repro_torch.launch import train as T
+    args = T.parse_args(argv)
+    cfg = T.config_of(args)
+    steps = args.steps
+    what = f"moe l {dict(zip(('node', 'fsdp', 'model'), MOE_L_SHAPE))}"
+    want_fsdp = {"fsdp:all_gather": steps, "fsdp:reduce_scatter": steps,
+                 "fsdp:psum": 2 * steps}
+    want_moe = MC.moe_route_ops(cfg, cfg.n_layers * steps)
+    rows = args.batch // MOE_L_SHAPE[1]
+    bits, k1, peaks, ms, secs, moe = [], [], [], [], [], []
+    for r in res:
+        o = r["runs"][i]
+        bits.append(_against_single(what, o, ref_losses,
+                                    comps[i][o["rank"]]))
+        check(o["rows"] == rows, f"{what} rank {o['rank']}: a batch of "
+              f"{o['rows']} rows, expected {rows}")
+        fs = {k: v["ops"] for k, v in o["log"].items()
+              if k.startswith("fsdp:")}
+        check(fs == want_fsdp, f"{what} rank {o['rank']}: fsdp ops {fs}, "
+              f"expected {want_fsdp}")
+        ops = {k: v["ops"] for k, v in o["log"].items()
+               if k.startswith("moe:")}
+        check(ops == want_moe, f"{what} rank {o['rank']}: moe ops {ops}, "
+              f"expected {want_moe}")
+        check(o["k1"] == steps, f"{what} rank {o['rank']}: K1 {o['k1']}, "
+              f"reckoned {steps}")
+        k1.append(o["k1"])
+        peaks.append(o["peak_gb"])
+        ms.append(_median_ms(o["step_s"]))
+        secs.append(o["seconds"])
+        moe.append({k: (v["ops"] / steps, v["bytes"] / steps,
+                        round(1e3 * v["s"] / steps, 3))
+                    for k, v in o["log"].items() if k.startswith("moe:")})
+    o0 = res[0]["runs"][i]
+    log(f"  (l) {what}, granite-moe at full width, {cfg.n_layers} layers, "
+        f"{steps} steps ({o0['wire']}), "
+        f"{sum(o0['param_elems'].values()) / 1e6:.1f} M parameters a rank, "
+        f"{rows} row a rank of the node's {args.batch} (one routing group "
+        f"over {MOE_L_SHAPE[1]} ranks): losses "
+        f"{[round(h['loss'], 5) for h in o0['history']]} (single process "
+        f"{[round(v, 5) for v in ref_losses]}); final (m, x) shards per rank"
+        f" max abs diff {[comps[i][k][1] for k in sorted(comps[i])]} "
+        f"(tolerance {TRAIN_TOL} x max-abs), bit for bit {bits}")
+    log(f"  (l) per rank: median step ms {[round(v, 1) for v in ms]}; peak "
+        f"GB {[round(v, 3) for v in peaks]}; K1 {k1}; the run "
+        f"{[round(v, 1) for v in secs]} s")
+    log(f"  (l) the moe scope a step (ops, bytes, ms) per rank: {moe}")
+    log(f"  (l) rank 0 wire (ops, bytes, s, staging share): "
+        f"{_wire_rows(o0['log'])}")
+    return {"k1_per_rank": k1, "bit_equal": bits, "peak_gb_per_rank": peaks,
+            "step_ms_per_rank": ms, "run_s_per_rank": secs,
+            "moe_per_rank": moe, "wire_rank0": _wire_rows(o0["log"]),
+            "world_s": max(secs), "seconds": max(secs)}
 
 
 def _tp_legs(res, comps, losses, idx) -> dict:
@@ -4303,9 +4457,11 @@ def main() -> int:
                 "fsdp_overlap_per_rank": mesh["fsdp"]["i"]["k1_per_rank"],
                 "tp_j_per_rank": mesh["fsdp"]["j"]["k1_per_rank"],
                 "tp_k_per_rank": mesh["fsdp"]["k"]["k1_per_rank"],
+                "fsdp_moe_per_rank": mesh["fsdp"]["l"]["k1_per_rank"],
                 "nccl_per_rank": (mesh["nccl"]["k1_per_rank"]
                                   if mesh["nccl"] else None)}
             k["fsdp_block"] = mesh["fsdp"]["k1_block"]
+            k["fsdp_moe_block"] = mesh["fsdp"]["l"]["k1_block"]
 
     torch.cuda.empty_cache()
     phase("phase 19: the dry run (meta) and the counter, card against meta")

@@ -26,11 +26,15 @@ rank 0 of the logical mesh (``to_logical_mesh(make_production_mesh())``,
   gather of its block (``sharding.fsdp_gather``), the tensor-parallel
   gradient pass on its model shards (``steps.loss_and_grads(tp=)``,
   :mod:`repro_torch.launch.tp`) over its rows of the node's ``global_batch
-  / nodes`` sequences (split over fsdp as ``launch.train`` splits them)
-  in micro-batches of the layout's ``micro`` -- one micro-batch counted,
-  its ops and collectives taken once per micro-batch, as the reference
-  multiplies a scan body by its trip count -- the gradients'
-  reduce-scatter (``sharding.fsdp_reduce_scatter_mean``), then the
+  / nodes`` sequences (split over fsdp as ``launch.train`` splits them,
+  the moe family's too where ``launch.train.rows_over_fsdp`` lets it: a
+  routing group that spans G > 1 ranks -- a ``--knob micro=`` above a
+  rank's rows -- routes over the dry mesh, its collectives counted in
+  the pass, :mod:`repro_torch.launch.moe_group`) in micro-batches of the
+  layout's ``micro`` -- one micro-batch counted, its ops and collectives
+  taken once per micro-batch, as the reference multiplies a scan body by
+  its trip count -- the gradients' reduce-scatter
+  (``sharding.fsdp_reduce_scatter_mean``), then the
   update and the gossip: ``opt.update_with_mix`` on rank 0's block
   through ``GossipPlan(mesh=dry_mesh(...))``, the real shard-native
   engine, K1 recorded by its formula.  Every term is counted per chip,
@@ -80,8 +84,9 @@ from ..models import model as M
 from . import sharding, steps
 from .cost import Cost
 from .mesh import HW, dry_mesh, make_production_mesh, to_logical_mesh
+from .moe_group import MoeGroup
 from .tp import TP
-from .train import rows_over_fsdp
+from .train import routing_group, rows_over_fsdp
 
 __all__ = ["ARCH_IDS", "SHAPE_IDS", "build", "roofline_terms", "run_one",
            "main"]
@@ -166,21 +171,26 @@ def _setup(arch: str, shape_name: str, multi_pod: bool, knobs: dict):
 _PASSES: dict = {}
 
 
-def _loss_and_grads(cfg, params: dict, tokens, images, dry, specs) -> tuple:
+def _loss_and_grads(cfg, params: dict, tokens, images, dry, specs,
+                    group: int = 1) -> tuple:
     """The count of ``steps.loss_and_grads`` on these shapes -- on rank 0's
     model shards over ``dry`` (the tensor-parallel pass, its collectives
-    in the count) where the mesh's model extent is above 1 -- and the
-    gradients' dtypes; the same config, shapes and cut (a 1pod and a 2pod
-    record) are counted once per process."""
+    in the count) where the mesh's model extent is above 1, and with the
+    moe routing made global over ``group`` fsdp ranks (its collectives
+    too) where it is above 1 -- and the gradients' dtypes; the same
+    config, shapes, cut and group (a 1pod and a 2pod record) are counted
+    once per process."""
     tp = TP(dry, specs) if dry.shape["model"] > 1 else None
+    route = MoeGroup(dry, group) if group > 1 else None
     key = (cfg, tuple(tokens.shape),
            None if images is None else tuple(images.shape),
            tuple((k, tuple(v.shape)) for k, v in params.items()),
-           tuple(sorted(tp.dims.items())) if tp else None)
+           tuple(sorted(tp.dims.items())) if tp else None, group)
     if key not in _PASSES:
         dry.log.reset()
         with Cost() as c:
-            _, g = steps.loss_and_grads(cfg, params, tokens, images, tp)
+            _, g = steps.loss_and_grads(cfg, params, tokens, images, tp,
+                                        route)
         c.add_wire(dry.log)
         dry.log.reset()
         _PASSES[key] = (c, {k: v.dtype for k, v in g.items()})
@@ -188,15 +198,17 @@ def _loss_and_grads(cfg, params: dict, tokens, images, dry, specs) -> tuple:
 
 
 def _grad_pass(cfg, params: dict, tokens, images, micro, dry,
-               specs) -> tuple:
+               specs, group: int = 1) -> tuple:
     """The count of a rank's gradient pass over ``tokens`` (B, S, ...) as
     ``make_train_step`` runs it, and the gradients' dtype per leaf: with
     ``nm`` micro-batches, one micro-batch's pass (its collectives too)
     counted once and taken ``nm`` times, plus the f32 accumulators and
-    ``nm`` accumulations."""
+    ``nm`` accumulations.  ``group``: the fsdp ranks a moe routing group
+    spans (:func:`_loss_and_grads`)."""
     pnb = tokens.shape[0]
     if micro is None or micro >= pnb:
-        return _loss_and_grads(cfg, params, tokens, images, dry, specs)
+        return _loss_and_grads(cfg, params, tokens, images, dry, specs,
+                               group)
     nm = pnb // micro
     one, g_dtypes = _loss_and_grads(
         cfg, params, tokens[:micro], None if images is None
@@ -266,17 +278,22 @@ def build(arch: str, shape_name: str, *, multi_pod: bool,
                 whole = sharding.fsdp_gather(blk, p_specs, dry)
             gather.add_wire(dry.log)
             dry.log.reset()
-        # the rank's gradient pass: its rows of the node's batch
+        # the rank's gradient pass: its rows of the node's batch, the moe
+        # routing made global over the ranks a routing group spans
         images = batch.get("image_embeds")
         tokens = batch["tokens"][0]
-        if rows_over_fsdp(cfg, mesh, tokens.shape[0]):
+        micro = layout.get("micro")
+        group = 1
+        if rows_over_fsdp(cfg, mesh, tokens.shape[0], micro):
+            if cfg.n_experts and fsdp > 1:
+                group = routing_group(mesh, tokens.shape[0], micro)
             rows = tokens.shape[0] // fsdp
             tokens = tokens[:rows]
             images = None if images is None else images[:, :rows]
         grads_cost, g_dtypes = _grad_pass(
             cfg, {k: v[0] for k, v in whole.items()}, tokens,
-            None if images is None else images[0], layout.get("micro"),
-            dry, p_specs)
+            None if images is None else images[0], micro, dry, p_specs,
+            group)
         # the reduce-scatter of the gradients' mean over fsdp
         grads = {k: _meta(v.shape, g_dtypes[k]) for k, v in whole.items()}
         scatter = Cost()

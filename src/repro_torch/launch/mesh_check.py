@@ -665,8 +665,10 @@ def train_rank(rank: int, argv: list, outq=None, goq=None,
     """A rank of a training world: ``launch.train.run(args, mesh=...)`` on
     :func:`train_mesh` ``(args, shape, axes)`` -- by default a
     ``("node",)`` mesh of ``--nodes`` ranks.  Returns the history, the
-    step seconds, the peak memory, the K1 launches, the wire log and the
-    elements of the rank's params (``param_elems``); the final params and
+    step seconds, the run's seconds from its start (``seconds``), the
+    peak memory, the K1 launches, the wire log, the elements of the
+    rank's params (``param_elems``) and the rows of its batches
+    (``rows``); the final params and
     momentum come back as numpy (``outq`` None; dropped unless ``keep``;
     on an fsdp or model mesh the node's whole leaves, gathered) or,
     packed on the card, the rank's own block of ``(momentum, params)``
@@ -680,17 +682,25 @@ def train_rank(rank: int, argv: list, outq=None, goq=None,
     if torch.device(args.device).type == "cuda":
         torch.cuda.set_device(0)
         torch.cuda.empty_cache()
+        # the pinned host blocks an earlier run's gloo-host staging left
+        # cached (the host allocator keeps each, rounded up to a power of
+        # two, until asked): 8 ranks' of them filled the host's memory
+        release = getattr(torch._C, "_host_emptyCache", None)
+        if release is not None:
+            release()
         torch.cuda.reset_peak_memory_stats()
     mesh = train_mesh(args, shape, axes)
     k1 = gm_ops.gossip_mix.launches
+    t0 = time.perf_counter()
     node = mesh.axis_index("node")
-    res = train_mod.run(args, mesh=mesh,
-                        start=(f32_start(args, tokens, node, mesh, replace,
-                                         f32_state)
-                               if f32 else train_mod.prepare(
-                                   args, tokens, node, mesh=mesh)))
+    start = (f32_start(args, tokens, node, mesh, replace, f32_state) if f32
+             else train_mod.prepare(args, tokens, node, mesh=mesh))
+    rows = int(start["batches"][0]["tokens"].shape[1])
+    res = train_mod.run(args, mesh=mesh, start=start)
+    del start
     x, m = res["params"], res["state"].momentum
     out = {"rank": rank, "coords": dict(mesh.coords), "wire": mesh.wire,
+           "rows": rows, "seconds": time.perf_counter() - t0,
            "history": res["history"], "step_s": res["step_s"],
            "k1": gm_ops.gossip_mix.launches - k1,
            "num_compiled": res["plan"].num_compiled,
@@ -737,7 +747,7 @@ def every2_logs(argv: list, shape=None, axes=("node",), f32: bool = True,
     opt, step_for = train_mod.build_trainer(
         start["config"], start["topology"], args.optimizer, args.beta,
         args.micro_batch, momentum_dtype=start["momentum_dtype"],
-        compression=args.compression, mesh=mesh)
+        compression=args.compression, mesh=mesh, batch=args.batch)
     plan = dataclasses.replace(step_for.plan, every=2)
     p = start["params"]
     s = opt.init(p)
@@ -785,7 +795,7 @@ def warmup_run(args, warmup_steps: int, mesh=None, start=None) -> dict:
     opt, step_for = train_mod.build_trainer(
         start["config"], start["topology"], args.optimizer, args.beta,
         momentum_dtype=start["momentum_dtype"], warmup_steps=warmup_steps,
-        mesh=mesh)
+        mesh=mesh, batch=args.batch)
     p = start["params"]
     s = opt.init(p)
     losses = []
@@ -866,6 +876,7 @@ def train_cases_rank(rank: int, argv: list, ckpt_dir: str) -> dict:
 
 FSDP_MESH = ((NODES, FSDP, 1), TRAIN_AXES)      # the reference tests' mesh
 FSDP_MESH_2AX = ((NODES, FSDP), ("node", "fsdp"))  # embed replicated
+FSDP4_MESH = ((2, 4, 1), TRAIN_AXES)             # node 2, fsdp 4
 MOE_ARCH = "granite-moe-3b-a800m"
 
 
@@ -876,8 +887,13 @@ def fsdp_cases(argv: list, ckpt_dir: str | None = None) -> dict:
     carry-buffer checkpoints under ``ckpt_dir/overlap_int8``, a save at
     every second step), ``parallel_msgd``, ``runtime`` (``--loss-aware
     --deadline-skip --straggler-prob 0.25`` on the (node 4, fsdp 2) mesh,
-    where ``embed`` is replicated over fsdp) and ``moe`` (the moe family,
-    its router replicated and its batch whole on every rank; 2 steps)."""
+    where ``embed`` is replicated over fsdp), and the moe family (its
+    router replicated, its rows split over fsdp; 2 steps): ``moe`` (a
+    batch of 2, one row a rank: the routing group, the node's batch,
+    spans both ranks, G = 2 = F), ``moe_g1`` (micro-batches of 2 over a
+    batch of 4: each rank's two rows are one whole group, G = 1) and
+    ``moe_g2f4`` (the same batch on (node 2, fsdp 4, model 1): a group
+    spans 2 of the 4 ranks, two groups side by side)."""
     def ck(name):
         if ckpt_dir is None:
             return []
@@ -894,7 +910,26 @@ def fsdp_cases(argv: list, ckpt_dir: str | None = None) -> dict:
         "runtime": (argv + ["--loss-aware", "--deadline-skip",
                             "--straggler-prob", "0.25"], *FSDP_MESH_2AX),
         "moe": (argv + ["--arch", MOE_ARCH, "--steps", "2"], *FSDP_MESH),
+        "moe_g1": (argv + ["--arch", MOE_ARCH, "--steps", "2", "--batch",
+                           "4", "--micro-batch", "2"], *FSDP_MESH),
+        "moe_g2f4": (argv + ["--arch", MOE_ARCH, "--steps", "2", "--nodes",
+                             "2", "--batch", "4", "--micro-batch", "2"],
+                     *FSDP4_MESH),
     }
+
+
+def moe_route_ops(cfg, passes: int) -> dict:
+    """The wire log's ``"moe"`` scope (``launch.moe_group``) after
+    ``passes`` moe layer passes routed over a group spread over fsdp
+    ranks (layers x micro-steps): each forward's all_gather of the counts,
+    psum of the probability sums, reduce_scatter of the slots and
+    all_gather of the outputs -- twice under ``cfg.remat``, whose
+    recompute issues them again -- and each backward's psum, all_gather
+    (the reduce-scatter's) and reduce_scatter (the all-gather's)."""
+    fwd = 2 if cfg.remat else 1
+    return {"moe:all_gather": (2 * fwd + 1) * passes,
+            "moe:psum": (fwd + 1) * passes,
+            "moe:reduce_scatter": (fwd + 1) * passes}
 
 
 # the families fsdp_cases leaves out: ssm, hybrid, audio, vlm
@@ -944,11 +979,12 @@ def fsdp_cases_rank(rank: int, argv: list, ckpt_dir: str) -> dict:
 TP_MESHES = {"j": ((2, 2, 2), TRAIN_AXES),       # node 2, fsdp 2, model 2
              "k": ((4, 1, 2), TRAIN_AXES)}       # node 4, fsdp 1, model 2
 # (case, arch, config fields replaced, meshes): every family beyond dense
-# on both meshes -- moe expert-parallel (E 4 over model 2) on one, on the
-# ff dim (E 3 does not split over model 2) on the other -- and one kv
+# on both meshes -- moe expert-parallel (E 4 over model 2) on both, on
+# the ff dim (E 3 does not split over model 2, remat on) on j, whose rows
+# split over fsdp 2 (the routing group spans both ranks) -- and one kv
 # head
-TP_FAMILIES = (("moe", MOE_ARCH, None, "k"),
-               ("moe_e3", MOE_ARCH, {"n_experts": 3}, "j"),
+TP_FAMILIES = (("moe", MOE_ARCH, None, "jk"),
+               ("moe_e3", MOE_ARCH, {"n_experts": 3, "remat": True}, "j"),
                ("kv1", "granite-34b", None, "k"),
                ("ssm", "mamba2-1.3b", None, "jk"),
                ("hybrid", "zamba2-1.2b", None, "jk"),
@@ -1169,13 +1205,19 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
     tokens.  ``runtime``: then :func:`gathered_runtime_rank` on a
     (node 2, fsdp 2) mesh of the same ranks; ``every2`` (an argv): then
     :func:`every2_logs` of it on the same mesh (``"every2"``); ``f32``:
-    every run with f32 activations (:func:`f32_start`).  Returns (rank
-    results, one ``{rank: comparison}`` a compared run, keyed by its
-    index in ``runs``)."""
+    every run with f32 activations (:func:`f32_start`).  ``runs`` is
+    emptied: the references are this function's, each let go once the
+    last run compared against it is compared, so that where the caller
+    keeps no other hold on them the later runs run without them (on the
+    host they sit beside 8 ranks' staging).  Returns (rank results, one
+    ``{rank: comparison}`` a compared run, keyed by its index in
+    ``runs``)."""
     import torch.multiprocessing as mp
 
     from . import train as train_mod
-    runs = [tuple(r) + (None,) * (4 - len(r)) for r in runs]
+    given = runs
+    runs = [tuple(r) + (None,) * (4 - len(r)) for r in given]
+    given.clear()
     args = train_mod.parse_args(runs[0][0])
     shape = tuple(shape or (args.nodes,))
     world = int(np.prod(shape))
@@ -1229,7 +1271,10 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
                                       float((got - want).abs().max()),
                                       float(want.abs().max()))
                     del got, want
-                del here
+                # this run's hold on its reference goes (a later run that
+                # compares against the same one keeps it)
+                runs[i] = (argv, None, shp, None)
+                del here, reference
                 if torch.cuda.is_initialized():
                     torch.cuda.empty_cache()
                 for q in goqs:
@@ -1239,10 +1284,10 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
             for q in goqs:
                 q.put("stop")
 
-    th = threading.Thread(target=compare, daemon=True)
-    th.start()
     held = [(argv, ref is not None, shp, toks)
             for argv, ref, shp, toks in runs]
+    th = threading.Thread(target=compare, daemon=True)
+    th.start()
     try:
         res = mesh_mod.spawn(_train_entry, world,
                              (held, outq, goqs, tokens, runtime, shape,

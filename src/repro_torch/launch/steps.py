@@ -125,7 +125,7 @@ def cache_struct(cfg: M.ModelConfig, shape_name: str,
 
 
 def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None,
-                  tp=None):
+                  tp=None, route=None):
     """Next-token CE in f32 against ``roll(tokens, -1)`` -- the last
     position's label wraps to the first token, as in the reference -- plus
     ``AUX_WEIGHT`` times the moe load-balance loss (zero for the other
@@ -138,11 +138,14 @@ def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None,
     :class:`~repro_torch.launch.tp.TP`): ``params`` are the rank's model
     shards; where the head cuts the vocabulary the CE is the
     vocab-parallel one (``TP.vocab_ce``), the logits never gathered.  The
-    loss is then the same on every rank of the model line."""
+    loss is then the same on every rank of the model line.  ``route`` (a
+    :class:`~repro_torch.launch.moe_group.MoeGroup`): ``tokens`` are the
+    rank's share of a moe routing group, whose capacity dispatch and aux
+    loss are the group's; the CE stays the mean over the rank's rows."""
     if cfg.n_experts and cfg.moe_dropless:
         cfg = dataclasses.replace(cfg, moe_dropless=False)
     logits, aux = M.forward(params, cfg, tokens, image_embeds=image_embeds,
-                            tp=tp)
+                            tp=tp, route=route)
     labels = torch.roll(tokens, -1, 1).long()
     if M.logits_cut(params, cfg, tp):
         return tp.vocab_ce(logits, labels) + AUX_WEIGHT * aux
@@ -154,18 +157,19 @@ def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None,
     return ce + AUX_WEIGHT * aux
 
 
-def loss_and_grads(cfg: M.ModelConfig, p: dict, tokens, img=None, tp=None):
+def loss_and_grads(cfg: M.ModelConfig, p: dict, tokens, img=None, tp=None,
+                   route=None):
     """One node's (loss, gradients) on one (micro-)batch: ``p`` is the
     node's ``{name: tensor}`` slice, ``tokens`` (B, S) (audio: (B, S, K)),
     ``img`` the vlm family's (B, T, d) or None.  ``tp`` (a
     :class:`~repro_torch.launch.tp.TP`): ``p`` holds the rank's model
     shards, bound to the pass (``TP.bind``); the gradients are the
-    shards'."""
+    shards'.  ``route``: :func:`train_loss_fn`'s."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
     view = leaves
     if tp is not None:
         tp, view = tp.bind(leaves)
-    loss = train_loss_fn(M.params_view(view), cfg, tokens, img, tp)
+    loss = train_loss_fn(M.params_view(view), cfg, tokens, img, tp, route)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), dict(zip(leaves, grads))
 
@@ -179,7 +183,7 @@ def accumulate_grads(acc_loss, acc_g: dict, loss, g: dict, nm: int):
 def make_train_step(cfg: M.ModelConfig,
                     opt: optim_mod.DecentralizedOptimizer,
                     *, micro_batch: int | None = None, timeline=None,
-                    fsdp=None, tp=None):
+                    fsdp=None, tp=None, route=None):
     """Returns ``train_step(mix, params, opt_state, batch, lr)``.
 
     ``mix`` is the realization-bound gossip executor that
@@ -236,11 +240,20 @@ def make_train_step(cfg: M.ModelConfig,
     reference's ``batch_spec`` says: a tensor-parallel forward and
     backward whose collectives are recorded in the scope ``"model"``,
     and gradients that are the rank's model shards.
+
+    ``route`` (a :class:`~repro_torch.launch.moe_group.MoeGroup`, with
+    ``fsdp``): the rank's rows are its share of one moe routing group
+    spread over ``route.size`` fsdp ranks (a micro-batch, or the node's
+    batch, larger than the rank's rows), so the pass routes them with the
+    group (``models/moe.py``).  No loss is rescaled: the rank's pass is
+    its share of the group's, each rank's loss holds the group's aux
+    term, and the fsdp mean of the ranks' gradients is then the
+    gradient of the mean over the node's micro-batches.
     """
 
     def per_node_grads(p: dict, tokens, img):
         if micro_batch is None or micro_batch >= tokens.shape[0]:
-            return loss_and_grads(cfg, p, tokens, img, tp)
+            return loss_and_grads(cfg, p, tokens, img, tp, route)
         nm = tokens.shape[0] // micro_batch
 
         def split(t):
@@ -253,7 +266,8 @@ def make_train_step(cfg: M.ModelConfig,
                                 device=v.device) for k, v in p.items()}
         for m, tok in enumerate(toks):
             loss, g = loss_and_grads(cfg, p, tok,
-                                     None if imgs is None else imgs[m], tp)
+                                     None if imgs is None else imgs[m], tp,
+                                     route)
             acc_loss, acc_g = accumulate_grads(acc_loss, acc_g, loss, g, nm)
         return acc_loss, acc_g
 

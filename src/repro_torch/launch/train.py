@@ -53,15 +53,18 @@ gossip runs shard-natively over the mesh's wire.  With an fsdp extent F
 above 1 a rank keeps only its fsdp shard of each of its node's leaves
 (``prepare(args, node=i, fsdp=f, mesh=mesh)``, cut by
 ``sharding.node_param_specs``) and its rows of the node's batch (split
-over fsdp where F divides the batch, as ``sharding.batch_spec`` says;
-the moe family takes the whole batch on every rank: its capacity
-dispatch and aux loss couple all of a node's tokens, which the
-reference's GSPMD keeps global, so splitting rows would change its
-numbers -- replicated, they stay the reference's at F times the
-compute).  Each step gathers the node's whole leaves, takes the
-gradients on the rank's rows and reduce-scatters their mean over the
-node's F ranks (``steps.make_train_step(fsdp=)``), and the gossip moves
-each rank's shard.  With a model extent M above 1 a rank keeps its
+over fsdp where F divides the batch, as ``sharding.batch_spec`` says).
+The moe family's capacity dispatch and aux loss couple every token of a
+routing group -- a micro-batch, or the node's batch without
+micro-batches -- which the reference's GSPMD keeps global; its rows are
+split where a rank's micro-batches are whole groups (G = 1: the rank
+routes them alone) or a group spans G consecutive ranks whole (G > 1:
+the routing is made global over them, ``launch.moe_group``), and stay
+whole on every rank otherwise (:func:`routing_group`).  Each step
+gathers the node's whole leaves, takes the gradients on the rank's rows
+and reduce-scatters their mean over the node's F ranks
+(``steps.make_train_step(fsdp=)``), and the gossip moves each rank's
+shard.  With a model extent M above 1 a rank keeps its
 (fsdp, model) shard of each leaf, as the reference's rules cut it
 (``prepare(args, node=i, mesh=mesh)``), takes the node's batch rows
 replicated over its model line, and runs a tensor-parallel forward and
@@ -116,12 +119,13 @@ from ..device import resolve_device
 from ..models import model as M
 from . import sharding
 from . import steps as steps_mod
+from .moe_group import MoeGroup
 from .tp import TP
 
 __all__ = ["build_trainer", "consensus_distance", "stack_nodes",
            "image_embeds", "prepare", "run", "parse_args", "main",
            "check_mesh", "config_of", "fsdp_extent", "model_extent",
-           "is_sharded", "rows_over_fsdp"]
+           "is_sharded", "rows_over_fsdp", "routing_group"]
 
 
 def check_mesh(mesh, n: int) -> None:
@@ -154,18 +158,42 @@ def is_sharded(mesh) -> bool:
     return fsdp_extent(mesh) > 1 or model_extent(mesh) > 1
 
 
-def rows_over_fsdp(cfg, mesh, batch: int) -> bool:
+def routing_group(mesh, batch: int, micro_batch: int | None = None):
+    """How many fsdp ranks share one moe routing group when a node's
+    ``batch`` rows are split over the mesh's fsdp extent F: a group is a
+    micro-batch of ``mb`` rows (the node's batch where ``micro_batch`` is
+    None or not below it), a rank's rows the contiguous block R = batch /
+    F.  1 where mb divides R (the rank's micro-batches are whole groups
+    of the node's, in the node's order), mb / R where R divides mb (a
+    group spans that many consecutive ranks), None where neither."""
+    rows = batch // fsdp_extent(mesh)
+    mb = batch if micro_batch is None or micro_batch >= batch \
+        else micro_batch
+    if rows % mb == 0:
+        return 1
+    if mb % rows == 0:
+        return mb // rows
+    return None
+
+
+def rows_over_fsdp(cfg, mesh, batch: int,
+                   micro_batch: int | None = None) -> bool:
     """Whether a node's batch rows are split over fsdp: where
-    ``sharding.batch_spec`` splits them, except for the moe family (the
-    module docstring)."""
+    ``sharding.batch_spec`` splits them, except, for the moe family, where
+    a routing group neither holds a rank's rows whole nor lies whole
+    within them (:func:`routing_group` None: a group would then take
+    part of a rank's rows, and the rows stay whole on every rank, with
+    the same numbers)."""
     spec = sharding.batch_spec(mesh, node_axis=True, batch_dim_size=batch)
-    return spec[1] == "fsdp" and not cfg.n_experts
+    return spec[1] == "fsdp" and (
+        not cfg.n_experts
+        or routing_group(mesh, batch, micro_batch) is not None)
 
 
 def build_trainer(cfg, topology, optimizer_name: str, beta: float,
                   micro_batch=None, momentum_dtype=None, warmup_steps=0,
                   overlap=False, loss_aware=False, deadline=False,
-                  compression=None, timeline=None, mesh=None):
+                  compression=None, timeline=None, mesh=None, batch=None):
     """Returns (opt, step_for) where ``step_for(step, prime=False)`` is the
     train-step executable for that step's gossip realization (the plan
     rides along as ``step_for.plan``).  All schedule handling lives in
@@ -183,16 +211,30 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     extent above 1 the step gathers and reduce-scatters by
     ``sharding.node_param_specs(cfg, topology.n, mesh)``, and with a
     model extent above 1 it runs the tensor-parallel pass by them
-    (``launch.tp.TP``).  They ride along as ``step_for.fsdp`` (``(mesh,
-    specs)``, else None), ``step_for.tp`` (the ``TP``, else None) and
-    ``step_for.specs`` (the specs on either mesh, else None)."""
-    fsdp = tp = specs = None
+    (``launch.tp.TP``).  ``batch``, a node's rows (needed for the moe
+    family on an fsdp mesh): where they split over fsdp and a routing
+    group spans G > 1 ranks (:func:`routing_group`), the step routes
+    the experts over the group (``launch.moe_group.MoeGroup``).  They
+    ride along as ``step_for.fsdp`` (``(mesh, specs)``, else None),
+    ``step_for.tp`` (the ``TP``, else None), ``step_for.route`` (the
+    ``MoeGroup``, else None) and ``step_for.specs`` (the specs on either
+    mesh, else None)."""
+    fsdp = tp = specs = route = None
     if mesh is not None:
         check_mesh(mesh, topology.n)
         if is_sharded(mesh):
             specs = sharding.node_param_specs(cfg, topology.n, mesh)
         if fsdp_extent(mesh) > 1:
             fsdp = (mesh, specs)
+            if cfg.n_experts:
+                if batch is None:
+                    raise ValueError("the moe family on an fsdp mesh: give "
+                                     "batch= (a node's rows), which sets "
+                                     "its routing group")
+                if rows_over_fsdp(cfg, mesh, batch, micro_batch):
+                    size = routing_group(mesh, batch, micro_batch)
+                    if size > 1:
+                        route = MoeGroup(mesh, size)
         if model_extent(mesh) > 1:
             tp = TP(mesh, specs)
     opt = optim_mod.make_optimizer(optimizer_name, topology, beta=beta,
@@ -202,7 +244,8 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     if warmup_steps:
         opt = transforms.allreduce_warmup(warmup_steps)(opt)
     step_fn = steps_mod.make_train_step(cfg, opt, micro_batch=micro_batch,
-                                        timeline=timeline, fsdp=fsdp, tp=tp)
+                                        timeline=timeline, fsdp=fsdp, tp=tp,
+                                        route=route)
     plan = GossipPlan.for_optimizer(opt, fn=step_fn, mesh=mesh)
 
     def step_for(step, **kw):
@@ -211,6 +254,7 @@ def build_trainer(cfg, topology, optimizer_name: str, beta: float,
     step_for.plan = plan
     step_for.fsdp = fsdp
     step_for.tp = tp
+    step_for.route = route
     step_for.specs = specs
     return opt, step_for
 
@@ -464,7 +508,8 @@ def prepare(args, tokens=None, node: int | None = None,
                 np.random.default_rng(2**20 + step).random(n)
                 >= args.straggler_prob)
     if node is not None:
-        split = fsdp is not None and rows_over_fsdp(cfg, mesh, args.batch)
+        split = fsdp is not None and rows_over_fsdp(cfg, mesh, args.batch,
+                                                    args.micro_batch)
         per = args.batch // mesh.axis_size("fsdp") if split else None
 
         def mine(k, v):
@@ -522,7 +567,8 @@ def run(args, timeline=None, mesh=None, start=None) -> dict:
                                   loss_aware=args.loss_aware,
                                   deadline=args.deadline_skip,
                                   compression=args.compression,
-                                  timeline=timeline, mesh=mesh)
+                                  timeline=timeline, mesh=mesh,
+                                  batch=args.batch)
     plan = step_for.plan
     specs = step_for.specs
     state = opt.init(stacked)

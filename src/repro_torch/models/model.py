@@ -382,15 +382,17 @@ def _effective_window(cfg: ModelConfig, layer: int) -> int | None:
     return cfg.window_for(layer % 2 == 0)
 
 
-def _ffn(cfg: ModelConfig, p: DenseLayer, h, dropless: bool, aux, tp=None):
+def _ffn(cfg: ModelConfig, p: DenseLayer, h, dropless: bool, aux, tp=None,
+         route=None):
     """The layer's FFN on the normed activations: the MLP, or the experts
-    (dispatched dropless or by capacity).  Returns (out, aux plus the
-    experts' load-balance loss); the MLP passes ``aux`` through."""
+    (dispatched dropless or by capacity; ``route``: the capacity routing
+    over the rank's routing group).  Returns (out, aux plus the experts'
+    load-balance loss); the MLP passes ``aux`` through."""
     if _has_moe(cfg):
         out, aux_l = moe_apply(p.moe, h, n_experts=cfg.n_experts,
                                top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor,
-                               dropless=dropless, tp=tp)
+                               dropless=dropless, tp=tp, route=route)
         return out, aux + aux_l
     return mlp_apply(p.mlp, h, cfg.mlp_kind, tp), aux
 
@@ -408,7 +410,7 @@ def _cross_block(cfg: ModelConfig, p: CrossLayer, x, img, tp=None):
 
 
 def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
-                 aux, prefill=False, tp=None):
+                 aux, prefill=False, tp=None, route=None):
     """One [attn + ffn] layer -> (x, aux plus the layer's load-balance loss,
     kv).  With ``prefill`` (serving)
     the attention kernel runs and kv is the layer's (k, v); otherwise
@@ -425,7 +427,7 @@ def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
     h, kv = (out[0], out[1:]) if prefill else (out, None)
     x = x + h
     h, aux = _ffn(cfg, p, rms_norm(p.ln2.scale, x, cfg.norm_eps),
-                  cfg.moe_dropless, aux, tp)
+                  cfg.moe_dropless, aux, tp, route)
     return x + h, aux, kv
 
 
@@ -547,7 +549,7 @@ def _default_positions(cfg: ModelConfig, tokens):
 
 
 def forward(params: Model, cfg: ModelConfig, tokens, *, image_embeds=None,
-            positions=None, tp=None):
+            positions=None, tp=None, route=None):
     """Train / eval forward.  tokens: (B, S) int (audio: (B, S, K)).
     Returns logits (B, S, V) (audio: (B, S, K, V)) and the f32 scalar aux
     loss: the moe layers' load-balance losses summed (zero for the other
@@ -556,9 +558,12 @@ def forward(params: Model, cfg: ModelConfig, tokens, *, image_embeds=None,
     :class:`~repro_torch.launch.tp.TP`): ``params`` are the rank's model
     shards and each layer follows its leaves' cuts; the logits are then
     the rank's block of the vocabulary where the head cuts it
-    (:func:`logits_cut`), else whole."""
+    (:func:`logits_cut`), else whole.  ``route`` (a
+    :class:`~repro_torch.launch.moe_group.MoeGroup`): the tokens are the
+    rank's share of a moe routing group spread over fsdp ranks, and the
+    experts' capacity routing is the group's (``models/moe.py``)."""
     return _forward(params, cfg, tokens, positions, prefill=False,
-                    image_embeds=image_embeds, tp=tp)
+                    image_embeds=image_embeds, tp=tp, route=route)
 
 
 def _head(params, cfg: ModelConfig):
@@ -589,7 +594,7 @@ def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
 
 
 def _forward(params, cfg, tokens, positions, prefill, image_embeds=None,
-             tp=None):
+             tp=None, route=None):
     _check_family(cfg)
     if cfg.family == "vlm":
         if image_embeds is None:
@@ -618,7 +623,7 @@ def _forward(params, cfg, tokens, positions, prefill, image_embeds=None,
             continue
         if cfg.family in _ATTN_FAMILIES:
             x, aux, _ = run(_dense_block, cfg, layer, x, positions, i, aux,
-                            False, tp)
+                            False, tp, route)
         else:
             x = run(_mamba_block, cfg, layer, x, tp)
         if cfg.family == "vlm" and (i + 1) % n_self == 0:

@@ -18,6 +18,12 @@
   step, the tensor-parallel pass's all-gathers and all-reduces counted,
   a dominant term named, and the flops of a chip between 1/16 of the
   node's pass and the whole of it.
+* dbrx-132b ``train_4k`` (fsdp 4, micro-batches of 2): each rank counts
+  its rows of the node's batch, a quarter of the gradient pass the
+  records counted while the moe family kept its whole batch on every
+  fsdp rank; granite-moe (fsdp 1) and qwen3 count what they counted
+  then, to the flop; a routing group spread over fsdp ranks counts its
+  collectives in the pass.
 * n_params equals the reference's for all 10 archs, and the roofline
   suite's active parameters equal the reference's ``_active_params``.
 """
@@ -198,6 +204,9 @@ def test_model_sharded_training_record_counts_the_replica(tmp_path):
     counts = rec["cost"]["collective_counts"]
     assert counts["all-gather"] > 0 and counts["all-reduce"] > 0
     assert counts["collective-permute"] == 1
+    # the count it gave before the moe row split, to the flop and byte
+    assert rec["cost"]["flops"] == 33_228_229_779_798
+    assert rec["cost"]["hbm_bytes"] == 2_248_596_840_552
     assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
     assert "dominant_counted" not in rec["roofline"]
     cfg = tconfigs.get_config("qwen3-0.6b")
@@ -207,3 +216,52 @@ def test_model_sharded_training_record_counts_the_replica(tmp_path):
     one = MM.dry_mesh(MM.abstract_mesh((1, 1, 1), ("node", "fsdp", "model")))
     node, _ = D._grad_pass(cfg, params, tokens, None, 16, one, {})
     assert node.flops / 16 < rec["cost"]["flops"] < node.flops
+
+
+# dbrx-132b train_4k's flops a chip while every fsdp rank took its node's
+# whole batch (before the moe row split): 1pod, 2pod
+DBRX_WHOLE_BATCH_FLOPS = {False: 6_000_806_124_051_232,
+                          True: 3_000_419_538_820_496}
+
+
+def test_moe_training_records_count_the_ranks_rows(tmp_path):
+    """dbrx-132b ``train_4k`` at its layout (fsdp 4, micro-batches of 2):
+    a rank's rows are 64 / 4 = 16 (1pod) or 32 / 4 = 8 (2pod), each
+    micro-batch a whole routing group on one rank (no routing op), so
+    the flops a chip fall to 0.24-0.28x what the records counted with the
+    node's whole batch on every rank.  granite-moe (fsdp 1: no row to
+    split) counts what it counted then, to the flop and byte, as qwen3
+    does in :func:`test_model_sharded_training_record_counts_the_replica`."""
+    for pod, whole in DBRX_WHOLE_BATCH_FLOPS.items():
+        rec = D.run_one("dbrx-132b", "train_4k", multi_pod=pod,
+                        out_dir=str(tmp_path), verbose=False)
+        assert rec["ok"] and rec["fsdp"] == 4
+        assert 0.24 * whole <= rec["cost"]["flops"] <= 0.28 * whole, pod
+        assert "all-gather" in rec["cost"]["collective_counts"]
+    rec = D.run_one("granite-moe-3b-a800m", "train_4k", multi_pod=False,
+                    out_dir=str(tmp_path), verbose=False)
+    assert rec["fsdp"] == 1
+    assert rec["cost"]["flops"] == 250_267_608_561_938
+    assert rec["cost"]["hbm_bytes"] == 34_661_271_237_388
+
+
+def test_dry_routing_group_counts_its_collectives():
+    """A moe pass whose routing group spans the 2 fsdp ranks of a dry
+    mesh (``_grad_pass(group=2)``, reduced granite-moe on meta) counts
+    per layer the forward's counts all-gather, probability-sum all-reduce,
+    slots reduce-scatter and outputs all-gather, and the backward's
+    all-reduce, all-gather and reduce-scatter; the same pass with no
+    group counts none."""
+    cfg = tconfigs.reduced_config(tconfigs.get_config("granite-moe-3b-a800m"))
+    params = {k: v.detach() for k, v in
+              TM.init(cfg, device="meta").named_parameters()}
+    tokens = torch.empty((1, 16), dtype=torch.int32, device="meta")
+    dry = MM.dry_mesh(MM.abstract_mesh((1, 2, 1), ("node", "fsdp",
+                                                   "model")), rank=1)
+    grouped, _ = D._grad_pass(cfg, params, tokens, None, None, dry, {},
+                              group=2)
+    L = cfg.n_layers
+    assert dict(grouped.collective_counts) == {
+        "all-gather": 3 * L, "all-reduce": 2 * L, "reduce-scatter": 2 * L}
+    alone, _ = D._grad_pass(cfg, params, tokens, None, None, dry, {})
+    assert not any(alone.collective_counts.values())

@@ -9,13 +9,15 @@ through each of ``mesh_check.fsdp_cases``: on the (node 4, fsdp 2,
 model 1) mesh the reference's tests use (every qwen3 leaf sharded) dmsgd
 with micro-batches, ``--overlap --compression int8`` with carry-buffer
 checkpoints, ``parallel_msgd`` and granite-moe (its router replicated,
-its batch whole on every rank); on the (node 4, fsdp 2) mesh, where
-``embed`` is replicated over fsdp, loss-aware gossip with deadline skips
-and stragglers; then dmsgd for 2 steps of each other family (ssm,
-hybrid, audio, vlm).  Then ``mesh_check.every2_logs``: a gossip step against
-the same step with ``every=2``'s Identity, the reference's differential
-wire check (``tests/test_shard_native.py``'s ``_HLO_2AX_TRAIN_SCRIPT``)
-held on the mesh's wire log.
+its rows split over fsdp: a routing group over both ranks, G = 2, and
+micro-batches each a rank's, G = 1), and granite-moe on (node 2, fsdp
+4, model 1), two groups of 2 ranks side by side; on the (node 4, fsdp 2)
+mesh, where ``embed`` is replicated over fsdp, loss-aware gossip with
+deadline skips and stragglers; then dmsgd for 2 steps of each other
+family (ssm, hybrid, audio, vlm).  Then ``mesh_check.every2_logs``: a
+gossip step against the same step with ``every=2``'s Identity, the
+reference's differential wire check (``tests/test_shard_native.py``'s
+``_HLO_2AX_TRAIN_SCRIPT``) held on the mesh's wire log.
 
 Every case's losses and final (m, x), gathered, are held within 2e-4
 against the port's single-process run and the reference's
@@ -154,25 +156,32 @@ def _quantum(tree: dict) -> dict:
 
 
 def _specs(name):
-    argv, shape, axes = MC.fsdp_cases(ARGV)[name]
-    args = TTrain.parse_args(argv)
-    mesh = MM.abstract_mesh(shape, axes)
+    args, mesh = _case(name)
     return TS.node_param_specs(TTrain.config_of(args), args.nodes, mesh)
+
+
+def _case(name):
+    """(args, abstract mesh) of an fsdp case."""
+    argv, shape, axes = MC.fsdp_cases(ARGV)[name]
+    return TTrain.parse_args(argv), MM.abstract_mesh(shape, axes)
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_fsdp_case_matches_single_process_and_reference(runs, name):
     """Each rank's logged losses and its node's final (m, x), gathered
     over fsdp, against the single-process run and the reference's, within
-    2e-4.  Under int8 the final (m, x) is held within 2e-4 plus one int8
-    level of the leaf, as the node-mesh test holds the reference's: an
-    f32 rounding apart -- here also the reduce-scatter's and the row
-    split's order of sums -- can move an element across a rounding
-    boundary of the wire."""
+    2e-4; each rank's batches hold its R = B / F rows of the node's (the
+    moe family's too, its routing the node's).  Under int8 the final
+    (m, x) is held within 2e-4 plus one int8 level of the leaf, as the
+    node-mesh test holds the reference's: an f32 rounding apart -- here
+    also the reduce-scatter's and the row split's order of sums -- can
+    move an element across a rounding boundary of the wire."""
     one, ref = runs["single"][name], runs["refs"][name]
+    args, mesh = _case(name)
     diffs = []
     for r in runs["world"]:
         got = r[name]
+        assert got["rows"] == args.batch // mesh.shape["fsdp"], name
         node = got["coords"]["node"]
         losses = [h["loss"] for h in got["history"]]
         np.testing.assert_allclose(losses, one["losses"], **TOL)
@@ -220,23 +229,49 @@ def test_each_rank_holds_only_its_shards(runs, name):
     2-axis mesh's ``embed``, the moe ``router``); the specs are read at
     the global node-stacked shapes."""
     specs = _specs(name)
-    cfg = TTrain.config_of(TTrain.parse_args(MC.fsdp_cases(ARGV)[name][0]))
+    args, mesh = _case(name)
+    cfg = TTrain.config_of(args)
+    fs = mesh.shape["fsdp"]
     whole = {k: p.numel() for k, p in
              TTrain.M.init(cfg, 0, device="meta").named_parameters()}
     replicated = {k for k, s in specs.items() if TS.fsdp_dim(s) is None}
-    want_rep = {"runtime": {"embed"},
-                "moe": {k for k in whole if k.endswith("moe.router")}}
-    assert replicated == want_rep.get(name, set())
+    want_rep = ({k for k in whole if k.endswith("moe.router")}
+                if name.startswith("moe") else
+                {"runtime": {"embed"}}.get(name, set()))
+    assert replicated == want_rep
     for r in runs["world"]:
         got = r[name]["param_elems"]
         assert set(got) == set(whole)
         for k, n in got.items():
-            assert n == (whole[k] if k in replicated else whole[k] // 2), k
+            assert n == (whole[k] if k in replicated else whole[k] // fs), k
         assert sum(got.values()) < sum(whole.values())
 
 
 def _fsdp_ops(log) -> dict:
     return {k: v["ops"] for k, v in log.items() if k.startswith("fsdp:")}
+
+
+def _moe_ops(log) -> dict:
+    return {k: v["ops"] for k, v in log.items() if k.startswith("moe:")}
+
+
+def _want_moe_ops(name) -> dict:
+    """The routing ops a run logs: none where a rank's micro-batches are
+    whole routing groups (G = 1) or without experts; where a group spans
+    G > 1 ranks, per moe layer and micro-step (one a step: the rank's
+    rows are its share of one group) the forward's all_gather of the
+    counts, psum of the probability sums, reduce_scatter of the slots and
+    all_gather of the outputs, and the backward's psum, all_gather (the
+    reduce-scatter's) and reduce_scatter (the all-gather's)."""
+    args, mesh = _case(name)
+    cfg = TTrain.config_of(args)
+    if not cfg.n_experts:
+        return {}
+    if TTrain.routing_group(mesh, args.batch, args.micro_batch) == 1:
+        return {}
+    passes = cfg.n_layers * args.steps
+    return {"moe:all_gather": 3 * passes, "moe:psum": 2 * passes,
+            "moe:reduce_scatter": 2 * passes}
 
 
 def test_wire_log_differential_every2(runs):
@@ -264,15 +299,20 @@ def test_wire_logs_of_the_fsdp_steps(runs, name):
     group, a psum for the node's loss and one a replicated dtype group;
     the gossip's own ops as on a node mesh: a permute a round (two under
     int8, whose scales take a pmax over fsdp; the priming step none),
-    parallel_msgd's psum a step and no permute."""
+    parallel_msgd's psum a step and no permute; the moe routing's ops in
+    the scope ``"moe"`` on every rank (:func:`_want_moe_ops`: none at
+    G = 1)."""
     argv = MC.fsdp_cases(ARGV)[name][0]
     steps = TTrain.parse_args(argv).steps
-    psums = 2 if name in ("runtime", "moe") else 1
+    psums = 2 if name == "runtime" or name.startswith("moe") else 1
+    want_moe = _want_moe_ops(name)
+    assert bool(want_moe) == (name in ("moe", "moe_g2f4")), name
     for r in runs["world"]:
         log = r[name]["log"]
         assert _fsdp_ops(log) == {"fsdp:all_gather": steps,
                                   "fsdp:reduce_scatter": steps,
                                   "fsdp:psum": psums * steps}, name
+        assert _moe_ops(log) == want_moe, name
         gossip = {k: v["ops"] for k, v in log.items() if ":" not in k}
         if name == "parallel_msgd":
             assert gossip == {"psum": steps}

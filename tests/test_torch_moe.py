@@ -161,6 +161,88 @@ def test_capacity_overflow_drops_the_reference_set(weights):
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL32)
 
 
+@pytest.mark.parametrize("G,cf", [(1, 1.25), (2, 1.25), (4, 1.25),
+                                  (2, 0.5), (4, 0.5)])
+def test_group_routing_is_the_whole_groups(weights, G, cf):
+    """A routing group's 24 tokens split into G equal shares, in token
+    order, as G fsdp ranks hold them: each share's dispatch
+    (``_group_dispatch``, offsets the exclusive prefix of the shares'
+    ``_counts``) keeps exactly the assignments ``_dispatch`` keeps on the
+    whole group, each at the whole group's position of its expert (the
+    group's capacity, 15 or 6, laid out at a width padded to a multiple
+    of G: 15 / 16 / 16 / 6 / 8); the aux loss from the shares' count
+    totals and probability sums is ``_route``'s on the whole group (and
+    the reference's) within 2e-4."""
+    jp, tp = _layer(weights, 1)
+    E, k, T = 4, 2, 24
+    x = torch.from_numpy(_x((T, jp["router"].shape[0]), seed=5))
+    with torch.no_grad():
+        _, idx, aux = TMoE._route(tp, x, E, k)
+        shares = [TMoE._gates(tp, part, k) for part in x.chunk(G)]
+    _, _, jaux = JMoE._route(jp, jnp.asarray(x.numpy()), E, k)
+    cap, order, slot, keep = TMoE._dispatch(idx, E, cf)
+    want = {}                                # kept a -> (expert, position)
+    for a, s_, kp in zip(order.tolist(), slot.tolist(), keep.tolist()):
+        if kp:
+            want[a] = divmod(s_, cap)
+    assert 0 < len(want) <= T * k
+    counts = [TMoE._counts(i, E) for _, i, _ in shares]
+    assert torch.equal(sum(counts), TMoE._counts(idx, E))
+    got, offset = {}, torch.zeros(E, dtype=torch.int64)
+    for r, (_, i, _) in enumerate(shares):
+        assert torch.equal(i, idx[r * T // G:(r + 1) * T // G])
+        c, width, o, s_, kp = TMoE._group_dispatch(i, E, cf, G, offset)
+        assert c == cap and width % G == 0 and cap <= width < cap + G
+        for a, sl, keep_a in zip(o.tolist(), s_.tolist(), kp.tolist()):
+            if keep_a:
+                got[r * (T // G) * k + a] = divmod(sl, width)
+        offset = offset + counts[r]
+    assert got == want
+    if G > 1 and cf == 1.25:
+        assert cap % G                       # padding slots, never kept
+    total = sum(counts).float()
+    prob_sum = sum(p.sum(0) for _, _, p in shares)
+    group_aux = TMoE._aux(total / T, prob_sum / T, E, k)
+    np.testing.assert_allclose(float(group_aux), float(aux), **TOL32)
+    np.testing.assert_allclose(float(group_aux), float(jaux), **TOL32)
+
+
+def test_rows_over_fsdp_keeps_a_straddling_group_whole():
+    """A moe node batch of 6 over fsdp 2 (3 rows a rank) in micro-batches
+    of 2: a routing group neither holds a rank's rows whole nor lies
+    whole within them, so the rows stay whole on every rank (the dense
+    family's split); a routing group spans 1 rank at micro-batches of
+    3 and 2 without them, and ``prepare`` cuts the rank's rows by it.
+    ``build_trainer`` on such a mesh wants the node's batch, which sets
+    the group: a routing context where it spans 2 ranks, none where it
+    is a rank's or the rows stay whole."""
+    from repro_torch.core import topology as ttopo
+    from repro_torch.launch import mesh as TMesh
+    mesh = TMesh.abstract_mesh((2, 2, 1), ("node", "fsdp", "model"))
+    _, tcfg = _cfgs()
+    dense = tconfigs.reduced_config(tconfigs.get_config("qwen3-0.6b"))
+    assert TTrain.routing_group(mesh, 6, 2) is None
+    assert not TTrain.rows_over_fsdp(tcfg, mesh, 6, 2)
+    assert TTrain.rows_over_fsdp(dense, mesh, 6, 2)
+    assert TTrain.routing_group(mesh, 6, 3) == 1
+    assert TTrain.routing_group(mesh, 6) == TTrain.routing_group(mesh, 6,
+                                                                 6) == 2
+    assert TTrain.rows_over_fsdp(tcfg, mesh, 6, 3)
+    base = ["--arch", ARCH, "--device", "cpu", "--nodes", "2", "--steps",
+            "1", "--batch", "6", "--seq", "8"]
+    for micro, rows in (("2", 6), ("3", 3)):
+        args = TTrain.parse_args(base + ["--micro-batch", micro])
+        start = TTrain.prepare(args, node=1, fsdp=1, mesh=mesh)
+        assert start["batches"][0]["tokens"].shape[:2] == (1, rows)
+    top = ttopo.get_topology("one_peer_exp", 2)
+    with pytest.raises(ValueError, match="batch="):
+        TTrain.build_trainer(tcfg, top, "dmsgd", 0.9, mesh=mesh)
+    for micro, size in ((None, 2), (2, None), (3, None)):
+        _, step_for = TTrain.build_trainer(tcfg, top, "dmsgd", 0.9, micro,
+                                           mesh=mesh, batch=6)
+        assert getattr(step_for.route, "size", None) == size
+
+
 # ---------------------------------------------------------------------------
 # models/model.py
 # ---------------------------------------------------------------------------

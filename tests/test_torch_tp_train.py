@@ -11,16 +11,18 @@ qwen3 on (node 2, fsdp 2, model 2) with micro-batches and remat, and on
 (node 4, fsdp 1, model 2) at 3 layers (its dense MLP cut on the ff dim);
 ``--overlap --compression int8`` with carry-buffer checkpoints,
 ``parallel_msgd`` and ``--loss-aware --deadline-skip``; then every
-family on both meshes -- moe with 4 experts (expert-parallel) on one
-and 3 (``dataclasses.replace``: the ff route) on the other, ssm,
-hybrid, audio and vlm -- and granite-34b (one kv head: the k / v
-gather).  Then the four region ops
+family on both meshes -- moe with 4 experts (expert-parallel) on both
+and 3 (``dataclasses.replace``: the ff route, remat on) on (node 2,
+fsdp 2, model 2), where its rows split over fsdp and its routing group
+spans both fsdp ranks, ssm, hybrid, audio and vlm -- and granite-34b
+(one kv head: the k / v gather).  Then the four region ops
 and the vocab-parallel CE against one process's autograd, and one
 pass's gradients of the leaves replicated over model.
 
 Every case's losses and final (m, x), gathered whole, are held within
 2e-4 of max-abs against the port's single-process run, and the qwen3
-cases also against the reference's ``build_trainer`` without a mesh
+and the row-split moe cases also against the reference's
+``build_trainer`` without a mesh
 (GSPMD keeps the reference's sharded step equal to its unsharded one).
 Under int8 the final state and the checkpoint are held within 2e-4 plus
 one int8 level of the leaf, as in the fsdp and node-mesh tests: a sum
@@ -55,6 +57,7 @@ ARGV = ["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
 TOL = 2e-4
 CASES = MC.tp_cases(ARGV)
 QWEN = ("dmsgd_j", "dmsgd_k")
+MOE = ("moe_j", "moe_e3_j")         # rows split over fsdp 2: G = 2
 WORLD = 8
 
 
@@ -62,7 +65,8 @@ WORLD = 8
 def runs(tmp_path_factory):
     """The world's results and the mesh runs' checkpoint directory, each
     case's single-process run and checkpoint directory, and the qwen3
-    cases' reference runs: the world runs in its own processes, each rank
+    and moe cases' reference runs: the world runs in its own processes,
+    each rank
     then taking its share of the single-process runs, and the reference's
     in one more process."""
     store = tmp_path_factory.mktemp("tp_train_store")
@@ -107,20 +111,22 @@ def _one_xla_thread():
 
 
 def _references() -> dict:
-    """:func:`_reference` of each qwen3 case (in a process of its own)."""
-    return {name: _reference(CASES[name][0]) for name in QWEN}
+    """:func:`_reference` of each qwen3 and moe case (in a process of its
+    own)."""
+    return {name: _reference(CASES[name][0], CASES[name][3])
+            for name in QWEN + MOE}
 
 
-def _reference(argv):
+def _reference(argv, rep=None):
     """The case on the reference's build_trainer without a mesh, f32
-    activations, the port's batches: losses and the final params and
-    momentum."""
+    activations (``rep``: the case's config fields replaced), the port's
+    batches: losses and the final params and momentum."""
     args = TTrain.parse_args(argv)
-    start = MC.f32_start(args)
+    start = MC.f32_start(args, replace=rep)
     tcfg = start["config"]
     jcfg = dataclasses.replace(
         jconfigs.reduced_config(jconfigs.get_config(args.arch)),
-        activation_dtype=jnp.float32, n_layers=tcfg.n_layers)
+        activation_dtype=jnp.float32, n_layers=tcfg.n_layers, **(rep or {}))
     opt, step_for = JTrain.build_trainer(
         jcfg, JT.get_topology(args.topology, args.nodes), args.optimizer,
         args.beta, args.micro_batch)
@@ -185,6 +191,25 @@ def test_qwen3_matches_single_process_and_reference(runs, name):
         _hold(r[name], runs["refs"][name], name)
 
 
+@pytest.mark.parametrize("name", MOE)
+def test_moe_matches_single_process_and_reference(runs, name):
+    """granite-moe on (node 2, fsdp 2, model 2), expert-parallel and on
+    the ff slice under remat: each rank's batches hold its R = B / F
+    rows, its routing the node's (the group spans both fsdp ranks), and
+    its losses and its node's final (m, x), gathered whole -- the
+    router's and the experts' training -- are held against the
+    single-process run and the reference's build_trainer within 2e-4 of
+    max-abs."""
+    args = TTrain.parse_args(CASES[name][0])
+    fs = CASES[name][1][1]
+    assert TTrain.routing_group(MM.abstract_mesh(*CASES[name][1:3]),
+                                args.batch, args.micro_batch) == fs
+    for r in runs["world"]:
+        assert r[name]["rows"] == args.batch // fs
+        _hold(r[name], runs["single"][name], name)
+        _hold(r[name], runs["refs"][name], name)
+
+
 @pytest.mark.parametrize("name", [n for n in CASES if n not in QWEN])
 def test_case_matches_single_process(runs, name):
     """Every other case -- the driver's flags on qwen3 and every family
@@ -228,12 +253,18 @@ def test_each_rank_holds_only_its_shards(runs, name):
 def test_wire_logs_by_mesh(runs):
     """Each case's model ops are the same on every rank and run every
     step; the (node 2, fsdp 2, model 2) cases also gather and scatter
-    over fsdp, the (node 4, fsdp 1, model 2) ones run no fsdp op."""
+    over fsdp, the (node 4, fsdp 1, model 2) ones run no fsdp op; the
+    moe routing's ops (scope ``"moe"``) run alike on every rank of the
+    row-split moe cases and nowhere else."""
     for name, (argv, shape, _, _) in CASES.items():
         logs = [r[name]["log"] for r in runs["world"]]
         model = [{k: v["ops"] for k, v in log.items()
                   if k.startswith("model:")} for log in logs]
         assert all(m == model[0] for m in model) and model[0], name
+        moe = [{k: v["ops"] for k, v in log.items()
+                if k.startswith("moe:")} for log in logs]
+        assert all(m == moe[0] for m in moe), name
+        assert bool(moe[0]) == (name in MOE), (name, moe[0])
         fsdp = {k for log in logs for k in log if k.startswith("fsdp:")}
         if shape[1] == 1:
             assert not fsdp, (name, fsdp)
