@@ -31,7 +31,8 @@ paper's LM-scale experiment (train_lm at the 100m preset, one-peer and
 static exponential graphs on 8 nodes), and the gossip across processes:
 the shard-native engine on a mesh of ranks sharing the card, and phase
 6's training with one rank a node, then the overlapped trainer,
-parallel_msgd, a checkpoint and runtime rounds on such meshes, and last
+parallel_msgd, a checkpoint and runtime rounds on such meshes, fsdp- and
+model-sharded training and a replica's model-sharded prefill, and last
 the dry run: every arch,
 input shape and mesh counted per chip on the meta device, and the
 counter held on the card against meta.
@@ -334,7 +335,20 @@ Phases, in order; any failure exits non-zero before the result lines:
                  against the same single-process one array by array,
                  both within 2e-4 of max-abs, per rank median step ms,
                  peak memory, the "model" scope's ops, bytes and ms a
-                 step and K1 (3 / 4 a rank); (l) in the same world,
+                 step and K1 (3 / 4 a rank); (m) in the same world,
+                 before (l), a replica's model-sharded prefill
+                 (mesh_check.prefill_rank: steps.make_prefill_step(tp=,
+                 fsdp=)): full-width qwen3-0.6b cut to 2 layers, f32
+                 activations, attention_impl "pallas", 8 rows of 512 on
+                 (node 2, fsdp 2, model 2), 2 rows a rank, the fsdp
+                 shards gathered, K2 on each rank's 8 query and 4 kv
+                 heads (2 launches a rank, counted from 0 around the
+                 call), every rank's last logits gathered over model
+                 within 2e-4 of max-abs of the single-process prefill
+                 step with the plain attention (its reference released
+                 once compared); per rank the median of 3 prefills, the
+                 fsdp and model scopes' ops, bytes and ms, the peak on
+                 the card and the host; (l) in the same world,
                  the moe family's rows split over fsdp: full-width
                  granite-moe-3b-a800m cut to 2 layers on (node 2, fsdp
                  4, model 1), a batch of 4 a node, one row a rank, its
@@ -352,8 +366,11 @@ Phases, in order; any failure exits non-zero before the result lines:
                  whole matrix, 10 archs x 4 shapes x both meshes, counted
                  on the meta device in worker processes: every record ok,
                  the card's max_memory_allocated unmoved, make_experiments'
-                 two tables printed; (b) phase 6's train step counted by
-                 launch.cost.Cost on the card (K1 launched) and on meta:
+                 two tables printed, each prefill_32k record rank 0's
+                 model-sharded step (nothing uncounted) with its dominant
+                 term and collectives printed; (b) phase 6's train step
+                 counted by launch.cost.Cost on the card (K1 launched)
+                 and on meta:
                  flops equal, bytes within 1 %, any op whose count differs
                  printed, the step's median ms against the bound its count
                  gives on one card; (c) the same for phase 7's forward
@@ -3499,6 +3516,16 @@ MOE_L_ARGV = ["--arch", MOE_ARCH, "--full", "--layers", "2", "--nodes",
               str(FSDP_STEPS)]
 
 
+# (m): the model-sharded prefill, qwen3-0.6b at full width cut to 2
+# layers, f32 activations, attention_impl "pallas", 8 rows of 512 over
+# (node 2, fsdp 2, model 2): 2 rows a rank, each rank's 8 query heads and
+# 4 kv heads (D 128) through K2 once a layer; 3 timed calls after it
+PREFILL_M_ARGV = ["--arch", "qwen3-0.6b", "--full", "--layers", "2",
+                  "--batch", "8", "--seq", "512", "--impl", "pallas",
+                  "--f32", "--repeat", "3", "--device", "cuda"]
+PREFILL_M_LAUNCHES = {"flash_attention": 2, "ssd_scan": 0}
+
+
 def _wire_rows(log: dict) -> dict:
     """A wire log per kind: (ops, bytes, s, staging share of the s)."""
     return {k: (v["ops"], v["bytes"], round(v["s"], 3),
@@ -3670,6 +3697,12 @@ def _sharded_legs(torch, seed, d_peaks):
                 torch.cuda.empty_cache()
         t_ref_l += time.perf_counter() - t_ref
         del start_j, start_l
+        # (m)'s reference: the single-process prefill step, plain attention
+        t_ref_m = time.perf_counter()
+        prefill_m = PREFILL_M_ARGV + ["--seed", str(seed)]
+        ref_m = MC.single_prefill(prefill_m)
+        torch.cuda.empty_cache()
+        t_ref_m = time.perf_counter() - t_ref_m
         t_refs = time.perf_counter() - t_legs
         # (l) last: train_world lets each reference go once compared, so
         # (l)'s ranks stage through the host without the others' 15 GB
@@ -3686,7 +3719,8 @@ def _sharded_legs(torch, seed, d_peaks):
         with _least_free(torch) as free:
             res, comps = MC.train_world(runs, tokens, shape=FSDP_SHAPE,
                                         axes=MC.TRAIN_AXES, every2=base,
-                                        f32=True)
+                                        f32=True, prefill=(prefill_m, MOEL,
+                                                           TP_J_SHAPE))
         log(f"  (h)-(l) the card's least free memory while the world ran: "
             f"{free[0] / 1e9:.2f} GB of {free[1] / 1e9:.2f}; the host's most "
             f"in use "
@@ -3759,6 +3793,9 @@ def _sharded_legs(torch, seed, d_peaks):
             f"the Identity step's {base_c}: one permute more and nothing "
             "else, on every rank")
         out.update(_tp_legs(res, comps, losses, (TPJ, TPK)))
+        out["m"] = _prefill_leg(res, ref_m, prefill_m)
+        out["m"]["reference_s"] = t_ref_m
+        del ref_m                     # released once compared
         out["l"] = _moe_leg(res, comps, losses["moe_l"], MOEL, moe_l)
         # (i)'s and (k)'s carry-buffer checkpoints: rank 0 wrote the rows;
         # the single-process run's, kept in memory by a stand-in save, is
@@ -3821,6 +3858,75 @@ def _sharded_legs(torch, seed, d_peaks):
         f"s, the world {t_world:.1f} s)")
     out["seconds"] = total
     return out
+
+
+def _prefill_leg(res, want, argv) -> dict:
+    """(m) of :func:`_sharded_legs`' world, before (l): a replica's
+    model-sharded prefill (``mesh_check.prefill_rank``; ``steps.
+    make_prefill_step(tp=, fsdp=)``) of qwen3-0.6b at full width, 2
+    layers, f32 activations, ``attention_impl="pallas"``, 8 rows of 512
+    on (node 2, fsdp 2, model 2): each rank gathers its fsdp shards and
+    runs the tensor-parallel forward on its 2 rows, K2 on its 8 query
+    and 4 kv heads once a layer.  Every rank's last logits, gathered
+    over model, are held within TRAIN_TOL x max-abs of ``want``, the
+    single-process prefill step with the plain attention on the whole
+    batch (so K2 meets its plain version at the rank's shape); its K2 /
+    K4 launches (counts set to 0 just before the call) as
+    PREFILL_M_LAUNCHES; its wire log one fsdp all_gather and the model
+    psums, alike on every rank.  Per rank the median of 3 timed
+    prefills, the fsdp and model scopes (ops, bytes, ms), peak memory on
+    the card and the process's peak resident set (the host's memory in
+    use is :func:`_least_free`'s line for the whole world)."""
+    import numpy as np
+
+    from repro_torch.launch import mesh_check as MC
+    args = MC.prefill_args(argv)
+    scale = float(np.abs(want).max())
+    errs, ms, launches, scopes, peaks, hosts = [], [], [], [], [], []
+    for r in res:
+        o = r["prefill"]
+        err = float(np.abs(o["logits"] - want[o["rows"]]).max())
+        check(o["logits"].shape == (len(o["rows"]), want.shape[-1]),
+              f"(m) rank {o['rank']}: logits {o['logits'].shape}")
+        check(err <= TRAIN_TOL * scale, f"(m) rank {o['rank']}: logits "
+              f"max abs diff {err} beyond {TRAIN_TOL} x {scale}")
+        check(o["launches"] == PREFILL_M_LAUNCHES, f"(m) rank {o['rank']}: "
+              f"launches {o['launches']}, expected {PREFILL_M_LAUNCHES}")
+        ops = {k: v["ops"] for k, v in o["log"].items()}
+        check(ops.get("fsdp:all_gather") == 1 and ops.get("model:psum"),
+              f"(m) rank {o['rank']}: wire ops {ops}")
+        errs.append(err)
+        ms.append(1e3 * sorted(o["step_s"])[len(o["step_s"]) // 2])
+        launches.append(o["launches"]["flash_attention"])
+        scopes.append({k: (v["ops"], v["bytes"], round(1e3 * v["s"], 3))
+                       for k, v in o["log"].items()})
+        peaks.append(o["peak_gb"])
+        hosts.append(o["host_peak_gb"])
+    check(all({k: v[0] for k, v in sc.items()} ==
+              {k: v[0] for k, v in scopes[0].items()} for sc in scopes),
+          "(m): the wire ops differ between ranks")
+    o0 = res[0]["prefill"]
+    log(f"  (m) model-sharded prefill, qwen3-0.6b at full width, "
+        f"{args.layers} layers, f32 activations, attention_impl "
+        f"{args.impl}, {args.batch} x {args.seq} on (node 2, fsdp 2, model "
+        f"2) ({o0['wire']}), {o0['param_elems'] / 1e6:.1f} M parameters a "
+        f"rank, {len(o0['rows'])} rows a rank: last logits gathered over "
+        f"model, max abs diff per rank {errs} against the single-process "
+        f"plain prefill (tolerance {TRAIN_TOL} x {scale:.4g}); K2 launches "
+        f"per rank {launches}")
+    log(f"  (m) per rank: median of {args.repeat} prefills "
+        f"{[round(v, 3) for v in ms]} ms (first call "
+        f"{[round(1e3 * r['prefill']['first_s'], 1) for r in res]} ms); "
+        f"peak GB on the card {[round(v, 3) for v in peaks]}; peak "
+        f"resident set GB of each rank's process so far (pages shared "
+        f"between ranks counted in each; the host's use is the world's "
+        f"line) {[round(v, 3) for v in hosts]}")
+    log(f"  (m) per rank the fsdp and model scopes (ops, bytes, ms): "
+        f"{scopes}")
+    return {"max_abs_err_per_rank": errs, "ms_per_rank": ms,
+            "k2_per_rank": launches, "scopes_per_rank": scopes,
+            "peak_gb_per_rank": peaks, "host_peak_gb_per_rank": hosts,
+            "tolerance": TRAIN_TOL * scale}
 
 
 def _moe_leg(res, comps, ref_losses, i, argv) -> dict:
@@ -4152,6 +4258,19 @@ def dryrun_phase(torch, dev, seed, smi_line):
               f"dryrun: {len(recs)} records")
         log(MX.dryrun_section(recs))
         log(MX.roofline_section(recs))
+        # the prefill records count rank 0's model-sharded step
+        pre = [r for r in recs.values() if r["shape"] == "prefill_32k"]
+        check(len(pre) == 20 and all(
+            "uncounted" not in r and "partition" not in r
+            and r["roofline"]["dominant"] for r in pre),
+            "dryrun: a prefill_32k record is not rank 0's counted step")
+        log("  (a) prefill_32k (rank 0's model-sharded step: dominant "
+            "term, collectives): " + "; ".join(
+                f"{r['arch']} {'2pod' if r['multi_pod'] else '1pod'} "
+                f"{r['roofline']['dominant']} "
+                f"{dict(r['cost']['collective_counts'])}"
+                for r in sorted(pre, key=lambda r: (r["arch"],
+                                                    r["multi_pod"]))))
         del os.environ["DRYRUN_DIR"]
     torch.cuda.synchronize()
     after = (torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated())
@@ -4462,6 +4581,13 @@ def main() -> int:
                                   if mesh["nccl"] else None)}
             k["fsdp_block"] = mesh["fsdp"]["k1_block"]
             k["fsdp_moe_block"] = mesh["fsdp"]["l"]["k1_block"]
+        if k["name"] == "flash_attention":
+            # phase 18 (m): K2 on each rank's heads in the model-sharded
+            # prefill, 2 a rank (counted from 0 around the main path)
+            m = mesh["fsdp"]["m"]
+            k["mesh_prefill_launches_per_rank"] = m["k2_per_rank"]
+            k["mesh_prefill"] = {key: m[key] for key in (
+                "max_abs_err_per_rank", "tolerance", "ms_per_rank")}
 
     torch.cuda.empty_cache()
     phase("phase 19: the dry run (meta) and the counter, card against meta")

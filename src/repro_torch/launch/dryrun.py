@@ -41,19 +41,30 @@ rank 0 of the logical mesh (``to_logical_mesh(make_production_mesh())``,
   the collectives inside a replica among them.  The record keeps the
   reference's ``gossip_ir`` and adds ``wire_bytes_per_rank`` from the
   dry mesh's log.
-* **serving** (``prefill_32k``, ``decode_32k``, ``long_500k``): one
-  replica (the ``fsdp x model`` chips of a node) steps over the batch rows
-  ``sharding.batch_spec`` gives its node, divided evenly by its chips
-  (``"partition": "even"``).  The collectives a model-sharded prefill or
-  decode would run inside the replica are not counted (``"uncounted"``),
-  so its terms are lower bounds.
+* **prefill** (``prefill_32k``): rank 0's real step over the dry mesh,
+  as the reference's GSPMD partitions the serving step on one replica
+  (the ``fsdp x model`` chips of a node): the fsdp gather of its block
+  of the serving params (``param_specs(node_axis=False)``), then the
+  tensor-parallel forward on its model shards
+  (``steps.make_prefill_step(tp=, fsdp=)``, the experts dropless) over
+  its rows of the batch (``sharding.batch_block``: over ``(node,
+  fsdp)`` where that divides it), the collectives inside the replica
+  counted (``"wire"``: rank 0's ops and bytes by scope).
+  ``temp_bytes`` is the gathered leaves plus the pass's peak,
+  ``output_bytes`` the rank's block of the last logits, ``rank_rows``
+  its rows.
+* **decode** (``decode_32k``, ``long_500k``): one replica steps over the
+  batch rows ``sharding.batch_spec`` gives its node, divided evenly by
+  its chips (``"partition": "even"``).  The collectives a model-sharded
+  decode would run inside the replica are not counted (``"uncounted"``,
+  the decode half of ROADMAP item 18b-d), so its terms are lower bounds.
 
 ``roofline_terms`` uses the H100's constants (``launch.mesh.HW``):
 compute at the bf16 peak, memory at the HBM rate, collectives at the
 400 Gb/s network port of each card (``net_bw``).  A record whose terms
-are lower bounds (``"uncounted"``: serving) names no ``dominant`` term
+are lower bounds (``"uncounted"``: decode) names no ``dominant`` term
 (null) and keeps the largest counted one as ``dominant_counted``; a
-training record names its ``dominant`` term.  The record's ``cost``
+training or prefill record names its ``dominant`` term.  The record's ``cost``
 key takes the place of the reference's ``hlo_cost``, ``count_s`` of its
 ``lower_s`` and ``compile_s``.
 
@@ -117,26 +128,9 @@ def _rank0(mesh) -> dict:
     return {a: 0 for a in mesh.axis_names}
 
 
-def _spec_of(mesh, t: torch.Tensor, *, node_axis: bool) -> tuple:
-    """The reference's batch placement of one input: its batch dim per
-    ``sharding.batch_spec``, the rest replicated."""
-    if t.ndim == 0:
-        return ()
-    inner = sharding.batch_spec(mesh, node_axis=node_axis,
-                                batch_dim_size=t.shape[1 if node_axis
-                                                       else 0])
-    return tuple(inner) + (None,) * (t.ndim - len(inner))
-
-
 def _batch_bytes(batch: dict, mesh, *, node_axis: bool) -> int:
-    total = 0
-    for v in batch.values():
-        if isinstance(v, torch.Tensor):
-            blk = sharding.local_shard(
-                v, _spec_of(mesh, v, node_axis=node_axis), mesh,
-                _rank0(mesh))
-            total += blk.numel() * blk.element_size()
-    return total
+    return _nbytes(sharding.batch_block(batch, mesh, node_axis=node_axis,
+                                        coords=_rank0(mesh)))
 
 
 def _setup(arch: str, shape_name: str, multi_pod: bool, knobs: dict):
@@ -340,44 +334,60 @@ def build(arch: str, shape_name: str, *, multi_pod: bool,
             alias_bytes=_nbytes(blk) + state_bytes)
         return cost, meta
 
-    # serving: one replica over the rows of the batch its node holds
+    p_specs = sharding.param_specs(params, mesh, cfg=cfg, node_axis=False)
+    blk = {k: _meta(v.shape, v.dtype) for k, v in sharding.local_shard(
+        params, p_specs, mesh, coords).items()}
+    p_bytes = _nbytes(blk)
+    batch = steps.input_specs(cfg, shape_name, nodes=1)
+    in_bytes = _batch_bytes(batch, mesh, node_axis=False)
+    if kind == "prefill":
+        # rank 0's real step over the dry mesh: the fsdp gather of its
+        # block, the tensor-parallel forward on its model shards over its
+        # rows of the batch; the pass runs beside the gathered leaves
+        dry = dry_mesh(mesh, rank=0)
+        rows = sharding.batch_block(batch, mesh, node_axis=False,
+                                    coords=coords)
+        step = steps.make_prefill_step(
+            cfg, tp=TP.serving(dry, p_specs) if model_axis > 1 else None,
+            fsdp=(dry, p_specs) if fsdp > 1 else None)
+        with Cost() as cost:
+            out = step(blk, rows)
+        cost.add_wire(dry.log)
+        # rank 0's wire by scope: ops and bytes sent per "scope:kind"
+        meta["wire"] = {k: {"ops": v["ops"], "bytes": v["bytes"]}
+                        for k, v in dry.log.kinds.items()}
+        meta["memory_analysis"] = dict(
+            argument_bytes=p_bytes + in_bytes,
+            output_bytes=out.numel() * out.element_size(), alias_bytes=0)
+        meta["rank_rows"] = rows["tokens"].shape[0]
+        return cost, meta
+
+    # decode: one replica over the rows of the batch its node holds
     meta["partition"] = "even"
     if inner > 1:
         meta["uncounted"] = UNCOUNTED
-    p_specs = sharding.param_specs(params, mesh, cfg=cfg, node_axis=False)
-    p_bytes = _nbytes(sharding.local_shard(params, p_specs, mesh, coords))
-    batch = steps.input_specs(cfg, shape_name, nodes=1)
     gb = info["global_batch"]
     bspec = sharding.batch_spec(mesh, node_axis=False, batch_dim_size=gb)
     axes = bspec[0] if isinstance(bspec[0], tuple) else (bspec[0],)
     rows = gb // mesh.shape["node"] if "node" in axes else gb
     local = {k: (v[:rows] if isinstance(v, torch.Tensor) else v)
              for k, v in batch.items()}
-    in_bytes = _batch_bytes(batch, mesh, node_axis=False)
-    if kind == "prefill":
-        with Cost() as c:
-            out = steps.make_prefill_step(cfg)(M.params_view(params), local)
-        out_bytes = out.numel() * out.element_size() // inner
-        alias = 0
-        cache_bytes = 0
-    else:
-        full_cache = steps.cache_struct(cfg, shape_name)
-        c_specs = sharding.cache_specs(full_cache, mesh, gb)
-        cache_bytes = _nbytes(sharding.local_shard(full_cache, c_specs, mesh,
-                                                   coords))
-        cache = steps.cache_struct(cfg, shape_name, batch=rows)
-        with Cost() as c:
-            logits, _ = steps.make_serve_step(cfg)(M.params_view(params),
-                                                   cache, local)
-        out_bytes = (logits.numel() * logits.element_size() // inner
-                     + cache_bytes)
-        alias = cache_bytes
+    full_cache = steps.cache_struct(cfg, shape_name)
+    c_specs = sharding.cache_specs(full_cache, mesh, gb)
+    cache_bytes = _nbytes(sharding.local_shard(full_cache, c_specs, mesh,
+                                               coords))
+    cache = steps.cache_struct(cfg, shape_name, batch=rows)
+    with Cost() as c:
+        logits, _ = steps.make_serve_step(cfg)(M.params_view(params),
+                                               cache, local)
+    out_bytes = logits.numel() * logits.element_size() // inner + cache_bytes
     cost = Cost()
     cost.add(c, k=1.0 / inner)
     cost.peak_bytes = int(c.peak_bytes / inner)
     meta["memory_analysis"] = dict(argument_bytes=p_bytes + cache_bytes
                                    + in_bytes,
-                                   output_bytes=out_bytes, alias_bytes=alias)
+                                   output_bytes=out_bytes,
+                                   alias_bytes=cache_bytes)
     meta["replica_rows"] = rows
     return cost, meta
 
@@ -386,9 +396,9 @@ def roofline_terms(cost: Cost, n_chips: int, meta: dict) -> dict:
     """Three roofline terms in seconds, per chip, on the H100's constants:
     the count is per chip already (rank 0's view), so nothing is divided
     by the chip count.  ``dominant`` names the largest term; where
-    ``meta["uncounted"]`` is set the terms are lower bounds, so no term
-    is named dominant (None) and ``dominant_counted`` names the largest
-    of the counted ones."""
+    ``meta["uncounted"]`` is set (decode) the terms are lower bounds, so
+    no term is named dominant (None) and ``dominant_counted`` names the
+    largest of the counted ones."""
     t_compute = cost.flops / HW["peak_flops_bf16"]
     t_memory = cost.hbm_bytes / HW["hbm_bw"]
     t_coll = cost.total_collective_bytes / HW["net_bw"]

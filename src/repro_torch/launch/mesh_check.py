@@ -53,12 +53,24 @@ Model-sharded (tensor-parallel) training, a node's leaves over its
 (:func:`tp_cases_rank`: every case, :func:`tp_regions_rank` -- the
 region ops and the vocab-parallel CE -- :func:`tp_grads_rank` and each
 rank's share of the cases' :func:`single_run`).
+
+Model-sharded prefill, a replica's rows over its (fsdp, model) ranks:
+:func:`prefill_rank` cuts the serving params to the rank's shards
+(``sharding.local_shard``), takes its rows of the batch and runs
+``steps.make_prefill_step(tp=, fsdp=)``; :func:`prefill_cases` (every
+family, the moe family on both expert routes, one kv head, qwen3 under
+``"pallas"``) on a CPU world of 4 (:func:`prefill_cases_rank`), held
+against :func:`single_prefill`.
+
+  PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu \
+      --fsdp 2 --model 2 --prefill --arch granite-moe-3b-a800m --f32
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import os
+import resource
 import threading
 import time
 
@@ -78,7 +90,10 @@ __all__ = ["NODES", "FSDP", "WBH_SPECS", "wbh_tree", "static_rounds",
            "fsdp_cases_rank", "reduce_scatter_rank", "family_cases",
            "FAMILY_ARCHS", "case_config", "f32_start", "whole_leaves",
            "TP_MESHES", "TP_FAMILIES", "tp_cases", "tp_regions_rank",
-           "tp_grads_rank", "single_run", "tp_cases_rank", "main"]
+           "tp_grads_rank", "single_run", "tp_cases_rank", "PREFILL_MESH",
+           "PREFILL_FAMILIES", "prefill_args", "prefill_config",
+           "prefill_batch", "prefill_weights", "prefill_cases",
+           "prefill_rank", "prefill_cases_rank", "single_prefill", "main"]
 
 NODES, FSDP = 4, 2
 WBH_SPECS = {"w": ("node", "fsdp"), "b": ("node",), "h": ("node", "fsdp")}
@@ -1134,6 +1149,241 @@ def tp_cases_rank(rank: int, argv: list, ckpt_dir: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# model-sharded prefill: a replica's rows over its (fsdp, model) ranks
+# ---------------------------------------------------------------------------
+
+PREFILL_MESH = ((1, 2, 2), TRAIN_AXES)          # node 1, fsdp 2, model 2
+# (case, arch, config fields replaced, extra flags): every family at its
+# reduced config -- moe expert-parallel (E 4 over model 2) and on the ff
+# dim (E 3) -- one kv head, and qwen3 through the flash-attention kernel
+PREFILL_FAMILIES = (("dense", "qwen3-0.6b", None, []),
+                    ("dense_pallas", "qwen3-0.6b", None,
+                     ["--impl", "pallas"]),
+                    ("moe", MOE_ARCH, None, []),
+                    ("moe_e3", MOE_ARCH, {"n_experts": 3}, []),
+                    ("kv1", "granite-34b", None, []),
+                    ("ssm", "mamba2-1.3b", None, []),
+                    ("hybrid", "zamba2-1.2b", None, []),
+                    ("audio", "musicgen-large", None, []),
+                    ("vlm", "llama-3.2-vision-90b", None, []))
+
+
+def prefill_args(argv: list) -> argparse.Namespace:
+    """The flags of a model-sharded prefill case: ``--arch``, reduced
+    unless ``--full``, ``--layers``, the global ``--batch`` of ``--seq``
+    tokens, ``--seed`` (weights, tokens and images), ``--impl``
+    (``attention_impl``), ``--f32`` (f32 activations), ``--repeat``
+    (timed calls after the first), ``--device``."""
+    ap = argparse.ArgumentParser(prog="mesh_check --prefill")
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--impl", default="jnp", choices=["jnp", "pallas"])
+    ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--repeat", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def prefill_config(args, replace: dict | None = None):
+    """The model config of :func:`prefill_args` ``args`` (``replace``:
+    fields a flag cannot name)."""
+    import dataclasses
+
+    from .. import configs
+    cfg = configs.get_config(args.arch)
+    if not args.full:
+        cfg = configs.reduced_config(cfg)
+    upd = dict(replace or {}, attention_impl=args.impl)
+    if args.layers:
+        upd["n_layers"] = args.layers
+    if args.f32:
+        upd["activation_dtype"] = torch.float32
+    return dataclasses.replace(cfg, **upd)
+
+
+def prefill_batch(cfg, args) -> dict:
+    """The global batch on the CPU from ``args.seed``: ``tokens`` (B, S)
+    int64 (audio (B, S, K)), and for the vlm family ``image_embeds`` (B,
+    T, d) standard normal in f32."""
+    rng = np.random.default_rng(args.seed + 1)
+    shape = (args.batch, args.seq) + ((cfg.n_codebooks,)
+                                      if cfg.family == "audio" else ())
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                   shape))}
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.n_image_tokens, cfg.d_model)).astype(
+                np.float32))
+    return out
+
+
+def prefill_weights(cfg, seed: int, device) -> dict:
+    """``{name: tensor}`` of ``models.model.init(cfg, seed)`` on
+    ``device``: what every rank and the single-process reference draw."""
+    from ..models import model as M
+    return {k: v.detach() for k, v in
+            M.init(cfg, seed, device=device).named_parameters()}
+
+
+def prefill_cases(argv: list) -> dict:
+    """``{name: (argv, config fields replaced)}`` of the model-sharded
+    prefill cases, one a :data:`PREFILL_FAMILIES` entry."""
+    return {name: (argv + ["--arch", arch] + extra, rep)
+            for name, arch, rep, extra in PREFILL_FAMILIES}
+
+
+def prefill_rank(rank: int, argv: list, replace: dict | None = None,
+                 weights=None, shape=None) -> dict:
+    """A rank of a replica's model-sharded prefill on a (node, fsdp,
+    model) mesh of ``shape`` (default :data:`PREFILL_MESH`'s), gloo: the
+    weights cut to the rank's (fsdp, model) shards by
+    ``sharding.param_specs(node_axis=False)`` (``sharding.local_shard``),
+    its rows of :func:`prefill_batch` (``sharding.batch_block``), and
+    ``steps.make_prefill_step(tp=, fsdp=)`` on them once, the wire log
+    and the K2 / K4 launches (their counts set to 0 just before it) read
+    just after it.  Then ``--repeat`` timed calls.  ``weights``:
+    ``{name: array}`` or the path of an ``.npz`` of them (a world's
+    arguments are pickled to each rank as it starts, one after another,
+    so large ones go by file), else :func:`prefill_weights`.  Returns
+    the rank's coordinates, the global indices of its rows, its last
+    logits gathered whole over model (as numpy, f32; the gather after
+    the log is read), the wire log, the launches, the first call's and
+    the timed calls' seconds, the process's peak host memory, and on
+    the card the peak memory."""
+    from ..kernels.flash_attention import ops as fa_ops
+    from ..kernels.ssd_scan import ops as ssd_ops
+    from . import steps as steps_mod
+    from .tp import TP
+    args = prefill_args(argv)
+    cfg = prefill_config(args, replace)
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_mod.make_mesh(*(PREFILL_MESH if shape is None
+                                else (shape, TRAIN_AXES)),
+                              backend="gloo", device=dev)
+    if isinstance(weights, (str, os.PathLike)):
+        weights = dict(np.load(weights))
+    full = (prefill_weights(cfg, args.seed, dev) if weights is None
+            else {k: torch.as_tensor(v).to(dev) for k, v in weights.items()})
+    specs = sharding.param_specs(full, mesh, cfg=cfg, node_axis=False)
+    params = {k: v.contiguous() for k, v in
+              sharding.local_shard(full, specs, mesh).items()}
+    del full
+    batch = prefill_batch(cfg, args)
+    batch["rows"] = torch.arange(args.batch)
+    rows = {k: v.to(dev) for k, v in sharding.batch_block(
+        batch, mesh, node_axis=False).items()}
+    step = steps_mod.make_prefill_step(
+        cfg, tp=TP.serving(mesh, specs) if mesh.shape["model"] > 1 else None,
+        fsdp=(mesh, specs) if mesh.shape["fsdp"] > 1 else None)
+
+    def call():
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, rows)
+        if cuda:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    mesh.log.reset()
+    fa_ops.flash_attention.launches = ssd_ops.ssd_scan.launches = 0
+    logits, first = call()
+    launches = {"flash_attention": fa_ops.flash_attention.launches,
+                "ssd_scan": ssd_ops.ssd_scan.launches}
+    log = mesh.log.snapshot()
+    times = [call()[1] for _ in range(args.repeat)]
+    if logits.shape[-1] < cfg.vocab_size:        # the rank's vocab block
+        logits = mesh.all_gather(logits.contiguous(), "model", dim=-1)
+    out = {"rank": rank, "coords": dict(mesh.coords), "wire": mesh.wire,
+           "rows": rows["rows"].cpu().numpy(),
+           "logits": logits.float().cpu().numpy(), "log": log,
+           "launches": launches, "first_s": first, "step_s": times,
+           "param_elems": sum(v.numel() for v in params.values()),
+           # the process's peak resident memory on the host (Linux: KiB)
+           "host_peak_gb": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def prefill_cases_rank(rank: int, argv: list,
+                       weights: dict | None = None) -> dict:
+    """A rank of a CPU world of 4: every :func:`prefill_cases` case
+    through :func:`prefill_rank` (``weights``: ``{case: weights}`` for
+    the cases given theirs)."""
+    return {name: prefill_rank(rank, a, rep, (weights or {}).get(name))
+            for name, (a, rep) in prefill_cases(argv).items()}
+
+
+def single_prefill(argv: list, replace: dict | None = None,
+                   weights: dict | None = None):
+    """The case's prefill in this process, no mesh: the single-process
+    ``make_prefill_step`` on the whole batch with the plain attention
+    (``attention_impl="jnp"``, what the kernel's path is held against),
+    its last logits as numpy f32."""
+    import dataclasses
+
+    from . import steps as steps_mod
+    from ..models import model as M
+    args = prefill_args(argv)
+    cfg = dataclasses.replace(prefill_config(args, replace),
+                              attention_impl="jnp")
+    dev = torch.device(args.device)
+    full = (prefill_weights(cfg, args.seed, dev) if weights is None
+            else {k: torch.as_tensor(v).to(dev) for k, v in weights.items()})
+    batch = {k: v.to(dev) for k, v in prefill_batch(cfg, args).items()}
+    return steps_mod.make_prefill_step(cfg)(M.params_view(full), batch
+                                            ).float().cpu().numpy()
+
+
+def _prefill_cli_rank(rank: int, argv: list, shape) -> dict:
+    return prefill_rank(rank, argv, shape=shape)
+
+
+def prefill_cli(argv: list, device: str, fsdp: int | None,
+                model: int | None) -> None:
+    """:func:`prefill_args`' flags ``argv`` run on a replica of ``fsdp`` x
+    ``model`` spawned ranks (each extent 2 unless given), each rank's
+    rows' logits held against the single-process plain prefill within
+    2e-4 of max-abs; prints each rank's rows, seconds and launches, and
+    rank 0's wire log."""
+    if "--device" not in argv:
+        argv = list(argv) + ["--device", device]
+    shape = (1, fsdp or 2, model or 2)
+    res = mesh_mod.spawn(_prefill_cli_rank, int(np.prod(shape)),
+                         (argv, shape),
+                         threads=1 if device == "cpu" else None)
+    want = single_prefill(argv)
+    scale = float(np.abs(want).max())
+    errs = [float(np.abs(r["logits"] - want[r["rows"]]).max())
+            for r in res]
+    for r, e in zip(res, errs):
+        print(f"rank {r['rank']} {r['coords']} ({r['wire']}): rows "
+              f"{r['rows'].tolist()}, first call {r['first_s']:.3f} s, "
+              f"launches {r['launches']}, max abs diff {e:.3g}")
+    print("rank 0 wire (ops, bytes): " + str(
+        {k: (v["ops"], v["bytes"]) for k, v in res[0]["log"].items()}))
+    tol = 2e-4 * scale
+    print(f"{len(res)} ranks: " + ("every rank's logits within "
+                                   f"{tol:.3g} of the single process"
+                                   if max(errs) <= tol else
+                                   f"beyond {tol:.3g}: {errs}"))
+    if max(errs) > tol:
+        raise SystemExit(1)
+
+
 ROUNDTRIP_SPECS = {"w": ("node", "fsdp"), "b": (("node", "fsdp"),),
                    "h": ("node", None, "fsdp")}
 
@@ -1170,13 +1420,16 @@ def world_rank(rank: int, argv: list) -> dict:
 
 
 def _train_entry(rank, runs, outq, goqs, tokens, runtime, shape, axes,
-                 every2, f32):
-    out = {"runs": [train_rank(rank, argv, outq if held else None,
-                               goqs[rank], f32=f32,
-                               tokens=tokens if toks is None else toks,
-                               keep=False, tag=i, shape=shp or shape,
-                               axes=axes)
-                    for i, (argv, held, shp, toks) in enumerate(runs)]}
+                 every2, f32, prefill=None):
+    out = {"runs": []}
+    for i, (argv, held, shp, toks) in enumerate(runs):
+        if prefill is not None and i == prefill[1]:
+            out["prefill"] = prefill_rank(rank, prefill[0],
+                                          shape=prefill[2])
+        out["runs"].append(train_rank(
+            rank, argv, outq if held else None, goqs[rank], f32=f32,
+            tokens=tokens if toks is None else toks, keep=False, tag=i,
+            shape=shp or shape, axes=axes))
     if every2 is not None:
         out["every2"] = every2_logs(every2, shape, axes, f32=f32,
                                     tokens=tokens)
@@ -1189,7 +1442,8 @@ def _train_entry(rank, runs, outq, goqs, tokens, runtime, shape, axes,
 
 def train_world(runs: list, tokens=None, timeout: float = 900.0,
                 runtime: bool = False, shape=None, axes=("node",),
-                every2: list | None = None, f32: bool = False):
+                every2: list | None = None, f32: bool = False,
+                prefill: tuple | None = None):
     """Each ``(argv, reference)`` of ``runs`` in turn on one world sharing
     the card -- on a mesh of ``shape`` on ``axes``, by default a node mesh
     of ``--nodes`` ranks; where ``reference`` (the single-process run's
@@ -1205,7 +1459,10 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
     tokens.  ``runtime``: then :func:`gathered_runtime_rank` on a
     (node 2, fsdp 2) mesh of the same ranks; ``every2`` (an argv): then
     :func:`every2_logs` of it on the same mesh (``"every2"``); ``f32``:
-    every run with f32 activations (:func:`f32_start`).  ``runs`` is
+    every run with f32 activations (:func:`f32_start`); ``prefill``, an
+    ``(argv, index, mesh shape)``: :func:`prefill_rank` of ``argv`` on
+    that (node, fsdp, model) mesh of the same ranks before the run at
+    ``index`` (``"prefill"``).  ``runs`` is
     emptied: the references are this function's, each let go once the
     last run compared against it is compared, so that where the caller
     keeps no other hold on them the later runs run without them (on the
@@ -1291,7 +1548,7 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
     try:
         res = mesh_mod.spawn(_train_entry, world,
                              (held, outq, goqs, tokens, runtime, shape,
-                              axes, every2, f32), timeout=timeout,
+                              axes, every2, f32, prefill), timeout=timeout,
                              threads=1 if args.device == "cpu" else None)
     finally:
         th.join(timeout=60)
@@ -1339,11 +1596,17 @@ def main(argv=None) -> None:
     ap.add_argument("--fsdp", type=int, default=None,
                     help=f"the fsdp extent (4 nodes x fsdp ranks, default "
                          f"{FSDP}; NCCL needs that many cards); with "
-                         "--train, train on a (node, fsdp, model) mesh")
+                         "--train, train on a (node, fsdp, model) mesh; "
+                         "with --prefill, the replica's fsdp extent")
     ap.add_argument("--model", type=int, default=None,
                     help="with --train: the model extent of a (node, fsdp, "
-                         "model) mesh (tensor-parallel training)")
+                         "model) mesh (tensor-parallel training); with "
+                         "--prefill, the replica's model extent")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefill", nargs=argparse.REMAINDER, default=None,
+                    help="instead: the rest of the line is a prefill "
+                         "case's flags (prefill_args), run on a replica of "
+                         "--fsdp x --model ranks (each 2 unless given)")
     ap.add_argument("--train", nargs=argparse.REMAINDER, default=None,
                     help="instead: the rest of the line is launch.train's "
                          "flags, run on a (node) mesh of --nodes spawned "
@@ -1355,6 +1618,9 @@ def main(argv=None) -> None:
         raise RuntimeError("--device cuda needs a card; use --device cpu")
     if args.train is not None:
         train_cli(args.train, args.device, args.fsdp, args.model)
+        return
+    if args.prefill is not None:
+        prefill_cli(args.prefill, args.device, args.fsdp, args.model)
         return
     fsdp = FSDP if args.fsdp is None else args.fsdp
     shape = (NODES, fsdp)

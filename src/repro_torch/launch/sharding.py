@@ -65,7 +65,8 @@ from .mesh import Mesh
 
 Tree = Any
 
-__all__ = ["param_specs", "batch_spec", "cache_specs", "axis_size",
+__all__ = ["param_specs", "batch_spec", "input_spec", "batch_block",
+           "cache_specs", "axis_size",
            "gossip_payload_spec_fn", "local_shard", "gather", "map_specs",
            "node_param_specs", "axis_dim", "fsdp_dim", "inner_only",
            "gather_axis", "fsdp_gather", "fsdp_reduce_scatter_mean"]
@@ -294,6 +295,31 @@ def batch_spec(mesh: Mesh, *, node_axis: bool = True,
     if batch_dim_size and _fits(batch_dim_size, nd):
         return ("node",)
     return (None,)
+
+
+def input_spec(mesh: Mesh, t: torch.Tensor, *, node_axis: bool = True
+               ) -> tuple:
+    """The reference's placement of one step input: its batch dim (dim 1
+    of a node-stacked input, else dim 0) by :func:`batch_spec`, the rest
+    replicated; a 0-d input is replicated."""
+    if t.ndim == 0:
+        return ()
+    inner = batch_spec(mesh, node_axis=node_axis,
+                       batch_dim_size=t.shape[1 if node_axis else 0])
+    return tuple(inner) + (None,) * (t.ndim - len(inner))
+
+
+def batch_block(batch: dict, mesh: Mesh, *, node_axis: bool = True,
+                coords: dict | None = None) -> dict:
+    """A rank's block of each tensor input of ``batch`` (another rank's at
+    ``coords``) by :func:`input_spec`: for serving (``node_axis=False``)
+    its rows of the global batch -- over ``("node", "fsdp")`` where
+    their extents divide it, else over ``node`` (replicated over fsdp),
+    else every row -- replicated over ``model``.  Other values pass."""
+    return {k: (local_shard(v, input_spec(mesh, v, node_axis=node_axis),
+                            mesh, coords)
+                if isinstance(v, torch.Tensor) else v)
+            for k, v in batch.items()}
 
 
 def cache_specs(cache: Tree, mesh: Mesh, batch: int) -> Tree:

@@ -16,6 +16,10 @@ Input shapes (the reference's):
                (ssm and hybrid natively; the attention families take the
                ``LONG_WINDOW`` sliding-window override)
 
+``make_prefill_step(tp=, fsdp=)`` is also a replica's model-sharded
+prefill (a rank's serving shards and rows), which the dry run's
+``prefill_32k`` records count.
+
 Where the reference's ``input_specs`` returns ``ShapeDtypeStruct``
 stand-ins, the port's returns tensors on the ``meta`` device (shapes and
 dtypes, nothing allocated), which the step functions run on directly.
@@ -351,14 +355,53 @@ def overlap_ms(marks) -> tuple[float, float]:
     return d - b, max(0.0, min(d, ge) - max(b, gb))
 
 
-def make_prefill_step(cfg: M.ModelConfig):
+def make_prefill_step(cfg: M.ModelConfig, *, tp=None, fsdp=None):
     """``prefill_step(params, batch)`` -> the last position's logits (B, V)
-    (audio: (B, K, V)): the train/eval forward over ``batch["tokens"]``
-    (and the vlm family's ``batch["image_embeds"]``), as the reference's
-    serving prefill."""
+    (audio: (B, K, V)): the forward, without a gradient, over
+    ``batch["tokens"]`` (and the vlm family's ``batch["image_embeds"]``),
+    as the reference's serving prefill; its [attn + ffn] layers attend
+    through the flash-attention kernel where ``cfg.attention_impl`` is
+    ``"pallas"`` (the reference's forward reads it), through the plain
+    attention otherwise.  ``params`` is a ``Model``, a
+    :func:`~repro_torch.models.model.params_view`, or (with ``tp`` or
+    ``fsdp``) a ``{name: tensor}`` dict.
+
+    A replica's model-sharded prefill: a rank of a replica's ``fsdp x
+    model`` ranks passes its ``(fsdp, model)`` shards of the params
+    (``sharding.local_shard`` by ``param_specs(node_axis=False)`` at the
+    global shapes) and its rows of the batch
+    (``sharding.batch_block(node_axis=False)``).  ``fsdp``, a ``(mesh,
+    specs)`` pair (a mesh whose fsdp extent is above 1 and those specs),
+    gathers the shards over the fsdp line first -- one ``all_gather`` a
+    dtype group (``sharding.fsdp_gather``), recorded in the wire log's
+    scope ``"fsdp"``; ``tp`` (:meth:`TP.serving
+    <repro_torch.launch.tp.TP.serving>` of the same specs, over a mesh
+    whose model extent is above 1) binds the model shards and runs the
+    tensor-parallel forward (collectives in the scope ``"model"``).  The
+    logits are then the rank's block of the vocabulary where the head
+    cuts it (``models.model.logits_cut``), else whole."""
+    kernel = cfg.attention_impl == "pallas"
+
     def prefill_step(params, batch):
-        logits, _ = M.forward(params, cfg, batch["tokens"],
-                              image_embeds=batch.get("image_embeds"))
+        with torch.no_grad():
+            if fsdp is not None:
+                # a replica's leaves as a node row (a leading axis of 1,
+                # which the packed gather reads), then back
+                mesh, specs = fsdp
+                with mesh.log.scope("fsdp"):
+                    row = sharding.fsdp_gather(
+                        {k: v[None] for k, v in params.items()},
+                        {k: (None,) + tuple(s) for k, s in specs.items()},
+                        mesh)
+                params = {k: v[0] for k, v in row.items()}
+            bound = None
+            if tp is not None:
+                bound, params = tp.bind(params)
+            if isinstance(params, dict):
+                params = M.params_view(params)
+            logits, _ = M.forward(params, cfg, batch["tokens"],
+                                  image_embeds=batch.get("image_embeds"),
+                                  tp=bound, attn_kernel=kernel)
         return logits[:, -1]
     return prefill_step
 

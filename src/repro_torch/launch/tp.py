@@ -1,5 +1,5 @@
-"""Tensor-parallel training over a mesh's ``model`` line: the port's
-counterpart of the collectives GSPMD inserts inside a replica.
+"""Tensor-parallel training and prefill over a mesh's ``model`` line: the
+port's counterpart of the collectives GSPMD inserts inside a replica.
 
 The reference trains on a ``("node", "fsdp", "model")`` mesh with its
 parameters laid out by the sharding rules (``launch/sharding.py``) and
@@ -48,6 +48,11 @@ logits whose vocabulary is cut over ``model``: a ``pmax`` of the detached
 local row maxima, then one ``psum`` of the local sums of exponentials
 and of the masked label logits, stacked (the reference's iota == label
 masked sum, ``repro/launch/steps.py: train_loss_fn``).
+
+The model-sharded prefill (``steps.make_prefill_step(tp=)``) runs the
+same forward, without a gradient, on a replica's serving shards
+(``sharding.param_specs(node_axis=False)``, read through
+:meth:`TP.serving`).
 
 Every op is recorded in the mesh's wire log under the scope ``"model"``
 (``"model:psum"``, ``"model:all_gather"``, ``"model:pmax"``).  A dry mesh
@@ -148,7 +153,8 @@ class TP:
     """A mesh's ``model`` line and the model cut of a node's leaves.
 
     ``specs`` are :func:`~repro_torch.launch.sharding.node_param_specs`
-    (node-stacked, at the global shapes); ``dims`` maps each leaf name to
+    (node-stacked, at the global shapes; serving specs through
+    :meth:`serving`); ``dims`` maps each leaf name to
     the dim of a node's leaf cut over model (None: replicated over it).
     :meth:`bind` ties the names to one pass's leaf tensors, so the layers
     ask :meth:`dim` of the tensors they are handed."""
@@ -158,6 +164,14 @@ class TP:
         self.size = mesh.axis_size(AXIS)
         self.dims = {k: model_dim(s) for k, s in specs.items()}
         self._ids: dict = {}
+
+    @classmethod
+    def serving(cls, mesh, specs: dict) -> "TP":
+        """A TP over a replica's serving specs
+        (``sharding.param_specs(node_axis=False)``, at the global shapes):
+        specs with no node axis, which :func:`model_dim` would read one
+        dim off, so each is given a replicated leading dim first."""
+        return cls(mesh, {k: (None,) + tuple(s) for k, s in specs.items()})
 
     @property
     def rank(self) -> int:

@@ -61,7 +61,8 @@ flash-attention kernel.  The ssm and hybrid ``forward`` read
 ``cfg.attention_impl`` as the reference does: "pallas" runs the
 forward-only SSD-scan kernel (and, in the hybrid shared block, the
 flash-attention kernel), anything else the plain chunked scan and
-attention.
+attention; ``forward(attn_kernel=True)`` runs the [attn + ffn] layers'
+attention through the kernel too (the prefill step under "pallas").
 
 The moe family's FFN is :func:`repro_torch.models.moe.moe_apply`:
 ``forward`` and ``forward_prefill`` dispatch as ``cfg.moe_dropless`` says
@@ -147,9 +148,11 @@ class ModelConfig:
     # does: "pallas" runs the SSD-scan kernel (and in the hybrid shared
     # block the flash-attention kernel; both forward only), anything else
     # the plain chunked scan and attention that autograd differentiates.
-    # The dense forward ignores it: the train forward always takes the
-    # plain attention (the reference's default "jnp"), serving prefill the
-    # kernel.  Each kernel wrapper dispatches on the tensors' device.
+    # The dense forward's train path ignores it and takes the plain
+    # attention (the reference's default "jnp"); the prefill step
+    # (launch/steps.py) reads it, as the reference's forward does, and
+    # forward_prefill (the engine) always takes the kernel.  Each kernel
+    # wrapper dispatches on the tensors' device.
     attention_impl: str = "jnp"
     remat: bool = True
     attention_override_window: int | None = None
@@ -410,19 +413,22 @@ def _cross_block(cfg: ModelConfig, p: CrossLayer, x, img, tp=None):
 
 
 def _dense_block(cfg: ModelConfig, p: DenseLayer, x, positions, layer: int,
-                 aux, prefill=False, tp=None, route=None):
+                 aux, prefill=False, tp=None, route=None, kernel=False):
     """One [attn + ffn] layer -> (x, aux plus the layer's load-balance loss,
     kv).  With ``prefill`` (serving)
     the attention kernel runs and kv is the layer's (k, v); otherwise
     (train/eval) the plain attention, which autograd differentiates, and kv
-    is None.  The experts dispatch as ``cfg.moe_dropless`` says."""
+    is None -- or, with ``kernel`` (the prefill step under
+    ``attention_impl="pallas"``), the kernel.  The experts dispatch as
+    ``cfg.moe_dropless`` says."""
     h = rms_norm(p.ln1.scale, x, cfg.norm_eps)
     out = attn.attn_apply(
         p.attn, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, positions=positions,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
         window=_effective_window(cfg, layer), attn_cap=cfg.attn_softcap,
-        return_kv=prefill, kernel=prefill, gqa_layout=cfg.gqa_layout,
+        return_kv=prefill, kernel=prefill or kernel,
+        gqa_layout=cfg.gqa_layout,
         tp=tp)
     h, kv = (out[0], out[1:]) if prefill else (out, None)
     x = x + h
@@ -549,7 +555,7 @@ def _default_positions(cfg: ModelConfig, tokens):
 
 
 def forward(params: Model, cfg: ModelConfig, tokens, *, image_embeds=None,
-            positions=None, tp=None, route=None):
+            positions=None, tp=None, route=None, attn_kernel=False):
     """Train / eval forward.  tokens: (B, S) int (audio: (B, S, K)).
     Returns logits (B, S, V) (audio: (B, S, K, V)) and the f32 scalar aux
     loss: the moe layers' load-balance losses summed (zero for the other
@@ -561,9 +567,15 @@ def forward(params: Model, cfg: ModelConfig, tokens, *, image_embeds=None,
     (:func:`logits_cut`), else whole.  ``route`` (a
     :class:`~repro_torch.launch.moe_group.MoeGroup`): the tokens are the
     rank's share of a moe routing group spread over fsdp ranks, and the
-    experts' capacity routing is the group's (``models/moe.py``)."""
+    experts' capacity routing is the group's (``models/moe.py``).
+    ``attn_kernel``: the [attn + ffn] layers' attention through the
+    forward-only flash-attention kernel, whose causal mask assumes the
+    default positions (the prefill step under ``attention_impl=
+    "pallas"``, as the reference's forward reads it); by default the
+    plain attention, which autograd differentiates."""
     return _forward(params, cfg, tokens, positions, prefill=False,
-                    image_embeds=image_embeds, tp=tp, route=route)
+                    image_embeds=image_embeds, tp=tp, route=route,
+                    attn_kernel=attn_kernel)
 
 
 def _head(params, cfg: ModelConfig):
@@ -594,7 +606,7 @@ def forward_prefill(params: Model, cfg: ModelConfig, tokens, *,
 
 
 def _forward(params, cfg, tokens, positions, prefill, image_embeds=None,
-             tp=None, route=None):
+             tp=None, route=None, attn_kernel=False):
     _check_family(cfg)
     if cfg.family == "vlm":
         if image_embeds is None:
@@ -623,7 +635,7 @@ def _forward(params, cfg, tokens, positions, prefill, image_embeds=None,
             continue
         if cfg.family in _ATTN_FAMILIES:
             x, aux, _ = run(_dense_block, cfg, layer, x, positions, i, aux,
-                            False, tp, route)
+                            False, tp, route, attn_kernel)
         else:
             x = run(_mamba_block, cfg, layer, x, tp)
         if cfg.family == "vlm" and (i + 1) % n_self == 0:

@@ -12,7 +12,9 @@ Mirrors the JAX package's ``models/moe.py``; its two dispatch modes:
   outputs in f32 over the expert axis, as one more batched product
   ``(T, E) x (E, T, d) -> (T, d)``: a few dozen launches a layer where a
   Python loop over 40 experts would take ~500.  Its transient is
-  (E, T, f) and (E, T, d).
+  (E, T, f) and (E, T, d).  On model shards (``tp=``, the model-sharded
+  prefill) it takes :func:`_moe_capacity`'s two routes
+  (:func:`_moe_dropless`).
 
 * ``dropless=False`` (the train loss): the GShard/Switch sort-based
   dispatch with a fixed per-expert ``capacity``; overflow tokens are
@@ -95,18 +97,36 @@ def _swiglu(p: MoE, xe: torch.Tensor, dt) -> torch.Tensor:
 
 
 def _moe_dropless(p: MoE, xf: torch.Tensor, dt, *, n_experts: int,
-                  top_k: int):
-    """The exact per-token mixture: (T, d) -> (T, d) f32, and the aux loss."""
+                  top_k: int, tp=None):
+    """The exact per-token mixture: (T, d) -> (T, d) f32, and the aux loss.
+
+    ``tp`` (a bound :class:`~repro_torch.launch.tp.TP`): the rank's model
+    shards of the experts, by the route their layout takes.  Experts cut
+    over model (expert-parallel: E divides the model extent, dbrx's 16
+    at model 16) run the rank's El experts' swiglu on every token and
+    combine with its El columns of the (T, E) combine weights; experts
+    cut on the ff dim (E does not divide it: granite-moe's 40 at model
+    16), ``w_gate`` / ``w_up`` column-parallel and ``w_down``
+    row-parallel, run every expert on the rank's ff slice, and the gated
+    sum runs over the partial outputs.  Either way the router runs
+    replicated on the replicated activations, x and the combine weights
+    enter through ``copy_to`` (each rank's gradient of them is partial),
+    and the f32 partial sums meet in one ``reduce_from``."""
     T = xf.shape[0]
     gate_vals, expert_idx, aux = _route(p, xf, n_experts, top_k)
     # (T, E) combine weights: each expert's gate mass for each token
     combine = torch.zeros((T, n_experts), dtype=torch.float32,
                           device=xf.device).scatter_add(1, expert_idx,
                                                         gate_vals)
+    if tp is not None:
+        xf, combine = tp.copy_to(xf), tp.copy_to(combine)
+        if tp.dim(p.w_gate) == 0:                     # expert-parallel
+            El = p.w_gate.shape[0]
+            combine = combine[:, tp.rank * El:(tp.rank + 1) * El]
     ye = _swiglu(p, xf, dt)                                  # (E, T, d)
     # the gated sum over experts in f32, with no (E, T, d) product tensor
     y = torch.einsum("te,etd->td", combine, ye.float())
-    return y, aux
+    return (y if tp is None else tp.reduce_from(y)), aux
 
 
 def _capacity(A: int, capacity_factor: float, n_experts: int) -> int:
@@ -256,19 +276,20 @@ def moe_apply(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux loss (f32 scalar)).
     ``dropless=True`` is the batch-invariant serving path,
     ``dropless=False`` the capacity-bounded training path; ``tp`` (the
-    rank's model shards) and ``route`` (the rank's routing group over
-    fsdp) take the training path only (:func:`_moe_capacity`)."""
+    rank's model shards) takes either (:func:`_moe_dropless`,
+    :func:`_moe_capacity`), ``route`` (the rank's routing group over
+    fsdp) the training path only: a serving batch has no routing
+    group."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     if tp is not None and tp.dim(p.w_gate) is None:
         tp = None                        # experts whole on every rank
     if dropless:
-        if tp is not None or route is not None:
-            raise ValueError("the experts train on model shards or over a "
-                             "routing group with the capacity dispatch "
-                             "(dropless=False)")
+        if route is not None:
+            raise ValueError("the experts route over a routing group with "
+                             "the capacity dispatch (dropless=False)")
         y, aux = _moe_dropless(p, xf, x.dtype, n_experts=n_experts,
-                               top_k=top_k)
+                               top_k=top_k, tp=tp)
     else:
         y, aux = _moe_capacity(p, xf, x.dtype, n_experts=n_experts,
                                top_k=top_k, capacity_factor=capacity_factor,

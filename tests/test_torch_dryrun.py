@@ -26,6 +26,11 @@
   collectives in the pass.
 * n_params equals the reference's for all 10 archs, and the roofline
   suite's active parameters equal the reference's ``_active_params``.
+* ``prefill_32k`` records count rank 0's model-sharded step (qwen3 and
+  deepseek-67b on one pod: the replica's collectives, a dominant term,
+  the flops between the even split's and the unsharded pass's), and the
+  dropless experts take each route on model shards (dbrx-132b
+  expert-parallel, granite-moe on the ff cut).
 """
 import json
 
@@ -44,6 +49,8 @@ from repro_torch.core import flatbuf, gossip, topology as TT
 from repro_torch.core.plan import GossipPlan
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import mesh as MM
+from repro_torch.launch import sharding as TS, steps as TSteps
+from repro_torch.launch.cost import Cost
 from repro_torch.models import model as TM
 from test_torch_arch_smoke import ARCH_IDS
 
@@ -149,9 +156,13 @@ def test_dryrun_cli(tmp_path, capsys, monkeypatch, arch, shape, mesh, tag):
 def test_layout_knobs_move_the_count(tmp_path, capsys):
     """qwen3 ``prefill_32k`` on one pod moves with the two layout knobs
     as the reference's count does: ``gqa_layout=flat`` counts more bytes
-    and a higher peak, ``broadcast_positions=1`` a lower peak; the flops
-    stay (within 1e-4: one positions row leaves B - 1 rows of rope
-    angles uncomputed); each record names its knob."""
+    and a higher peak and the same flops, ``broadcast_positions=1`` a
+    lower peak and fewer flops by exactly the work of the B - 1 rows it
+    leaves uncomputed -- the causal mask's compare and the rope angles,
+    which rank 0 computes whole for its heads' rows (since the prefill
+    record counts rank 0's model-sharded step; an even split of the
+    replica's step kept that saving under 1e-4 of the flops); each
+    record names its knob and its dominant term."""
     recs = {}
     for tag, knobs in (("base", {}), ("flat", {"gqa_layout": "flat"}),
                        ("bcast", {"broadcast_positions": 1})):
@@ -167,16 +178,22 @@ def test_layout_knobs_move_the_count(tmp_path, capsys):
     assert flat["cost"]["hbm_bytes"] > base["cost"]["hbm_bytes"]
     assert temp(flat) > temp(base)
     assert temp(bcast) < temp(base)
-    for r in (flat, bcast):
-        assert abs(r["cost"]["flops"] - base["cost"]["flops"]) <= \
-            1e-4 * base["cost"]["flops"]
+    assert abs(flat["cost"]["flops"] - base["cost"]["flops"]) <= \
+        1e-4 * base["cost"]["flops"]
     assert flat["cost"]["flops"] == base["cost"]["flops"]
-    # a record of lower bounds names no dominant term
-    assert base["roofline"]["dominant"] is None
-    assert base["roofline"]["dominant_counted"] == "memory"
+    # one positions row: per layer the (B, S, S) mask compare shrinks to
+    # (1, S, S), and each of the q and k rope calls casts, multiplies and
+    # takes cos and sin of S * hd / 2 angles a row for one row, not B
+    L, B, S, hd = 28, 2, 32768, 128
+    assert base["rank_rows"] == B
+    assert base["cost"]["flops"] - bcast["cost"]["flops"] == \
+        L * (B - 1) * (S * S + S * (3 * hd + 2))
+    # a record that counts rank 0's step names its dominant term
+    assert base["roofline"]["dominant"] == "memory"
+    assert "dominant_counted" not in base["roofline"]
     D.main(["--arch", "qwen3-0.6b", "--shape", "prefill_32k", "--mesh",
             "1pod", "--knob", "gqa_layout=flat", "--out", str(tmp_path)])
-    assert "dominant=memory (lower bound)" in capsys.readouterr().out
+    assert "dominant=memory\n" in capsys.readouterr().out
 
 
 def test_n_params_and_active_params_match_the_reference():
@@ -265,3 +282,95 @@ def test_dry_routing_group_counts_its_collectives():
         "all-gather": 3 * L, "all-reduce": 2 * L, "reduce-scatter": 2 * L}
     alone, _ = D._grad_pass(cfg, params, tokens, None, None, dry, {})
     assert not any(alone.collective_counts.values())
+
+
+# the prefill records' flops a chip while a replica's step was split
+# evenly over its fsdp x model chips (before the model-sharded prefill),
+# one pod
+PREFILL_EVEN_FLOPS = {"qwen3-0.6b": 36_100_484_457_120,
+                      "deepseek-67b": 969_114_516_386_234}
+
+
+def _unsharded_pass(arch: str, rows: int):
+    """The count of the record's prefill step on ``rows`` rows in one
+    process: every leaf whole, nothing cut."""
+    cfg = D._setup(arch, "prefill_32k", False, {})[0]
+    params = {k: v.detach() for k, v in
+              TM.init(cfg, device="meta").named_parameters()}
+    batch = {k: v[:rows] for k, v in
+             TSteps.input_specs(cfg, "prefill_32k").items()}
+    with Cost() as c:
+        TSteps.make_prefill_step(cfg)(TM.params_view(params), batch)
+    return c
+
+
+def test_model_sharded_prefill_record_counts_the_replica(tmp_path):
+    """qwen3 (16 nodes x fsdp 1 x model 16) and deepseek-67b (4 x 4 x
+    16) ``prefill_32k`` on one pod: the record counts rank 0's step --
+    the fsdp gather, the tensor-parallel forward over its 2 rows (the
+    batch of 32 over node x fsdp) -- with the collectives inside the
+    replica, no even split and nothing left uncounted, and names its
+    dominant term.  A chip's flops lie between the even split's count
+    and the whole pass of its rows counted unsharded.  qwen3's model
+    ops: k and v gathered in each of 28 layers (8 kv heads do not
+    divide 16) and a psum each for ``wo`` and ``w_down`` (row-parallel)
+    and the vocab-parallel embedding.  deepseek gathers its fsdp shards
+    in one all-gather (one dtype), whose bytes are rank 0's block of the
+    leaves cut over fsdp, and its peak holds the gathered leaves."""
+    for arch in PREFILL_EVEN_FLOPS:
+        rec = D.run_one(arch, "prefill_32k", multi_pod=False,
+                        out_dir=str(tmp_path), verbose=False)
+        assert rec["ok"] and rec["rank_rows"] == 2
+        assert "uncounted" not in rec and "partition" not in rec
+        assert rec["roofline"]["dominant"] in ("compute", "memory",
+                                               "collective")
+        assert "dominant_counted" not in rec["roofline"]
+        whole = _unsharded_pass(arch, 2)
+        assert PREFILL_EVEN_FLOPS[arch] < rec["cost"]["flops"] < \
+            whole.flops, arch
+        if arch == "qwen3-0.6b":
+            L, S, d = 28, 32768, 1024
+            assert (rec["fsdp"], rec["model_axis"]) == (1, 16)
+            assert {k: v["ops"] for k, v in rec["wire"].items()} == {
+                "model:all_gather": 2 * L, "model:psum": 2 * L + 1}
+            # each psum sums the rows' (2, S, d) activations: a layer's
+            # two in bf16, the embedding's rows in the params' f32
+            assert rec["wire"]["model:psum"]["bytes"] == \
+                2 * L * 2 * S * d * 2 + 2 * S * d * 4
+            assert rec["cost"]["collective_counts"] == {
+                "all-gather": 2 * L, "all-reduce": 2 * L + 1}
+            continue
+        cfg, _, mesh, _, fsdp, _ = D._setup(arch, "prefill_32k", False, {})
+        params = {k: v.detach() for k, v in
+                  TM.init(cfg, device="meta").named_parameters()}
+        specs = TS.param_specs(params, mesh, cfg=cfg, node_axis=False)
+        blk = TS.local_shard(params, specs, mesh,
+                             {a: 0 for a in mesh.axis_names})
+        cut = sum(v.numel() * v.element_size() for k, v in blk.items()
+                  if TS.fsdp_dim(specs[k]) is not None)
+        assert fsdp == 4 and rec["wire"]["fsdp:all_gather"] == {
+            "ops": 1, "bytes": cut}
+        assert rec["memory_analysis"]["temp_bytes"] > fsdp * cut
+
+
+def test_dropless_moe_prefill_records_take_each_route(tmp_path):
+    """The moe prefill on model shards, one pod, model 16, its experts
+    dropless: dbrx-132b's 16 experts divide 16 (expert-parallel: the
+    expert leaves cut on E), granite-moe's 40 do not (their ff dim cut);
+    both records count rank 0's step and name a dominant term, and each
+    layer's experts end in one psum beside ``wo``'s, plus one for the
+    vocab-parallel embedding (dbrx) or the head cut on d (granite-moe's
+    49,155-token vocabulary does not divide 16)."""
+    for arch, cut, layers in (("dbrx-132b", 0, 40),
+                              ("granite-moe-3b-a800m", 2, 32)):
+        cfg, _, mesh, _, _, _ = D._setup(arch, "prefill_32k", False, {})
+        params = {k: v.detach() for k, v in
+                  TM.init(cfg, device="meta").named_parameters()}
+        specs = TS.param_specs(params, mesh, cfg=cfg, node_axis=False)
+        assert TS.axis_dim(specs["layers.0.moe.w_gate"], "model") == cut
+        rec = D.run_one(arch, "prefill_32k", multi_pod=False,
+                        out_dir=str(tmp_path), verbose=False)
+        assert rec["ok"] and "uncounted" not in rec
+        assert rec["roofline"]["dominant"] in ("compute", "memory",
+                                               "collective")
+        assert rec["wire"]["model:psum"]["ops"] == 2 * layers + 1, arch
