@@ -348,7 +348,21 @@ Phases, in order; any failure exits non-zero before the result lines:
                  step with the plain attention (its reference released
                  once compared); per rank the median of 3 prefills, the
                  fsdp and model scopes' ops, bytes and ms, the peak on
-                 the card and the host; (l) in the same world,
+                 the card and the host; (n) in the same world, after
+                 (m), a replica's model-sharded decode
+                 (mesh_check.decode_rank: steps.make_serve_step(tp=,
+                 fsdp=)), each rank on its shards of the weights and of
+                 the cache (sharding.cache_specs), cut from .npy files it
+                 maps, 2 of 8 rows, f32: (n1) qwen3-0.6b at full width,
+                 2 layers, a 256-slot ring filled by the single-process
+                 prefill_cache, 4 steps that wrap it, the kv heads cut;
+                 (n2) granite-34b at full width, 1 layer, 2 steps, its
+                 one kv head on the head-dim cut; every step's logits
+                 gathered over model and the final cache shard within
+                 2e-4 of max-abs of the single-process decode, the wire
+                 ops a step as reckoned, no kernel launched; per rank
+                 the median ms of a step, the fsdp and model ops' count,
+                 bytes and ms, the peak on the card; (l) in the same world,
                  the moe family's rows split over fsdp: full-width
                  granite-moe-3b-a800m cut to 2 layers on (node 2, fsdp
                  4, model 1), a batch of 4 a node, one row a rank, its
@@ -366,7 +380,8 @@ Phases, in order; any failure exits non-zero before the result lines:
                  whole matrix, 10 archs x 4 shapes x both meshes, counted
                  on the meta device in worker processes: every record ok,
                  the card's max_memory_allocated unmoved, make_experiments'
-                 two tables printed, each prefill_32k record rank 0's
+                 two tables printed, each prefill_32k and each of the
+                 40 decode_32k / long_500k records rank 0's
                  model-sharded step (nothing uncounted) with its dominant
                  term and collectives printed; (b) phase 6's train step
                  counted by launch.cost.Cost on the card (K1 launched)
@@ -459,6 +474,15 @@ DENSE_DECODE_STEPS = 4       # decode steps after the two prefills
 HYB_B, HYB_S = 2, 2048       # the forward
 HYB_DECODE = (2, 64)         # decode against forward
 HYB_GEN = (4, 64, 32)        # generate
+
+
+def _smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def log(msg: str) -> None:
@@ -3525,6 +3549,30 @@ PREFILL_M_ARGV = ["--arch", "qwen3-0.6b", "--full", "--layers", "2",
                   "--f32", "--repeat", "3", "--device", "cuda"]
 PREFILL_M_LAUNCHES = {"flash_attention": 2, "ssd_scan": 0}
 
+# (n): the model-sharded decode, f32 activations, 8 rows on (node 2, fsdp
+# 2, model 2), 2 rows a rank: (n1) qwen3-0.6b at full width cut to 2
+# layers, a 256-slot ring filled by the single-process prefill_cache on a
+# 254-token prompt, 4 steps at positions 254-257 (the ring wraps), its 8
+# kv heads cut (4 a rank); (n2) granite-34b at full width, 1 layer, a
+# 64-slot ring drawn from the seed, 2 steps at 63-64: its one kv head,
+# the head dim cut (64 of 128 a rank).  (n1) times a step after them.
+DECODE_N_ARGV = {
+    "n1": ["--arch", "qwen3-0.6b", "--full", "--layers", "2", "--batch", "8",
+           "--cache-len", "256", "--prompt", "254", "--steps", "4", "--f32",
+           "--repeat", "1", "--device", "cuda"],
+    "n2": ["--arch", "granite-34b", "--full", "--layers", "1", "--batch",
+           "8", "--cache-len", "64", "--start", "63", "--steps", "2",
+           "--f32", "--device", "cuda"]}
+# the wire ops a step a rank, reckoned from the cuts: one fsdp all_gather
+# of the rank's shards; (n1) psums for the vocab-parallel embedding and
+# each layer's row-parallel wo (a 2-layer MLP stack divides model 2 and
+# stays whole); (n2) psums for the embedding, wo, the partial logits and
+# w_down (one layer: the MLP cut on ff), all_gathers of q, k, v and the
+# output's head-dim block
+DECODE_N_WIRE = {"n1": {"fsdp:all_gather": 1, "model:psum": 1 + 2},
+                 "n2": {"fsdp:all_gather": 1, "model:psum": 4,
+                        "model:all_gather": 4}}
+
 
 def _wire_rows(log: dict) -> dict:
     """A wire log per kind: (ops, bytes, s, staging share of the s)."""
@@ -3703,6 +3751,25 @@ def _sharded_legs(torch, seed, d_peaks):
         ref_m = MC.single_prefill(prefill_m)
         torch.cuda.empty_cache()
         t_ref_m = time.perf_counter() - t_ref_m
+        # (n)'s references: each case's weights drawn on the card, its
+        # single-process plain decode, then the weights and the start
+        # cache written beside the world as .npy files, which each rank
+        # maps, moving only its shards to the card
+        t_ref_n = time.perf_counter()
+        decode_n, refs_n = [], {}
+        for name, argv in DECODE_N_ARGV.items():
+            argv = argv + ["--seed", str(seed)]
+            full = MC.prefill_weights(MC.decode_config(MC.decode_args(argv)),
+                                      seed, "cuda")
+            want = MC.single_decode(argv, weights=full)
+            MC.save_leaves(f"{tmp}/{name}_w", full)
+            MC.save_leaves(f"{tmp}/{name}_c", want.pop("start"))
+            del full
+            torch.cuda.empty_cache()
+            decode_n.append((argv, None, f"{tmp}/{name}_w",
+                             f"{tmp}/{name}_c"))
+            refs_n[name] = (argv, want)
+        t_ref_n = time.perf_counter() - t_ref_n
         t_refs = time.perf_counter() - t_legs
         # (l) last: train_world lets each reference go once compared, so
         # (l)'s ranks stage through the host without the others' 15 GB
@@ -3720,7 +3787,8 @@ def _sharded_legs(torch, seed, d_peaks):
             res, comps = MC.train_world(runs, tokens, shape=FSDP_SHAPE,
                                         axes=MC.TRAIN_AXES, every2=base,
                                         f32=True, prefill=(prefill_m, MOEL,
-                                                           TP_J_SHAPE))
+                                                           TP_J_SHAPE),
+                                        decode=(decode_n, MOEL, TP_J_SHAPE))
         log(f"  (h)-(l) the card's least free memory while the world ran: "
             f"{free[0] / 1e9:.2f} GB of {free[1] / 1e9:.2f}; the host's most "
             f"in use "
@@ -3796,6 +3864,16 @@ def _sharded_legs(torch, seed, d_peaks):
         out["m"] = _prefill_leg(res, ref_m, prefill_m)
         out["m"]["reference_s"] = t_ref_m
         del ref_m                     # released once compared
+        out["n"] = _decode_leg(res, refs_n)
+        out["n"]["reference_s"] = t_ref_n
+        del refs_n
+        log(f"  (n) card peak GB per rank: (n1) "
+            f"{[round(v, 3) for v in out['n']['n1']['peak_gb_per_rank']]}, "
+            f"(n2) "
+            f"{[round(v, 3) for v in out['n']['n2']['peak_gb_per_rank']]}; "
+            f"the host's most in use over the world "
+            f"{'not read' if free[2] is None else f'{free[2] / 1e9:.2f} GB'};"
+            f" its references {t_ref_n:.1f} s; {_smi_line()}")
         out["l"] = _moe_leg(res, comps, losses["moe_l"], MOEL, moe_l)
         # (i)'s and (k)'s carry-buffer checkpoints: rank 0 wrote the rows;
         # the single-process run's, kept in memory by a stand-in save, is
@@ -3927,6 +4005,79 @@ def _prefill_leg(res, want, argv) -> dict:
             "k2_per_rank": launches, "scopes_per_rank": scopes,
             "peak_gb_per_rank": peaks, "host_peak_gb_per_rank": hosts,
             "tolerance": TRAIN_TOL * scale}
+
+
+def _decode_leg(res, refs: dict) -> dict:
+    """(n) of :func:`_sharded_legs`' world, after (m): a replica's
+    model-sharded decode (``mesh_check.decode_rank``; ``steps.
+    make_serve_step(tp=, fsdp=)``) of DECODE_N_ARGV's two cases on (node
+    2, fsdp 2, model 2), each rank on its shards of the weights and of
+    the cache (``sharding.cache_specs``), 2 rows.  ``refs``: each case's
+    (argv, single-process plain decode).  Every rank's logits at every
+    step, gathered over model, and its final cache shard are held within
+    TRAIN_TOL x max-abs of the single process's; its cache shard's shape
+    is ``local_shard``'s (``mesh_check.decode_errors``); its wire ops as
+    DECODE_N_WIRE a step; no kernel launched (the ring decode is plain
+    PyTorch, as the reference's).  Per rank the median ms of a step, the
+    fsdp and model ops a step (count, bytes, ms), the card's peak and
+    the process's peak resident set."""
+    import numpy as np
+
+    from repro_torch.launch import mesh_check as MC
+    out = {}
+    for j, (name, (argv, want)) in enumerate(refs.items()):
+        args = MC.decode_args(argv)
+        rs = [r["decode"][j] for r in res]
+        errs = MC.decode_errors(rs, want, argv, TP_J_SHAPE)
+        lo = float(np.abs(want["logits"]).max())
+        ca = max(float(np.abs(v).max()) for v in want["final"].values())
+        wire = {k: v * args.steps for k, v in DECODE_N_WIRE[name].items()}
+        ms, scopes, peaks, hosts = [], [], [], []
+        for o, (e_lo, e_ca) in zip(rs, errs):
+            check(e_lo <= TRAIN_TOL * lo, f"({name}) rank {o['rank']}: "
+                  f"logits max abs diff {e_lo} beyond {TRAIN_TOL} x {lo}")
+            check(e_ca <= TRAIN_TOL * ca, f"({name}) rank {o['rank']}: "
+                  f"cache shard max abs diff {e_ca} beyond {TRAIN_TOL} x "
+                  f"{ca}")
+            ops = {k: v["ops"] for k, v in o["log"].items()}
+            check(ops == wire, f"({name}) rank {o['rank']}: wire ops {ops},"
+                  f" reckoned {wire}")
+            check(not any(o["launches"].values()), f"({name}) rank "
+                  f"{o['rank']}: kernel launches {o['launches']}")
+            ms.append(1e3 * sorted(o["step_s"])[len(o["step_s"]) // 2])
+            scopes.append({k: (v["ops"] / args.steps,
+                               v["bytes"] / args.steps,
+                               round(1e3 * v["s"] / args.steps, 3))
+                           for k, v in o["log"].items()})
+            peaks.append(o["peak_gb"])
+            hosts.append(o["host_peak_gb"])
+        o0 = rs[0]
+        log(f"  ({name}) model-sharded decode, {args.arch} at full width, "
+            f"layers {args.layers}, f32, {args.batch} rows on (node 2, "
+            f"fsdp 2, model 2) ({o0['wire']}), "
+            f"{o0['param_elems'] / 1e6:.1f} M parameters and a "
+            f"{o0['cache_bytes'] / 1e6:.1f} MB cache shard "
+            f"{ {k: v.shape for k, v in o0['cache'].items()} } a rank, "
+            f"{args.steps} steps from position {MC.decode_start(args)} "
+            f"over a {args.cache_len}-slot ring: max abs diff per rank, "
+            f"logits {[e[0] for e in errs]} (tolerance {TRAIN_TOL} x "
+            f"{lo:.4g}), cache shard {[e[1] for e in errs]} ({TRAIN_TOL} "
+            f"x {ca:.4g}); wire ops a step as reckoned "
+            f"{DECODE_N_WIRE[name]}; no kernel launched")
+        log(f"  ({name}) {max(o['seconds'] for o in rs):.1f} s in the world"
+            f" (the slowest rank: its shards, {len(o0['step_s'])} steps, the "
+            f"logits' gather); per rank: median step "
+            f"{[round(v, 1) for v in ms]} ms; peak "
+            f"GB on the card {[round(v, 3) for v in peaks]}; peak resident "
+            f"set GB of each rank's process {[round(v, 3) for v in hosts]}")
+        log(f"  ({name}) per rank the fsdp and model scopes a step (ops, "
+            f"bytes, ms): {scopes}")
+        out[name] = {"max_abs_err_per_rank": errs, "ms_per_rank": ms,
+                     "seconds": max(o["seconds"] for o in rs),
+                     "scopes_per_rank": scopes, "peak_gb_per_rank": peaks,
+                     "host_peak_gb_per_rank": hosts,
+                     "tolerance": (TRAIN_TOL * lo, TRAIN_TOL * ca)}
+    return out
 
 
 def _moe_leg(res, comps, ref_losses, i, argv) -> dict:
@@ -4271,6 +4422,21 @@ def dryrun_phase(torch, dev, seed, smi_line):
                 f"{dict(r['cost']['collective_counts'])}"
                 for r in sorted(pre, key=lambda r: (r["arch"],
                                                     r["multi_pod"]))))
+        # the decode records count rank 0's model-sharded decode
+        dec = [r for r in recs.values() if r["kind"] == "decode"]
+        check(len(dec) == 40 and all(
+            "uncounted" not in r and "partition" not in r
+            and r["roofline"]["dominant"] and "wire" in r
+            and r["rank_rows"] >= 1 for r in dec),
+            "dryrun: a decode record is not rank 0's counted step")
+        log("  (a) decode_32k / long_500k (rank 0's model-sharded decode: "
+            "dominant term, collectives): " + "; ".join(
+                f"{r['arch']} {r['shape']} "
+                f"{'2pod' if r['multi_pod'] else '1pod'} "
+                f"{r['roofline']['dominant']} "
+                f"{dict(r['cost']['collective_counts'])}"
+                for r in sorted(dec, key=lambda r: (r["arch"], r["shape"],
+                                                    r["multi_pod"]))))
         del os.environ["DRYRUN_DIR"]
     torch.cuda.synchronize()
     after = (torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated())
@@ -4367,11 +4533,7 @@ def main() -> int:
     phase("phase 1: device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check runs on the card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = _smi_line()
     dev = torch.device("cuda", 0)
     log(f"  {smi_line}")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, python "

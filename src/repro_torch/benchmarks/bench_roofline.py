@@ -7,10 +7,8 @@ training and 2 N D for serving (N the active parameters for moe,
 ``models.model.active_param_count``) and the ratio MODEL_FLOPS / counted
 flops (remat and attention show as a ratio below 1), and reports the
 dominant roofline term.  ``us_per_call`` is the projected step time, the
-largest of the three terms, on the H100's constants.  A serving record's
-terms are lower bounds (the dry run does not count the collectives
-inside its replica), and then ``dominant=`` names the largest counted
-term as ``<term> (lower bound)``; a training record counts them.
+largest of the three terms, on the H100's constants.  Every record
+counts rank 0's step, the collectives inside its replica among them.
 """
 from __future__ import annotations
 
@@ -19,7 +17,6 @@ import glob
 import json
 import os
 
-from ..launch.dryrun import dominant_label
 from ..launch.steps import SHAPES
 from .common import emit
 
@@ -68,6 +65,6 @@ def run(pattern: str = "*.json") -> None:
              f"compute_ms={1e3 * r['compute_s']:.2f};"
              f"memory_ms={1e3 * r['memory_s']:.2f};"
              f"collective_ms={1e3 * r['collective_s']:.2f};"
-             f"dominant={dominant_label(r)};"
+             f"dominant={r['dominant']};"
              f"useful_flops_ratio={ratio:.3f};"
              f"temp_GB={rec['memory_analysis']['temp_bytes'] / 1e9:.2f}")

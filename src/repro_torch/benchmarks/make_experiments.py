@@ -16,7 +16,6 @@ import json
 import os
 import sys
 
-from ..launch.dryrun import dominant_label
 from ..launch.steps import SHAPES
 from .bench_roofline import model_flops_per_chip
 
@@ -50,7 +49,7 @@ def _rows(recs):
 
 def dryrun_section(recs) -> str:
     out = ["### Count matrix (baseline: one-peer exp, DmSGD, per-arch "
-           "layouts; per chip, rank 0; serving rows lower bounds)", "",
+           "layouts; per chip, rank 0)", "",
            "| arch | shape | mesh | nodesxfsdpxmodel | count s | "
            "temp GB/chip | args GB/chip | collectives (counts) |",
            "|---|---|---|---|---|---|---|---|"]
@@ -81,7 +80,7 @@ def roofline_section(recs) -> str:
             f"| {1e3 * rf['compute_s']:.2f} "
             f"| {1e3 * rf['memory_s']:.2f} "
             f"| {1e3 * rf['collective_s']:.2f} "
-            f"| **{dominant_label(rf)}** | {ratio:.3f} |")
+            f"| **{rf['dominant']}** | {ratio:.3f} |")
     return "\n".join(out)
 
 

@@ -17,9 +17,9 @@ rank 0 of the logical mesh (``to_logical_mesh(make_production_mesh())``,
   params, momentum (the layout's ``momentum_dtype``) and batch for
   training; params, cache and token for decode.  ``output_bytes`` and
   ``alias_bytes`` follow the reference's donation (params and state for
-  training, the cache for decode).  ``temp_bytes`` is the counted pass's
-  ``peak_bytes`` over the inner shards; ``fits`` compares argument plus
-  temp bytes with ``HW["hbm_bytes"]``.
+  training, the cache for decode).  ``temp_bytes`` is the counted step's
+  ``peak_bytes`` (a serving step's gathered leaves among them); ``fits``
+  compares argument plus temp bytes with ``HW["hbm_bytes"]``.
 * **training** (``train_4k``): rank 0's real step, on meta, over the
   dry mesh (``dry_mesh(...)``: the real collectives on a wire that moves
   nothing, each logged with the bytes rank 0 would send): the fsdp
@@ -53,18 +53,23 @@ rank 0 of the logical mesh (``to_logical_mesh(make_production_mesh())``,
   ``temp_bytes`` is the gathered leaves plus the pass's peak,
   ``output_bytes`` the rank's block of the last logits, ``rank_rows``
   its rows.
-* **decode** (``decode_32k``, ``long_500k``): one replica steps over the
-  batch rows ``sharding.batch_spec`` gives its node, divided evenly by
-  its chips (``"partition": "even"``).  The collectives a model-sharded
-  decode would run inside the replica are not counted (``"uncounted"``,
-  the decode half of ROADMAP item 18b-d), so its terms are lower bounds.
+* **decode** (``decode_32k``, ``long_500k``): rank 0's real step over
+  the dry mesh, as the prefill's: the fsdp gather of its block of the
+  serving params, then the tensor-parallel one-token decode
+  (``steps.make_serve_step(tp=, fsdp=)``) over its rows on its shard of
+  the cache as ``sharding.cache_specs`` cuts it (batch over ``(node,
+  fsdp)``, then the kv heads or the SSM state's heads over ``model``,
+  the head dim or the conv's packed channels where those do not
+  divide), written in place -- the head-dim cut's psum of the partial
+  logits, the gathers of mamba2's conv output and y among the
+  collectives counted (``"wire"``, ``rank_rows``).  The arguments are
+  the parameter block, the cache shard and the rows' inputs; the
+  output the logits block and the cache shard, which it aliases.
 
 ``roofline_terms`` uses the H100's constants (``launch.mesh.HW``):
 compute at the bf16 peak, memory at the HBM rate, collectives at the
-400 Gb/s network port of each card (``net_bw``).  A record whose terms
-are lower bounds (``"uncounted"``: decode) names no ``dominant`` term
-(null) and keeps the largest counted one as ``dominant_counted``; a
-training or prefill record names its ``dominant`` term.  The record's ``cost``
+400 Gb/s network port of each card (``net_bw``); every record names its
+``dominant`` term.  The record's ``cost``
 key takes the place of the reference's ``hlo_cost``, ``count_s`` of its
 ``lower_s`` and ``compile_s``.
 
@@ -84,7 +89,7 @@ import os
 import time
 
 import torch
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
 
 from .. import configs
 from ..core import gossip as gossip_mod
@@ -110,10 +115,6 @@ ARCH_IDS = [
 SHAPE_IDS = list(steps.SHAPES)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}
-
-UNCOUNTED = ("intra-replica collectives (ROADMAP item 18b-d: model-sharded "
-             "prefill and decode in the dry run, caches by cache_specs)")
-
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
@@ -362,66 +363,46 @@ def build(arch: str, shape_name: str, *, multi_pod: bool,
         meta["rank_rows"] = rows["tokens"].shape[0]
         return cost, meta
 
-    # decode: one replica over the rows of the batch its node holds
-    meta["partition"] = "even"
-    if inner > 1:
-        meta["uncounted"] = UNCOUNTED
-    gb = info["global_batch"]
-    bspec = sharding.batch_spec(mesh, node_axis=False, batch_dim_size=gb)
-    axes = bspec[0] if isinstance(bspec[0], tuple) else (bspec[0],)
-    rows = gb // mesh.shape["node"] if "node" in axes else gb
-    local = {k: (v[:rows] if isinstance(v, torch.Tensor) else v)
-             for k, v in batch.items()}
+    # decode: rank 0's real step over the dry mesh, as the prefill, on its
+    # shard of the cache (cache_specs), updated in place
+    dry = dry_mesh(mesh, rank=0)
+    rows = sharding.batch_block(batch, mesh, node_axis=False, coords=coords)
     full_cache = steps.cache_struct(cfg, shape_name)
-    c_specs = sharding.cache_specs(full_cache, mesh, gb)
-    cache_bytes = _nbytes(sharding.local_shard(full_cache, c_specs, mesh,
-                                               coords))
-    cache = steps.cache_struct(cfg, shape_name, batch=rows)
-    with Cost() as c:
-        logits, _ = steps.make_serve_step(cfg)(M.params_view(params),
-                                               cache, local)
-    out_bytes = logits.numel() * logits.element_size() // inner + cache_bytes
-    cost = Cost()
-    cost.add(c, k=1.0 / inner)
-    cost.peak_bytes = int(c.peak_bytes / inner)
-    meta["memory_analysis"] = dict(argument_bytes=p_bytes + cache_bytes
-                                   + in_bytes,
-                                   output_bytes=out_bytes,
-                                   alias_bytes=cache_bytes)
-    meta["replica_rows"] = rows
+    c_specs = sharding.cache_specs(full_cache, mesh, info["global_batch"])
+    cache = tree_map(lambda t: _meta(t.shape, t.dtype), sharding.local_shard(
+        full_cache, c_specs, mesh, coords))
+    cache_bytes = _nbytes(cache)
+    step = steps.make_serve_step(
+        cfg, tp=TP.serving(dry, p_specs) if model_axis > 1 else None,
+        fsdp=(dry, p_specs) if fsdp > 1 else None)
+    with Cost() as cost:
+        logits, _ = step(blk, cache, rows)
+    cost.add_wire(dry.log)
+    meta["wire"] = {k: {"ops": v["ops"], "bytes": v["bytes"]}
+                    for k, v in dry.log.kinds.items()}
+    meta["memory_analysis"] = dict(
+        argument_bytes=p_bytes + cache_bytes + in_bytes,
+        output_bytes=logits.numel() * logits.element_size() + cache_bytes,
+        alias_bytes=cache_bytes)
+    meta["rank_rows"] = rows["token"].shape[0]
     return cost, meta
 
 
-def roofline_terms(cost: Cost, n_chips: int, meta: dict) -> dict:
+def roofline_terms(cost: Cost, n_chips: int) -> dict:
     """Three roofline terms in seconds, per chip, on the H100's constants:
     the count is per chip already (rank 0's view), so nothing is divided
-    by the chip count.  ``dominant`` names the largest term; where
-    ``meta["uncounted"]`` is set (decode) the terms are lower bounds, so
-    no term is named dominant (None) and ``dominant_counted`` names the
-    largest of the counted ones."""
+    by the chip count.  ``dominant`` names the largest term."""
     t_compute = cost.flops / HW["peak_flops_bf16"]
     t_memory = cost.hbm_bytes / HW["hbm_bw"]
     t_coll = cost.total_collective_bytes / HW["net_bw"]
-    dom = max((t_compute, "compute"), (t_memory, "memory"),
-              (t_coll, "collective"))[1]
-    out = {
+    return {
         "compute_s": t_compute,
         "memory_s": t_memory,
         "collective_s": t_coll,
-        "dominant": dom,
+        "dominant": max((t_compute, "compute"), (t_memory, "memory"),
+                        (t_coll, "collective"))[1],
         "n_chips": n_chips,
     }
-    if meta.get("uncounted"):
-        out["dominant"], out["dominant_counted"] = None, dom
-    return out
-
-
-def dominant_label(roofline: dict) -> str:
-    """The dominant term as the printers show it: the term, or the
-    largest counted term marked as a lower bound."""
-    if roofline["dominant"] is not None:
-        return roofline["dominant"]
-    return f"{roofline['dominant_counted']} (lower bound)"
 
 
 def _path(out_dir: str, arch: str, shape_name: str, multi_pod: bool,
@@ -453,7 +434,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
     n_chips = 512 if multi_pod else 256
     rec = dict(meta, ok=True, count_s=round(count_s, 2),
                memory_analysis=mem, cost=cost.to_dict(),
-               roofline=roofline_terms(cost, n_chips, meta))
+               roofline=roofline_terms(cost, n_chips))
     if verbose:
         print(f"== {arch} x {shape_name} x "
               f"{'2-pod(512)' if multi_pod else '1-pod(256)'} ==")
@@ -464,7 +445,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool,
         r = rec["roofline"]
         print("  roofline: compute=%.3fms memory=%.3fms collective=%.3fms"
               " dominant=%s" % (1e3 * r["compute_s"], 1e3 * r["memory_s"],
-                                1e3 * r["collective_s"], dominant_label(r)))
+                                1e3 * r["collective_s"], r["dominant"]))
         print("  count=%.1fs" % count_s)
         if "compile_cache" in meta:
             print("  compile_cache:", meta["compile_cache"])

@@ -64,6 +64,19 @@ against :func:`single_prefill`.
 
   PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu \
       --fsdp 2 --model 2 --prefill --arch granite-moe-3b-a800m --f32
+
+Model-sharded decode, a replica's rows and its cache over its (fsdp,
+model) ranks: :func:`decode_rank` cuts the serving params and the cache
+(``sharding.cache_specs``) to the rank's shards, a leaf at a time on the
+host, takes its rows and runs ``steps.make_serve_step(tp=, fsdp=)`` for
+a few steps that wrap the ring; :func:`decode_cases` (every family, the
+kv heads and the head dim cut, the moe family on both routes, gemma2's
+window and soft-cap on the head-dim cut) on a CPU world of 4
+(:func:`decode_cases_rank`), held against :func:`single_decode` by
+:func:`decode_errors`.
+
+  PYTHONPATH=src python -m repro_torch.launch.mesh_check --device cpu \
+      --fsdp 2 --model 2 --decode --arch granite-34b --f32
 """
 from __future__ import annotations
 
@@ -93,7 +106,11 @@ __all__ = ["NODES", "FSDP", "WBH_SPECS", "wbh_tree", "static_rounds",
            "tp_grads_rank", "single_run", "tp_cases_rank", "PREFILL_MESH",
            "PREFILL_FAMILIES", "prefill_args", "prefill_config",
            "prefill_batch", "prefill_weights", "prefill_cases",
-           "prefill_rank", "prefill_cases_rank", "single_prefill", "main"]
+           "prefill_rank", "prefill_cases_rank", "single_prefill",
+           "DECODE_MESH", "DECODE_FAMILIES", "decode_args", "decode_config",
+           "decode_batch", "decode_start", "decode_cache", "cache_arrays",
+           "cache_tree", "save_leaves", "decode_cases", "decode_rank",
+           "decode_cases_rank", "single_decode", "decode_errors", "main"]
 
 NODES, FSDP = 4, 2
 WBH_SPECS = {"w": ("node", "fsdp"), "b": ("node",), "h": ("node", "fsdp")}
@@ -673,6 +690,15 @@ def whole_leaves(tree: dict, specs: dict, mesh) -> dict:
     return tree
 
 
+def _release_host() -> None:
+    """Free the pinned host blocks an earlier run's gloo-host staging left
+    cached (the host allocator keeps each, rounded up to a power of two,
+    until asked): 8 ranks' of them filled the host's memory."""
+    release = getattr(torch._C, "_host_emptyCache", None)
+    if release is not None:
+        release()
+
+
 def train_rank(rank: int, argv: list, outq=None, goq=None,
                f32: bool = False, tokens=None, keep: bool = True,
                tag=None, shape=None, axes=("node",),
@@ -697,12 +723,7 @@ def train_rank(rank: int, argv: list, outq=None, goq=None,
     if torch.device(args.device).type == "cuda":
         torch.cuda.set_device(0)
         torch.cuda.empty_cache()
-        # the pinned host blocks an earlier run's gloo-host staging left
-        # cached (the host allocator keeps each, rounded up to a power of
-        # two, until asked): 8 ranks' of them filled the host's memory
-        release = getattr(torch._C, "_host_emptyCache", None)
-        if release is not None:
-            release()
+        _release_host()
         torch.cuda.reset_peak_memory_stats()
     mesh = train_mesh(args, shape, axes)
     k1 = gm_ops.gossip_mix.launches
@@ -1198,7 +1219,9 @@ def prefill_config(args, replace: dict | None = None):
     cfg = configs.get_config(args.arch)
     if not args.full:
         cfg = configs.reduced_config(cfg)
-    upd = dict(replace or {}, attention_impl=args.impl)
+    upd = dict(replace or {})
+    if getattr(args, "impl", None):
+        upd["attention_impl"] = args.impl
     if args.layers:
         upd["n_layers"] = args.layers
     if args.f32:
@@ -1384,6 +1407,387 @@ def prefill_cli(argv: list, device: str, fsdp: int | None,
         raise SystemExit(1)
 
 
+# ---------------------------------------------------------------------------
+# model-sharded decode: a replica's ring-cache decode over its (fsdp, model)
+# ranks, each on its shard of the cache
+# ---------------------------------------------------------------------------
+
+DECODE_MESH = PREFILL_MESH                      # node 1, fsdp 2, model 2
+# (case, arch, config fields replaced): every family at its reduced
+# config -- the kv heads cut (qwen3, musicgen, zamba2's shared_kv), the
+# head dim cut (granite-34b's one kv head; gemma2 with one kv head, its
+# soft-cap and sliding window on that cut; the vlm cache, whose head dim
+# cache_specs tries before its kv heads), the moe family expert-parallel
+# (E 4) and on the ff dim (E 3), mamba2's conv on its packed channels
+DECODE_FAMILIES = (("dense", "qwen3-0.6b", None),
+                   ("kv1", "granite-34b", None),
+                   ("gemma2_kv1", "gemma2-27b", {"n_kv_heads": 1}),
+                   ("moe", MOE_ARCH, None),
+                   ("moe_e3", MOE_ARCH, {"n_experts": 3}),
+                   ("ssm", "mamba2-1.3b", None),
+                   ("hybrid", "zamba2-1.2b", None),
+                   ("audio", "musicgen-large", None),
+                   ("vlm", "llama-3.2-vision-90b", None))
+
+
+def decode_args(argv: list) -> argparse.Namespace:
+    """The flags of a model-sharded decode case: ``--arch``, reduced
+    unless ``--full``, ``--layers``, the global ``--batch``, the ring's
+    ``--cache-len``, ``--prompt`` (P > 0: the cache filled by
+    ``launch.serve.prefill_cache`` on a P-token prompt, the decode
+    starting at position P; 0: a cache drawn from the seed, the decode
+    starting at ``--start``), ``--steps`` decode steps, ``--seed``
+    (weights, tokens, images, the drawn cache), ``--f32`` (f32
+    activations), ``--repeat`` (timed steps after them), ``--device``."""
+    ap = argparse.ArgumentParser(prog="mesh_check --decode")
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--cache-len", type=int, default=80)
+    ap.add_argument("--prompt", type=int, default=0)
+    ap.add_argument("--start", type=int, default=100)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--repeat", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def decode_config(args, replace: dict | None = None):
+    """The model config of :func:`decode_args` ``args``, as
+    :func:`prefill_config` makes it."""
+    return prefill_config(args, replace)
+
+
+def decode_batch(cfg, args) -> dict:
+    """On the CPU from ``args.seed``: the ``tokens`` fed at the decode
+    steps (B, steps) int64 (audio (B, steps, K)), the ``prompt`` (B, P)
+    where ``--prompt`` is set, and for the vlm family ``image_embeds``
+    (B, T, d) standard normal in f32."""
+    rng = np.random.default_rng(args.seed + 1)
+    k = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    out = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, args.steps) + k))}
+    if args.prompt:
+        out["prompt"] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (args.batch, args.prompt) + k))
+    if cfg.family == "vlm":
+        out["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.n_image_tokens, cfg.d_model)).astype(
+                np.float32))
+    return out
+
+
+def decode_start(args) -> int:
+    """The position of the first decode step."""
+    return args.prompt or args.start
+
+
+def cache_arrays(cache: dict) -> dict:
+    """A decode cache (``models.model.init_cache``'s tree) as ``{"kv.k":
+    tensor, "ssm.conv": ..., ...}``."""
+    return {f"{k}.{f}": getattr(v, f) for k, v in cache.items()
+            for f in v._fields}
+
+
+def cache_tree(flat: dict) -> dict:
+    """The inverse of :func:`cache_arrays`."""
+    from ..models import attention as attn
+    from ..models import mamba2 as m2
+    kinds = {"kv": attn.KVCache, "shared_kv": attn.KVCache,
+             "ssm": m2.SSMCache}
+    return {k: cls(*(flat[f"{k}.{f}"] for f in cls._fields))
+            for k, cls in kinds.items() if f"{k}.{cls._fields[0]}" in flat}
+
+
+def decode_cache(cfg, args) -> dict:
+    """The global f32 cache a ``--prompt 0`` case starts from, as
+    :func:`cache_arrays` of numpy arrays drawn from ``args.seed``:
+    standard normal k, v and conv history, the SSM state at half that."""
+    from ..models import model as M
+    rng = np.random.default_rng(args.seed + 2)
+    shapes = cache_arrays(M.init_cache(cfg, args.batch, args.cache_len,
+                                       torch.float32, device="meta"))
+    return {k: ((0.5 if k == "ssm.state" else 1.0) * rng.standard_normal(
+        tuple(v.shape))).astype(np.float32) for k, v in shapes.items()}
+
+
+def save_leaves(path: str, tree: dict) -> None:
+    """``{name: tensor or array}`` as a directory of ``.npy`` files, one a
+    leaf, which :func:`decode_rank` maps (read only where a rank's block
+    lies) instead of reading whole."""
+    os.makedirs(path, exist_ok=True)
+    for k, v in tree.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        np.save(os.path.join(path, f"{k}.npy"), v)
+
+
+def _leaves(src):
+    """A ``{name: array}``, the path of an ``.npz`` of them (read a member
+    at a time) or of a :func:`save_leaves` directory (each leaf mapped
+    copy-on-write)."""
+    if not isinstance(src, (str, os.PathLike)):
+        return src
+    if os.path.isdir(src):
+        return {f[:-4]: np.load(os.path.join(src, f), mmap_mode="c")
+                for f in os.listdir(src) if f.endswith(".npy")}
+    return np.load(src)
+
+
+def _shards(src, names, specs: dict, mesh, dev) -> dict:
+    """The rank's block of each leaf of ``src`` (:func:`_leaves`) by its
+    spec, in its own storage on ``dev``: one whole leaf on the host at a
+    time, its block alone on the card."""
+    src = _leaves(src)
+    out = {}
+    for k in names:
+        whole = torch.as_tensor(src[k])
+        out[k] = sharding.local_shard(whole, specs[k], mesh).to(
+            dev).contiguous()
+        del whole
+    return out
+
+
+def decode_cases(argv: list) -> dict:
+    """``{name: (argv, config fields replaced)}`` of the model-sharded
+    decode cases, one a :data:`DECODE_FAMILIES` entry."""
+    return {name: (argv + ["--arch", arch], rep)
+            for name, arch, rep in DECODE_FAMILIES}
+
+
+def _step_batch(batch: dict, i: int, idx: int) -> dict:
+    out = {"token": batch["tokens"][:, i:i + 1], "idx": idx}
+    if "image_embeds" in batch:
+        out["image_embeds"] = batch["image_embeds"]
+    return out
+
+
+def decode_rank(rank: int, argv: list, replace: dict | None = None,
+                weights=None, cache=None, shape=None) -> dict:
+    """A rank of a replica's model-sharded decode on a (node, fsdp, model)
+    mesh of ``shape`` (default :data:`DECODE_MESH`'s), gloo: its (fsdp,
+    model) shards of the serving params
+    (``sharding.param_specs(node_axis=False)``), its shard of the cache
+    (``sharding.cache_specs``), its rows of :func:`decode_batch`
+    (``sharding.batch_block``), each cut from one leaf at a time on the
+    host and moved alone to the device; then ``--steps`` steps of
+    ``steps.make_serve_step(tp=, fsdp=)`` at positions from
+    :func:`decode_start`, the wire log and the kernels' launches (their
+    counts set to 0 just before them) read just after them, and
+    ``--repeat`` timed steps.  ``weights`` and ``cache``: ``{name:
+    array}`` (:func:`cache_arrays` for the cache), the path of an
+    ``.npz`` of them or a :func:`save_leaves` directory; else
+    :func:`prefill_weights` drawn on the host and :func:`decode_cache`.  Returns the rank's coordinates, its rows, each
+    step's logits gathered whole over model (numpy f32, the gather after
+    the log is read), its cache shard after the steps (numpy), the wire
+    log, the launches, each step's seconds and the call's, the process's
+    peak host memory, and on the card the peak memory."""
+    from ..kernels.flash_attention import ops as fa_ops
+    from ..kernels.paged_attention import ops as pa_ops
+    from ..kernels.ssd_scan import ops as ssd_ops
+    from ..models import model as M
+    from . import steps as steps_mod
+    from .tp import TP
+    t_all = time.perf_counter()
+    args = decode_args(argv)
+    cfg = decode_config(args, replace)
+    dev = torch.device(args.device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(0)
+        torch.cuda.empty_cache()
+        _release_host()
+        torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_mod.make_mesh(*(DECODE_MESH if shape is None
+                                else (shape, TRAIN_AXES)),
+                              backend="gloo", device=dev)
+    shapes = dict(M.init(cfg, device="meta").named_parameters())
+    specs = sharding.param_specs(shapes, mesh, cfg=cfg, node_axis=False)
+    params = _shards(prefill_weights(cfg, args.seed, "cpu")
+                     if weights is None else weights, shapes, specs, mesh,
+                     dev)
+    c_shapes = cache_arrays(M.init_cache(cfg, args.batch, args.cache_len,
+                                         torch.float32, device="meta"))
+    c_specs = sharding.cache_specs(c_shapes, mesh, args.batch)
+    shard = _shards(decode_cache(cfg, args) if cache is None else cache,
+                    c_shapes, c_specs, mesh, dev)
+    batch = decode_batch(cfg, args)
+    batch.pop("prompt", None)
+    batch["rows"] = torch.arange(args.batch)
+    rows = {k: v.to(dev) for k, v in sharding.batch_block(
+        batch, mesh, node_axis=False).items()}
+    step = steps_mod.make_serve_step(
+        cfg, tp=TP.serving(mesh, specs) if mesh.shape["model"] > 1 else None,
+        fsdp=(mesh, specs) if mesh.shape["fsdp"] > 1 else None)
+    tree = cache_tree(shard)
+    start = decode_start(args)
+
+    def call(i, idx):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = step(params, tree, _step_batch(rows, i, idx))
+        if cuda:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    kernels = (fa_ops.flash_attention, pa_ops.paged_attention,
+               ssd_ops.ssd_scan, gm_ops.gossip_mix)
+    mesh.log.reset()
+    for k in kernels:
+        k.launches = 0
+    got = [call(i, start + i) for i in range(args.steps)]
+    launches = {k.__name__: k.launches for k in kernels}
+    log = mesh.log.snapshot()
+    final = {k: v.cpu().numpy().copy() for k, v in shard.items()}
+    times = [t for _, t in got]
+    times += [call(args.steps - 1, start + args.steps + j)[1]
+              for j in range(args.repeat)]
+    logits = []
+    for out, _ in got:
+        if out.shape[-1] < cfg.vocab_size:       # the rank's vocab block
+            out = mesh.all_gather(out.contiguous(), "model", dim=-1)
+        logits.append(out.float().cpu().numpy())
+    res = {"rank": rank, "coords": dict(mesh.coords), "wire": mesh.wire,
+           "rows": rows["rows"].cpu().numpy(), "logits": np.stack(logits),
+           "cache": final, "log": log, "launches": launches,
+           "step_s": times, "seconds": time.perf_counter() - t_all,
+           "param_elems": sum(v.numel() for v in params.values()),
+           "cache_bytes": sum(v.nbytes for v in final.values()),
+           # the process's peak resident memory on the host (Linux: KiB)
+           "host_peak_gb": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
+    if cuda:
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, shard, tree
+        torch.cuda.empty_cache()
+        _release_host()
+    return res
+
+
+def decode_cases_rank(rank: int, argv: list, weights: dict | None = None,
+                      caches: dict | None = None) -> dict:
+    """A rank of a CPU world of 4: every :func:`decode_cases` case through
+    :func:`decode_rank` (``weights`` / ``caches``: ``{case: path}`` for
+    the cases given theirs)."""
+    return {name: decode_rank(rank, a, rep, (weights or {}).get(name),
+                              (caches or {}).get(name))
+            for name, (a, rep) in decode_cases(argv).items()}
+
+
+def single_decode(argv: list, replace: dict | None = None, weights=None,
+                  cache=None) -> dict:
+    """The case's decode in this process, no mesh: the single-process
+    ``make_serve_step`` on the whole batch from the same start (``cache``
+    as :func:`decode_rank`'s, or with ``--prompt`` the cache
+    ``launch.serve.prefill_cache`` fills).  Returns numpy arrays: the
+    ``start`` cache (:func:`cache_arrays`, before the steps), each step's
+    ``logits`` (steps, B, ...) in f32 and the ``final`` cache."""
+    from ..models import model as M
+    from . import serve as serve_mod
+    from . import steps as steps_mod
+    args = decode_args(argv)
+    cfg = decode_config(args, replace)
+    dev = torch.device(args.device)
+    full = M.params_view(
+        prefill_weights(cfg, args.seed, dev) if weights is None else
+        {k: torch.as_tensor(v).to(dev)
+         for k, v in _leaves(weights).items()})
+    batch = {k: v.to(dev) for k, v in decode_batch(cfg, args).items()}
+    if args.prompt:
+        with torch.no_grad():
+            _, tree = serve_mod.prefill_cache(
+                cfg, full, batch["prompt"], cache_len=args.cache_len,
+                image_embeds=batch.get("image_embeds"))
+    else:
+        src = _leaves(decode_cache(cfg, args) if cache is None else cache)
+        tree = cache_tree({k: torch.as_tensor(src[k]).to(dev)
+                           for k in src})
+    start = {k: v.cpu().numpy().copy() for k, v in cache_arrays(tree).items()}
+    step = steps_mod.make_serve_step(cfg)
+    first = decode_start(args)
+    logits = [step(full, tree, _step_batch(batch, i, first + i))[0]
+              .float().cpu().numpy() for i in range(args.steps)]
+    return {"start": start, "logits": np.stack(logits),
+            "final": {k: v.cpu().numpy()
+                      for k, v in cache_arrays(tree).items()}}
+
+
+def decode_errors(res: list, want: dict, argv: list, shape=None) -> list:
+    """Each rank's ``(logits max abs diff, cache shard max abs diff)``
+    against :func:`single_decode`'s ``want``: its rows of every step's
+    logits and its block of the final cache (``sharding.local_shard`` by
+    ``cache_specs`` at its coordinates on the (node, fsdp, model) mesh of
+    ``shape``, default :data:`DECODE_MESH`'s); a shape that differs
+    raises."""
+    args = decode_args(argv)
+    mesh = mesh_mod.abstract_mesh(tuple(shape or DECODE_MESH[0]),
+                                  TRAIN_AXES)
+    specs = sharding.cache_specs(want["final"], mesh, args.batch)
+    out = []
+    for r in res:
+        lo = want["logits"][:, r["rows"]]
+        blk = sharding.local_shard(
+            {k: torch.tensor(v) for k, v in want["final"].items()},
+            specs, mesh, r["coords"])
+        if r["logits"].shape != lo.shape or any(
+                r["cache"][k].shape != tuple(v.shape)
+                for k, v in blk.items()):
+            raise AssertionError(f"rank {r['rank']}: logits "
+                                 f"{r['logits'].shape} against {lo.shape}, "
+                                 "or a cache shard's shape differs")
+        out.append((float(np.abs(r["logits"] - lo).max()),
+                    max(float(np.abs(r["cache"][k] - v.numpy()).max())
+                        for k, v in blk.items())))
+    return out
+
+
+def _decode_cli_rank(rank: int, argv: list, shape) -> dict:
+    return decode_rank(rank, argv, shape=shape)
+
+
+def decode_cli(argv: list, device: str, fsdp: int | None,
+               model: int | None) -> None:
+    """:func:`decode_args`' flags ``argv`` run on a replica of ``fsdp`` x
+    ``model`` spawned ranks (each extent 2 unless given), each rank's
+    logits at every step and its final cache shard held against the
+    single-process decode within 2e-4 of max-abs; prints each rank's
+    rows, cache shard, median step seconds and errors, and rank 0's wire
+    log a step."""
+    if "--device" not in argv:
+        argv = list(argv) + ["--device", device]
+    args = decode_args(argv)
+    shape = (1, fsdp or 2, model or 2)
+    res = mesh_mod.spawn(_decode_cli_rank, int(np.prod(shape)),
+                         (argv, shape),
+                         threads=1 if device == "cpu" else None)
+    want = single_decode(argv)
+    errs = decode_errors(res, want, argv, shape)
+    lo = float(np.abs(want["logits"]).max())
+    ca = max(float(np.abs(v).max()) for v in want["final"].values())
+    for r, (e_lo, e_ca) in zip(res, errs):
+        times = sorted(r["step_s"])
+        print(f"rank {r['rank']} {r['coords']} ({r['wire']}): rows "
+              f"{r['rows'].tolist()}, cache shard "
+              f"{ {k: v.shape for k, v in r['cache'].items()} }, median "
+              f"step {times[len(times) // 2]:.3f} s, max abs diff logits "
+              f"{e_lo:.3g} cache {e_ca:.3g}")
+    print(f"rank 0 wire a step (ops, bytes) over {args.steps} steps: " +
+          str({k: (v["ops"] / args.steps, v["bytes"] / args.steps)
+               for k, v in res[0]["log"].items()}))
+    ok = all(e_lo <= 2e-4 * lo and e_ca <= 2e-4 * ca for e_lo, e_ca in errs)
+    print(f"{len(res)} ranks: " + (
+        f"every rank's logits and cache shard within 2e-4 of max-abs "
+        f"({lo:.4g}, {ca:.4g}) of the single process" if ok
+        else f"beyond 2e-4 of max-abs ({lo:.4g}, {ca:.4g}): {errs}"))
+    if not ok:
+        raise SystemExit(1)
+
+
 ROUNDTRIP_SPECS = {"w": ("node", "fsdp"), "b": (("node", "fsdp"),),
                    "h": ("node", None, "fsdp")}
 
@@ -1420,12 +1824,16 @@ def world_rank(rank: int, argv: list) -> dict:
 
 
 def _train_entry(rank, runs, outq, goqs, tokens, runtime, shape, axes,
-                 every2, f32, prefill=None):
+                 every2, f32, prefill=None, decode=None):
     out = {"runs": []}
     for i, (argv, held, shp, toks) in enumerate(runs):
         if prefill is not None and i == prefill[1]:
             out["prefill"] = prefill_rank(rank, prefill[0],
                                           shape=prefill[2])
+        if decode is not None and i == decode[1]:
+            out["decode"] = [decode_rank(rank, a, rep, w, c,
+                                         shape=decode[2])
+                             for a, rep, w, c in decode[0]]
         out["runs"].append(train_rank(
             rank, argv, outq if held else None, goqs[rank], f32=f32,
             tokens=tokens if toks is None else toks, keep=False, tag=i,
@@ -1443,7 +1851,7 @@ def _train_entry(rank, runs, outq, goqs, tokens, runtime, shape, axes,
 def train_world(runs: list, tokens=None, timeout: float = 900.0,
                 runtime: bool = False, shape=None, axes=("node",),
                 every2: list | None = None, f32: bool = False,
-                prefill: tuple | None = None):
+                prefill: tuple | None = None, decode: tuple | None = None):
     """Each ``(argv, reference)`` of ``runs`` in turn on one world sharing
     the card -- on a mesh of ``shape`` on ``axes``, by default a node mesh
     of ``--nodes`` ranks; where ``reference`` (the single-process run's
@@ -1462,7 +1870,9 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
     every run with f32 activations (:func:`f32_start`); ``prefill``, an
     ``(argv, index, mesh shape)``: :func:`prefill_rank` of ``argv`` on
     that (node, fsdp, model) mesh of the same ranks before the run at
-    ``index`` (``"prefill"``).  ``runs`` is
+    ``index`` (``"prefill"``); ``decode``, a ``([(argv, replace,
+    weights, cache)], index, mesh shape)``: :func:`decode_rank` of each
+    case there after it (``"decode"``, a list).  ``runs`` is
     emptied: the references are this function's, each let go once the
     last run compared against it is compared, so that where the caller
     keeps no other hold on them the later runs run without them (on the
@@ -1548,7 +1958,8 @@ def train_world(runs: list, tokens=None, timeout: float = 900.0,
     try:
         res = mesh_mod.spawn(_train_entry, world,
                              (held, outq, goqs, tokens, runtime, shape,
-                              axes, every2, f32, prefill), timeout=timeout,
+                              axes, every2, f32, prefill, decode),
+                             timeout=timeout,
                              threads=1 if args.device == "cpu" else None)
     finally:
         th.join(timeout=60)
@@ -1597,15 +2008,21 @@ def main(argv=None) -> None:
                     help=f"the fsdp extent (4 nodes x fsdp ranks, default "
                          f"{FSDP}; NCCL needs that many cards); with "
                          "--train, train on a (node, fsdp, model) mesh; "
-                         "with --prefill, the replica's fsdp extent")
+                         "with --prefill or --decode, the replica's "
+                         "fsdp extent")
     ap.add_argument("--model", type=int, default=None,
                     help="with --train: the model extent of a (node, fsdp, "
                          "model) mesh (tensor-parallel training); with "
-                         "--prefill, the replica's model extent")
+                         "--prefill or --decode, the replica's model "
+                         "extent")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill", nargs=argparse.REMAINDER, default=None,
                     help="instead: the rest of the line is a prefill "
                          "case's flags (prefill_args), run on a replica of "
+                         "--fsdp x --model ranks (each 2 unless given)")
+    ap.add_argument("--decode", nargs=argparse.REMAINDER, default=None,
+                    help="instead: the rest of the line is a decode "
+                         "case's flags (decode_args), run on a replica of "
                          "--fsdp x --model ranks (each 2 unless given)")
     ap.add_argument("--train", nargs=argparse.REMAINDER, default=None,
                     help="instead: the rest of the line is launch.train's "
@@ -1621,6 +2038,9 @@ def main(argv=None) -> None:
         return
     if args.prefill is not None:
         prefill_cli(args.prefill, args.device, args.fsdp, args.model)
+        return
+    if args.decode is not None:
+        decode_cli(args.decode, args.device, args.fsdp, args.model)
         return
     fsdp = FSDP if args.fsdp is None else args.fsdp
     shape = (NODES, fsdp)

@@ -16,9 +16,10 @@ Input shapes (the reference's):
                (ssm and hybrid natively; the attention families take the
                ``LONG_WINDOW`` sliding-window override)
 
-``make_prefill_step(tp=, fsdp=)`` is also a replica's model-sharded
-prefill (a rank's serving shards and rows), which the dry run's
-``prefill_32k`` records count.
+``make_prefill_step(tp=, fsdp=)`` and ``make_serve_step(tp=, fsdp=)``
+are also a replica's model-sharded prefill and decode (a rank's serving
+shards and rows, and its shard of the cache), which the dry run's
+``prefill_32k`` and decode records count.
 
 Where the reference's ``input_specs`` returns ``ShapeDtypeStruct``
 stand-ins, the port's returns tensors on the ``meta`` device (shapes and
@@ -119,13 +120,11 @@ def cache_len_for(cfg: M.ModelConfig, shape_name: str) -> int:
     return seq
 
 
-def cache_struct(cfg: M.ModelConfig, shape_name: str,
-                 batch: int | None = None) -> dict:
+def cache_struct(cfg: M.ModelConfig, shape_name: str) -> dict:
     """The decode cache on the meta device (``init_cache``'s tree, nothing
-    allocated) for the shape's global batch, or ``batch`` rows."""
-    gb = SHAPES[shape_name]["global_batch"] if batch is None else batch
-    return M.init_cache(cfg, gb, cache_len_for(cfg, shape_name),
-                        device="meta")
+    allocated) for the shape's global batch."""
+    return M.init_cache(cfg, SHAPES[shape_name]["global_batch"],
+                        cache_len_for(cfg, shape_name), device="meta")
 
 
 def train_loss_fn(params, cfg: M.ModelConfig, tokens, image_embeds=None,
@@ -384,21 +383,7 @@ def make_prefill_step(cfg: M.ModelConfig, *, tp=None, fsdp=None):
 
     def prefill_step(params, batch):
         with torch.no_grad():
-            if fsdp is not None:
-                # a replica's leaves as a node row (a leading axis of 1,
-                # which the packed gather reads), then back
-                mesh, specs = fsdp
-                with mesh.log.scope("fsdp"):
-                    row = sharding.fsdp_gather(
-                        {k: v[None] for k, v in params.items()},
-                        {k: (None,) + tuple(s) for k, s in specs.items()},
-                        mesh)
-                params = {k: v[0] for k, v in row.items()}
-            bound = None
-            if tp is not None:
-                bound, params = tp.bind(params)
-            if isinstance(params, dict):
-                params = M.params_view(params)
+            params, bound = _serving_view(params, tp, fsdp)
             logits, _ = M.forward(params, cfg, batch["tokens"],
                                   image_embeds=batch.get("image_embeds"),
                                   tp=bound, attn_kernel=kernel)
@@ -406,12 +391,50 @@ def make_prefill_step(cfg: M.ModelConfig, *, tp=None, fsdp=None):
     return prefill_step
 
 
-def make_serve_step(cfg: M.ModelConfig):
+def _serving_view(params, tp, fsdp, keep: tuple = ()):
+    """(the params a serving step's model reads, the bound TP or None):
+    ``fsdp``'s gather of a rank's serving shards, then ``tp.bind``
+    (``keep``: leaves the pass cuts by hand beside ``tp.HANDLED``)."""
+    if fsdp is not None:
+        # a replica's leaves as a node row (a leading axis of 1, which the
+        # packed gather reads), then back
+        mesh, specs = fsdp
+        with mesh.log.scope("fsdp"):
+            row = sharding.fsdp_gather(
+                {k: v[None] for k, v in params.items()},
+                {k: (None,) + tuple(s) for k, s in specs.items()}, mesh)
+        params = {k: v[0] for k, v in row.items()}
+    bound = None
+    if tp is not None:
+        bound, params = tp.bind(params, keep)
+    if isinstance(params, dict):
+        params = M.params_view(params)
+    return params, bound
+
+
+def make_serve_step(cfg: M.ModelConfig, *, tp=None, fsdp=None):
     """``serve_step(params, cache, batch)`` -> (logits, cache): one
     ``decode_step`` of ``batch["token"]`` at position ``batch["idx"]`` (a
-    Python int); the cache is updated in place and returned."""
+    Python int), without a gradient; the cache is updated in place and
+    returned.  ``params`` as :func:`make_prefill_step`'s.
+
+    A replica's model-sharded decode: a rank passes its ``(fsdp, model)``
+    shards of the serving params, its rows of the batch
+    (``sharding.batch_block(node_axis=False)``) and its block of the
+    cache, ``sharding.local_shard(cache, sharding.cache_specs(cache, mesh,
+    B), mesh)`` of the global cache of B rows.  ``fsdp`` gathers the
+    shards over the fsdp line on every call, as :func:`make_prefill_step`
+    does; ``tp`` binds the model shards (mamba2's ``conv_w`` and
+    ``conv_b`` kept cut, the conv's channel block) and runs
+    ``decode_step(tp=)``, the collectives in the scope ``"model"``.  The
+    cache shard is never gathered; the logits are the rank's block of the
+    vocabulary where the head cuts it."""
     def serve_step(params, cache, batch):
-        return M.decode_step(params, cfg, batch["token"], cache,
-                             batch["idx"],
-                             image_embeds=batch.get("image_embeds"))
+        with torch.no_grad():
+            params, bound = _serving_view(params, tp, fsdp,
+                                          ("conv_w", "conv_b"))
+            return M.decode_step(params, cfg, batch["token"], cache,
+                                 batch["idx"],
+                                 image_embeds=batch.get("image_embeds"),
+                                 tp=bound)
     return serve_step

@@ -52,7 +52,10 @@ masked sum, ``repro/launch/steps.py: train_loss_fn``).
 The model-sharded prefill (``steps.make_prefill_step(tp=)``) runs the
 same forward, without a gradient, on a replica's serving shards
 (``sharding.param_specs(node_axis=False)``, read through
-:meth:`TP.serving`).
+:meth:`TP.serving`); the model-sharded decode (``steps.make_serve_step(
+tp=)``) runs the one-token decode on them and on the rank's shard of
+the cache (``sharding.cache_specs``), mamba2's ``conv_w`` and
+``conv_b`` kept cut (``bind(keep=)``) for its channel block.
 
 Every op is recorded in the mesh's wire log under the scope ``"model"``
 (``"model:psum"``, ``"model:all_gather"``, ``"model:pmax"``).  A dry mesh
@@ -180,18 +183,20 @@ class TP:
 
     # -- binding --------------------------------------------------------------
 
-    def bind(self, leaves: dict) -> tuple["TP", dict]:
+    def bind(self, leaves: dict, keep: tuple = ()) -> tuple["TP", dict]:
         """(this TP bound to ``leaves`` -- a node's ``{name: tensor}`` model
         shards, at its names -- and the leaves the forward reads): a leaf
         cut over model that no layer cuts by hand (its name's last part
-        not in :data:`HANDLED`) is gathered whole through
-        :meth:`gather_from`; the others are passed as they are."""
+        not in :data:`HANDLED` nor in ``keep``, the leaves a pass cuts by
+        hand beside them) is gathered whole through :meth:`gather_from`;
+        the others are passed as they are."""
         bound = copy.copy(self)
         bound._ids = {}
         view = {}
+        handled = HANDLED | set(keep)
         for k, v in leaves.items():
             d = self.dims[k]
-            if d is not None and k.rsplit(".", 1)[-1] not in HANDLED:
+            if d is not None and k.rsplit(".", 1)[-1] not in handled:
                 v = self.gather_from(v, d)
                 d = None
             bound._ids[id(v)] = d

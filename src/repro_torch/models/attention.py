@@ -10,8 +10,9 @@ the JAX train path takes the same plain attention (its default
 ``attention_impl="jnp"``); the hybrid family's shared block reads
 ``attention_impl`` instead, as the reference's does.  The paged decode
 (:func:`attn_decode_paged`) runs the paged-attention kernel; the
-ring-cache decode (:func:`attn_decode`: the legacy ``generate`` and the
-hybrid shared block) is plain PyTorch, as the reference's is.  Each
+ring-cache decode (:func:`attn_decode`: the legacy ``generate``, the
+hybrid shared block and the model-sharded serve step) is plain PyTorch,
+as the reference's is.  Each
 kernel's ``ops`` wrapper dispatches on the tensors' device, so a CPU run
 takes the plain versions with no switch here.  The cross-attention
 (:func:`cross_attn_apply`) is plain PyTorch through :func:`_sdpa`, as the
@@ -254,9 +255,53 @@ def attn_apply(p: Attention, x, *, n_heads, n_kv, head_dim, positions,
     return y
 
 
+def _ring_cut(tp, cache: KVCache, n_kv: int, head_dim: int) -> str:
+    """The model cut of a rank's ring-cache shard (``sharding.cache_specs``
+    cuts the kv heads where they divide the model extent, else the head
+    dim): ``"heads"`` or ``"head_dim"``.  Any other cut raises, naming
+    it: the decode never gathers a cache whole."""
+    kv, hd = cache.k.shape[-3], cache.k.shape[-1]
+    if kv * tp.size == n_kv and hd == head_dim:
+        return "heads"
+    if hd * tp.size == head_dim and kv == n_kv:
+        return "head_dim"
+    raise ValueError(
+        f"a ring-cache shard of {kv} kv heads x head dim {hd} is cut over "
+        f"model {tp.size} on neither its {n_kv} kv heads nor its head dim "
+        f"{head_dim}: the decode runs those two cuts only")
+
+
+def _decode_qkv_tp(tp, p: Attention, x, cut: str, head_dim, qk_norm,
+                   positions, rope_theta):
+    """The decode token's (q, k, v) on the rank's model shards, for a ring
+    cache cut by ``cut`` (:func:`_ring_cut`).  The projections are
+    column-parallel where their leaves are cut; qk-norm and rope act on
+    whole heads.  ``"heads"``: the rank's query heads and the kv heads
+    they read (its block of the columns).  ``"head_dim"``: every head,
+    then the rank's block of the head dim -- after the norm, which
+    reduces over it, and rope, which pairs dim i with i + hd / 2."""
+    dt = x.dtype
+    B = x.shape[0]
+    qkv = tp.columns(x, (p.wq, p.wk, p.wv), dt)
+    if cut == "heads":
+        q, k, v = (y if c else tp.scatter_to(y, -1) for y, c in qkv)
+    else:
+        q, k, v = (tp.whole(y, c) for y, c in qkv)
+    q, k, v = (y.reshape(B, 1, -1, head_dim) for y in (q, k, v))
+    if qk_norm:
+        q = rms_norm(p.q_norm.scale, q)
+        k = rms_norm(p.k_norm.scale, k)
+    if rope_theta:
+        q = rope(q, positions, rope_theta)
+        k = rope(k, positions, rope_theta)
+    if cut == "head_dim":
+        q, k, v = (tp.scatter_to(y, -1) for y in (q, k, v))
+    return q, k, v
+
+
 def attn_decode(p: Attention, x, cache: KVCache, idx: int, *, n_heads,
                 n_kv, head_dim, rope_theta=10000.0, qk_norm=False,
-                window=None, attn_cap=None):
+                window=None, attn_cap=None, tp=None):
     """One-token decode over a ring-buffer KV cache.  x: (B, 1, d); idx:
     the absolute position of the token (a Python int, the same for every
     row); cache: one layer's ``KVCache`` (B, Kv, cache_len, hd).
@@ -269,13 +314,28 @@ def attn_decode(p: Attention, x, cache: KVCache, idx: int, *, n_heads,
     returns new arrays, the write is IN PLACE into the cache passed in
     (as :func:`attn_decode_paged` writes its pools), which is returned.
     Returns (y (B, 1, d), cache).
+
+    ``tp`` (a bound :class:`~repro_torch.launch.tp.TP`): the rank's model
+    shards and its shard of the cache as ``sharding.cache_specs`` cuts
+    it (:func:`_ring_cut`).  Kv heads cut: the rank writes and attends
+    with its own heads, ``wo`` row-parallel.  Head dim cut: the rank
+    writes its block of every head, the partial logits of every query
+    head are summed over the line in f32 (one psum), then the scale, the
+    soft-cap, the mask and the softmax run replicated; its block of the
+    output is made whole along the head dim before ``wo``.
     """
     B = x.shape[0]
     cache_len = cache.k.shape[2]
     idx = int(idx)
     pos = torch.full((B, 1), idx, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv, head_dim, qk_norm,
-                                   pos, rope_theta)
+    if tp is None:
+        cut = None
+        q, k_new, v_new = _project_qkv(p, x, n_heads, n_kv, head_dim,
+                                       qk_norm, pos, rope_theta)
+    else:
+        cut = _ring_cut(tp, cache, n_kv, head_dim)
+        q, k_new, v_new = _decode_qkv_tp(tp, p, x, cut, head_dim, qk_norm,
+                                         pos, rope_theta)
     slot = idx % cache_len
     cache.k[:, :, slot] = k_new[:, 0].to(cache.k.dtype)
     cache.v[:, :, slot] = v_new[:, 0].to(cache.v.dtype)
@@ -286,16 +346,25 @@ def attn_decode(p: Attention, x, cache: KVCache, idx: int, *, n_heads,
     if window is not None:
         valid &= t > idx - window
     G = n_heads // n_kv
-    qg = q.reshape(B, 1, n_kv, G, head_dim)
+    kv, hd = cache.k.shape[1], cache.k.shape[-1]     # the shard's
+    qg = q.reshape(B, 1, kv, G, hd)
     logits = torch.einsum("bskgh,bkth->bkgst", qg,
                           cache.k.to(q.dtype)).float()
+    if cut == "head_dim":
+        logits = tp.reduce_from(logits)
     logits = logits * head_dim ** -0.5
     if attn_cap is not None:
         logits = attn_cap * torch.tanh(logits / attn_cap)
     logits = torch.where(valid, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,bkth->bskgh", probs, cache.v.to(q.dtype))
-    y = out.reshape(B, 1, n_heads * head_dim) @ p.wo.to(x.dtype)
+    if tp is None:
+        y = out.reshape(B, 1, n_heads * head_dim) @ p.wo.to(x.dtype)
+    elif cut == "heads":
+        y = tp.linear(out.reshape(B, 1, -1), p.wo, x.dtype, True)[0]
+    else:
+        out = tp.gather_from(out, -1)
+        y = tp.linear(out.reshape(B, 1, -1), p.wo, x.dtype)[0]
     return y, cache
 
 

@@ -205,18 +205,56 @@ def mamba2_apply(p: Mamba2, x, *, d_state: int = 128, head_dim: int = 64,
     return y @ p.out_proj.to(dt_)
 
 
+def _ssm_cut(tp, cache: SSMCache, conv_dim: int, n_heads: int) -> None:
+    """Check a rank's SSM-cache shard is cut as ``sharding.cache_specs``
+    cuts it where the decode can run it: the conv history on its packed
+    channels, the state on its heads.  Any other cut raises, naming it."""
+    c, (h, hp, n) = cache.conv.shape[-1], cache.state.shape[-3:]
+    if c * tp.size != conv_dim or h * tp.size != n_heads:
+        raise ValueError(
+            f"an SSM-cache shard of conv channels {c} of {conv_dim} and "
+            f"state (heads, P, N) {(h, hp, n)} of {n_heads} heads is not "
+            f"cut over model {tp.size} on the channels and the heads: the "
+            "decode runs that cut only")
+
+
+def _own(tp, w):
+    """A bound leaf cut on its last dim over model: the rank's block, as
+    it is or cut from the whole leaf."""
+    return w if tp.dim(w) is not None else tp.scatter_to(w, -1)
+
+
 def mamba2_decode(p: Mamba2, x, cache: SSMCache, *, d_state: int = 128,
                   head_dim: int = 64, expand: int = 2, d_conv: int = 4,
-                  n_groups: int = 1):
+                  n_groups: int = 1, tp=None):
     """Single-token decode. x: (B,1,d_model).  Returns (out, new cache);
-    the given cache is not modified."""
+    the given cache is not modified.
+
+    ``tp`` (a bound :class:`~repro_torch.launch.tp.TP`): the rank's model
+    shards and its shard of the cache (:func:`_ssm_cut`); ``in_proj``
+    column-parallel and gathered whole.  The rank convolves its block of
+    the packed x, B, C channels over its own history (the block may
+    straddle their split) and the conv output is made whole; it updates
+    its heads' state alone, and their y is made whole; the gated norm
+    runs replicated and ``out_proj`` is row-parallel.  The new cache is
+    the rank's blocks."""
     dt_ = x.dtype
     z, xBC, dt_raw, d_inner, n_heads = _ssd_inputs(p, x, d_state, head_dim,
-                                                   expand, n_groups)
+                                                   expand, n_groups, tp)
+    conv_w, conv_b = p.conv_w, p.conv_b
+    h0, nh = 0, n_heads
+    if tp is not None:
+        _ssm_cut(tp, cache, xBC.shape[-1], n_heads)
+        xBC, conv_w, conv_b = (tp.scatter_to(xBC, -1), _own(tp, conv_w),
+                               _own(tp, conv_b))
+        nh = n_heads // tp.size
+        h0 = tp.rank * nh
     new_conv = torch.cat([cache.conv[:, 1:],
                           xBC[:, 0:1].to(cache.conv.dtype)], dim=1)
-    xBC = _causal_conv(xBC, p.conv_w.to(dt_), p.conv_b.to(dt_),
+    xBC = _causal_conv(xBC, conv_w.to(dt_), conv_b.to(dt_),
                        history=cache.conv)
+    if tp is not None:
+        xBC = tp.gather_from(xBC, -1)
     xi = xBC[..., :d_inner]
     Bv = xBC[..., d_inner:d_inner + n_groups * d_state]
     Cv = xBC[..., d_inner + n_groups * d_state:]
@@ -230,13 +268,22 @@ def mamba2_decode(p: Mamba2, x, cache: SSMCache, *, d_state: int = 128,
     rep = n_heads // n_groups
     Bh = Bm.repeat_interleave(rep, dim=1)                     # (b,h,n)
     Ch = Cm.repeat_interleave(rep, dim=1)
+    D = p.D
+    if tp is not None:                     # the rank's heads
+        xh, dt, Bh, Ch = (t[:, h0:h0 + nh] for t in (xh, dt, Bh, Ch))
+        A, D = A[h0:h0 + nh], D[h0:h0 + nh]
 
     decay = torch.exp(dt * A[None])                           # (b,h)
     new_state = (cache.state * decay[:, :, None, None]
                  + torch.einsum("bhn,bhp,bh->bhpn", Bh, xh, dt))
     y = torch.einsum("bhn,bhpn->bhp", Ch, new_state)
-    y = y + p.D[None, :, None] * xh
+    y = y + D[None, :, None] * xh
+    if tp is not None:
+        y = tp.gather_from(y, 1)
     y = y.reshape(b, 1, d_inner).to(dt_)
     y = rms_norm(p.norm.scale, y * silu(z))
-    out = y @ p.out_proj.to(dt_)
+    if tp is not None:
+        out = tp.linear(y, p.out_proj, dt_)[0]
+    else:
+        out = y @ p.out_proj.to(dt_)
     return out, SSMCache(new_conv, new_state)

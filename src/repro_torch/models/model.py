@@ -767,20 +767,22 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     return {"ssm": ssm, "shared_kv": kv(L // cfg.shared_attn_every)}
 
 
-def _mamba_decode(cfg: ModelConfig, p: MambaLayer, x, conv, state):
-    """One mamba layer's decode; its SSM cache is updated in place."""
+def _mamba_decode(cfg: ModelConfig, p: MambaLayer, x, conv, state,
+                  tp=None):
+    """One mamba layer's decode; its SSM cache (under ``tp`` the rank's
+    shard of it) is updated in place."""
     h = rms_norm(p.ln.scale, x, cfg.norm_eps)
     h, c2 = m2.mamba2_decode(p.mixer, h, m2.SSMCache(conv, state),
                              d_state=cfg.d_state, head_dim=cfg.ssm_head_dim,
                              expand=cfg.ssm_expand, d_conv=cfg.d_conv,
-                             n_groups=cfg.ssm_n_groups)
+                             n_groups=cfg.ssm_n_groups, tp=tp)
     conv.copy_(c2.conv)
     state.copy_(c2.state)
     return x + h
 
 
 def decode_step(params: Model, cfg: ModelConfig, token, cache: dict,
-                idx: int, *, image_embeds=None):
+                idx: int, *, image_embeds=None, tp=None):
     """One-token decode.  token: (B, 1) int (audio: (B, 1, K)); idx: the
     token's absolute position (a Python int; the ssm family ignores it).
     Returns (logits (B, 1, V) (audio: (B, 1, K, V)), cache); the cache's
@@ -789,7 +791,15 @@ def decode_step(params: Model, cfg: ModelConfig, token, cache: dict,
     with its static window; the experts always dropless); vlm self layer
     ``g * n_self + j`` over ``kv[g, j]``, and each group's cross layer
     attends to ``image_embeds`` (B, T, d), recomputed every step; the
-    hybrid shared block's g-th application over ``shared_kv[g]``."""
+    hybrid shared block's g-th application over ``shared_kv[g]``.
+
+    ``tp`` (a bound :class:`~repro_torch.launch.tp.TP`): ``params`` are
+    the rank's model shards and ``cache`` its shard of the cache as
+    ``launch.sharding.cache_specs`` cuts it (``attention.attn_decode``,
+    ``mamba2.mamba2_decode``); the embedding, the experts, the cross
+    layers and the head follow their leaves' cuts as in :func:`forward`,
+    and the logits are the rank's block of the vocabulary where
+    :func:`logits_cut` says so."""
     _check_family(cfg)
     n_self = 0
     if cfg.family == "vlm":
@@ -797,29 +807,31 @@ def decode_step(params: Model, cfg: ModelConfig, token, cache: dict,
             raise ValueError("the vlm family needs image_embeds")
         img = image_embeds.to(cfg.activation_dtype)
         n_self = _vlm_groups(cfg)[1]
-    x = _embed_tokens(params, cfg, token)
+    x = _embed_tokens(params, cfg, token, tp)
     if cfg.family in _ATTN_FAMILIES:
         kv = cache["kv"]
         for i, p in enumerate(params.layers):
             at = divmod(i, n_self) if n_self else i
             x = _attn_mlp(cfg, p, x, lambda h: attn.attn_decode(
                 p.attn, h, attn.KVCache(kv.k[at], kv.v[at]), idx,
-                window=_effective_window(cfg, i), **_attn_kw(cfg))[0])
+                window=_effective_window(cfg, i), tp=tp,
+                **_attn_kw(cfg))[0], tp)
             if n_self and (i + 1) % n_self == 0:
                 x = _cross_block(cfg, params.cross_layers[i // n_self], x,
-                                 img)
+                                 img, tp)
     else:
         x0 = x                 # hybrid: this token's embedding
         conv, state = cache["ssm"]
         every = cfg.shared_attn_every
         for i, p in enumerate(params.layers):
-            x = _mamba_decode(cfg, p, x, conv[i], state[i])
+            x = _mamba_decode(cfg, p, x, conv[i], state[i], tp)
             if cfg.family == "hybrid" and (i + 1) % every == 0:
                 g = (i + 1) // every - 1         # this application's ring
                 kv, shared = cache["shared_kv"], params.shared_attn
                 x = _shared_block(
                     cfg, shared, x, x0, lambda h: attn.attn_decode(
                         shared.attn, h, attn.KVCache(kv.k[g], kv.v[g]), idx,
-                        window=cfg.window_for(True), **_attn_kw(cfg))[0])
+                        window=cfg.window_for(True), tp=tp,
+                        **_attn_kw(cfg))[0], tp)
     x = rms_norm(params.final_norm.scale, x, cfg.norm_eps)
-    return _lm_head(params, cfg, x), cache
+    return _lm_head(params, cfg, x, tp), cache

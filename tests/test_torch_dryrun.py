@@ -12,8 +12,8 @@
   The node's gradient pass is counted once per process (``_PASSES``), so
   the five records cost one pass.
 * ``decode_32k`` (qwen3, 1pod) and mamba2 ``long_500k`` (2pod) through
-  the CLI: ``ALL DRY-RUNS OK``, records ok with a dominant term, and
-  ``make_experiments`` prints their rows.
+  the CLI: ``ALL DRY-RUNS OK``, records ok counting rank 0's step with a
+  dominant term, and ``make_experiments`` prints their rows.
 * qwen3 ``train_4k`` on one pod at its layout (model 16): rank 0's real
   step, the tensor-parallel pass's all-gathers and all-reduces counted,
   a dominant term named, and the flops of a chip between 1/16 of the
@@ -31,6 +31,12 @@
   the flops between the even split's and the unsharded pass's), and the
   dropless experts take each route on model shards (dbrx-132b
   expert-parallel, granite-moe on the ff cut).
+* decode records count rank 0's model-sharded decode on its shard of
+  the cache (qwen3 ``decode_32k`` on the head-dim cut, musicgen on the
+  kv heads, mamba2 ``long_500k``'s conv channels and state heads): the
+  flops between the even split's and the unsharded pass's, the bytes
+  at least the cache shard's, the arguments exact, the collectives
+  reckoned.
 """
 import json
 
@@ -138,13 +144,14 @@ def test_dryrun_cli(tmp_path, capsys, monkeypatch, arch, shape, mesh, tag):
     rec = json.loads((tmp_path / f"dryrun_{arch}_{shape}_{tag}.json")
                      .read_text())
     assert rec["ok"] and rec["cost"]["flops"] > 0
-    # the terms are lower bounds: no dominant term, the largest counted
-    # one named apart; the serving collectives wait for item 18b-d
-    assert rec["uncounted"].startswith("intra-replica collectives")
-    assert "18b-d" in rec["uncounted"] and rec["partition"] == "even"
-    assert rec["roofline"]["dominant"] is None
-    assert rec["roofline"]["dominant_counted"] in ("compute", "memory",
-                                                   "collective")
+    # a decode record counts rank 0's model-sharded step: its rows, its
+    # replica's collectives, nothing uncounted, a dominant term named
+    assert "uncounted" not in rec and "partition" not in rec
+    assert rec["roofline"]["dominant"] in ("compute", "memory",
+                                           "collective")
+    assert "dominant_counted" not in rec["roofline"]
+    assert rec["rank_rows"] == (8 if shape == "decode_32k" else 1)
+    assert rec["wire"]["model:psum"]["ops"] > 0
     assert rec["memory_analysis"]["temp_bytes"] is not None
     monkeypatch.setenv("DRYRUN_DIR", str(tmp_path))
     TMX.main([])
@@ -374,3 +381,91 @@ def test_dropless_moe_prefill_records_take_each_route(tmp_path):
         assert rec["roofline"]["dominant"] in ("compute", "memory",
                                                "collective")
         assert rec["wire"]["model:psum"]["ops"] == 2 * layers + 1, arch
+
+
+# the decode records' flops a chip while a replica's step was split
+# evenly over its fsdp x model chips (before the model-sharded decode),
+# one pod
+DECODE_EVEN_FLOPS = {("qwen3-0.6b", "decode_32k"): 4_443_817_287.5,
+                     ("musicgen-large", "decode_32k"): 10_061_779_477.0,
+                     ("mamba2-1.3b", "long_500k"): 260_090_852.4375}
+
+
+def _rank0(arch: str, shape: str):
+    """(cfg, rank 0's serving parameter block, its cache shard, its rows)
+    of a decode record, on meta, and the cache specs."""
+    cfg, _, mesh, _, _, _ = D._setup(arch, shape, False, {})
+    at = {a: 0 for a in mesh.axis_names}
+    params = {k: v.detach() for k, v in
+              TM.init(cfg, device="meta").named_parameters()}
+    blk = TS.local_shard(params, TS.param_specs(params, mesh, cfg=cfg,
+                                                node_axis=False), mesh, at)
+    full = TSteps.cache_struct(cfg, shape)
+    specs = TS.cache_specs(full, mesh, TSteps.SHAPES[shape]["global_batch"])
+    cache = TS.local_shard(full, specs, mesh, at)
+    rows = TS.batch_block(TSteps.input_specs(cfg, shape), mesh,
+                          node_axis=False, coords=at)
+    return cfg, params, blk, cache, rows
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               torch.utils._pytree.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def test_model_sharded_decode_record_counts_the_replica(tmp_path):
+    """qwen3 ``decode_32k`` (16 nodes x fsdp 1 x model 16; 8 kv heads do
+    not divide 16, so the cache is cut on the head dim: 8 of 128 columns
+    a rank), musicgen ``decode_32k`` (its 32 kv heads cut, 2 a rank) and
+    mamba2 ``long_500k`` (1 row; 4,352 / 16 = 272 conv channels and 64 /
+    16 = 4 state heads a rank), one pod: each record counts rank 0's
+    step on its rows (8 of 128, 1 of 1).  A chip's flops lie between the
+    even split's count and the unsharded pass of its rows over their
+    whole cache; its bytes are at least its cache shard's; its
+    ``argument_bytes`` are the parameter block, the cache shard and the
+    inputs exactly, its output the logits block and the cache shard,
+    which it aliases.  Collectives, reckoned from the cuts: qwen3 psums
+    the embedding and, in each of 28 layers, ``wo``, ``w_down`` and the
+    partial logits, and gathers q, k, v and the output's head-dim block;
+    musicgen psums the embedding and each of 48 ``wo`` (its MLP stack
+    divides 16 and stays whole) and gathers the two norm scales a layer;
+    mamba2 psums the embedding and each of 48 ``out_proj`` and gathers a
+    layer ``in_proj``'s output, the conv output, the heads' y and the
+    two norm scales, and the final norm's scale."""
+    want = {"qwen3-0.6b": {"all-reduce": 1 + 3 * 28, "all-gather": 4 * 28},
+            "musicgen-large": {"all-reduce": 1 + 48, "all-gather": 2 * 48},
+            "mamba2-1.3b": {"all-reduce": 1 + 48,
+                            "all-gather": 5 * 48 + 1}}
+    for (arch, shape), even in DECODE_EVEN_FLOPS.items():
+        rec = D.run_one(arch, shape, multi_pod=False, out_dir=str(tmp_path),
+                        verbose=False)
+        cfg, params, blk, cache, rows = _rank0(arch, shape)
+        assert rec["ok"] and rec["rank_rows"] == rows["token"].shape[0]
+        assert rec["rank_rows"] == (8 if shape == "decode_32k" else 1)
+        if arch == "qwen3-0.6b":
+            assert tuple(cache["kv"].k.shape) == (28, 8, 8, 32768, 8)
+        if arch == "musicgen-large":
+            assert tuple(cache["kv"].k.shape) == (48, 8, 2, 32768, 64)
+        if arch == "mamba2-1.3b":
+            assert tuple(cache["ssm"].conv.shape) == (48, 1, 3, 272)
+            assert tuple(cache["ssm"].state.shape) == (48, 1, 4, 64, 128)
+        full = TSteps.cache_struct(cfg, shape)
+        whole_rows = {k: (v[:rec["rank_rows"]] if isinstance(v, torch.Tensor)
+                          else v) for k, v in
+                      TSteps.input_specs(cfg, shape).items()}
+        rows_cache = torch.utils._pytree.tree_map(
+            lambda t: t.narrow(1, 0, rec["rank_rows"]).clone(), full)
+        with Cost() as whole:
+            TSteps.make_serve_step(cfg)(TM.params_view(params), rows_cache,
+                                        whole_rows)
+        assert even < rec["cost"]["flops"] < whole.flops, arch
+        shard = _nbytes(cache)
+        assert rec["cost"]["hbm_bytes"] >= shard
+        mem = rec["memory_analysis"]
+        assert mem["argument_bytes"] == _nbytes(blk) + shard + _nbytes(rows)
+        assert mem["alias_bytes"] == shard
+        assert mem["output_bytes"] > shard
+        assert rec["cost"]["collective_counts"] == want[arch], arch
+        assert rec["roofline"]["dominant"] == (
+            "collective" if arch == "qwen3-0.6b" else "memory")
